@@ -1,0 +1,184 @@
+"""Kernel B1: the 32-bit-word negacyclic NTT and inverse NTT.
+
+Replaces ``lattisense_tpu/ops/ntt_pallas32.py`` ``ntt_fused32`` /
+``intt_fused32`` (kernels ``_fwd_kernel`` / ``_inv_kernel``). The CUDA source
+is ``csrc/ntt32.cu``: one thread block per (batch·limb) row with the whole
+row in shared memory, log2(n) Shoup-butterfly stages between one read and
+one write of the row. The transform is bound by device-memory bytes (a row
+moves in and out as int64, against ~12 integer operations per butterfly);
+keeping the row in shared memory is what holds the traffic to that one
+round trip.
+
+``ntt32_fwd`` / ``ntt32_inv`` take an int64 (..., L, n) stack of residues in
+[0, q) for the ring's L limbs. A CUDA tensor launches the kernel (or raises);
+a CPU tensor runs the plain PyTorch twin below, the radix-2 loops of
+``lattisense_tpu/core/ntt.py``. Output is canonical, so both are bit-exact
+with any correct NTT of the same tables.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core import u64 as _u
+from . import cuda_build
+
+#: launches of each kernel since the last reset (a plain count per wrapper)
+launches = {'ntt32_fwd': 0, 'ntt32_inv': 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    'ntt32_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt32_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+}
+MAX_LOGN = 15          # the row lives in shared memory: 2^15 · 4 B = 128 KB
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+def ntt_plain(x, ring, to_mont: bool = False):
+    """Forward negacyclic NTT, natural → bit-reversed order, optionally
+    followed by to-Montgomery (x·2^32 mod q)."""
+    n = x.shape[-1]
+    L = x.shape[-2]
+    batch = x.shape[:-2]
+    q = ring.q.reshape(L, 1, 1)
+    t, m = n, 1
+    while m < n:
+        t //= 2
+        xv = x.reshape(*batch, L, m, 2, t)
+        s = ring.psi_rev[:, m:2 * m].reshape(L, m, 1)
+        s_sh = ring.psi_rev_shoup[:, m:2 * m].reshape(L, m, 1)
+        u = xv[..., 0, :]
+        v = _u.shoup_mul(xv[..., 1, :], s, s_sh, q)
+        x = torch.stack([_u.addmod(u, v, q), _u.submod(u, v, q)], dim=-2).reshape(*batch, L, n)
+        m *= 2
+    if to_mont:
+        x = _u.to_mont(x, ring.q, ring.pinv, ring.r2)
+    return x
+
+
+def intt_plain(x, ring):
+    """Inverse negacyclic NTT, bit-reversed → natural order, scaled by n^-1."""
+    n = x.shape[-1]
+    L = x.shape[-2]
+    batch = x.shape[:-2]
+    q = ring.q.reshape(L, 1, 1)
+    t, m = 1, n // 2
+    while m >= 1:
+        xv = x.reshape(*batch, L, m, 2, t)
+        s = ring.psi_inv_rev[:, m:2 * m].reshape(L, m, 1)
+        s_sh = ring.psi_inv_rev_shoup[:, m:2 * m].reshape(L, m, 1)
+        u = xv[..., 0, :]
+        v = xv[..., 1, :]
+        lo = _u.shoup_mul(_u.submod(u, v, q), s, s_sh, q)
+        x = torch.stack([_u.addmod(u, v, q), lo], dim=-2).reshape(*batch, L, n)
+        t *= 2
+        m //= 2
+    return _u.shoup_mul(x, ring.n_inv, ring.n_inv_shoup, ring.q)
+
+
+# ---------------------------------------------------------------------------
+# kernel launch
+# ---------------------------------------------------------------------------
+
+def u32_tensor(values, device):
+    """uint32 table as an int32 tensor with the same bits (the C side reads
+    uint32)."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.int64).astype(np.uint32))
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def _tables(ring):
+    """The ring's tables in the kernel's uint32 layout, cached on the ring."""
+    tabs = getattr(ring, '_b1_tables', None)
+    if tabs is None:
+        rs, dev = ring.rings, ring.device
+        r1 = [r.r1 for r in rs]
+        tabs = {
+            'q': u32_tensor([r.q for r in rs], dev),
+            'psi_rev': u32_tensor(np.stack([r.psi_rev for r in rs]), dev),
+            'psi_rev_shoup': u32_tensor(np.stack([r.psi_rev_shoup for r in rs]), dev),
+            'psi_inv_rev': u32_tensor(np.stack([r.psi_inv_rev for r in rs]), dev),
+            'psi_inv_rev_shoup': u32_tensor(np.stack([r.psi_inv_rev_shoup for r in rs]), dev),
+            'n_inv': u32_tensor([r.n_inv for r in rs], dev),
+            'n_inv_shoup': u32_tensor([r.n_inv_shoup for r in rs], dev),
+            'r1': u32_tensor(r1, dev),
+            'r1_shoup': u32_tensor([(v << 32) // r.q for v, r in zip(r1, rs)], dev),
+        }
+        ring._b1_tables = tabs
+    return tabs
+
+
+def check_stack(x, ring):
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int64:
+        raise TypeError(f'expected an int64 tensor, got {getattr(x, "dtype", type(x))}')
+    if x.dim() < 2 or tuple(x.shape[-2:]) != (len(ring.moduli), ring.n):
+        raise ValueError(f'expected shape (..., {len(ring.moduli)}, {ring.n}), '
+                         f'got {tuple(x.shape)}')
+    if x.device != ring.device:
+        raise ValueError(f'tensor on {x.device}, ring tables on {ring.device}')
+
+
+def launch(x, y, ring, inverse: bool, to_mont: bool = False):
+    """Launch B1 on contiguous CUDA int64 stacks x → y (same shape) on the
+    current stream. No count: callers that own a launch count it."""
+    if not (x.is_cuda and y.is_cuda and x.is_contiguous() and y.is_contiguous()):
+        raise ValueError('B1 takes contiguous CUDA tensors')
+    if y.shape != x.shape or y.dtype != torch.int64:
+        raise ValueError(f'output {tuple(y.shape)} {y.dtype} does not match input {tuple(x.shape)}')
+    logn = ring.n.bit_length() - 1
+    if not 1 <= logn <= MAX_LOGN:
+        raise ValueError(f'B1 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
+    rows = x.numel() // ring.n
+    if rows == 0:
+        return
+    lib = cuda_build.load('ntt32', _SIGNATURES)
+    tabs = _tables(ring)
+    if inverse:
+        fn, tw, tws, post, posts = (lib.ntt32_inv_launch, tabs['psi_inv_rev'],
+                                    tabs['psi_inv_rev_shoup'], tabs['n_inv'], tabs['n_inv_shoup'])
+    else:
+        fn, tw, tws = lib.ntt32_fwd_launch, tabs['psi_rev'], tabs['psi_rev_shoup']
+        post, posts = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), rows, len(ring.moduli), logn,
+                 tw.data_ptr(), tws.data_ptr(), tabs['q'].data_ptr(),
+                 None if post is None else post.data_ptr(),
+                 None if posts is None else posts.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'ntt32 {"inverse" if inverse else "forward"} launch failed: '
+                           f'cudaError_t {err}')
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def ntt32_fwd(x, ring, to_mont: bool = False):
+    """Forward NTT of an int64 (..., L, n) stack over ``ring`` (bit-reversed
+    output), with the optional to-Montgomery epilogue."""
+    check_stack(x, ring)
+    if not x.is_cuda:
+        return ntt_plain(x, ring, to_mont)
+    y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    launch(x, y, ring, inverse=False, to_mont=to_mont)
+    launches['ntt32_fwd'] += 1
+    return y
+
+
+def ntt32_inv(x, ring):
+    """Inverse NTT of an int64 (..., L, n) stack over ``ring`` (bit-reversed
+    input, natural output, scaled by n^-1)."""
+    check_stack(x, ring)
+    if not x.is_cuda:
+        return intt_plain(x, ring)
+    y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    launch(x, y, ring, inverse=True)
+    launches['ntt32_inv'] += 1
+    return y

@@ -1,0 +1,331 @@
+"""BFV scheme engine on tensors: encode/encrypt/decrypt and evaluation ops.
+
+Port of ``lattisense_tpu/schemes/bfv.py`` at word_bits=32. Multiplication is
+the integer-only BEHZ RNS algorithm: exact-extend both ciphertexts
+Q_ℓ → B_ℓ ∪ m_sk, NTT tensor product over Q_ℓ and the auxiliary basis, scale
+by t/Q_ℓ, exact Shenoy–Kumaresan conversion back to Q_ℓ. The extension and
+the forward NTTs are kernel B2 (``ops/behz_cuda.py``); every NTT is kernel
+B1 (``ops/ntt_cuda.py``); the rest is plain PyTorch on the engine's device.
+
+Host work (sampling, big-integer CRT in ``decrypt``) runs in NumPy; the
+evaluation ops take and return ``Ciphertext`` objects whose data may carry
+leading batch dimensions.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import ntt as ntt_mod
+from ..core import u64 as _u
+from ..core.modring import get_rns_ring
+from ..core.rns import BasisConv, DivRoundLast, ExactExtend, ShenoyConvert, _col, _mont
+from ..ops.behz_cuda import behz_prep32
+from ..params import BfvParams, bfv_aux_basis
+from .encoding import bfv_decode_slots, bfv_encode_slots
+from .keys import as_tensor, lift_signed, sample_gaussian, sample_ternary, sample_uniform_rns
+from .keyswitch import KeySwitcher
+from .types import Ciphertext, Plaintext, PlaintextMul, PlaintextRingt
+
+
+def tensor_product(f, ring):
+    """(d0, d1, d2) = (a0·b0, a0·b1 + a1·b0, a1·b1) stacked on dim -3, for
+    f = (a0, a1, b0, b1) on dim -3 in NTT + Montgomery form over ``ring``."""
+    q, pinv = ring.q, ring.pinv
+    f0, f1, f2, f3 = (f[..., i, :, :] for i in range(4))
+    d1 = _u.addmod(_u.mont_mul(f0, f3, q, pinv), _u.mont_mul(f1, f2, q, pinv), q)
+    return torch.stack([_u.mont_mul(f0, f2, q, pinv), d1, _u.mont_mul(f1, f3, q, pinv)], dim=-3)
+
+
+class BehzMult:
+    """Per-level constants for BEHZ multiplication on one device."""
+
+    def __init__(self, q: tuple[int, ...], aux: tuple[int, ...], m_sk: int,
+                 t: int, n: int, device):
+        Q = math.prod(q)
+        # the shortest aux prefix whose product clears the tensor bound
+        # 8·t·n·Q (Shenoy needs ω < B)
+        b = []
+        prod_b = 1
+        for prime in aux:
+            b.append(prime)
+            prod_b *= prime
+            if len(b) > len(q) and prod_b > 8 * t * n * Q:
+                break
+        b = tuple(b)
+        if math.prod(b) <= 8 * t * n * Q:
+            raise ValueError('BEHZ auxiliary basis too small')
+        self.b_primes = b
+        self.m_sk = m_sk
+        self.t = t
+        dst = b + (m_sk,)
+        self.extend = ExactExtend(q, dst, device)
+        self.ring_q = get_rns_ring(q, n, device)
+        self.ring_aux = get_rns_ring(dst, n, device)
+        self.shenoy = ShenoyConvert(b, m_sk, q, device)
+        self.conv_q_to_aux = BasisConv(q, dst, device)
+        self.t_mont_q = _col([_mont(t % qi, qi) for qi in q], device)
+        self.t_mont_aux = _col([_mont(t % d, d) for d in dst], device)
+        self.qinv_mont_aux = _col([_mont(pow(Q % d, -1, d), d) for d in dst], device)
+
+    def scale_and_back(self, d_q, d_aux):
+        """round-ish(t/Q · X) mod Q for X given over Q (d_q) and B∪m_sk (d_aux)."""
+        rq, ra = self.ring_q, self.ring_aux
+        u = _u.mont_mul(d_q, self.t_mont_q, rq.q, rq.pinv)               # [tX]_Q
+        v = self.conv_q_to_aux(u)                                        # + α'Q
+        td = _u.mont_mul(d_aux, self.t_mont_aux, ra.q, ra.pinv)
+        w = _u.mont_mul(_u.submod(td, v, ra.q), self.qinv_mont_aux, ra.q, ra.pinv)
+        return self.shenoy(w[..., :-1, :], w[..., -1, :])
+
+
+class BfvEngine:
+    """BFV engine for one parameter set on one device (CUDA by default)."""
+
+    def __init__(self, params: BfvParams, device=None):
+        self.params = params
+        self.device = resolve_device(device)
+        self.n = params.n
+        self.t = params.t
+        self.q = tuple(params.q)
+        self.p = tuple(params.p)
+        self.aux, self.m_sk = bfv_aux_basis(params.n, self.q, self.p)
+        self.switcher = KeySwitcher(self.q, self.p, self.n, self.device)
+        self._behz: dict[int, BehzMult] = {}
+        self._rescaler: dict[int, DivRoundLast] = {}
+
+    # ---- cached per-level helpers ----
+    def ring(self, level: int):
+        return get_rns_ring(self.q[:level + 1], self.n, self.device)
+
+    def behz(self, level: int) -> BehzMult:
+        if level not in self._behz:
+            self._behz[level] = BehzMult(self.q[:level + 1], self.aux, self.m_sk, self.t,
+                                         self.n, self.device)
+        return self._behz[level]
+
+    def rescaler(self, level: int) -> DivRoundLast:
+        if level not in self._rescaler:
+            self._rescaler[level] = DivRoundLast(self.q[:level + 1], self.device)
+        return self._rescaler[level]
+
+    def delta_mont(self, level: int):
+        """[Δ_ℓ]_{q_i} in Montgomery form, Δ_ℓ = floor(Q_ℓ/t)."""
+        delta = self.params.delta(level)
+        return _col([_mont(delta % qi, qi) for qi in self.q[:level + 1]], self.device)
+
+    def _tensor(self, arr):
+        return as_tensor(arr, self.device)
+
+    # ---- encode / decode (host) ----
+    def _scale_to_q(self, m: np.ndarray, level: int) -> Plaintext:
+        """round(m·Q/t) over Q_ℓ for m in [0, t), exactly and vectorized:
+        (m·Q + ⌊t/2⌋) // t = m·Δ + (m·(Q mod t) + ⌊t/2⌋) // t, every term
+        int64-exact for t, q_i < 2^31."""
+        Q = self.params.q_prod(level)
+        m = np.asarray(m, dtype=np.int64)
+        carry = (m * (Q % self.t) + self.t // 2) // self.t
+        delta = Q // self.t
+        data = np.stack([(m * (delta % qi) + carry) % qi for qi in self.q[:level + 1]])
+        return Plaintext(data=self._tensor(data), level=level)
+
+    def encode(self, values, level: int) -> Plaintext:
+        """Slot-batched encode, scaled by round(m·Q/t)."""
+        return self._scale_to_q(bfv_encode_slots(values, self.t, self.n), level)
+
+    def encode_ringt(self, values) -> PlaintextRingt:
+        return PlaintextRingt(data=self._tensor(bfv_encode_slots(values, self.t, self.n)))
+
+    def encode_mul(self, values, level: int) -> PlaintextMul:
+        """NTT + Montgomery form of the unscaled message lifted to Q_ℓ."""
+        return self._lift_mul(bfv_encode_slots(values, self.t, self.n), level)
+
+    def _lift_mul(self, m: np.ndarray, level: int) -> PlaintextMul:
+        ring = self.ring(level)
+        lifted = self._tensor(np.broadcast_to(m, (level + 1, self.n)))
+        f = ntt_mod.ntt(lifted, ring)
+        return PlaintextMul(data=_u.to_mont(f, ring.q, ring.pinv, ring.r2), level=level)
+
+    def decode(self, pt_mod_t) -> np.ndarray:
+        return bfv_decode_slots(np.asarray(pt_mod_t), self.t, self.n)
+
+    def _coeffs_mod_t(self, coeffs) -> np.ndarray:
+        m = np.zeros(self.n, dtype=np.int64)
+        vals = np.asarray(coeffs, dtype=np.uint64) % np.uint64(self.t)
+        m[:len(vals)] = vals.astype(np.int64)
+        return m
+
+    def encode_coeffs(self, coeffs, level: int) -> Plaintext:
+        return self._scale_to_q(self._coeffs_mod_t(coeffs), level)
+
+    def encode_coeffs_ringt(self, coeffs) -> PlaintextRingt:
+        return PlaintextRingt(data=self._tensor(self._coeffs_mod_t(coeffs)))
+
+    def encode_coeffs_mul(self, coeffs, level: int) -> PlaintextMul:
+        return self._lift_mul(self._coeffs_mod_t(coeffs), level)
+
+    # ---- encrypt / decrypt (host sampling, device arithmetic) ----
+    def encrypt_asymmetric(self, rng, pk, pt: Plaintext) -> Ciphertext:
+        level = pt.level
+        ring = self.ring(level)
+        q_mods = self.q[:level + 1]
+        u_ntt = ntt_mod.ntt(self._tensor(lift_signed(sample_ternary(rng, self.n), q_mods)), ring)
+        c = []
+        for j in range(2):
+            prod = _u.mulmod(pk.data[j][:level + 1], u_ntt, ring.q, ring.pinv, ring.r2)
+            poly = ntt_mod.intt(prod, ring)
+            e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
+            c.append(_u.addmod(poly, e, ring.q))
+        c0 = _u.addmod(c[0], pt.data, ring.q)
+        return Ciphertext(data=torch.stack([c0, c[1]]), level=level)
+
+    def encrypt_symmetric(self, rng, sk, pt: Plaintext) -> Ciphertext:
+        level = pt.level
+        ring = self.ring(level)
+        q_mods = self.q[:level + 1]
+        a_ntt = self._tensor(sample_uniform_rns(rng, q_mods, self.n))
+        s_ntt = sk.ntt_form(q_mods, self.n, self.device)
+        as_ = ntt_mod.intt(_u.mulmod(a_ntt, s_ntt, ring.q, ring.pinv, ring.r2), ring)
+        e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
+        c0 = _u.addmod(_u.negmod(_u.addmod(as_, e, ring.q), ring.q), pt.data, ring.q)
+        return Ciphertext(data=torch.stack([c0, ntt_mod.intt(a_ntt, ring)]), level=level)
+
+    def _decrypt_phase(self, sk, ct: Ciphertext):
+        """Σ_k c_k·s^k CRT-reconstructed to big ints: (X mod Q, Q)."""
+        level = ct.level
+        ring = self.ring(level)
+        q_mods = self.q[:level + 1]
+        s_ntt = sk.ntt_form(q_mods, self.n, self.device)
+        acc = ct.data[0]
+        s_pow = s_ntt
+        for k in range(1, ct.data.shape[0]):
+            ck = ntt_mod.ntt(ct.data[k].contiguous(), ring)
+            term = ntt_mod.intt(_u.mulmod(ck, s_pow, ring.q, ring.pinv, ring.r2), ring)
+            acc = _u.addmod(acc, term, ring.q)
+            if k + 1 < ct.data.shape[0]:
+                s_pow = _u.mulmod(s_pow, s_ntt, ring.q, ring.pinv, ring.r2)
+        acc = acc.cpu().numpy()
+        Q = self.params.q_prod(level)
+        X = np.zeros(self.n, dtype=object)
+        for i, qi in enumerate(q_mods):
+            Qi = Q // qi
+            X = X + acc[i].astype(object) * (Qi * pow(Qi, -1, qi))
+        return X % Q, Q
+
+    def decrypt(self, sk, ct: Ciphertext) -> np.ndarray:
+        """→ plaintext polynomial mod t, (n,) int64 (exact CRT + rounding)."""
+        X, Q = self._decrypt_phase(sk, ct)
+        return np.array([((2 * self.t * int(x) + Q) // (2 * Q)) % self.t for x in X],
+                        dtype=np.int64)
+
+    def decrypt_coeffs(self, sk, ct: Ciphertext) -> np.ndarray:
+        return self.decrypt(sk, ct)
+
+    def noise_budget(self, sk, ct: Ciphertext) -> float:
+        """Invariant-noise budget in bits (SEAL semantics): log2(Q / (2·‖t·X − Q·m‖∞))."""
+        X, Q = self._decrypt_phase(sk, ct)
+        t = self.t
+        w_max = 0
+        for x in X:
+            m = ((2 * t * int(x) + Q) // (2 * Q)) % t
+            w = t * int(x) - Q * m
+            w = ((w + Q * t // 2) % (Q * t)) - Q * t // 2
+            w_max = max(w_max, abs(w))
+        if w_max == 0:
+            return float(math.log2(Q) - 1.0)
+        return float(math.log2(Q) - 1.0 - math.log2(w_max))
+
+    def decrypt_decode(self, sk, ct: Ciphertext) -> np.ndarray:
+        return self.decode(self.decrypt(sk, ct))
+
+    # ---- evaluation ops ----
+    @staticmethod
+    def _check_levels(a, b, op: str):
+        if isinstance(b, Ciphertext) and a.level != b.level:
+            raise ValueError(f'ciphertext level mismatch in {op}: {a.level} vs {b.level}')
+
+    def _with_c0(self, a: Ciphertext, c0):
+        data = torch.cat([c0.unsqueeze(-3), a.data[..., 1:, :, :]], dim=-3)
+        return Ciphertext(data=data, level=a.level, is_ntt=a.is_ntt)
+
+    def add(self, a: Ciphertext, b) -> Ciphertext:
+        self._check_levels(a, b, 'add')
+        ring = self.ring(a.level)
+        if isinstance(b, Ciphertext):
+            return Ciphertext(data=_u.addmod(a.data, b.data, ring.q), level=a.level,
+                              is_ntt=a.is_ntt)
+        if isinstance(b, Plaintext):
+            return self._with_c0(a, _u.addmod(a.data[..., 0, :, :], b.data, ring.q))
+        if isinstance(b, PlaintextRingt):
+            dm = _u.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
+            return self._with_c0(a, _u.addmod(a.data[..., 0, :, :], dm, ring.q))
+        raise TypeError(type(b))
+
+    def sub(self, a: Ciphertext, b) -> Ciphertext:
+        self._check_levels(a, b, 'sub')
+        ring = self.ring(a.level)
+        if isinstance(b, Ciphertext):
+            return Ciphertext(data=_u.submod(a.data, b.data, ring.q), level=a.level,
+                              is_ntt=a.is_ntt)
+        if isinstance(b, Plaintext):
+            return self._with_c0(a, _u.submod(a.data[..., 0, :, :], b.data, ring.q))
+        if isinstance(b, PlaintextRingt):
+            dm = _u.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
+            return self._with_c0(a, _u.submod(a.data[..., 0, :, :], dm, ring.q))
+        raise TypeError(type(b))
+
+    def neg(self, a: Ciphertext) -> Ciphertext:
+        ring = self.ring(a.level)
+        return Ciphertext(data=_u.negmod(a.data, ring.q), level=a.level, is_ntt=a.is_ntt)
+
+    def mult(self, a: Ciphertext, b) -> Ciphertext:
+        """ct⊗ct → ct3 (BEHZ); ct×pt per plaintext format."""
+        self._check_levels(a, b, 'mult')
+        level = a.level
+        ring = self.ring(level)
+        if isinstance(b, Ciphertext):
+            bz = self.behz(level)
+            ra = bz.ring_aux
+            # all four polynomials through one extend + NTT pass (kernel B2)
+            polys = torch.cat([a.data[..., :2, :, :], b.data[..., :2, :, :]], dim=-3)
+            fq, fa = behz_prep32(polys, bz)
+            dq = tensor_product(fq, ring)
+            da = tensor_product(fa, ra)
+            # two to_mont added two R, the product's mont_mul removed one:
+            # strip the remaining R
+            dq = ntt_mod.intt(_u.from_mont(dq, ring.q, ring.pinv), ring)
+            da = ntt_mod.intt(_u.from_mont(da, ra.q, ra.pinv), ra)
+            return Ciphertext(data=bz.scale_and_back(dq, da), level=level)
+        if isinstance(b, Plaintext):
+            bz = self.behz(level)
+            ra = bz.ring_aux
+            pq = _u.to_mont(ntt_mod.ntt(b.data, ring), ring.q, ring.pinv, ring.r2)
+            pa = _u.to_mont(ntt_mod.ntt(bz.extend(b.data), ra), ra.q, ra.pinv, ra.r2)
+            dq = _u.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), pq, ring.q, ring.pinv)
+            da = _u.mont_mul(ntt_mod.ntt(bz.extend(a.data), ra), pa, ra.q, ra.pinv)
+            return Ciphertext(data=bz.scale_and_back(ntt_mod.intt(dq, ring),
+                                                     ntt_mod.intt(da, ra)), level=level)
+        if isinstance(b, PlaintextRingt):
+            lifted = b.data.expand(level + 1, self.n).contiguous()
+            f = _u.to_mont(ntt_mod.ntt(lifted, ring), ring.q, ring.pinv, ring.r2)
+            prod = _u.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f, ring.q, ring.pinv)
+            return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
+        if isinstance(b, PlaintextMul):
+            prod = _u.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), b.data[:level + 1],
+                               ring.q, ring.pinv)
+            return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
+        raise TypeError(type(b))
+
+    def relinearize(self, ct3: Ciphertext, rlk) -> Ciphertext:
+        level = ct3.level
+        ring = self.ring(level)
+        e0, e1 = self.switcher.switch(ct3.data[..., 2, :, :], rlk, level)
+        c0 = _u.addmod(ct3.data[..., 0, :, :], e0, ring.q)
+        c1 = _u.addmod(ct3.data[..., 1, :, :], e1, ring.q)
+        return Ciphertext(data=torch.stack([c0, c1], dim=-3), level=level)
+
+    def rescale(self, ct: Ciphertext) -> Ciphertext:
+        """BFV modulus switching: drop the last prime, round exactly."""
+        rs = self.rescaler(ct.level)
+        return Ciphertext(data=rs(ct.data), level=ct.level - 1, is_ntt=ct.is_ntt)

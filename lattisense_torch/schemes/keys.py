@@ -1,0 +1,137 @@
+"""Key generation for BFV: NumPy sampling, tensor arithmetic.
+
+Port of ``lattisense_tpu/schemes/keys.py`` (without Galois keys). Every
+random draw goes through the same sampler calls, in the same order, as the
+reference, on a ``utils.csprng.CryptoRng``: the same seed gives the same
+secret, public and relinearization keys. Samples become int64 tensors on the
+target device only after sampling; the NTTs and modular products then run
+there (kernel B1 on the card).
+
+Distributions: uniform ternary secret, rounded Gaussian errors (σ = 3.2),
+uniform ring elements drawn per RNS limb. Hybrid key-switching keys: β =
+ceil(Lq/α) digits with α = |P| special primes; digit d encrypts P·γ_d·s'
+with γ_d = (Q/Q_d)·[(Q/Q_d)^-1]_{Q_d}.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from ..core import ntt as ntt_mod
+from ..core import u64 as _u
+from ..core.modring import get_rns_ring
+from .types import KeySwitchKey, PublicKey
+
+SIGMA = 3.2
+
+
+def lift_signed(coeffs, moduli) -> np.ndarray:
+    """Signed small coefficients (n,) → RNS (L, n) int64 residues."""
+    c = np.asarray(coeffs, dtype=np.int64)
+    out = np.empty((len(moduli), len(c)), dtype=np.int64)
+    for i, q in enumerate(moduli):
+        out[i] = np.mod(c, np.int64(q))
+    return out
+
+
+def sample_ternary(rng, n: int) -> np.ndarray:
+    """Uniform ternary secret."""
+    return rng.integers(-1, 2, size=n, dtype=np.int64)
+
+
+def sample_gaussian(rng, n: int, sigma: float = SIGMA) -> np.ndarray:
+    return np.round(rng.normal(0.0, sigma, size=n)).astype(np.int64)
+
+
+def sample_uniform_rns(rng, moduli, n: int) -> np.ndarray:
+    """Uniform per-limb residues, drawn as the reference draws them (a u64
+    stream per limb), as (L, n) int64."""
+    return np.stack([rng.integers(0, int(q), size=n, dtype=np.uint64)
+                     for q in moduli]).astype(np.int64)
+
+
+def as_tensor(arr, device):
+    """An int64 host array as a tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int64)).to(device)
+
+
+class SecretKey:
+    def __init__(self, coeffs: np.ndarray):
+        self.coeffs = np.asarray(coeffs, dtype=np.int64)     # (n,) in {-1, 0, 1}
+        self._ntt_cache: dict = {}
+
+    def ntt_form(self, moduli, n: int, device):
+        """NTT of s over ``moduli`` as an int64 (L, n) tensor on ``device``."""
+        key = (tuple(moduli), n, torch.device(device))
+        if key not in self._ntt_cache:
+            ring = get_rns_ring(moduli, n, device)
+            self._ntt_cache[key] = ntt_mod.ntt(as_tensor(lift_signed(self.coeffs, moduli), device),
+                                               ring)
+        return self._ntt_cache[key]
+
+
+def gen_public_key(rng, sk: SecretKey, q_moduli: tuple[int, ...], n: int, device) -> PublicKey:
+    """pk = (b, a) with b = -(a·s + e), in the NTT domain over the full Q."""
+    ring = get_rns_ring(q_moduli, n, device)
+    s_ntt = sk.ntt_form(q_moduli, n, device)
+    a = as_tensor(sample_uniform_rns(rng, q_moduli, n), device)
+    e_ntt = ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), q_moduli), device), ring)
+    as_ = _u.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
+    b = _u.negmod(_u.addmod(as_, e_ntt, ring.q), ring.q)
+    return PublicKey(data=torch.stack([b, a]))
+
+
+def _gamma_times_p(q_moduli: tuple[int, ...], p_moduli: tuple[int, ...], alpha: int) -> np.ndarray:
+    """[P·γ_d]_{q_i} for each digit d (zero mod every special prime)."""
+    Q = math.prod(q_moduli)
+    P = math.prod(p_moduli)
+    L = len(q_moduli)
+    beta = (L + alpha - 1) // alpha
+    consts = np.zeros((beta, L), dtype=np.int64)
+    for d in range(beta):
+        Qd = math.prod(q_moduli[d * alpha:(d + 1) * alpha])
+        gamma = (Q // Qd) * pow(Q // Qd, -1, Qd)
+        for i, qi in enumerate(q_moduli):
+            consts[d, i] = (P * gamma) % qi
+    return consts
+
+
+def gen_keyswitch_key(rng, sk: SecretKey, target_ntt_fn, q_moduli: tuple[int, ...],
+                      p_moduli: tuple[int, ...], n: int, device) -> KeySwitchKey:
+    """Key switching s' → s; ``target_ntt_fn(moduli)`` returns the NTT form
+    of s' over ``moduli``. Output keys are NTT + Montgomery."""
+    qp = tuple(q_moduli) + tuple(p_moduli)
+    ring = get_rns_ring(qp, n, device)
+    Lq, Lp = len(q_moduli), len(p_moduli)
+    alpha = Lp
+    beta = (Lq + alpha - 1) // alpha
+    s_ntt = sk.ntt_form(qp, n, device)
+    t_ntt = target_ntt_fn(qp)
+    consts = _gamma_times_p(tuple(q_moduli), tuple(p_moduli), alpha)
+    key_q, key_p = [], []
+    for d in range(beta):
+        a = as_tensor(sample_uniform_rns(rng, qp, n), device)
+        e_ntt = ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), qp), device), ring)
+        as_ = _u.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
+        b = _u.negmod(_u.addmod(as_, e_ntt, ring.q), ring.q)
+        # + P·γ_d·s' (zero on the p limbs)
+        pg = np.zeros((Lq + Lp, 1), dtype=np.int64)
+        pg[:Lq, 0] = consts[d]
+        term = _u.mulmod(as_tensor(pg, device), t_ntt, ring.q, ring.pinv, ring.r2)
+        b = _u.addmod(b, term, ring.q)
+        bm = _u.to_mont(b, ring.q, ring.pinv, ring.r2)
+        am = _u.to_mont(a, ring.q, ring.pinv, ring.r2)
+        key_q.append(torch.stack([bm[:Lq], am[:Lq]]))
+        key_p.append(torch.stack([bm[Lq:], am[Lq:]]))
+    return KeySwitchKey(key_q=torch.stack(key_q), key_p=torch.stack(key_p),
+                        level=Lq - 1, sp_level=Lp - 1)
+
+
+def gen_relin_key(rng, sk: SecretKey, q_moduli, p_moduli, n: int, device) -> KeySwitchKey:
+    """Relinearization key: s' = s^2."""
+    def s2_ntt(moduli):
+        ring = get_rns_ring(moduli, n, device)
+        s = sk.ntt_form(moduli, n, device)
+        return _u.mulmod(s, s, ring.q, ring.pinv, ring.r2)
+    return gen_keyswitch_key(rng, sk, s2_ntt, q_moduli, p_moduli, n, device)

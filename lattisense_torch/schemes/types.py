@@ -1,0 +1,51 @@
+"""FHE data carriers: plain dataclasses holding int64 tensors.
+
+Ports of the BFV carriers of ``lattisense_tpu/schemes/types.py``, without
+the JAX pytree registration and without the CKKS scale. A ciphertext's
+``data`` may carry leading batch dimensions: (B, degree+1, L, n).
+"""
+
+from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass
+class Plaintext:
+    data: Any                 # (L, n): Δ·m over Q_ℓ, coefficient domain
+    level: int
+
+
+@dataclass
+class PlaintextRingt:
+    data: Any                 # (n,): m mod t
+
+
+@dataclass
+class PlaintextMul:
+    data: Any                 # (L, n): NTT + Montgomery form of m over Q_ℓ
+    level: int
+
+
+@dataclass
+class Ciphertext:
+    data: Any                 # (..., degree+1, L, n)
+    level: int
+    is_ntt: bool = False
+
+    @property
+    def degree(self) -> int:
+        return self.data.shape[-3] - 1
+
+
+@dataclass
+class KeySwitchKey:
+    """Hybrid key-switching key: β digits over Q_full ∪ P, NTT+Montgomery."""
+    key_q: Any                # (β, 2, Lq_full, n)
+    key_p: Any                # (β, 2, |P|, n)
+    level: int = -1
+    sp_level: int = -1
+
+
+@dataclass
+class PublicKey:
+    data: Any                 # (2, Lq_full, n), NTT domain

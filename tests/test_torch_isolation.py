@@ -1,0 +1,64 @@
+"""lattisense_torch stands alone: it imports neither JAX nor lattisense_tpu,
+keeps its own copy of the parameter table, and its entry points run on the
+card unless asked for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, 'lattisense_torch')
+_IMPORT = re.compile(r'^\s*(?:import|from)\s+(jax|lattisense_tpu)\b', re.M)
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import lattisense_torch, lattisense_torch.runtime, lattisense_torch.parallel.batch, "
+            "sys; mods = list(sys.modules); "
+            "assert 'jax' not in mods, 'jax'; "
+            "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_import_no_jax():
+    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
+    assert len(files) > 15
+    offenders = []
+    for path in files:
+        with open(path, encoding='utf-8') as f:
+            if _IMPORT.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert offenders == []
+
+
+def test_parameter_table_is_a_byte_identical_copy():
+    with open(os.path.join(ROOT, 'lattisense_tpu', 'parameter.json'), 'rb') as f:
+        ref = f.read()
+    with open(os.path.join(PORT, 'parameter.json'), 'rb') as f:
+        assert f.read() == ref
+
+
+def test_entry_points_default_to_cuda():
+    from lattisense_torch import resolve_device
+    from lattisense_torch.core.modring import gen_ntt_primes
+    from lattisense_torch.params import BfvParams
+    from lattisense_torch.runtime import BfvContext
+    from lattisense_torch.schemes.bfv import BfvEngine
+    if torch.cuda.is_available():
+        assert resolve_device().type == 'cuda'
+        return
+    chain = gen_ntt_primes(64, 31, 3)
+    params = BfvParams.create_custom(64, 257, chain[:2], chain[2:])
+    for entry in (lambda: BfvContext.create_random_context(params, seed=1),
+                  lambda: BfvContext(params),
+                  lambda: BfvEngine(params)):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            entry()
+    assert BfvEngine(params, 'cpu').device == torch.device('cpu')
