@@ -1,4 +1,6 @@
-"""Kernel B2: the BEHZ multiply front half for the 32-bit-word engine.
+"""Kernels B2 and B4: the BEHZ multiply's two halves for the 32-bit-word engine.
+
+B2, ``behz_prep32``, the front half.
 
 Replaces ``lattisense_tpu/ops/behz_pallas32.py`` ``behz_prep32`` (kernel
 ``_k1_kernel``). For (..., L, n) coefficient-domain polynomials over Q it
@@ -17,8 +19,19 @@ parts are bound by device-memory bytes (the extension does ~(9L+12)·T 32-bit
 operations per coefficient, ~6.6 per byte moved at L=8, T=11); the split
 costs one extra write and read of the T aux rows.
 
-A CPU tensor runs the plain PyTorch composition below; a CUDA tensor launches
-the kernels or raises.
+B4, ``behz_finish32``, the back half. Replaces ``behz_pallas32.py``
+``behz_finish32`` (kernel ``_k3_kernel``): for the NTT + Montgomery tensor
+products dq (..., L, n) and da (..., T, n) it returns
+``scale_and_back(intt(from_mont(dq)), intt(from_mont(da)))`` over Q. The TPU
+kernel keeps the L+T rows of one product in VMEM; here kernel B1's inverse
+runs over both stacks with the from-Montgomery folded into its n^-1
+epilogue (the transform is linear), then ``csrc/behz32.cu``'s scale-back
+kernel reads the L+T residues of each coefficient and writes L. Both parts
+are bound by device-memory bytes.
+
+Each wrapper counts one launch per call; B1's own launches show under
+``ntt32_fwd``/``ntt32_inv``. A CPU tensor runs the plain PyTorch composition
+below; a CUDA tensor launches the kernels or raises.
 """
 
 import ctypes
@@ -26,17 +39,21 @@ import math
 
 import torch
 
+from ..core import u64 as _u
+from ..core.rns import _shoup
 from ..params import MTILDE
 from . import cuda_build, ntt_cuda
 
-#: launches of the wrapper's kernels since the last reset
-launches = {'behz_prep32': 0}
+#: launches of each wrapper's kernels since the last reset
+launches = {'behz_prep32': 0, 'behz_finish32': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'behz32_extend_launch': [_P, _P, _I, _I, _I, _I, _P, _P],
+    'behz32_scale_back_launch': [_P, _P, _P, _I, _I, _I, _P, _P],
     'behz32_max_limbs': [],
+    'behz32_max_aux': [],
 }
 
 
@@ -108,3 +125,82 @@ def behz_prep32(x, bz):
         ntt_cuda.launch(ext, fa, ra, inverse=False, to_mont=True)
         launches['behz_prep32'] += 1
     return fq, fa
+
+
+# ---------------------------------------------------------------------------
+# B4: behz_finish32
+# ---------------------------------------------------------------------------
+
+def behz_finish_plain(dq, da, bz):
+    """The reference composition: from_mont, inverse NTT on both bases,
+    ``scale_and_back``."""
+    rq, ra = bz.ring_q, bz.ring_aux
+    dq = ntt_cuda.intt_plain(_u.from_mont(dq, rq.q, rq.pinv), rq)
+    da = ntt_cuda.intt_plain(_u.from_mont(da, ra.q, ra.pinv), ra)
+    return bz.scale_and_back(dq, da)
+
+
+def _finish_consts(bz):
+    """The scale-back kernel's uint32 constant block (layout in behz32.cu),
+    cached on the BehzMult object."""
+    tab = getattr(bz, '_b4_consts', None)
+    if tab is None:
+        q = list(bz.ring_q.moduli)
+        aux = list(bz.ring_aux.moduli)
+        b, m_sk, t = aux[:-1], aux[-1], bz.t
+        Q, B = math.prod(q), math.prod(b)
+        qhi = [pow(Q // qi, -1, qi) for qi in q]
+        qinv = [pow(Q % d, -1, d) for d in aux]
+        bhi = [pow(B // bk, -1, bk) for bk in b]
+        binv = pow(B % m_sk, -1, m_sk)
+        dst2 = q + [m_sk]
+
+        def pair(vals, mods):
+            return vals + [_shoup(v, m) for v, m in zip(vals, mods)]
+
+        vals = (q + pair([t % qi for qi in q], q) + pair(qhi, q) + pair([B % qi for qi in q], q)
+                + aux + pair([t % d for d in aux], aux) + pair(qinv, aux)
+                + [(Q // qi) % d for qi in q for d in aux]
+                + [_shoup((Q // qi) % d, d) for qi in q for d in aux]
+                + pair(bhi, b)
+                + [(B // bk) % d for bk in b for d in dst2]
+                + [_shoup((B // bk) % d, d) for bk in b for d in dst2]
+                + [binv, _shoup(binv, m_sk), m_sk >> 1])
+        tab = ntt_cuda.u32_tensor(vals, bz.ring_q.device)
+        bz._b4_consts = tab
+    return tab
+
+
+def behz_finish32(dq, da, bz):
+    """Fused BEHZ finish: dq (..., L, n) over ``bz.ring_q`` and da (..., T, n)
+    over ``bz.ring_aux``, both NTT + Montgomery, with the same leading
+    dimensions → (..., L, n) over Q in the coefficient domain."""
+    rq, ra = bz.ring_q, bz.ring_aux
+    ntt_cuda.check_stack(dq, rq)
+    ntt_cuda.check_stack(da, ra)
+    if dq.shape[:-2] != da.shape[:-2]:
+        raise ValueError(f'leading dimensions differ: {tuple(dq.shape)} vs {tuple(da.shape)}')
+    if not dq.is_cuda:
+        return behz_finish_plain(dq, da, bz)
+    if not (dq.is_contiguous() and da.is_contiguous()):
+        raise ValueError('behz_finish32 takes contiguous tensors')
+    L, T, n = len(rq.moduli), len(ra.moduli), rq.n
+    lib = cuda_build.load('behz32', _SIGNATURES)
+    if L > lib.behz32_max_limbs() or T > lib.behz32_max_aux():
+        raise ValueError(f'behz_finish32 supports at most {lib.behz32_max_limbs()} limbs and '
+                         f'{lib.behz32_max_aux()} aux limbs, got {L} and {T}')
+    out = torch.empty(dq.shape, dtype=torch.int64, device=dq.device)
+    polys = dq.numel() // (L * n)
+    if polys:
+        iq, ia = torch.empty_like(dq), torch.empty_like(da)
+        ntt_cuda.launch(dq, iq, rq, inverse=True, from_mont=True)
+        ntt_cuda.launch(da, ia, ra, inverse=True, from_mont=True)
+        consts = _finish_consts(bz)
+        with torch.cuda.device(dq.device):
+            err = lib.behz32_scale_back_launch(iq.data_ptr(), ia.data_ptr(), out.data_ptr(),
+                                               polys, L, T, n, consts.data_ptr(),
+                                               torch.cuda.current_stream(dq.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'behz32 scale-back launch failed: cudaError_t {err}')
+        launches['behz_finish32'] += 1
+    return out

@@ -1,0 +1,171 @@
+"""Kernel B3: the whole hybrid key switch for the 32-bit-word engine.
+
+Replaces ``lattisense_tpu/ops/ksw_pallas32.py`` ``ksw_switch32`` (kernel
+``_ksw_kernel``, launch ``_ksw_impl``). For a coefficient-domain int64
+(..., L, n) stack x over Q_ℓ it returns (e0, e1), each (..., L, n),
+bit-identical to ``KeySwitcher.switch_plain``: digit decomposition,
+per-digit FastBConv mod-up to Q_ℓ∪P, forward NTT, gadget inner product with
+the Montgomery-form key, inverse NTT of both components, ``RoundDivP``
+mod-down, and with ``output_ntt`` a forward NTT of the result.
+
+The TPU kernel keeps one ciphertext's ~48 rows (~3 MB at n=16384) in VMEM;
+a block here holds three such rows at most, so the work is split into
+per-coefficient kernels (``csrc/ksw32.cu``: mod-up, inner product, mod-down)
+and kernel B1's NTTs, all launched in one sequence on the current stream.
+Each stage is bound by device-memory bytes.
+
+``ksw_switch32`` counts one launch per call, for the whole sequence (B1's
+own launches show under ``ntt32_fwd``/``ntt32_inv``). A CUDA tensor launches
+the kernels or raises; a CPU tensor runs the plain twin.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from ..core.modring import get_rns_ring
+from ..core.rns import _shoup
+from . import cuda_build, ntt_cuda
+
+#: launches of the wrapper's kernel sequence since the last reset
+launches = {'ksw_switch32': 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    'ksw32_modup_launch': [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    'ksw32_inner_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    'ksw32_moddown_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    'ksw32_max_alpha': [],
+}
+_MAX_GRID_YZ = 65535
+
+
+def _consts(sw, level: int):
+    """The three kernels' uint32 constant blocks for one level (layouts in
+    ksw32.cu), cached on the KeySwitcher."""
+    cache = sw.__dict__.setdefault('_b3_consts', {})
+    if level in cache:
+        return cache[level]
+    L = level + 1
+    alpha, beta = sw.alpha, sw.beta(level)
+    q = list(sw.q_moduli[:L])
+    p = list(sw.p_moduli)
+    qp = q + p
+    T = len(qp)
+    ring_qp = get_rns_ring(qp, sw.n, sw.device)
+    src, hinv, hinvs = [1] * (beta * alpha), [0] * (beta * alpha), [0] * (beta * alpha)
+    mv, ms = [0] * (beta * alpha * T), [0] * (beta * alpha * T)
+    for d in range(beta):
+        grp = q[d * alpha:(d + 1) * alpha]
+        Qd = math.prod(grp)
+        for j, qj in enumerate(grp):
+            r = d * alpha + j
+            h = Qd // qj
+            src[r], hinv[r] = qj, pow(h, -1, qj)
+            hinvs[r] = _shoup(hinv[r], qj)
+            for t, dt in enumerate(qp):
+                mv[r * T + t], ms[r * T + t] = h % dt, _shoup(h % dt, dt)
+    P = math.prod(p)
+    half = P // 2
+    pinv = [pow(P % qi, -1, qi) for qi in q]
+    phat_inv = [pow(P // pj, -1, pj) for pj in p]
+    cv = [(P // pj) % qi for pj in p for qi in q]
+    cs = [_shoup((P // pj) % qi, qi) for pj in p for qi in q]
+    dev = sw.device
+    tabs = {
+        'modup': ntt_cuda.u32_tensor(src + hinv + hinvs + qp + mv + ms, dev),
+        'inner': ntt_cuda.u32_tensor(qp + [r.pinv for r in ring_qp.rings], dev),
+        'moddown': ntt_cuda.u32_tensor(
+            q + [half % qi for qi in q] + pinv + [_shoup(v, qi) for v, qi in zip(pinv, q)]
+            + p + [half % pj for pj in p] + phat_inv
+            + [_shoup(v, pj) for v, pj in zip(phat_inv, p)] + [(1 << 62) // pj for pj in p]
+            + cv + cs, dev),
+    }
+    cache[level] = tabs
+    return tabs
+
+
+def _check(x, ksk, sw, level: int):
+    L = level + 1
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int64:
+        raise TypeError(f'expected an int64 tensor, got {getattr(x, "dtype", type(x))}')
+    if not 0 <= level < len(sw.q_moduli):
+        raise ValueError(f'level {level} outside the chain of {len(sw.q_moduli)} primes')
+    if x.dim() < 2 or tuple(x.shape[-2:]) != (L, sw.n):
+        raise ValueError(f'expected shape (..., {L}, {sw.n}) at level {level}, '
+                         f'got {tuple(x.shape)}')
+    beta, alpha, Lq = sw.beta(level), sw.alpha, len(sw.q_moduli)
+    kq, kp = ksk.key_q, ksk.key_p
+    if (kq.dim() != 4 or kq.shape[0] < beta or tuple(kq.shape[1:]) != (2, Lq, sw.n)
+            or kp.dim() != 4 or kp.shape[0] != kq.shape[0]
+            or tuple(kp.shape[1:]) != (2, alpha, sw.n)):
+        raise ValueError(f'key shapes {tuple(kq.shape)}, {tuple(kp.shape)} do not fit '
+                         f'beta={beta}, Lq={Lq}, alpha={alpha}, n={sw.n}')
+    for t in (x, kq, kp):
+        if t.device != sw.device:
+            raise ValueError(f'tensor on {t.device}, key switcher on {sw.device}')
+
+
+def ksw_switch32(x, ksk, sw, level: int, output_ntt: bool = False):
+    """Key switch of coefficient-domain x (..., L, n) with ``ksk`` through
+    KeySwitcher ``sw`` at ``level`` → (e0, e1) over Q_ℓ.
+
+    The kernels take x contiguous: a strided view (the relinearize path's
+    ``ct3.data[..., 2, :, :]``) is copied once with ``.contiguous()``. The
+    key is read in place from ``key_q``/``key_p`` (contiguous, at full
+    level)."""
+    _check(x, ksk, sw, level)
+    if not x.is_cuda:
+        return sw.switch_plain(x, ksk, level, output_ntt)
+    lib = cuda_build.load('ksw32', _SIGNATURES)
+    L, n = level + 1, sw.n
+    alpha, beta, Lq = sw.alpha, sw.beta(level), len(sw.q_moduli)
+    T = L + alpha
+    if alpha > lib.ksw32_max_alpha():
+        raise ValueError(f'ksw_switch32 supports at most {lib.ksw32_max_alpha()} special '
+                         f'primes, got {alpha}')
+    if not (ksk.key_q.is_contiguous() and ksk.key_p.is_contiguous()):
+        raise ValueError('ksw_switch32 reads the key in place: key_q and key_p must be '
+                         'contiguous')
+    lead = x.shape[:-2]
+    G = x.numel() // (L * n)
+    if 2 * G > _MAX_GRID_YZ:
+        raise ValueError(f'ksw_switch32 takes at most {_MAX_GRID_YZ // 2} polynomials per '
+                         f'call, got {G}')
+    e = torch.empty((*lead, 2, L, n), dtype=torch.int64, device=x.device)
+    if G:
+        x = x.contiguous()
+        tabs = _consts(sw, level)
+        ring_qp = get_rns_ring(tuple(sw.q_moduli[:L]) + sw.p_moduli, n, sw.device)
+        dev = x.device
+        digits = torch.empty((G, beta, T, n), dtype=torch.int64, device=dev)
+        digits_ntt = torch.empty_like(digits)
+        acc = torch.empty((G, 2, T, n), dtype=torch.int64, device=dev)
+        acc_coef = torch.empty_like(acc)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.ksw32_modup_launch(x.data_ptr(), digits.data_ptr(), G, L, alpha, beta,
+                                         T, n, tabs['modup'].data_ptr(), stream)
+            _raise(err, 'mod-up')
+            ntt_cuda.launch(digits, digits_ntt, ring_qp, inverse=False)
+            err = lib.ksw32_inner_launch(digits_ntt.data_ptr(), ksk.key_q.data_ptr(),
+                                         ksk.key_p.data_ptr(), acc.data_ptr(), G, L, Lq,
+                                         alpha, beta, T, n, tabs['inner'].data_ptr(), stream)
+            _raise(err, 'inner product')
+            ntt_cuda.launch(acc, acc_coef, ring_qp, inverse=True)
+            out = e if not output_ntt else torch.empty_like(e)
+            err = lib.ksw32_moddown_launch(acc_coef.data_ptr(), out.data_ptr(), 2 * G, L,
+                                           alpha, T, n, tabs['moddown'].data_ptr(), stream)
+            _raise(err, 'mod-down')
+            if output_ntt:
+                ntt_cuda.launch(out, e, get_rns_ring(sw.q_moduli[:L], n, sw.device),
+                                inverse=False)
+        launches['ksw_switch32'] += 1
+    return e[..., 0, :, :], e[..., 1, :, :]
+
+
+def _raise(err: int, stage: str):
+    if err != 0:
+        raise RuntimeError(f'ksw32 {stage} launch failed: cudaError_t {err}')

@@ -24,7 +24,7 @@ import torch
 from ..core import u64 as _u
 from . import cuda_build
 
-#: launches of each kernel since the last reset (a plain count per wrapper)
+#: launches of each direction since the last reset, counted in ``launch``
 launches = {'ntt32_fwd': 0, 'ntt32_inv': 0}
 
 _P = ctypes.c_void_p
@@ -99,6 +99,7 @@ def _tables(ring):
     if tabs is None:
         rs, dev = ring.rings, ring.device
         r1 = [r.r1 for r in rs]
+        nir = [r.n_inv * pow(1 << 32, -1, r.q) % r.q for r in rs]
         tabs = {
             'q': u32_tensor([r.q for r in rs], dev),
             'psi_rev': u32_tensor(np.stack([r.psi_rev for r in rs]), dev),
@@ -109,6 +110,8 @@ def _tables(ring):
             'n_inv_shoup': u32_tensor([r.n_inv_shoup for r in rs], dev),
             'r1': u32_tensor(r1, dev),
             'r1_shoup': u32_tensor([(v << 32) // r.q for v, r in zip(r1, rs)], dev),
+            'n_inv_rinv': u32_tensor(nir, dev),
+            'n_inv_rinv_shoup': u32_tensor([(v << 32) // r.q for v, r in zip(nir, rs)], dev),
         }
         ring._b1_tables = tabs
     return tabs
@@ -124,13 +127,22 @@ def check_stack(x, ring):
         raise ValueError(f'tensor on {x.device}, ring tables on {ring.device}')
 
 
-def launch(x, y, ring, inverse: bool, to_mont: bool = False):
+def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = False):
     """Launch B1 on contiguous CUDA int64 stacks x → y (same shape) on the
-    current stream. No count: callers that own a launch count it."""
+    current stream, and count the launch under its direction's name. Every
+    launch of the kernel goes through here, so kernels built on B1 (B2, B3,
+    B4) show in the count too.
+
+    ``to_mont`` (forward) multiplies the output by 2^32 mod q; ``from_mont``
+    (inverse) folds a from-Montgomery of the input into the n^-1 scale: the
+    transform is linear, so INTT(x·2^-32) = 2^-32·INTT(x), and the kernel's
+    per-limb epilogue multiplies by n^-1·2^-32 instead of n^-1."""
     if not (x.is_cuda and y.is_cuda and x.is_contiguous() and y.is_contiguous()):
         raise ValueError('B1 takes contiguous CUDA tensors')
     if y.shape != x.shape or y.dtype != torch.int64:
         raise ValueError(f'output {tuple(y.shape)} {y.dtype} does not match input {tuple(x.shape)}')
+    if (to_mont and inverse) or (from_mont and not inverse):
+        raise ValueError('to_mont is a forward epilogue, from_mont an inverse one')
     logn = ring.n.bit_length() - 1
     if not 1 <= logn <= MAX_LOGN:
         raise ValueError(f'B1 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
@@ -140,8 +152,9 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False):
     lib = cuda_build.load('ntt32', _SIGNATURES)
     tabs = _tables(ring)
     if inverse:
-        fn, tw, tws, post, posts = (lib.ntt32_inv_launch, tabs['psi_inv_rev'],
-                                    tabs['psi_inv_rev_shoup'], tabs['n_inv'], tabs['n_inv_shoup'])
+        fn, tw, tws = lib.ntt32_inv_launch, tabs['psi_inv_rev'], tabs['psi_inv_rev_shoup']
+        post, posts = ((tabs['n_inv_rinv'], tabs['n_inv_rinv_shoup']) if from_mont
+                       else (tabs['n_inv'], tabs['n_inv_shoup']))
     else:
         fn, tw, tws = lib.ntt32_fwd_launch, tabs['psi_rev'], tabs['psi_rev_shoup']
         post, posts = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
@@ -154,6 +167,7 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False):
     if err != 0:
         raise RuntimeError(f'ntt32 {"inverse" if inverse else "forward"} launch failed: '
                            f'cudaError_t {err}')
+    launches['ntt32_inv' if inverse else 'ntt32_fwd'] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +182,6 @@ def ntt32_fwd(x, ring, to_mont: bool = False):
         return ntt_plain(x, ring, to_mont)
     y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     launch(x, y, ring, inverse=False, to_mont=to_mont)
-    launches['ntt32_fwd'] += 1
     return y
 
 
@@ -180,5 +193,4 @@ def ntt32_inv(x, ring):
         return intt_plain(x, ring)
     y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     launch(x, y, ring, inverse=True)
-    launches['ntt32_inv'] += 1
     return y

@@ -9,13 +9,17 @@ PyTorch runs the step eagerly.
 from ..schemes.types import Ciphertext, KeySwitchKey
 
 
-def make_batched_step(engine, step_fn, level: int):
-    """``step_fn(engine, a, b, keys) -> ct`` as a callable over raw tensors:
-    f(a_data[B,2,L,n], b_data[B,2,L,n], keys) -> out_data[B,...]."""
+def make_batched_step(engine, step_fn, level: int, n_inputs: int = 2):
+    """``step_fn(engine, *cts, keys) -> ct`` as a callable over raw tensors:
+    f(a_data[B,2,L,n], ..., keys) -> out_data[B,...] with ``n_inputs``
+    ciphertext arguments before the keys."""
 
-    def batched(a, b, keys):
-        return step_fn(engine, Ciphertext(data=a, level=level),
-                       Ciphertext(data=b, level=level), keys).data
+    def batched(*args):
+        if len(args) != n_inputs + 1:
+            raise TypeError(f'expected {n_inputs} ciphertext tensors and the keys, '
+                            f'got {len(args)} arguments')
+        cts = [Ciphertext(data=a, level=level) for a in args[:n_inputs]]
+        return step_fn(engine, *cts, args[n_inputs]).data
 
     return batched
 
@@ -25,8 +29,21 @@ def bfv_mult_relin(engine, a, b, keys):
     return engine.relinearize(engine.mult(a, b), keys['rlk'])
 
 
-def key_tree(context):
-    """Context keys → the ``keys`` argument of a batched step."""
+def make_rotate_step(galois_elt: int):
+    """A one-input step applying the Galois automorphism ``galois_elt``
+    (e.g. ``galois_elt_col(1, n)``: rotate_col by 1) with its key."""
+    def rot(engine, a, keys):
+        return engine.apply_galois(a, galois_elt, keys['glk'][galois_elt])
+    return rot
+
+
+def key_tree(context, galois_elts=()):
+    """Context keys → the ``keys`` argument of a batched step: the
+    relinearization key, and under ``'glk'`` the Galois keys of
+    ``galois_elts``."""
     rlk = context.rlk
-    return {'rlk': KeySwitchKey(key_q=rlk.key_q, key_p=rlk.key_p, level=rlk.level,
+    tree = {'rlk': KeySwitchKey(key_q=rlk.key_q, key_p=rlk.key_p, level=rlk.level,
                                 sp_level=rlk.sp_level)}
+    if galois_elts:
+        tree['glk'] = {e: context.glk.keys[e] for e in galois_elts}
+    return tree

@@ -4,8 +4,10 @@ Port of ``lattisense_tpu/schemes/bfv.py`` at word_bits=32. Multiplication is
 the integer-only BEHZ RNS algorithm: exact-extend both ciphertexts
 Q_ℓ → B_ℓ ∪ m_sk, NTT tensor product over Q_ℓ and the auxiliary basis, scale
 by t/Q_ℓ, exact Shenoy–Kumaresan conversion back to Q_ℓ. The extension and
-the forward NTTs are kernel B2 (``ops/behz_cuda.py``); every NTT is kernel
-B1 (``ops/ntt_cuda.py``); the rest is plain PyTorch on the engine's device.
+the forward NTTs are kernel B2, the inverse NTTs and the scale-back kernel
+B4 (``ops/behz_cuda.py``); key switching (relinearization, rotations) is
+kernel B3 (``ops/ksw_cuda.py``); every NTT is kernel B1
+(``ops/ntt_cuda.py``); the rest is plain PyTorch on the engine's device.
 
 Host work (sampling, big-integer CRT in ``decrypt``) runs in NumPy; the
 evaluation ops take and return ``Ciphertext`` objects whose data may carry
@@ -22,12 +24,15 @@ from ..core import ntt as ntt_mod
 from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, DivRoundLast, ExactExtend, ShenoyConvert, _col, _mont
-from ..ops.behz_cuda import behz_prep32
+from ..ops.behz_cuda import behz_finish32, behz_prep32
+from ..ops.ntt_cuda import ntt32_fwd
 from ..params import BfvParams, bfv_aux_basis
 from .encoding import bfv_decode_slots, bfv_encode_slots
+from .galois import (apply_automorphism_coeff, apply_automorphism_ntt, galois_elt_col,
+                     galois_elt_row)
 from .keys import as_tensor, lift_signed, sample_gaussian, sample_ternary, sample_uniform_rns
 from .keyswitch import KeySwitcher
-from .types import Ciphertext, Plaintext, PlaintextMul, PlaintextRingt
+from .types import Ciphertext, DecomposedCiphertext, Plaintext, PlaintextMul, PlaintextRingt
 
 
 def tensor_product(f, ring):
@@ -290,13 +295,10 @@ class BfvEngine:
             # all four polynomials through one extend + NTT pass (kernel B2)
             polys = torch.cat([a.data[..., :2, :, :], b.data[..., :2, :, :]], dim=-3)
             fq, fa = behz_prep32(polys, bz)
-            dq = tensor_product(fq, ring)
-            da = tensor_product(fa, ra)
             # two to_mont added two R, the product's mont_mul removed one:
-            # strip the remaining R
-            dq = ntt_mod.intt(_u.from_mont(dq, ring.q, ring.pinv), ring)
-            da = ntt_mod.intt(_u.from_mont(da, ra.q, ra.pinv), ra)
-            return Ciphertext(data=bz.scale_and_back(dq, da), level=level)
+            # kernel B4 strips the remaining R, inverts both NTTs and scales
+            return Ciphertext(data=behz_finish32(tensor_product(fq, ring),
+                                                 tensor_product(fa, ra), bz), level=level)
         if isinstance(b, Plaintext):
             bz = self.behz(level)
             ra = bz.ring_aux
@@ -329,3 +331,88 @@ class BfvEngine:
         """BFV modulus switching: drop the last prime, round exactly."""
         rs = self.rescaler(ct.level)
         return Ciphertext(data=rs(ct.data), level=ct.level - 1, is_ntt=ct.is_ntt)
+
+    # ---- rotations ----
+    def apply_galois(self, ct: Ciphertext, galois_elt: int, glk, out_ntt: bool | None = None,
+                     out_mform: bool | None = None) -> Ciphertext:
+        """σ_g then key switch back to s, on any ciphertext form: NTT or
+        Montgomery inputs are brought to the coefficient domain first; the
+        output form defaults to the input's and can be forced."""
+        level = ct.level
+        ring = self.ring(level)
+        out_ntt = ct.is_ntt if out_ntt is None else out_ntt
+        out_mform = ct.is_mform if out_mform is None else out_mform
+        data = ct.data
+        if ct.is_mform:
+            data = _u.from_mont(data, ring.q, ring.pinv)
+        if ct.is_ntt:
+            data = ntt_mod.intt(data.contiguous(), ring)
+        c0 = apply_automorphism_coeff(data[..., 0, :, :], ring.q, self.n, galois_elt)
+        c1 = apply_automorphism_coeff(data[..., 1, :, :], ring.q, self.n, galois_elt)
+        e0, e1 = self.switcher.switch(c1, glk, level)
+        out = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
+        if out_ntt:
+            out = ntt_mod.ntt(out, ring)
+        if out_mform:
+            out = _u.to_mont(out, ring.q, ring.pinv, ring.r2)
+        return Ciphertext(data=out, level=level, is_ntt=out_ntt, is_mform=out_mform)
+
+    def rns_sp_decomp(self, ct: Ciphertext) -> DecomposedCiphertext:
+        """Pay the digit decomposition + mod-up + NTT of c1 once; every later
+        rotation of this ciphertext shares it (hoisting)."""
+        if ct.is_ntt:
+            raise ValueError('rns_sp_decomp takes a coefficient-domain ciphertext')
+        digits = self.switcher.decompose_modup_ntt(ct.data[..., 1, :, :], ct.level)
+        return DecomposedCiphertext(c0=ct.data[..., 0, :, :], digits=digits, level=ct.level)
+
+    def apply_galois_decomposed(self, dct: DecomposedCiphertext, galois_elt: int, glk,
+                                out_ntt: bool = False, out_mform: bool = False) -> Ciphertext:
+        """Hoisted rotation: σ_g commutes with the RNS digit decomposition, so
+        it permutes the precomputed NTT-domain digits directly."""
+        level = dct.level
+        ring = self.ring(level)
+        c0 = apply_automorphism_coeff(dct.c0, ring.q, self.n, galois_elt)
+        digits = apply_automorphism_ntt(dct.digits, self.n, galois_elt)
+        e0, e1 = self.switcher.switch_from_digits(digits, glk, level, output_ntt=out_ntt)
+        if out_ntt:
+            c0 = ntt_mod.ntt(c0, ring)
+        data = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
+        if out_mform:
+            data = _u.to_mont(data, ring.q, ring.pinv, ring.r2)
+        return Ciphertext(data=data, level=level, is_ntt=out_ntt, is_mform=out_mform)
+
+    def rotate_cols(self, ct: Ciphertext, step: int, glk) -> Ciphertext:
+        return self.apply_galois(ct, galois_elt_col(step, self.n), glk)
+
+    def rotate_rows(self, ct: Ciphertext, glk) -> Ciphertext:
+        return self.apply_galois(ct, galois_elt_row(self.n), glk)
+
+    # ---- ciphertext form conversions ----
+    def to_ntt(self, ct: Ciphertext) -> Ciphertext:
+        if ct.is_ntt:
+            raise ValueError('to_ntt: ciphertext is already in the NTT domain')
+        ring = self.ring(ct.level)
+        return Ciphertext(data=ntt_mod.ntt(ct.data.contiguous(), ring), level=ct.level,
+                          is_ntt=True, is_mform=ct.is_mform)
+
+    def to_inv_ntt(self, ct: Ciphertext) -> Ciphertext:
+        if not ct.is_ntt:
+            raise ValueError('to_inv_ntt: ciphertext is in the coefficient domain')
+        ring = self.ring(ct.level)
+        return Ciphertext(data=ntt_mod.intt(ct.data.contiguous(), ring), level=ct.level,
+                          is_ntt=False, is_mform=ct.is_mform)
+
+    def to_mf(self, ct: Ciphertext) -> Ciphertext:
+        if ct.is_mform:
+            raise ValueError('to_mf: ciphertext is already in Montgomery form')
+        ring = self.ring(ct.level)
+        return Ciphertext(data=_u.to_mont(ct.data, ring.q, ring.pinv, ring.r2),
+                          level=ct.level, is_ntt=ct.is_ntt, is_mform=True)
+
+    def to_mul(self, ct: Ciphertext) -> Ciphertext:
+        """coefficient → NTT + Montgomery ("mul" form) in one pass."""
+        if ct.is_ntt or ct.is_mform:
+            raise ValueError('to_mul takes a coefficient-domain, non-Montgomery ciphertext')
+        ring = self.ring(ct.level)
+        return Ciphertext(data=ntt32_fwd(ct.data.contiguous(), ring, to_mont=True),
+                          level=ct.level, is_ntt=True, is_mform=True)

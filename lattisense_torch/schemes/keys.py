@@ -1,9 +1,9 @@
 """Key generation for BFV: NumPy sampling, tensor arithmetic.
 
-Port of ``lattisense_tpu/schemes/keys.py`` (without Galois keys). Every
-random draw goes through the same sampler calls, in the same order, as the
-reference, on a ``utils.csprng.CryptoRng``: the same seed gives the same
-secret, public and relinearization keys. Samples become int64 tensors on the
+Port of ``lattisense_tpu/schemes/keys.py``. Every random draw goes through
+the same sampler calls, in the same order, as the reference, on a
+``utils.csprng.CryptoRng``: the same seed gives the same secret, public,
+relinearization and Galois keys. Samples become int64 tensors on the
 target device only after sampling; the NTTs and modular products then run
 there (kernel B1 on the card).
 
@@ -21,6 +21,7 @@ import torch
 from ..core import ntt as ntt_mod
 from ..core import u64 as _u
 from ..core.modring import get_rns_ring
+from .galois import apply_automorphism_coeff
 from .types import KeySwitchKey, PublicKey
 
 SIGMA = 3.2
@@ -135,3 +136,13 @@ def gen_relin_key(rng, sk: SecretKey, q_moduli, p_moduli, n: int, device) -> Key
         s = sk.ntt_form(moduli, n, device)
         return _u.mulmod(s, s, ring.q, ring.pinv, ring.r2)
     return gen_keyswitch_key(rng, sk, s2_ntt, q_moduli, p_moduli, n, device)
+
+
+def gen_galois_key(rng, sk: SecretKey, galois_elt: int, q_moduli, p_moduli, n: int,
+                   device) -> KeySwitchKey:
+    """Galois key for element g: s' = σ_g(s)."""
+    def sg_ntt(moduli):
+        ring = get_rns_ring(moduli, n, device)
+        s_rns = as_tensor(lift_signed(sk.coeffs, moduli), device)
+        return ntt_mod.ntt(apply_automorphism_coeff(s_rns, ring.q, n, galois_elt), ring)
+    return gen_keyswitch_key(rng, sk, sg_ntt, q_moduli, p_moduli, n, device)

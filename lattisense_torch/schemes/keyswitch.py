@@ -9,6 +9,10 @@ e0 + e1·s ≈ x·s' by:
 3. NTT, inner product with the Montgomery-form key digits, accumulate,
 4. INTT and divide-and-round by P (``RoundDivP``).
 
+``switch`` is kernel B3 (``ops/ksw_cuda.py`` ``ksw_switch32``) on a CUDA
+tensor; ``switch_plain`` is the plain composition above, B3's twin, which a
+CPU tensor runs. ``decompose_modup_ntt`` and ``switch_from_digits`` stay
+plain PyTorch around kernel B1: the hoisted rotations call them apart.
 Leading batch dimensions pass through every step.
 """
 
@@ -20,6 +24,7 @@ from ..core import ntt as ntt_mod
 from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, _col, _mont, _pinv, _shoup
+from ..ops.ksw_cuda import ksw_switch32
 
 
 class RoundDivP:
@@ -109,9 +114,10 @@ class KeySwitcher:
         self._pre[level] = pre
         return pre
 
-    def decompose_modup_ntt(self, x, level: int):
+    def decompose_modup_ntt(self, x, level: int, ntt=ntt_mod.ntt):
         """Digit-decompose + mod-up + NTT: x (..., L, n) coefficient domain →
-        (..., β, T, n) in the NTT domain over Q_ℓ∪P."""
+        (..., β, T, n) in the NTT domain over Q_ℓ∪P. ``ntt`` is the forward
+        transform used (kernel B1 on a CUDA tensor by default)."""
         ring_qp, qhat_inv, qhat_inv_shoup, src_q, qhat_conv, _ = self._level_pre(level)
         L = level + 1
         alpha, beta = self.alpha, self.beta(level)
@@ -126,7 +132,7 @@ class KeySwitcher:
         for j in range(alpha):
             term = _u.mont_mul(y[..., :, j:j + 1, :], qhat_conv[:, :, j:j + 1], qp, qp_pinv)
             acc = term if acc is None else acc + term
-        return ntt_mod.ntt(torch.remainder(acc, qp), ring_qp)
+        return ntt(torch.remainder(acc, qp), ring_qp)
 
     def inner_product(self, digits_ntt, ksk, level: int):
         """Σ_d digit_d ⊙ key_d over Q_ℓ∪P (NTT domain) → (..., 2, T, n).
@@ -142,19 +148,27 @@ class KeySwitcher:
             acc = term if acc is None else acc + term
         return torch.remainder(acc, ring_qp.q)
 
-    def switch_from_digits(self, digits, ksk, level: int, output_ntt: bool = False):
+    def switch_from_digits(self, digits, ksk, level: int, output_ntt: bool = False,
+                           ntt=ntt_mod.ntt, intt=ntt_mod.intt):
         """Gadget product + mod-down from NTT-domain digits (..., β, T, n).
         Both key components go through one INTT of the (..., 2, T, n) stack."""
         pre = self._level_pre(level)
         ring_qp, round_div = pre[0], pre[5]
         L = level + 1
-        c = ntt_mod.intt(self.inner_product(digits, ksk, level), ring_qp)
+        c = intt(self.inner_product(digits, ksk, level), ring_qp)
         e = round_div(c[..., :L, :], c[..., L:, :])                       # (..., 2, L, n)
         if output_ntt:
-            e = ntt_mod.ntt(e, get_rns_ring(self.q_moduli[:L], self.n, self.device))
+            e = ntt(e, get_rns_ring(self.q_moduli[:L], self.n, self.device))
         return e[..., 0, :, :], e[..., 1, :, :]
 
     def switch(self, x, ksk, level: int, output_ntt: bool = False):
-        """Full key switch of coefficient-domain x (..., L, n) → (e0, e1) over Q_ℓ."""
-        digits = self.decompose_modup_ntt(x, level)
-        return self.switch_from_digits(digits, ksk, level, output_ntt)
+        """Full key switch of coefficient-domain x (..., L, n) → (e0, e1) over
+        Q_ℓ: kernel B3 on a CUDA tensor, ``switch_plain`` on a CPU one."""
+        return ksw_switch32(x, ksk, self, level, output_ntt)
+
+    def switch_plain(self, x, ksk, level: int, output_ntt: bool = False):
+        """The plain composition of ``switch`` (kernel B3's twin), plain
+        PyTorch throughout, its NTTs included, on any device."""
+        digits = self.decompose_modup_ntt(x, level, ntt=ntt_mod.ntt_plain)
+        return self.switch_from_digits(digits, ksk, level, output_ntt,
+                                       ntt=ntt_mod.ntt_plain, intt=ntt_mod.intt_plain)

@@ -5,7 +5,7 @@ the JAX pytree registration and without the CKKS scale. A ciphertext's
 ``data`` may carry leading batch dimensions: (B, degree+1, L, n).
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -31,10 +31,25 @@ class Ciphertext:
     data: Any                 # (..., degree+1, L, n)
     level: int
     is_ntt: bool = False
+    is_mform: bool = False
 
     @property
     def degree(self) -> int:
         return self.data.shape[-3] - 1
+
+
+@dataclass
+class DecomposedCiphertext:
+    """A ciphertext whose c1 is already digit-decomposed, mod-upped and in the
+    NTT domain, for hoisted rotations: the expensive half of every key switch
+    is paid once and shared by all rotations of this ciphertext."""
+    c0: Any                   # (..., L, n), coefficient domain
+    digits: Any               # (..., β, L+|P|, n), NTT domain over Q_ℓ ∪ P
+    level: int
+    is_ntt: bool = False      # domain of c0
+    is_mform: bool = False
+
+    degree = 1
 
 
 @dataclass
@@ -49,3 +64,8 @@ class KeySwitchKey:
 @dataclass
 class PublicKey:
     data: Any                 # (2, Lq_full, n), NTT domain
+
+
+@dataclass
+class GaloisKeys:
+    keys: dict = field(default_factory=dict)   # galois element -> KeySwitchKey

@@ -80,11 +80,14 @@ def test_b1_wrapper_rejects_bad_input():
         ntt_cuda.ntt32_inv(torch.zeros((3, n), dtype=torch.int64), ring)
     with pytest.raises(ValueError):
         ntt_cuda.ntt32_fwd(torch.zeros((2, n // 2), dtype=torch.int64), ring)
+    before = dict(ntt_cuda.launches)
     with pytest.raises(ValueError):
         ntt_cuda.launch(x, torch.empty_like(x), ring, inverse=False)   # CPU tensors
-    before = dict(ntt_cuda.launches)
+    with pytest.raises(ValueError):
+        ntt_cuda.launch(x, torch.empty_like(x), ring, inverse=True, from_mont=True)
     ntt_cuda.ntt32_fwd(x, ring)
-    assert ntt_cuda.launches == before            # the plain twin counts nothing
+    ntt_cuda.ntt32_inv(x, ring)
+    assert ntt_cuda.launches == before     # the count is taken in launch, the twins count nothing
 
 
 # ---------------------------------------------------------------------------
