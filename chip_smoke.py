@@ -6,11 +6,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Set-up: builds the CUDA kernels from ``lattisense_torch/csrc`` (one nvcc
    per source, all started together) and prints the toolchain, the card and
    each kernel's ptxas report.
-2. Kernels: calls each kernel wrapper (``ntt32_fwd``, ``ntt32_inv``,
-   ``behz_prep32``, ``ksw_switch32``, ``behz_finish32``) on the card at the
-   shapes the main path gives it, holds the result bit for bit against the
-   plain PyTorch twin run on a CPU copy, and times kernel and twin on the
-   card with CUDA events.
+2. Kernels: calls each kernel wrapper on the card at the shapes its path
+   gives it, holds the result bit for bit against the plain PyTorch twin run
+   on a CPU copy, and times kernel and twin on the card with CUDA events:
+   the 32-bit word's ``ntt32_fwd``, ``ntt32_inv``, ``behz_prep32``,
+   ``ksw_switch32``, ``behz_finish32`` and the B1-r4 / perm entries
+   (``ntt32_fwd_r4``, ``ntt32_inv_r4``, ``ntt32_fwd_perm``,
+   ``ntt32_inv_perm``), and the 64-bit word's ``ntt64_fwd``, ``ntt64_inv``
+   (B5), ``bconv64_convert``, ``bconv64_raw`` (B6) and ``ksw_inner64`` (B7).
 3. Main path: the batched BFV mult_relin at the headline configuration
    (``BfvParams.create_tpu_param(16384)``, level 7, batch 32): every output
    must decrypt to a·b mod t slot-wise, element 0 must equal the port's plain
@@ -21,12 +24,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    of the slot vector rolled by -1, element 0 must equal the port's CPU path
    bit for bit, and the key switch's count, reset just before the run, must
    have risen.
+5. u64 path: the batched BFV mult_relin on the u64 conformance chain
+   (``BfvParams.create(16384)``, level 3, batch 32), checked as in 3; the
+   counts of B5, B6 and B7 must have risen and the 32-bit kernels' must not.
+6. u64 rotate path: the batched rotate_col by 1 on the u64 context, checked
+   as in 4 and 5.
 
-Prints a ``{"kernels": [...]}`` line, a ``{"main_path": {...}}`` line, a
-``{"rotate_path": {...}}`` line, the card's name and power limit as
-nvidia-smi reports them, and as its last line ``{"ok": true, "device":
-{...}}``. Any failure raises and exits non-zero; without a CUDA card, or
-without the package beside it, it exits 2 and prints no result.
+Prints a line for each path (``main_path``, ``rotate_path``, ``u64_path``,
+``u64_rotate_path``), a ``{"kernels": [...]}`` line, the card's name and
+power limit as nvidia-smi reports them, and as its last line ``{"ok": true,
+"device": {...}}``. Any failure raises and exits non-zero; without a CUDA
+card, or without the package beside it, it exits 2 and prints no result.
 """
 
 import json
@@ -39,6 +47,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N = 16384
 LEVEL = 7
+LEVEL64 = 3            # the u64 chain's benchmark level (4 limbs, logQ 223)
 BATCH = 32
 WARMUP = 3
 ITERS = 20
@@ -57,6 +66,15 @@ PEAK_OPS_S = 67e12
 # select).
 OPS_SHOUP, OPS_ADDSUB, OPS_MONT = 6, 3, 8
 OPS_BUTTERFLY = OPS_SHOUP + 2 * OPS_ADDSUB
+# The 64-bit word in the same 32-bit operations, from csrc/*64.cu built from
+# 32-bit halves: a 64x64 low product (a * b) is 4 (three 32-bit multiplies
+# and an add); a high product (__umul64hi) is 12 (four 32x32->64 partial
+# products at two each, four adds with carry); a 64-bit add, sub, compare or
+# select is 2. So a Shoup product is 12 + 4 + 4 + 2 (sub) + 2 + 2 = 26, a
+# modular add or sub 6, a Montgomery product 4 + 12 + 4 + 12 + 4 (the two
+# adds and the carry) + 4 (compare, select) = 40.
+OPS64_SHOUP, OPS64_ADDSUB, OPS64_MONT = 26, 6, 40
+OPS64_BUTTERFLY = OPS64_SHOUP + 2 * OPS64_ADDSUB
 
 
 def fail(msg: str) -> int:
@@ -134,6 +152,31 @@ def finish_work(polys: int, L: int, T: int, n: int) -> tuple[float, float]:
     return nbytes, float(ops)
 
 
+def ntt64_work(rows: int, limbs: int, n: int, inverse: bool) -> tuple[float, float]:
+    """Bytes and operations of one B5 call: int64 rows in and out, the limbs'
+    twiddle tables (value + companion, 64-bit) read once; log2(n) stages of
+    n/2 butterflies, plus the inverse's per-element n^-1."""
+    logn = n.bit_length() - 1
+    nbytes = 16.0 * rows * n + 16.0 * limbs * n
+    ops = rows * (n // 2 * logn * OPS64_BUTTERFLY + (n * OPS64_SHOUP if inverse else 0))
+    return nbytes, float(ops)
+
+
+def bconv64_work(rows: int, L: int, T: int, n: int) -> tuple[float, float]:
+    """Bytes and operations of one B6 call: L source rows read once, T
+    written once; per output L Montgomery products and L-1 modular adds."""
+    nbytes = 8.0 * rows * (L + T) * n
+    return nbytes, float(rows * n * T * (L * OPS64_MONT + (L - 1) * OPS64_ADDSUB))
+
+
+def ksw64_work(G: int, beta: int, T: int, n: int) -> tuple[float, float]:
+    """Bytes and operations of one B7 call: the digits and the key's β·2·T
+    rows read once, the (G, 2, T, n) product written once; per output β
+    Montgomery products and β-1 modular adds."""
+    nbytes = 8.0 * (G * beta * T + beta * 2 * T + G * 2 * T) * n
+    return nbytes, float(G * 2 * T * n * (beta * OPS64_MONT + (beta - 1) * OPS64_ADDSUB))
+
+
 def time_ms(torch, fn, iters: int) -> float:
     for _ in range(WARMUP):
         fn()
@@ -162,7 +205,8 @@ def main() -> int:
         return fail('lattisense_torch was imported from outside this checkout')
 
     from lattisense_torch.core.modring import get_rns_ring
-    from lattisense_torch.ops import behz_cuda, cuda_build, ksw_cuda, ntt_cuda
+    from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
+                                      ntt64_cuda, ntt_cuda)
     from lattisense_torch.params import BfvParams
     from lattisense_torch.parallel.batch import (bfv_mult_relin, key_tree, make_batched_step,
                                                  make_rotate_step)
@@ -171,7 +215,9 @@ def main() -> int:
     from lattisense_torch.schemes.galois import galois_elt_col
     from lattisense_torch.schemes.types import Ciphertext, KeySwitchKey
 
-    counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches)
+    counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
+              bconv_cuda.launches, ksw64_cuda.launches)
+    w32_kernels = [k for c in counts[:3] for k in c]
 
     def reset_counts():
         for c in counts:
@@ -186,10 +232,11 @@ def main() -> int:
     reports = cuda_build.build_all()
     build_s = time.perf_counter() - t0
     gpu = nvidia_smi()
+    name, power = (s.strip() for s in gpu.split(',', 1))
     dev = torch.device('cuda', torch.cuda.current_device())
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
-             for name, log in reports.items()}
+    ptxas = {lib: [ln.strip() for ln in log.splitlines()
+                   if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
+             for lib, log in reports.items()}
     print(json.dumps({'setup': {'torch': torch.__version__, 'cuda': torch.version.cuda,
                                 'nvcc': cuda_build.nvcc_path(), 'gpu': gpu,
                                 'build_s': round(build_s, 3), 'ptxas': ptxas}}), flush=True)
@@ -228,7 +275,8 @@ def main() -> int:
     fwd_calls = [('q', (BATCH, 4)), ('aux', (BATCH, 4)), ('qp', (BATCH, beta))]
     inv_calls = [('q', (BATCH, 3)), ('aux', (BATCH, 3)), ('qp', (BATCH, 2))]
 
-    def check_ntt(name, calls, kernel, plain):
+    def check_ntt(name, calls, kernel, plain, work):
+        """Each (ring, lead) call on the card against the twin on a CPU copy."""
         inputs, pairs = [], []
         for ring_name, lead in calls:
             rg, rc = rings[ring_name]
@@ -242,8 +290,8 @@ def main() -> int:
             inputs.append((x.to(dev), rg))
         ms = time_ms(torch, lambda: [kernel(x, r) for x, r in inputs], ITERS)
         plain_ms = time_ms(torch, lambda: [plain(x, r) for x, r in inputs], ITERS)
-        work = [ntt_work(x.numel() // N, len(r.moduli), N) for x, r in inputs]
-        bound_ms, bound_by = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        wk = [work(x.numel() // N, len(r.moduli), N) for x, r in inputs]
+        bound_ms, bound_by = bound(sum(w[0] for w in wk), sum(w[1] for w in wk))
         return {'shapes': [[list(x.shape), len(r.moduli)] for x, r in inputs],
                 'equal': True, 'max_abs_err': max_err(pairs), 'ms': ms, 'plain_ms': plain_ms,
                 'bound_ms': bound_ms, 'bound_by': bound_by}
@@ -251,14 +299,14 @@ def main() -> int:
     kernels = {
         'ntt32_fwd': dict(route='cuda', source='lattisense_torch/csrc/ntt32.cu',
                           replaces='lattisense_tpu/ops/ntt_pallas32.py:101',
-                          replaces_function='ntt_fused32 (_fwd_kernel)',
+                          replaces_function='ntt_fused32 (_fwd_kernel)', path='main_path',
                           **check_ntt('ntt32_fwd', fwd_calls, ntt_cuda.ntt32_fwd,
-                                      ntt_cuda.ntt_plain)),
+                                      ntt_cuda.ntt_plain, ntt_work)),
         'ntt32_inv': dict(route='cuda', source='lattisense_torch/csrc/ntt32.cu',
                           replaces='lattisense_tpu/ops/ntt_pallas32.py:173',
-                          replaces_function='intt_fused32 (_inv_kernel)',
+                          replaces_function='intt_fused32 (_inv_kernel)', path='main_path',
                           **check_ntt('ntt32_inv', inv_calls, ntt_cuda.ntt32_inv,
-                                      ntt_cuda.intt_plain)),
+                                      ntt_cuda.intt_plain, ntt_work)),
     }
 
     # B2 on the 4 input polynomials of each operation
@@ -273,7 +321,7 @@ def main() -> int:
     kernels['behz_prep32'] = dict(
         route='cuda', source='lattisense_torch/csrc/behz32.cu',
         replaces='lattisense_tpu/ops/behz_pallas32.py:55',
-        replaces_function='behz_prep32 (_k1_kernel)',
+        replaces_function='behz_prep32 (_k1_kernel)', path='main_path',
         shapes=[[list(x.shape), L, T]], equal=True,
         max_abs_err=max_err([(fq, want_fq), (fa, want_fa)]),
         ms=time_ms(torch, lambda: behz_cuda.behz_prep32(xg, bz_g), ITERS),
@@ -303,7 +351,7 @@ def main() -> int:
     kernels['ksw_switch32'] = dict(
         route='cuda', source='lattisense_torch/csrc/ksw32.cu',
         replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
-        replaces_function='ksw_switch32 (_ksw_kernel)',
+        replaces_function='ksw_switch32 (_ksw_kernel)', path='main_path',
         shapes=[{'x': list(x.shape), 'level': LEVEL, 'alpha': alpha, 'beta': beta,
                  'T': L + alpha, 'output_ntt': [False, True]},
                 {'x': list(x_low.shape), 'level': low, 'beta': sw_g.beta(low)}],
@@ -326,102 +374,247 @@ def main() -> int:
     kernels['behz_finish32'] = dict(
         route='cuda', source='lattisense_torch/csrc/behz32.cu',
         replaces='lattisense_tpu/ops/behz_pallas32.py:368',
-        replaces_function='behz_finish32 (_k3_kernel)',
+        replaces_function='behz_finish32 (_k3_kernel)', path='main_path',
         shapes=[[list(dq.shape), list(da.shape)]], equal=True,
         max_abs_err=max_err([(got, want)]),
         ms=time_ms(torch, lambda: behz_cuda.behz_finish32(dqg, dag, bz_g), ITERS),
         plain_ms=time_ms(torch, lambda: behz_cuda.behz_finish_plain(dqg, dag, bz_g), ITERS),
         bound_ms=bound_ms, bound_by=bound_by)
     del dq, da, dqg, dag, got, want
+
+    # B1-r4 and the perm entries at B1's forward / inverse shapes over q; on
+    # no path of this script (launches 0), each held against its twin
+    perm_twins = {
+        'ntt32_fwd_r4': (ntt_cuda.ntt32_fwd_r4, ntt_cuda.ntt_plain, 614,
+                         'ntt_fused32_r4 (_fwd_kernel4)'),
+        'ntt32_inv_r4': (ntt_cuda.ntt32_inv_r4, ntt_cuda.intt_plain, 666,
+                         'intt_fused32_r4 (_inv_kernel4)'),
+        'ntt32_fwd_perm': (ntt_cuda.ntt32_fwd_perm,
+                           lambda x, r: ntt_cuda.perm_layout(ntt_cuda.ntt_plain(x, r)),
+                           532, 'ntt_fused32_perm (_fwd_kernel, perm_out)'),
+        'ntt32_inv_perm': (ntt_cuda.ntt32_inv_perm,
+                           lambda x, r: ntt_cuda.intt_plain(ntt_cuda.unperm_layout(x), r),
+                           539, 'intt_fused32_perm (_inv_kernel, perm_in)'),
+    }
+    for kname, (kernel, plain, line, fn) in perm_twins.items():
+        calls = [('q', (BATCH, 4))] if 'fwd' in kname else [('q', (BATCH, 3))]
+        kernels[kname] = dict(route='cuda', source='lattisense_torch/csrc/ntt32.cu',
+                              replaces=f'lattisense_tpu/ops/ntt_pallas32.py:{line}',
+                              replaces_function=fn, path=None,
+                              **check_ntt(kname, calls, kernel, plain, ntt_work))
+
+    # ---- 2b. the 64-bit word's kernels at the u64 path's shapes -----------
+    params64 = BfvParams.create(N)
+    t1 = time.perf_counter()
+    ctx64 = BfvContext.create_random_context(params64, seed=SEED, device=dev)
+    keygen64_s = time.perf_counter() - t1
+    eng64_g, eng64_c = ctx64.engine, BfvEngine(params64, 'cpu')
+    bz64_g, bz64_c = eng64_g.behz(LEVEL64), eng64_c.behz(LEVEL64)
+    sw64_g, sw64_c = eng64_g.switcher, eng64_c.switcher
+    L64, T64 = LEVEL64 + 1, len(bz64_g.ring_aux.moduli)
+    alpha64, beta64 = sw64_g.alpha, sw64_g.beta(LEVEL64)
+    rings.update({
+        'q64': (bz64_g.ring_q, bz64_c.ring_q),
+        'aux64': (bz64_g.ring_aux, bz64_c.ring_aux),
+        'qp64': (sw64_g.ring_qp(LEVEL64), sw64_c.ring_qp(LEVEL64)),
+    })
+    # B5 forward: the 4 polynomials over q and over aux (mult), the β digits
+    # over q∪p (key switch); inverse: the 3 products over q and aux, the 2
+    # key components over q∪p
+    kernels['ntt64_fwd'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt64.cu',
+        replaces='lattisense_tpu/ops/ntt_pallas64f.py:48',
+        replaces_function='ntt_fused64 (_fwd_kernel); also ntt_pallas.py:134 ntt_fused',
+        path='u64_path',
+        **check_ntt('ntt64_fwd', [('q64', (BATCH, 4)), ('aux64', (BATCH, 4)),
+                                  ('qp64', (BATCH, beta64))],
+                    ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain,
+                    lambda r, lb, n: ntt64_work(r, lb, n, False)))
+    kernels['ntt64_inv'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt64.cu',
+        replaces='lattisense_tpu/ops/ntt_pallas64f.py:98',
+        replaces_function=('intt_fused64 (_inv_kernel); also ntt_pallas.py:471 '
+                           '_intt_fused_impl, ntt_pallas.py:745 intt_fused'),
+        path='u64_path',
+        **check_ntt('ntt64_inv', [('q64', (BATCH, 3)), ('aux64', (BATCH, 3)),
+                                  ('qp64', (BATCH, 2))],
+                    ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain,
+                    lambda r, lb, n: ntt64_work(r, lb, n, True)))
+
+    # B6 convert on the five conversions of the path: the BEHZ extension,
+    # scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q
+    rdp_g, rdp_c = sw64_g._level_pre(LEVEL64)[5], sw64_c._level_pre(LEVEL64)[5]
+    convs = [('extend', bz64_g.extend.conv, bz64_c.extend.conv, (BATCH, 4)),
+             ('scale_and_back', bz64_g.conv_q_to_aux, bz64_c.conv_q_to_aux, (BATCH, 3)),
+             ('shenoy', bz64_g.shenoy.conv, bz64_c.shenoy.conv, (BATCH, 3)),
+             ('round_div_p', rdp_g.conv, rdp_c.conv, (BATCH, 2))]
+    ins, pairs, shapes, wk = [], [], [], []
+    for cname, cg, cc, lead in convs:
+        y = cc.decompose(residues(cc.src, lead))
+        got = bconv_cuda.bconv64_convert(y.to(dev), cg)
+        torch.cuda.synchronize()
+        want = bconv_cuda.bconv64_plain(y, cc.qhat_dst_mont, cc.dst_q, cc.dst_pinv)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f'bconv64_convert differs from its plain twin ({cname})')
+        pairs.append((got, want))
+        ins.append((y.to(dev), cg))
+        shapes.append({cname: [list(y.shape), list(got.shape)]})
+        wk.append(bconv64_work(y.numel() // (len(cc.src) * N), len(cc.src), len(cc.dst), N))
+    bound_ms, bound_by = bound(sum(w[0] for w in wk), sum(w[1] for w in wk))
+    kernels['bconv64_convert'] = dict(
+        route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+        replaces_function='bconv_convert_fused (_bconv_kernel)', path='u64_path',
+        shapes=shapes, equal=True, max_abs_err=max_err(pairs),
+        ms=time_ms(torch, lambda: [bconv_cuda.bconv64_convert(y, c) for y, c in ins], ITERS),
+        plain_ms=time_ms(torch, lambda: [bconv_cuda.bconv64_plain(
+            y, c.qhat_dst_mont, c.dst_q, c.dst_pinv) for y, c in ins], ITERS),
+        bound_ms=bound_ms, bound_by=bound_by)
+    del ins, pairs
+
+    # B6 raw: the key switch's mod-up of all β digits in one launch
+    pre_g, pre_c = sw64_g._level_pre(LEVEL64), sw64_c._level_pre(LEVEL64)
+    rq_g, rq_c = rings['qp64']
+    y = residues(params64.q[:L64], (BATCH,)).reshape(BATCH, beta64, alpha64, N)
+    yg = y.to(dev)
+    got = bconv_cuda.bconv64_raw(yg, pre_g[4], rq_g.q, rq_g.pinv)
+    torch.cuda.synchronize()
+    want = bconv_cuda.bconv64_plain(y, pre_c[4], rq_c.q, rq_c.pinv)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError('bconv64_raw differs from its plain twin')
+    bound_ms, bound_by = bound(*bconv64_work(BATCH * beta64, alpha64, L64 + alpha64, N))
+    kernels['bconv64_raw'] = dict(
+        route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+        replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
+        path='u64_path', shapes=[[list(y.shape), list(got.shape)]], equal=True,
+        max_abs_err=max_err([(got, want)]),
+        ms=time_ms(torch, lambda: bconv_cuda.bconv64_raw(yg, pre_g[4], rq_g.q, rq_g.pinv),
+                   ITERS),
+        plain_ms=time_ms(torch, lambda: bconv_cuda.bconv64_plain(yg, pre_g[4], rq_g.q,
+                                                                 rq_g.pinv), ITERS),
+        bound_ms=bound_ms, bound_by=bound_by)
+    del y, yg, got, want
+
+    # B7: the relinearization key's inner product with (B, β, T, n) digits
+    rlk64_c = cpu_key(ctx64.rlk)
+    d = residues(rq_c.moduli, (BATCH, beta64))
+    dg = d.to(dev)
+    got = ksw64_cuda.ksw_inner64(dg, ctx64.rlk, LEVEL64, rq_g)
+    torch.cuda.synchronize()
+    want = ksw64_cuda.ksw_inner64_plain(d, rlk64_c, LEVEL64, rq_c)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError('ksw_inner64 differs from its plain twin')
+    bound_ms, bound_by = bound(*ksw64_work(BATCH, beta64, L64 + alpha64, N))
+    kernels['ksw_inner64'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ksw64.cu',
+        replaces='lattisense_tpu/ops/ksw_pallas.py:29',
+        replaces_function='ksw_inner_fused (_ksw_kernel)', path='u64_path',
+        shapes=[{'digits': list(d.shape), 'key_q': list(ctx64.rlk.key_q.shape),
+                 'key_p': list(ctx64.rlk.key_p.shape), 'out': list(got.shape)}],
+        equal=True, max_abs_err=max_err([(got, want)]),
+        ms=time_ms(torch, lambda: ksw64_cuda.ksw_inner64(dg, ctx64.rlk, LEVEL64, rq_g), ITERS),
+        plain_ms=time_ms(torch, lambda: ksw64_cuda.ksw_inner64_plain(dg, ctx64.rlk, LEVEL64,
+                                                                     rq_g), ITERS),
+        bound_ms=bound_ms, bound_by=bound_by)
+    del d, dg, got, want
     torch.cuda.empty_cache()
 
-    # ---- 3. the main path -------------------------------------------------
+    # ---- 3.-6. the paths --------------------------------------------------
+    half = N // 2
+
+    def run_path(label, c, eng_cpu, level, step_fn, n_inputs, keys, cpu_keys, msgs, expect,
+                 must_launch, must_not_launch, extra):
+        """Warm up, run once between a reset and a read of every count, time
+        the step, check decryption of every output and element 0 against the
+        port's plain path on the CPU, and print the path's line."""
+        t1 = time.perf_counter()
+        cts = [c.encrypt(c.encode(m, level)) for m in msgs]
+        encrypt_s = time.perf_counter() - t1
+        args = [torch.stack([ct.data for ct in cts[i * BATCH:(i + 1) * BATCH]])
+                for i in range(n_inputs)]
+        step = make_batched_step(c.engine, step_fn, level, n_inputs=n_inputs)
+        step(*args, keys)                                  # warm-up: tables, caches
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args, keys)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        missing = [k for k in must_launch if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f'the {label} launched no {missing}')
+        stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
+        if stray:
+            raise AssertionError(f'the {label} launched {stray}')
+        step_ms = time_ms(torch, lambda: step(*args, keys), MAIN_ITERS)
+        if out.shape != (BATCH, 2, level + 1, N):
+            raise AssertionError(f'{label} output shape {tuple(out.shape)}')
+        correct = all(np.array_equal(c.decrypt_decode(Ciphertext(data=out[i], level=level)),
+                                     expect(i)) for i in range(BATCH))
+        out_cpu = make_batched_step(eng_cpu, step_fn, level, n_inputs=n_inputs)(
+            *[a[:1].cpu() for a in args], cpu_keys)
+        bit_exact = torch.equal(out_cpu[0], out[0].cpu())
+        print(json.dumps({label: {
+            **extra, 'n': N, 'level': level, 'batch': BATCH, 'limbs': level + 1,
+            'correct': correct, 'bit_exact_vs_plain': bit_exact,
+            'ms_per_step': step_ms, 'ops_per_s': BATCH * 1e3 / step_ms,
+            'launches_per_step': launches, 'peak_mem_bytes': peak_mem,
+            'encrypt_s': encrypt_s, 'gpu': name, 'power_limit': power}}), flush=True)
+        if not (correct and bit_exact):
+            raise AssertionError(f'{label} correct={correct} bit_exact_vs_plain={bit_exact}')
+        return launches
+
+    path_launches = {}
     msgs = rng.integers(0, params.t, (2 * BATCH, N))
-    t1 = time.perf_counter()
-    cts = [ctx.encrypt(ctx.encode(m, LEVEL)) for m in msgs]
-    encrypt_s = time.perf_counter() - t1
-    a = torch.stack([c.data for c in cts[:BATCH]])
-    b = torch.stack([c.data for c in cts[BATCH:]])
-    keys = key_tree(ctx)
-    step = make_batched_step(ctx.engine, bfv_mult_relin, LEVEL)
-    step(a, b, keys)                                    # warm-up: tables, caches
-    torch.cuda.synchronize()
+    path_launches['main_path'] = run_path(
+        'main_path', ctx, eng_c, LEVEL, bfv_mult_relin, 2, key_tree(ctx), {'rlk': rlk_c}, msgs,
+        lambda i: (msgs[i] * msgs[BATCH + i]) % params.t,
+        [k for k, v in kernels.items() if v['path'] == 'main_path'], [],
+        {'op': 'mult_relin', 'aux_limbs': T, 'keygen_s': keygen_s})
 
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    out = step(a, b, keys)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    peak_mem = torch.cuda.max_memory_allocated()
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f'the main path launched no {missing}')
-
-    step_ms = time_ms(torch, lambda: step(a, b, keys), MAIN_ITERS)
-    if out.shape != (BATCH, 2, L, N):
-        raise AssertionError(f'main path output shape {tuple(out.shape)}')
-    want = (msgs[:BATCH] * msgs[BATCH:]) % params.t
-    correct = all(np.array_equal(ctx.decrypt_decode(Ciphertext(data=out[i], level=LEVEL)),
-                                 want[i]) for i in range(BATCH))
-    out_cpu = make_batched_step(eng_c, bfv_mult_relin, LEVEL)(a[:1].cpu(), b[:1].cpu(),
-                                                              {'rlk': rlk_c})
-    bit_exact = torch.equal(out_cpu[0], out[0].cpu())
-
-    for name, entry in kernels.items():
-        entry['launches'] = launches[name]
-        entry['library_ms'] = None
-    print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)
-    name, power = (s.strip() for s in gpu.split(',', 1))
-    print(json.dumps({'main_path': {
-        'n': N, 'level': LEVEL, 'batch': BATCH, 'limbs': L, 'aux_limbs': T,
-        'correct': correct, 'bit_exact_vs_plain': bit_exact,
-        'ms_per_step': step_ms, 'ops_per_s': BATCH * 1e3 / step_ms,
-        'launches_per_step': launches, 'peak_mem_bytes': peak_mem,
-        'keygen_s': keygen_s, 'encrypt_64_s': encrypt_s,
-        'gpu': name, 'power_limit': power}}), flush=True)
-    if not (correct and bit_exact):
-        raise AssertionError(f'main path correct={correct} bit_exact_vs_plain={bit_exact}')
-    del out, b
-
-    # ---- 4. the rotate path -----------------------------------------------
     elt = galois_elt_col(1, N)
     t1 = time.perf_counter()
     ctx.gen_galois_keys_for_elements([elt])
     galois_keygen_s = time.perf_counter() - t1
     rkeys = key_tree(ctx, galois_elts=[elt])
-    rot = make_batched_step(ctx.engine, make_rotate_step(elt), LEVEL, n_inputs=1)
-    rot(a, rkeys)                                       # warm-up
-    torch.cuda.synchronize()
 
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    rout = rot(a, rkeys)
-    torch.cuda.synchronize()
-    rlaunches = read_counts()
-    rpeak = torch.cuda.max_memory_allocated()
-    if rlaunches['ksw_switch32'] == 0:
-        raise AssertionError('the rotate path launched no ksw_switch32')
+    def rolled(m):
+        return np.concatenate([np.roll(m[:half], -1), np.roll(m[half:], -1)])
 
-    rot_ms = time_ms(torch, lambda: rot(a, rkeys), MAIN_ITERS)
-    if rout.shape != (BATCH, 2, L, N):
-        raise AssertionError(f'rotate path output shape {tuple(rout.shape)}')
-    half = N // 2
-    rcorrect = all(np.array_equal(
-        ctx.decrypt_decode(Ciphertext(data=rout[i], level=LEVEL)),
-        np.concatenate([np.roll(msgs[i][:half], -1), np.roll(msgs[i][half:], -1)]))
-        for i in range(BATCH))
-    rout_cpu = make_batched_step(eng_c, make_rotate_step(elt), LEVEL, n_inputs=1)(
-        a[:1].cpu(), {'glk': {elt: cpu_key(rkeys['glk'][elt])}})
-    rbit_exact = torch.equal(rout_cpu[0], rout[0].cpu())
-    print(json.dumps({'rotate_path': {
-        'op': 'rotate_col', 'step': 1, 'galois_elt': elt, 'n': N, 'level': LEVEL,
-        'batch': BATCH, 'correct': rcorrect, 'bit_exact_vs_plain': rbit_exact,
-        'ms_per_step': rot_ms, 'ops_per_s': BATCH * 1e3 / rot_ms,
-        'launches_per_step': rlaunches, 'peak_mem_bytes': rpeak,
-        'galois_keygen_s': galois_keygen_s, 'gpu': name, 'power_limit': power}}), flush=True)
-    if not (rcorrect and rbit_exact):
-        raise AssertionError(f'rotate path correct={rcorrect} bit_exact_vs_plain={rbit_exact}')
+    run_path('rotate_path', ctx, eng_c, LEVEL, make_rotate_step(elt), 1, rkeys,
+             {'glk': {elt: cpu_key(rkeys['glk'][elt])}}, msgs[:BATCH],
+             lambda i: rolled(msgs[i]), ['ksw_switch32'], [],
+             {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
+              'galois_keygen_s': galois_keygen_s})
+    del ctx, rkeys
+    torch.cuda.empty_cache()
 
+    u64_kernels = [k for k, v in kernels.items() if v['path'] == 'u64_path']
+    msgs64 = rng.integers(0, params64.t, (2 * BATCH, N))
+    path_launches['u64_path'] = run_path(
+        'u64_path', ctx64, eng64_c, LEVEL64, bfv_mult_relin, 2, key_tree(ctx64),
+        {'rlk': rlk64_c}, msgs64, lambda i: (msgs64[i] * msgs64[BATCH + i]) % params64.t,
+        u64_kernels, w32_kernels,
+        {'op': 'mult_relin', 'params': 'BfvParams.create(16384)', 'word_bits': 64,
+         'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})
+
+    t1 = time.perf_counter()
+    ctx64.gen_galois_keys_for_elements([elt])
+    galois_keygen64_s = time.perf_counter() - t1
+    rkeys64 = key_tree(ctx64, galois_elts=[elt])
+    run_path('u64_rotate_path', ctx64, eng64_c, LEVEL64, make_rotate_step(elt), 1, rkeys64,
+             {'glk': {elt: cpu_key(rkeys64['glk'][elt])}}, msgs64[:BATCH],
+             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels,
+             {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
+              'params': 'BfvParams.create(16384)', 'word_bits': 64,
+              'galois_keygen_s': galois_keygen64_s})
+
+    for kname, entry in kernels.items():
+        entry['launches'] = path_launches[entry['path']][kname] if entry['path'] else 0
+        entry['library_ms'] = None
+    print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

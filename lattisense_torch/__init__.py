@@ -2,9 +2,12 @@
 
 The JAX package stays the reference; this package computes the same values
 bit for bit. Residues travel as ``torch.int64`` tensors holding values in
-``[0, q)`` and follow the reference's 32-bit word conventions exactly
-(Montgomery R = 2^32, Shoup companions floor(w·2^32/q)), so every
-intermediate matches the JAX package's ``word_bits=32`` path.
+``[0, q)`` and follow the reference's word conventions exactly on both
+machine words (Montgomery R = 2^32 or 2^64, Shoup companions floor(w·R/q),
+64-bit constants held as int64 bit patterns), so every intermediate matches
+the JAX package's ``word_bits=32`` path (the 31-bit chains of
+``BfvParams.create_tpu_param``) and its ``word_bits=64`` path (the
+``parameter.json`` chains of ``BfvParams.create``).
 
 Plain PyTorch carries the code around the kernels. The hot kernels are CUDA
 C++ for Hopper (``csrc/``), built with ``nvcc`` at first use and bound through

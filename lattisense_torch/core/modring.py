@@ -1,24 +1,28 @@
 """Per-prime ring constants and NTT twiddle tables (host precompute).
 
-For each NTT-friendly 31-bit prime q (q ≡ 1 mod 2n) this builds, exactly
-and with the reference's conventions (``lattisense_tpu/core/modring.py`` at
-word_bits=32):
+For each NTT-friendly prime q (q ≡ 1 mod 2n) this builds, exactly and with
+the reference's conventions (``lattisense_tpu/core/modring.py``), for the
+machine word R = 2^word_bits (32 with q < 2^31, or 64 with q < 2^62):
 
-- Montgomery constants ``pinv`` = -q^-1 mod 2^32, ``r1`` = 2^32 mod q,
-  ``r2`` = 2^64 mod q, and n^-1 mod q;
+- Montgomery constants ``pinv`` = -q^-1 mod R, ``r1`` = R mod q,
+  ``r2`` = R^2 mod q, and n^-1 mod q;
 - the deterministic primitive 2n-th root ψ and the bit-reversed twiddle
   tables ``psi_rev[i] = ψ^brv(i)``, ``psi_inv_rev[i] = ψ^-brv(i)``, each with
-  its Shoup companion floor(w·2^32/q).
+  its Shoup companion floor(w·R/q).
 
-Powers are computed in NumPy int64: every product of two residues below 2^31
-fits. ``get_rns_ring`` stacks a chain's tables as int64 tensors on one device
-and caches them per (moduli, n, device).
+At the 32-bit word the powers are computed in NumPy int64 (every product of
+two residues below 2^31 fits); at the 64-bit word with Python integers.
+64-bit constants are kept as int64 bit patterns (``u64.to_s64``).
+``get_rns_ring`` stacks a chain's tables as int64 tensors on one device and
+caches them per (moduli, n, device, word_bits).
 """
 
 import functools
 
 import numpy as np
 import torch
+
+from . import u64 as _u
 
 _MR_BASES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
 
@@ -96,18 +100,36 @@ def _powers(base: int, n: int, q: int) -> np.ndarray:
     return out
 
 
-class PrimeRing:
-    """Constants and tables for Z_q[x]/(x^n+1) with one 31-bit prime q."""
+def _powers_int(base: int, n: int, q: int) -> list[int]:
+    """[base^0, ..., base^(n-1)] mod q with Python integers (any q)."""
+    out = [1] * n
+    for i in range(1, n):
+        out[i] = out[i - 1] * base % q
+    return out
 
-    def __init__(self, q: int, n: int):
-        if q >= (1 << 31):
-            raise ValueError(f'prime {q} too large for the 32-bit word')
+
+def _s64_array(vals) -> np.ndarray:
+    """Python integers in [0, 2^64) as an int64 array of the same bits."""
+    return np.array(vals, dtype=np.uint64).view(np.int64)
+
+
+class PrimeRing:
+    """Constants and tables for Z_q[x]/(x^n+1) with one prime q on the
+    ``word_bits`` machine word. Scalars are Python integers in [0, R);
+    tables are int64 arrays (64-bit Shoup companions as bit patterns)."""
+
+    def __init__(self, q: int, n: int, word_bits: int = 32):
+        if word_bits not in (32, 64):
+            raise ValueError(f'word_bits must be 32 or 64, got {word_bits}')
+        if q >= (1 << (word_bits - 2 if word_bits == 64 else 31)):
+            raise ValueError(f'prime {q} too large for the {word_bits}-bit word')
         self.q = q
         self.n = n
+        self.word_bits = word_bits
         self.logn = n.bit_length() - 1
         if 1 << self.logn != n:
             raise ValueError(f'n must be a power of two, got {n}')
-        R = 1 << 32
+        R = 1 << word_bits
         self.pinv = (-pow(q, -1, R)) % R
         self.r1 = R % q
         self.r2 = (R * R) % q
@@ -115,32 +137,46 @@ class PrimeRing:
         self.psi = find_primitive_2nth_root(q, n)
         self.psi_inv = pow(self.psi, -1, q)
         brv = bit_reverse_indices(self.logn)
-        self.psi_rev = _powers(self.psi, n, q)[brv]
-        self.psi_inv_rev = _powers(self.psi_inv, n, q)[brv]
-        self.psi_rev_shoup = (self.psi_rev << 32) // q
-        self.psi_inv_rev_shoup = (self.psi_inv_rev << 32) // q
-        self.n_inv_shoup = (self.n_inv << 32) // q
+        if word_bits == 32:
+            self.psi_rev = _powers(self.psi, n, q)[brv]
+            self.psi_inv_rev = _powers(self.psi_inv, n, q)[brv]
+            self.psi_rev_shoup = (self.psi_rev << 32) // q
+            self.psi_inv_rev_shoup = (self.psi_inv_rev << 32) // q
+        else:
+            fwd = _powers_int(self.psi, n, q)
+            inv = _powers_int(self.psi_inv, n, q)
+            fwd = [fwd[i] for i in brv.tolist()]
+            inv = [inv[i] for i in brv.tolist()]
+            self.psi_rev = np.array(fwd, dtype=np.int64)
+            self.psi_inv_rev = np.array(inv, dtype=np.int64)
+            self.psi_rev_shoup = _s64_array([(w << 64) // q for w in fwd])
+            self.psi_inv_rev_shoup = _s64_array([(w << 64) // q for w in inv])
+        self.n_inv_shoup = (self.n_inv << word_bits) // q
 
 
 @functools.lru_cache(maxsize=None)
-def get_prime_ring(q: int, n: int) -> PrimeRing:
-    return PrimeRing(q, n)
+def get_prime_ring(q: int, n: int, word_bits: int = 32) -> PrimeRing:
+    return PrimeRing(q, n, word_bits)
 
 
 class RnsRing:
     """Stacked per-limb constants of a modulus chain as int64 tensors on one
     device: columns (L, 1) and twiddle tables (L, n), broadcastable against
-    (..., L, n) coefficient stacks."""
+    (..., L, n) coefficient stacks. ``word`` is the arithmetic of the ring's
+    machine word (``u64.word(word_bits)``)."""
 
-    def __init__(self, moduli: tuple[int, ...], n: int, device: torch.device):
+    def __init__(self, moduli: tuple[int, ...], n: int, device: torch.device,
+                 word_bits: int = 32):
         self.moduli = tuple(int(m) for m in moduli)
         self.n = n
         self.device = device
-        rings = [get_prime_ring(q, n) for q in self.moduli]
+        self.word_bits = word_bits
+        self.word = _u.word(word_bits)
+        rings = [get_prime_ring(q, n, word_bits) for q in self.moduli]
         self.rings = rings
 
         def col(attr):
-            return torch.tensor([getattr(r, attr) for r in rings],
+            return torch.tensor([_u.to_s64(getattr(r, attr)) for r in rings],
                                 dtype=torch.int64, device=device).reshape(-1, 1)
 
         def table(attr):
@@ -158,11 +194,14 @@ class RnsRing:
         self.psi_inv_rev_shoup = table('psi_inv_rev_shoup')
 
 
-def get_rns_ring(moduli, n: int, device) -> RnsRing:
-    """The cached ring of ``moduli`` at degree ``n`` on ``device``."""
-    return _rns_ring(tuple(int(m) for m in moduli), int(n), torch.device(device))
+def get_rns_ring(moduli, n: int, device, word_bits: int = 32) -> RnsRing:
+    """The cached ring of ``moduli`` at degree ``n`` on ``device`` for the
+    ``word_bits`` machine word."""
+    return _rns_ring(tuple(int(m) for m in moduli), int(n), torch.device(device),
+                     int(word_bits))
 
 
 @functools.lru_cache(maxsize=None)
-def _rns_ring(moduli: tuple[int, ...], n: int, device: torch.device) -> RnsRing:
-    return RnsRing(moduli, n, device)
+def _rns_ring(moduli: tuple[int, ...], n: int, device: torch.device,
+              word_bits: int) -> RnsRing:
+    return RnsRing(moduli, n, device, word_bits)

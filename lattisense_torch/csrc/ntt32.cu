@@ -20,6 +20,13 @@
 //
 // Rows are laid out (rows, n) contiguous; row r uses limb r % limbs of the
 // tables, so any (..., L, n) stack is one launch.
+//
+// The perm entries (lattisense_tpu/ops/ntt_pallas32.py `ntt_fused32_perm` /
+// `intt_fused32_perm`) are the same transform with the forward output stored,
+// or the inverse input loaded, in the transposed tile layout: position
+// b * (n / 128) + a of a perm-layout row holds standard-order element a * 128 + b.
+// Only the row's load or store changes; its shared-memory side reads or
+// writes with a stride of 128 words (bank conflicts, off the main path).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,7 +50,9 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) 
   return a >= b ? a - b : a + q - b;
 }
 
-template <bool kInverse>
+constexpr int kLanes = 128;
+
+template <bool kInverse, bool kPerm>
 __global__ void __launch_bounds__(kThreads) ntt32_kernel(
     const int64_t* __restrict__ x, int64_t* __restrict__ y, int limbs, int logn,
     const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tws,
@@ -59,7 +68,14 @@ __global__ void __launch_bounds__(kThreads) ntt32_kernel(
   const uint32_t* ws = tws + static_cast<size_t>(limb) * n;
 
   const int64_t* xr = x + row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = static_cast<uint32_t>(xr[i]);
+  if (kPerm && kInverse) {
+    // perm position i = b * sub + a holds standard element a * 128 + b
+    const int sub = n / kLanes;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      s[(i % sub) * kLanes + i / sub] = static_cast<uint32_t>(xr[i]);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = static_cast<uint32_t>(xr[i]);
+  }
   __syncthreads();
 
   if (!kInverse) {
@@ -92,7 +108,13 @@ __global__ void __launch_bounds__(kThreads) ntt32_kernel(
   }
 
   int64_t* yr = y + row * n;
-  if (post != nullptr) {
+  if (kPerm && !kInverse) {
+    const int sub = n / kLanes;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint32_t v = s[(i % sub) * kLanes + i / sub];
+      yr[i] = post != nullptr ? shoup_mul(v, post[limb], posts[limb], q) : v;
+    }
+  } else if (post != nullptr) {
     const uint32_t pv = post[limb], pvs = posts[limb];
     for (int i = threadIdx.x; i < n; i += blockDim.x) yr[i] = shoup_mul(s[i], pv, pvs, q);
   } else {
@@ -100,18 +122,18 @@ __global__ void __launch_bounds__(kThreads) ntt32_kernel(
   }
 }
 
-template <bool kInverse>
+template <bool kInverse, bool kPerm = false>
 int launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const uint32_t* tw,
            const uint32_t* tws, const uint32_t* q, const uint32_t* post, const uint32_t* posts,
            cudaStream_t stream) {
   const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = cudaFuncSetAttribute(ntt32_kernel<kInverse>,
+  cudaError_t err = cudaFuncSetAttribute(ntt32_kernel<kInverse, kPerm>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = (1 << logn) / 2 < kThreads ? (1 << logn) / 2 : kThreads;
-  ntt32_kernel<kInverse><<<rows, threads, smem, stream>>>(x, y, limbs, logn, tw, tws, q, post,
-                                                          posts);
+  ntt32_kernel<kInverse, kPerm><<<rows, threads, smem, stream>>>(x, y, limbs, logn, tw, tws, q,
+                                                                 post, posts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -134,4 +156,22 @@ extern "C" int ntt32_inv_launch(const int64_t* x, int64_t* y, int rows, int limb
                                 void* stream) {
   return launch<true>(x, y, rows, limbs, logn, psi_inv_rev, psi_inv_rev_shoup, q, ninv, ninvs,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The forward transform with its output stored in the perm layout (n % 128 == 0).
+extern "C" int ntt32_fwd_perm_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
+                                     const uint32_t* psi_rev, const uint32_t* psi_rev_shoup,
+                                     const uint32_t* q, const uint32_t* post,
+                                     const uint32_t* posts, void* stream) {
+  return launch<false, true>(x, y, rows, limbs, logn, psi_rev, psi_rev_shoup, q, post, posts,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The inverse transform with its input loaded from the perm layout (n % 128 == 0).
+extern "C" int ntt32_inv_perm_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
+                                     const uint32_t* psi_inv_rev,
+                                     const uint32_t* psi_inv_rev_shoup, const uint32_t* q,
+                                     const uint32_t* ninv, const uint32_t* ninvs, void* stream) {
+  return launch<true, true>(x, y, rows, limbs, logn, psi_inv_rev, psi_inv_rev_shoup, q, ninv,
+                            ninvs, static_cast<cudaStream_t>(stream));
 }

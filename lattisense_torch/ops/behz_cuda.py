@@ -98,6 +98,7 @@ def _consts(bz):
 def behz_prep32(x, bz):
     """Fused BEHZ prep for an int64 (..., L, n) stack of coefficient-domain
     polynomials over ``bz.ring_q``: returns (fq (..., L, n), fa (..., T, n))."""
+    _u.require_word(bz, 32, 'behz_prep32')
     rq, ra = bz.ring_q, bz.ring_aux
     ntt_cuda.check_stack(x, rq)
     if not x.is_cuda:
@@ -175,6 +176,7 @@ def behz_finish32(dq, da, bz):
     """Fused BEHZ finish: dq (..., L, n) over ``bz.ring_q`` and da (..., T, n)
     over ``bz.ring_aux``, both NTT + Montgomery, with the same leading
     dimensions → (..., L, n) over Q in the coefficient domain."""
+    _u.require_word(bz, 32, 'behz_finish32')
     rq, ra = bz.ring_q, bz.ring_aux
     ntt_cuda.check_stack(dq, rq)
     ntt_cuda.check_stack(da, ra)

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import _shoup
 from . import cuda_build, ntt_cuda
@@ -88,6 +89,7 @@ def _consts(sw, level: int):
 
 
 def _check(x, ksk, sw, level: int):
+    _u.require_word(sw, 32, 'ksw_switch32')
     L = level + 1
     if not isinstance(x, torch.Tensor) or x.dtype != torch.int64:
         raise TypeError(f'expected an int64 tensor, got {getattr(x, "dtype", type(x))}')

@@ -12,8 +12,19 @@ round trip.
 ``ntt32_fwd`` / ``ntt32_inv`` take an int64 (..., L, n) stack of residues in
 [0, q) for the ring's L limbs. A CUDA tensor launches the kernel (or raises);
 a CPU tensor runs the plain PyTorch twin below, the radix-2 loops of
-``lattisense_tpu/core/ntt.py``. Output is canonical, so both are bit-exact
-with any correct NTT of the same tables.
+``lattisense_tpu/core/ntt.py`` (written for either word: kernel B5's twin
+uses them too). Output is canonical, so both are bit-exact with any correct
+NTT of the same tables.
+
+B1-r4 and the perm-layout entries. ``ntt32_fwd_r4`` / ``ntt32_inv_r4`` stand
+for ``ntt_pallas32.py`` ``ntt_fused32_r4`` / ``intt_fused32_r4``: the same
+transform with two butterfly levels merged per pass, a scheduling device of
+the TPU compiler with no meaning here, so they launch B1 itself.
+``ntt32_fwd_perm`` / ``ntt32_inv_perm`` stand for ``ntt_fused32_perm`` /
+``intt_fused32_perm``: B1 with its output stored (forward) or its input
+loaded (inverse) in the transposed tile layout of ``perm_layout``, where
+position b·(n/128)+a holds standard-order element a·128+b. Each counts its
+launches under its own name.
 """
 
 import ctypes
@@ -24,16 +35,20 @@ import torch
 from ..core import u64 as _u
 from . import cuda_build
 
-#: launches of each direction since the last reset, counted in ``launch``
-launches = {'ntt32_fwd': 0, 'ntt32_inv': 0}
+#: launches of each entry since the last reset, counted in ``launch``
+launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0,
+            'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'ntt32_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     'ntt32_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt32_fwd_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt32_inv_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 MAX_LOGN = 15          # the row lives in shared memory: 2^15 · 4 B = 128 KB
+LANES = 128            # the tile width of the perm layout
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +57,8 @@ MAX_LOGN = 15          # the row lives in shared memory: 2^15 · 4 B = 128 KB
 
 def ntt_plain(x, ring, to_mont: bool = False):
     """Forward negacyclic NTT, natural → bit-reversed order, optionally
-    followed by to-Montgomery (x·2^32 mod q)."""
+    followed by to-Montgomery (x·R mod q), on the ring's word."""
+    w = ring.word
     n = x.shape[-1]
     L = x.shape[-2]
     batch = x.shape[:-2]
@@ -54,16 +70,18 @@ def ntt_plain(x, ring, to_mont: bool = False):
         s = ring.psi_rev[:, m:2 * m].reshape(L, m, 1)
         s_sh = ring.psi_rev_shoup[:, m:2 * m].reshape(L, m, 1)
         u = xv[..., 0, :]
-        v = _u.shoup_mul(xv[..., 1, :], s, s_sh, q)
+        v = w.shoup_mul(xv[..., 1, :], s, s_sh, q)
         x = torch.stack([_u.addmod(u, v, q), _u.submod(u, v, q)], dim=-2).reshape(*batch, L, n)
         m *= 2
     if to_mont:
-        x = _u.to_mont(x, ring.q, ring.pinv, ring.r2)
+        x = w.to_mont(x, ring.q, ring.pinv, ring.r2)
     return x
 
 
 def intt_plain(x, ring):
-    """Inverse negacyclic NTT, bit-reversed → natural order, scaled by n^-1."""
+    """Inverse negacyclic NTT, bit-reversed → natural order, scaled by n^-1,
+    on the ring's word."""
+    w = ring.word
     n = x.shape[-1]
     L = x.shape[-2]
     batch = x.shape[:-2]
@@ -75,11 +93,24 @@ def intt_plain(x, ring):
         s_sh = ring.psi_inv_rev_shoup[:, m:2 * m].reshape(L, m, 1)
         u = xv[..., 0, :]
         v = xv[..., 1, :]
-        lo = _u.shoup_mul(_u.submod(u, v, q), s, s_sh, q)
+        lo = w.shoup_mul(_u.submod(u, v, q), s, s_sh, q)
         x = torch.stack([_u.addmod(u, v, q), lo], dim=-2).reshape(*batch, L, n)
         t *= 2
         m //= 2
-    return _u.shoup_mul(x, ring.n_inv, ring.n_inv_shoup, ring.q)
+    return w.shoup_mul(x, ring.n_inv, ring.n_inv_shoup, ring.q)
+
+
+def perm_layout(x):
+    """Standard bit-reversed order → the transposed tile layout (last axis):
+    ``lattisense_tpu/ops/ntt_pallas32.py`` ``perm_layout``."""
+    n = x.shape[-1]
+    return x.reshape(*x.shape[:-1], n // LANES, LANES).transpose(-1, -2).reshape(x.shape)
+
+
+def unperm_layout(x):
+    """The transposed tile layout → standard bit-reversed order (last axis)."""
+    n = x.shape[-1]
+    return x.reshape(*x.shape[:-1], LANES, n // LANES).transpose(-1, -2).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -127,16 +158,20 @@ def check_stack(x, ring):
         raise ValueError(f'tensor on {x.device}, ring tables on {ring.device}')
 
 
-def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = False):
+def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = False,
+           perm: bool = False, name: str | None = None):
     """Launch B1 on contiguous CUDA int64 stacks x → y (same shape) on the
-    current stream, and count the launch under its direction's name. Every
-    launch of the kernel goes through here, so kernels built on B1 (B2, B3,
-    B4) show in the count too.
+    current stream, and count the launch under ``name`` (by default its
+    direction's). Every launch of the kernel goes through here, so kernels
+    built on B1 (B2, B3, B4) show in the count too.
 
     ``to_mont`` (forward) multiplies the output by 2^32 mod q; ``from_mont``
     (inverse) folds a from-Montgomery of the input into the n^-1 scale: the
     transform is linear, so INTT(x·2^-32) = 2^-32·INTT(x), and the kernel's
-    per-limb epilogue multiplies by n^-1·2^-32 instead of n^-1."""
+    per-limb epilogue multiplies by n^-1·2^-32 instead of n^-1. ``perm``
+    stores the forward output, or loads the inverse input, in the perm
+    layout."""
+    _u.require_word(ring, 32, 'B1 (ntt32)')
     if not (x.is_cuda and y.is_cuda and x.is_contiguous() and y.is_contiguous()):
         raise ValueError('B1 takes contiguous CUDA tensors')
     if y.shape != x.shape or y.dtype != torch.int64:
@@ -146,17 +181,21 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     logn = ring.n.bit_length() - 1
     if not 1 <= logn <= MAX_LOGN:
         raise ValueError(f'B1 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
+    if perm and ring.n % LANES:
+        raise ValueError(f'the perm layout needs n divisible by {LANES}, got n={ring.n}')
     rows = x.numel() // ring.n
     if rows == 0:
         return
     lib = cuda_build.load('ntt32', _SIGNATURES)
     tabs = _tables(ring)
     if inverse:
-        fn, tw, tws = lib.ntt32_inv_launch, tabs['psi_inv_rev'], tabs['psi_inv_rev_shoup']
+        fn = lib.ntt32_inv_perm_launch if perm else lib.ntt32_inv_launch
+        tw, tws = tabs['psi_inv_rev'], tabs['psi_inv_rev_shoup']
         post, posts = ((tabs['n_inv_rinv'], tabs['n_inv_rinv_shoup']) if from_mont
                        else (tabs['n_inv'], tabs['n_inv_shoup']))
     else:
-        fn, tw, tws = lib.ntt32_fwd_launch, tabs['psi_rev'], tabs['psi_rev_shoup']
+        fn = lib.ntt32_fwd_perm_launch if perm else lib.ntt32_fwd_launch
+        tw, tws = tabs['psi_rev'], tabs['psi_rev_shoup']
         post, posts = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), rows, len(ring.moduli), logn,
@@ -167,7 +206,7 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     if err != 0:
         raise RuntimeError(f'ntt32 {"inverse" if inverse else "forward"} launch failed: '
                            f'cudaError_t {err}')
-    launches['ntt32_inv' if inverse else 'ntt32_fwd'] += 1
+    launches[name or ('ntt32_inv' if inverse else 'ntt32_fwd')] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +216,7 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
 def ntt32_fwd(x, ring, to_mont: bool = False):
     """Forward NTT of an int64 (..., L, n) stack over ``ring`` (bit-reversed
     output), with the optional to-Montgomery epilogue."""
+    _u.require_word(ring, 32, 'ntt32_fwd')
     check_stack(x, ring)
     if not x.is_cuda:
         return ntt_plain(x, ring, to_mont)
@@ -188,9 +228,49 @@ def ntt32_fwd(x, ring, to_mont: bool = False):
 def ntt32_inv(x, ring):
     """Inverse NTT of an int64 (..., L, n) stack over ``ring`` (bit-reversed
     input, natural output, scaled by n^-1)."""
+    _u.require_word(ring, 32, 'ntt32_inv')
     check_stack(x, ring)
     if not x.is_cuda:
         return intt_plain(x, ring)
     y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     launch(x, y, ring, inverse=True)
     return y
+
+
+def _entry(x, ring, inverse: bool, perm: bool, name: str):
+    _u.require_word(ring, 32, name)
+    check_stack(x, ring)
+    if perm and ring.n % LANES:
+        raise ValueError(f'{name} needs n divisible by {LANES}, got n={ring.n}')
+    if not x.is_cuda:
+        if inverse:
+            return intt_plain(unperm_layout(x) if perm else x, ring)
+        out = ntt_plain(x, ring)
+        return perm_layout(out) if perm else out
+    if not x.is_contiguous():
+        raise ValueError(f'{name} takes a contiguous tensor')
+    y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    launch(x, y, ring, inverse=inverse, perm=perm, name=name)
+    return y
+
+
+def ntt32_fwd_r4(x, ring):
+    """``ntt_fused32_r4``: the forward transform of ``ntt32_fwd`` (B1)."""
+    return _entry(x, ring, False, False, 'ntt32_fwd_r4')
+
+
+def ntt32_inv_r4(x, ring):
+    """``intt_fused32_r4``: the inverse transform of ``ntt32_inv`` (B1)."""
+    return _entry(x, ring, True, False, 'ntt32_inv_r4')
+
+
+def ntt32_fwd_perm(x, ring):
+    """``ntt_fused32_perm``: ``perm_layout(ntt32_fwd(x))``, the layout
+    written by the kernel's store."""
+    return _entry(x, ring, False, True, 'ntt32_fwd_perm')
+
+
+def ntt32_inv_perm(x, ring):
+    """``intt_fused32_perm``: ``ntt32_inv(unperm_layout(x))``, the layout
+    read by the kernel's load."""
+    return _entry(x, ring, True, True, 'ntt32_inv_perm')

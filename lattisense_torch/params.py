@@ -1,9 +1,11 @@
-"""BFV parameter sets for the 32-bit word engine.
+"""BFV parameter sets for both machine words.
 
-The default logQP budgets come from the canonical table ``parameter.json``
-(a byte-identical copy of ``lattisense_tpu/parameter.json``); the runtime
-re-cuts them into 31-bit NTT primes (``BfvParams.create_tpu_param``) and
-derives the auxiliary BEHZ basis for multiplication (``bfv_aux_basis``).
+The canonical table ``parameter.json`` (a byte-identical copy of
+``lattisense_tpu/parameter.json``) gives the u64 chains (``BfvParams.create``,
+primes up to 61 bits, ``word_bits=64``); the runtime also re-cuts their logQP
+budgets into 31-bit NTT primes (``BfvParams.create_tpu_param``,
+``word_bits=32``) and derives the auxiliary BEHZ basis for multiplication at
+either word (``bfv_aux_basis``).
 """
 
 import functools
@@ -33,14 +35,11 @@ def _recut31_capped(log_q: int, log_p: int) -> tuple[int, int]:
 
 class BfvParams:
     """BFV parameters: ring degree n, plaintext modulus t, q chain, special
-    primes p. Only ``word_bits=32`` (all primes < 2^31) is ported."""
+    primes p, and the machine word: ``word_bits=32`` (all primes < 2^31) or
+    64 (all primes < 2^62)."""
 
     def __init__(self, n: int, t: int, q: list[int], p: list[int],
                  word_bits: int = 32):
-        if int(word_bits) != 32:
-            raise NotImplementedError(
-                'lattisense_torch ports word_bits=32 only; the u64 word is the '
-                '"u64 word size" item of ROADMAP.md, queue 1')
         self.n = int(n)
         if self.n < 2 or self.n & (self.n - 1):
             raise ValueError(f'n must be a power of two, got {n}')
@@ -48,14 +47,24 @@ class BfvParams:
         self.q = [int(x) for x in q]
         self.p = [int(x) for x in p]
         self.max_level = len(self.q) - 1
-        self.word_bits = 32
-        if any(x >= (1 << 31) for x in self.q + self.p):
-            raise ValueError('word_bits=32 requires all primes < 2^31')
+        self.word_bits = int(word_bits)
+        if self.word_bits not in (32, 64):
+            raise ValueError(f'word_bits must be 32 or 64, got {word_bits}')
+        limit = 31 if self.word_bits == 32 else 62
+        if any(x >= (1 << limit) for x in self.q + self.p):
+            raise ValueError(f'word_bits={self.word_bits} requires all primes < 2^{limit}')
 
     @classmethod
     def create_custom(cls, n: int, t: int, q: list[int], p: list[int],
                       word_bits: int = 32) -> 'BfvParams':
         return cls(n, t, q, p, word_bits)
+
+    @classmethod
+    def create(cls, n: int, t: int | None = None) -> 'BfvParams':
+        """The canonical chain of ``parameter.json`` on the 64-bit word: the
+        same primes as ``lattisense_tpu.params.BfvParams.create``."""
+        entry = _load_table()['BFV'][str(n)]
+        return cls(n, t if t is not None else entry['t'], entry['q'], entry['p'], word_bits=64)
 
     @classmethod
     def create_tpu_param(cls, n: int, t: int | None = None) -> 'BfvParams':
@@ -79,11 +88,16 @@ class BfvParams:
 
 
 @functools.lru_cache(maxsize=None)
-def bfv_aux_basis(n: int, q: tuple[int, ...], p: tuple[int, ...]) -> tuple[tuple[int, ...], int]:
-    """Auxiliary basis (B, m_sk) for BEHZ multiplication: 31-bit NTT primes
-    distinct from q ∪ p, sized so every per-level prefix B_ℓ exceeds the
-    scaled tensor-product bound 8·t·n·Q_ℓ, plus one m_sk."""
+def bfv_aux_basis(n: int, q: tuple[int, ...], p: tuple[int, ...],
+                  word_bits: int = 32) -> tuple[tuple[int, ...], int]:
+    """Auxiliary basis (B, m_sk) for BEHZ multiplication: NTT primes at the
+    word's size (31 or 59 bits) distinct from q ∪ p, sized so every
+    per-level prefix B_ℓ exceeds the scaled tensor-product bound 8·t·n·Q_ℓ,
+    plus one m_sk (the reference's rule, ``lattisense_tpu/params.py``)."""
     from .core.modring import gen_ntt_primes
-    count = (sum(x.bit_length() for x in q) + 34) // 30 + 2
-    primes = gen_ntt_primes(n, 31, count, exclude=tuple(q) + tuple(p))
+    if word_bits == 64:
+        bit_size, count = 59, len(q) + 2
+    else:
+        bit_size, count = 31, (sum(x.bit_length() for x in q) + 34) // 30 + 2
+    primes = gen_ntt_primes(n, bit_size, count, exclude=tuple(q) + tuple(p))
     return tuple(primes[:-1]), primes[-1]

@@ -40,8 +40,9 @@ class BfvContext:
         ctx = cls(params, seed, device)
         q, p, n = tuple(params.q), tuple(params.p), params.n
         ctx.sk = K.SecretKey(K.sample_ternary(ctx.rng, n))
-        ctx.pk = K.gen_public_key(ctx.rng, ctx.sk, q, n, ctx.device)
-        ctx.rlk = K.gen_relin_key(ctx.rng, ctx.sk, q, p, n, ctx.device)
+        wb = params.word_bits
+        ctx.pk = K.gen_public_key(ctx.rng, ctx.sk, q, n, ctx.device, wb)
+        ctx.rlk = K.gen_relin_key(ctx.rng, ctx.sk, q, p, n, ctx.device, wb)
         return ctx
 
     @classmethod
@@ -50,7 +51,8 @@ class BfvContext:
         """A context holding existing keys given as arrays: ``sk`` the ternary
         secret coefficients (n,), ``pk`` (2, Lq, n), ``rlk_key_q``
         (β, 2, Lq, n) and ``rlk_key_p`` (β, 2, |P|, n), in the reference's
-        layouts and domains. Encryption uses a fresh CSPRNG."""
+        layouts and domains (residues of either word, uint64 arrays
+        included). Encryption uses a fresh CSPRNG."""
         ctx = cls(params, None, device)
         n, Lq = params.n, len(params.q)
         sk = np.asarray(sk, dtype=np.int64)
@@ -87,7 +89,7 @@ class BfvContext:
         for elt in galois_elements:
             if elt not in self.glk.keys:
                 self.glk.keys[elt] = K.gen_galois_key(self.rng, self.sk, elt, q, p, n,
-                                                      self.device)
+                                                      self.device, self.params.word_bits)
 
     def gen_rotation_keys_for_rotations(self, rotations, swap_rows: bool = False, level=None):
         """Galois keys for the NAF power-of-two sub-rotations of each step,

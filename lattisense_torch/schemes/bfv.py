@@ -1,13 +1,19 @@
 """BFV scheme engine on tensors: encode/encrypt/decrypt and evaluation ops.
 
-Port of ``lattisense_tpu/schemes/bfv.py`` at word_bits=32. Multiplication is
-the integer-only BEHZ RNS algorithm: exact-extend both ciphertexts
-Q_ℓ → B_ℓ ∪ m_sk, NTT tensor product over Q_ℓ and the auxiliary basis, scale
-by t/Q_ℓ, exact Shenoy–Kumaresan conversion back to Q_ℓ. The extension and
-the forward NTTs are kernel B2, the inverse NTTs and the scale-back kernel
-B4 (``ops/behz_cuda.py``); key switching (relinearization, rotations) is
-kernel B3 (``ops/ksw_cuda.py``); every NTT is kernel B1
-(``ops/ntt_cuda.py``); the rest is plain PyTorch on the engine's device.
+Port of ``lattisense_tpu/schemes/bfv.py`` for both machine words (the
+parameter set's ``word_bits``). Multiplication is the integer-only BEHZ RNS
+algorithm: exact-extend both ciphertexts Q_ℓ → B_ℓ ∪ m_sk, NTT tensor
+product over Q_ℓ and the auxiliary basis, scale by t/Q_ℓ, exact
+Shenoy–Kumaresan conversion back to Q_ℓ.
+
+At the 32-bit word the extension and the forward NTTs are kernel B2, the
+inverse NTTs and the scale-back kernel B4 (``ops/behz_cuda.py``); key
+switching (relinearization, rotations) is kernel B3 (``ops/ksw_cuda.py``);
+every NTT is kernel B1 (``ops/ntt_cuda.py``). At the 64-bit word the
+multiply follows the reference's composition: every FastBConv (extension,
+``scale_and_back``) is kernel B6 (``ops/bconv_cuda.py``), every NTT kernel
+B5 (``ops/ntt64_cuda.py``) and key switching B6, B5 and B7
+(``schemes/keyswitch.py``). The rest is plain PyTorch on the engine's device.
 
 Host work (sampling, big-integer CRT in ``decrypt``) runs in NumPy; the
 evaluation ops take and return ``Ciphertext`` objects whose data may carry
@@ -25,6 +31,7 @@ from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, DivRoundLast, ExactExtend, ShenoyConvert, _col, _mont
 from ..ops.behz_cuda import behz_finish32, behz_prep32
+from ..ops.ntt64_cuda import ntt64_fwd, ntt64_inv
 from ..ops.ntt_cuda import ntt32_fwd
 from ..params import BfvParams, bfv_aux_basis
 from .encoding import bfv_decode_slots, bfv_encode_slots
@@ -38,17 +45,20 @@ from .types import Ciphertext, DecomposedCiphertext, Plaintext, PlaintextMul, Pl
 def tensor_product(f, ring):
     """(d0, d1, d2) = (a0·b0, a0·b1 + a1·b0, a1·b1) stacked on dim -3, for
     f = (a0, a1, b0, b1) on dim -3 in NTT + Montgomery form over ``ring``."""
-    q, pinv = ring.q, ring.pinv
+    q, pinv, mont_mul = ring.q, ring.pinv, ring.word.mont_mul
     f0, f1, f2, f3 = (f[..., i, :, :] for i in range(4))
-    d1 = _u.addmod(_u.mont_mul(f0, f3, q, pinv), _u.mont_mul(f1, f2, q, pinv), q)
-    return torch.stack([_u.mont_mul(f0, f2, q, pinv), d1, _u.mont_mul(f1, f3, q, pinv)], dim=-3)
+    d1 = _u.addmod(mont_mul(f0, f3, q, pinv), mont_mul(f1, f2, q, pinv), q)
+    return torch.stack([mont_mul(f0, f2, q, pinv), d1, mont_mul(f1, f3, q, pinv)], dim=-3)
 
 
 class BehzMult:
     """Per-level constants for BEHZ multiplication on one device."""
 
     def __init__(self, q: tuple[int, ...], aux: tuple[int, ...], m_sk: int,
-                 t: int, n: int, device):
+                 t: int, n: int, device, word_bits: int = 32):
+        wb = word_bits
+        self.word_bits = wb
+        self.word = _u.word(wb)
         Q = math.prod(q)
         # the shortest aux prefix whose product clears the tensor bound
         # 8·t·n·Q (Shenoy needs ω < B)
@@ -66,22 +76,22 @@ class BehzMult:
         self.m_sk = m_sk
         self.t = t
         dst = b + (m_sk,)
-        self.extend = ExactExtend(q, dst, device)
-        self.ring_q = get_rns_ring(q, n, device)
-        self.ring_aux = get_rns_ring(dst, n, device)
-        self.shenoy = ShenoyConvert(b, m_sk, q, device)
-        self.conv_q_to_aux = BasisConv(q, dst, device)
-        self.t_mont_q = _col([_mont(t % qi, qi) for qi in q], device)
-        self.t_mont_aux = _col([_mont(t % d, d) for d in dst], device)
-        self.qinv_mont_aux = _col([_mont(pow(Q % d, -1, d), d) for d in dst], device)
+        self.extend = ExactExtend(q, dst, device, wb)
+        self.ring_q = get_rns_ring(q, n, device, wb)
+        self.ring_aux = get_rns_ring(dst, n, device, wb)
+        self.shenoy = ShenoyConvert(b, m_sk, q, device, wb)
+        self.conv_q_to_aux = BasisConv(q, dst, device, wb)
+        self.t_mont_q = _col([_mont(t % qi, qi, wb) for qi in q], device)
+        self.t_mont_aux = _col([_mont(t % d, d, wb) for d in dst], device)
+        self.qinv_mont_aux = _col([_mont(pow(Q % d, -1, d), d, wb) for d in dst], device)
 
     def scale_and_back(self, d_q, d_aux):
         """round-ish(t/Q · X) mod Q for X given over Q (d_q) and B∪m_sk (d_aux)."""
-        rq, ra = self.ring_q, self.ring_aux
-        u = _u.mont_mul(d_q, self.t_mont_q, rq.q, rq.pinv)               # [tX]_Q
+        rq, ra, mont_mul = self.ring_q, self.ring_aux, self.word.mont_mul
+        u = mont_mul(d_q, self.t_mont_q, rq.q, rq.pinv)                  # [tX]_Q
         v = self.conv_q_to_aux(u)                                        # + α'Q
-        td = _u.mont_mul(d_aux, self.t_mont_aux, ra.q, ra.pinv)
-        w = _u.mont_mul(_u.submod(td, v, ra.q), self.qinv_mont_aux, ra.q, ra.pinv)
+        td = mont_mul(d_aux, self.t_mont_aux, ra.q, ra.pinv)
+        w = mont_mul(_u.submod(td, v, ra.q), self.qinv_mont_aux, ra.q, ra.pinv)
         return self.shenoy(w[..., :-1, :], w[..., -1, :])
 
 
@@ -95,30 +105,32 @@ class BfvEngine:
         self.t = params.t
         self.q = tuple(params.q)
         self.p = tuple(params.p)
-        self.aux, self.m_sk = bfv_aux_basis(params.n, self.q, self.p)
-        self.switcher = KeySwitcher(self.q, self.p, self.n, self.device)
+        self.word_bits = params.word_bits
+        self.aux, self.m_sk = bfv_aux_basis(params.n, self.q, self.p, self.word_bits)
+        self.switcher = KeySwitcher(self.q, self.p, self.n, self.device, self.word_bits)
         self._behz: dict[int, BehzMult] = {}
         self._rescaler: dict[int, DivRoundLast] = {}
 
     # ---- cached per-level helpers ----
     def ring(self, level: int):
-        return get_rns_ring(self.q[:level + 1], self.n, self.device)
+        return get_rns_ring(self.q[:level + 1], self.n, self.device, self.word_bits)
 
     def behz(self, level: int) -> BehzMult:
         if level not in self._behz:
             self._behz[level] = BehzMult(self.q[:level + 1], self.aux, self.m_sk, self.t,
-                                         self.n, self.device)
+                                         self.n, self.device, self.word_bits)
         return self._behz[level]
 
     def rescaler(self, level: int) -> DivRoundLast:
         if level not in self._rescaler:
-            self._rescaler[level] = DivRoundLast(self.q[:level + 1], self.device)
+            self._rescaler[level] = DivRoundLast(self.q[:level + 1], self.device, self.word_bits)
         return self._rescaler[level]
 
     def delta_mont(self, level: int):
         """[Δ_ℓ]_{q_i} in Montgomery form, Δ_ℓ = floor(Q_ℓ/t)."""
         delta = self.params.delta(level)
-        return _col([_mont(delta % qi, qi) for qi in self.q[:level + 1]], self.device)
+        return _col([_mont(delta % qi, qi, self.word_bits) for qi in self.q[:level + 1]],
+                    self.device)
 
     def _tensor(self, arr):
         return as_tensor(arr, self.device)
@@ -126,13 +138,20 @@ class BfvEngine:
     # ---- encode / decode (host) ----
     def _scale_to_q(self, m: np.ndarray, level: int) -> Plaintext:
         """round(m·Q/t) over Q_ℓ for m in [0, t), exactly and vectorized:
-        (m·Q + ⌊t/2⌋) // t = m·Δ + (m·(Q mod t) + ⌊t/2⌋) // t, every term
-        int64-exact for t, q_i < 2^31."""
+        (m·Q + ⌊t/2⌋) // t = m·Δ + (m·(Q mod t) + ⌊t/2⌋) // t. The carry is
+        int64-exact for t < 2^31; so is every term at the 32-bit word
+        (t, q_i < 2^31). At the 64-bit word m·(Δ mod q_i) needs up to 78
+        bits, so that product is taken in Python integers."""
         Q = self.params.q_prod(level)
         m = np.asarray(m, dtype=np.int64)
         carry = (m * (Q % self.t) + self.t // 2) // self.t
         delta = Q // self.t
-        data = np.stack([(m * (delta % qi) + carry) % qi for qi in self.q[:level + 1]])
+        if self.word_bits == 64:
+            mo, co = m.astype(object), carry.astype(object)
+            data = np.stack([((mo * (delta % qi) + co) % qi).astype(np.int64)
+                             for qi in self.q[:level + 1]])
+        else:
+            data = np.stack([(m * (delta % qi) + carry) % qi for qi in self.q[:level + 1]])
         return Plaintext(data=self._tensor(data), level=level)
 
     def encode(self, values, level: int) -> Plaintext:
@@ -150,7 +169,7 @@ class BfvEngine:
         ring = self.ring(level)
         lifted = self._tensor(np.broadcast_to(m, (level + 1, self.n)))
         f = ntt_mod.ntt(lifted, ring)
-        return PlaintextMul(data=_u.to_mont(f, ring.q, ring.pinv, ring.r2), level=level)
+        return PlaintextMul(data=ring.word.to_mont(f, ring.q, ring.pinv, ring.r2), level=level)
 
     def decode(self, pt_mod_t) -> np.ndarray:
         return bfv_decode_slots(np.asarray(pt_mod_t), self.t, self.n)
@@ -178,7 +197,7 @@ class BfvEngine:
         u_ntt = ntt_mod.ntt(self._tensor(lift_signed(sample_ternary(rng, self.n), q_mods)), ring)
         c = []
         for j in range(2):
-            prod = _u.mulmod(pk.data[j][:level + 1], u_ntt, ring.q, ring.pinv, ring.r2)
+            prod = ring.word.mulmod(pk.data[j][:level + 1], u_ntt, ring.q, ring.pinv, ring.r2)
             poly = ntt_mod.intt(prod, ring)
             e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
             c.append(_u.addmod(poly, e, ring.q))
@@ -190,8 +209,8 @@ class BfvEngine:
         ring = self.ring(level)
         q_mods = self.q[:level + 1]
         a_ntt = self._tensor(sample_uniform_rns(rng, q_mods, self.n))
-        s_ntt = sk.ntt_form(q_mods, self.n, self.device)
-        as_ = ntt_mod.intt(_u.mulmod(a_ntt, s_ntt, ring.q, ring.pinv, ring.r2), ring)
+        s_ntt = sk.ntt_form(q_mods, self.n, self.device, self.word_bits)
+        as_ = ntt_mod.intt(ring.word.mulmod(a_ntt, s_ntt, ring.q, ring.pinv, ring.r2), ring)
         e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
         c0 = _u.addmod(_u.negmod(_u.addmod(as_, e, ring.q), ring.q), pt.data, ring.q)
         return Ciphertext(data=torch.stack([c0, ntt_mod.intt(a_ntt, ring)]), level=level)
@@ -201,15 +220,16 @@ class BfvEngine:
         level = ct.level
         ring = self.ring(level)
         q_mods = self.q[:level + 1]
-        s_ntt = sk.ntt_form(q_mods, self.n, self.device)
+        s_ntt = sk.ntt_form(q_mods, self.n, self.device, self.word_bits)
+        mulmod = ring.word.mulmod
         acc = ct.data[0]
         s_pow = s_ntt
         for k in range(1, ct.data.shape[0]):
             ck = ntt_mod.ntt(ct.data[k].contiguous(), ring)
-            term = ntt_mod.intt(_u.mulmod(ck, s_pow, ring.q, ring.pinv, ring.r2), ring)
+            term = ntt_mod.intt(mulmod(ck, s_pow, ring.q, ring.pinv, ring.r2), ring)
             acc = _u.addmod(acc, term, ring.q)
             if k + 1 < ct.data.shape[0]:
-                s_pow = _u.mulmod(s_pow, s_ntt, ring.q, ring.pinv, ring.r2)
+                s_pow = mulmod(s_pow, s_ntt, ring.q, ring.pinv, ring.r2)
         acc = acc.cpu().numpy()
         Q = self.params.q_prod(level)
         X = np.zeros(self.n, dtype=object)
@@ -263,7 +283,7 @@ class BfvEngine:
         if isinstance(b, Plaintext):
             return self._with_c0(a, _u.addmod(a.data[..., 0, :, :], b.data, ring.q))
         if isinstance(b, PlaintextRingt):
-            dm = _u.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
+            dm = ring.word.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
             return self._with_c0(a, _u.addmod(a.data[..., 0, :, :], dm, ring.q))
         raise TypeError(type(b))
 
@@ -276,7 +296,7 @@ class BfvEngine:
         if isinstance(b, Plaintext):
             return self._with_c0(a, _u.submod(a.data[..., 0, :, :], b.data, ring.q))
         if isinstance(b, PlaintextRingt):
-            dm = _u.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
+            dm = ring.word.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
             return self._with_c0(a, _u.submod(a.data[..., 0, :, :], dm, ring.q))
         raise TypeError(type(b))
 
@@ -289,11 +309,20 @@ class BfvEngine:
         self._check_levels(a, b, 'mult')
         level = a.level
         ring = self.ring(level)
+        w = ring.word
         if isinstance(b, Ciphertext):
             bz = self.behz(level)
             ra = bz.ring_aux
-            # all four polynomials through one extend + NTT pass (kernel B2)
             polys = torch.cat([a.data[..., :2, :, :], b.data[..., :2, :, :]], dim=-3)
+            if self.word_bits == 64:
+                # the reference's composition; B5's to-Montgomery epilogue and
+                # from-Montgomery fold stand for its separate passes
+                ext = bz.extend(polys)                                    # B6 inside
+                fq, fa = ntt64_fwd(polys, ring, to_mont=True), ntt64_fwd(ext, ra, to_mont=True)
+                dq = ntt64_inv(tensor_product(fq, ring), ring, from_mont=True)
+                da = ntt64_inv(tensor_product(fa, ra), ra, from_mont=True)
+                return Ciphertext(data=bz.scale_and_back(dq, da), level=level)   # B6 inside
+            # all four polynomials through one extend + NTT pass (kernel B2)
             fq, fa = behz_prep32(polys, bz)
             # two to_mont added two R, the product's mont_mul removed one:
             # kernel B4 strips the remaining R, inverts both NTTs and scales
@@ -302,20 +331,20 @@ class BfvEngine:
         if isinstance(b, Plaintext):
             bz = self.behz(level)
             ra = bz.ring_aux
-            pq = _u.to_mont(ntt_mod.ntt(b.data, ring), ring.q, ring.pinv, ring.r2)
-            pa = _u.to_mont(ntt_mod.ntt(bz.extend(b.data), ra), ra.q, ra.pinv, ra.r2)
-            dq = _u.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), pq, ring.q, ring.pinv)
-            da = _u.mont_mul(ntt_mod.ntt(bz.extend(a.data), ra), pa, ra.q, ra.pinv)
+            pq = w.to_mont(ntt_mod.ntt(b.data, ring), ring.q, ring.pinv, ring.r2)
+            pa = w.to_mont(ntt_mod.ntt(bz.extend(b.data), ra), ra.q, ra.pinv, ra.r2)
+            dq = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), pq, ring.q, ring.pinv)
+            da = w.mont_mul(ntt_mod.ntt(bz.extend(a.data), ra), pa, ra.q, ra.pinv)
             return Ciphertext(data=bz.scale_and_back(ntt_mod.intt(dq, ring),
                                                      ntt_mod.intt(da, ra)), level=level)
         if isinstance(b, PlaintextRingt):
             lifted = b.data.expand(level + 1, self.n).contiguous()
-            f = _u.to_mont(ntt_mod.ntt(lifted, ring), ring.q, ring.pinv, ring.r2)
-            prod = _u.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f, ring.q, ring.pinv)
+            f = w.to_mont(ntt_mod.ntt(lifted, ring), ring.q, ring.pinv, ring.r2)
+            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f, ring.q, ring.pinv)
             return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
         if isinstance(b, PlaintextMul):
-            prod = _u.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), b.data[:level + 1],
-                               ring.q, ring.pinv)
+            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), b.data[:level + 1],
+                              ring.q, ring.pinv)
             return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
         raise TypeError(type(b))
 
@@ -344,7 +373,7 @@ class BfvEngine:
         out_mform = ct.is_mform if out_mform is None else out_mform
         data = ct.data
         if ct.is_mform:
-            data = _u.from_mont(data, ring.q, ring.pinv)
+            data = ring.word.from_mont(data, ring.q, ring.pinv)
         if ct.is_ntt:
             data = ntt_mod.intt(data.contiguous(), ring)
         c0 = apply_automorphism_coeff(data[..., 0, :, :], ring.q, self.n, galois_elt)
@@ -354,7 +383,7 @@ class BfvEngine:
         if out_ntt:
             out = ntt_mod.ntt(out, ring)
         if out_mform:
-            out = _u.to_mont(out, ring.q, ring.pinv, ring.r2)
+            out = ring.word.to_mont(out, ring.q, ring.pinv, ring.r2)
         return Ciphertext(data=out, level=level, is_ntt=out_ntt, is_mform=out_mform)
 
     def rns_sp_decomp(self, ct: Ciphertext) -> DecomposedCiphertext:
@@ -378,7 +407,7 @@ class BfvEngine:
             c0 = ntt_mod.ntt(c0, ring)
         data = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
         if out_mform:
-            data = _u.to_mont(data, ring.q, ring.pinv, ring.r2)
+            data = ring.word.to_mont(data, ring.q, ring.pinv, ring.r2)
         return Ciphertext(data=data, level=level, is_ntt=out_ntt, is_mform=out_mform)
 
     def rotate_cols(self, ct: Ciphertext, step: int, glk) -> Ciphertext:
@@ -406,7 +435,7 @@ class BfvEngine:
         if ct.is_mform:
             raise ValueError('to_mf: ciphertext is already in Montgomery form')
         ring = self.ring(ct.level)
-        return Ciphertext(data=_u.to_mont(ct.data, ring.q, ring.pinv, ring.r2),
+        return Ciphertext(data=ring.word.to_mont(ct.data, ring.q, ring.pinv, ring.r2),
                           level=ct.level, is_ntt=ct.is_ntt, is_mform=True)
 
     def to_mul(self, ct: Ciphertext) -> Ciphertext:
@@ -414,5 +443,6 @@ class BfvEngine:
         if ct.is_ntt or ct.is_mform:
             raise ValueError('to_mul takes a coefficient-domain, non-Montgomery ciphertext')
         ring = self.ring(ct.level)
-        return Ciphertext(data=ntt32_fwd(ct.data.contiguous(), ring, to_mont=True),
+        fwd = ntt64_fwd if self.word_bits == 64 else ntt32_fwd
+        return Ciphertext(data=fwd(ct.data.contiguous(), ring, to_mont=True),
                           level=ct.level, is_ntt=True, is_mform=True)

@@ -3,9 +3,10 @@
 Port of ``lattisense_tpu/schemes/keys.py``. Every random draw goes through
 the same sampler calls, in the same order, as the reference, on a
 ``utils.csprng.CryptoRng``: the same seed gives the same secret, public,
-relinearization and Galois keys. Samples become int64 tensors on the
-target device only after sampling; the NTTs and modular products then run
-there (kernel B1 on the card).
+relinearization and Galois keys, at either machine word (``word_bits``;
+keys are NTT + Montgomery with R = 2^word_bits). Samples become int64
+tensors on the target device only after sampling; the NTTs and modular
+products then run there (kernel B1 or B5 on the card).
 
 Distributions: uniform ternary secret, rounded Gaussian errors (σ = 3.2),
 uniform ring elements drawn per RNS limb. Hybrid key-switching keys: β =
@@ -62,23 +63,24 @@ class SecretKey:
         self.coeffs = np.asarray(coeffs, dtype=np.int64)     # (n,) in {-1, 0, 1}
         self._ntt_cache: dict = {}
 
-    def ntt_form(self, moduli, n: int, device):
+    def ntt_form(self, moduli, n: int, device, word_bits: int = 32):
         """NTT of s over ``moduli`` as an int64 (L, n) tensor on ``device``."""
-        key = (tuple(moduli), n, torch.device(device))
+        key = (tuple(moduli), n, torch.device(device), word_bits)
         if key not in self._ntt_cache:
-            ring = get_rns_ring(moduli, n, device)
+            ring = get_rns_ring(moduli, n, device, word_bits)
             self._ntt_cache[key] = ntt_mod.ntt(as_tensor(lift_signed(self.coeffs, moduli), device),
                                                ring)
         return self._ntt_cache[key]
 
 
-def gen_public_key(rng, sk: SecretKey, q_moduli: tuple[int, ...], n: int, device) -> PublicKey:
+def gen_public_key(rng, sk: SecretKey, q_moduli: tuple[int, ...], n: int, device,
+                   word_bits: int = 32) -> PublicKey:
     """pk = (b, a) with b = -(a·s + e), in the NTT domain over the full Q."""
-    ring = get_rns_ring(q_moduli, n, device)
-    s_ntt = sk.ntt_form(q_moduli, n, device)
+    ring = get_rns_ring(q_moduli, n, device, word_bits)
+    s_ntt = sk.ntt_form(q_moduli, n, device, word_bits)
     a = as_tensor(sample_uniform_rns(rng, q_moduli, n), device)
     e_ntt = ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), q_moduli), device), ring)
-    as_ = _u.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
+    as_ = ring.word.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
     b = _u.negmod(_u.addmod(as_, e_ntt, ring.q), ring.q)
     return PublicKey(data=torch.stack([b, a]))
 
@@ -99,50 +101,53 @@ def _gamma_times_p(q_moduli: tuple[int, ...], p_moduli: tuple[int, ...], alpha: 
 
 
 def gen_keyswitch_key(rng, sk: SecretKey, target_ntt_fn, q_moduli: tuple[int, ...],
-                      p_moduli: tuple[int, ...], n: int, device) -> KeySwitchKey:
+                      p_moduli: tuple[int, ...], n: int, device,
+                      word_bits: int = 32) -> KeySwitchKey:
     """Key switching s' → s; ``target_ntt_fn(moduli)`` returns the NTT form
     of s' over ``moduli``. Output keys are NTT + Montgomery."""
     qp = tuple(q_moduli) + tuple(p_moduli)
-    ring = get_rns_ring(qp, n, device)
+    ring = get_rns_ring(qp, n, device, word_bits)
+    w = ring.word
     Lq, Lp = len(q_moduli), len(p_moduli)
     alpha = Lp
     beta = (Lq + alpha - 1) // alpha
-    s_ntt = sk.ntt_form(qp, n, device)
+    s_ntt = sk.ntt_form(qp, n, device, word_bits)
     t_ntt = target_ntt_fn(qp)
     consts = _gamma_times_p(tuple(q_moduli), tuple(p_moduli), alpha)
     key_q, key_p = [], []
     for d in range(beta):
         a = as_tensor(sample_uniform_rns(rng, qp, n), device)
         e_ntt = ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), qp), device), ring)
-        as_ = _u.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
+        as_ = w.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
         b = _u.negmod(_u.addmod(as_, e_ntt, ring.q), ring.q)
         # + P·γ_d·s' (zero on the p limbs)
         pg = np.zeros((Lq + Lp, 1), dtype=np.int64)
         pg[:Lq, 0] = consts[d]
-        term = _u.mulmod(as_tensor(pg, device), t_ntt, ring.q, ring.pinv, ring.r2)
+        term = w.mulmod(as_tensor(pg, device), t_ntt, ring.q, ring.pinv, ring.r2)
         b = _u.addmod(b, term, ring.q)
-        bm = _u.to_mont(b, ring.q, ring.pinv, ring.r2)
-        am = _u.to_mont(a, ring.q, ring.pinv, ring.r2)
+        bm = w.to_mont(b, ring.q, ring.pinv, ring.r2)
+        am = w.to_mont(a, ring.q, ring.pinv, ring.r2)
         key_q.append(torch.stack([bm[:Lq], am[:Lq]]))
         key_p.append(torch.stack([bm[Lq:], am[Lq:]]))
     return KeySwitchKey(key_q=torch.stack(key_q), key_p=torch.stack(key_p),
                         level=Lq - 1, sp_level=Lp - 1)
 
 
-def gen_relin_key(rng, sk: SecretKey, q_moduli, p_moduli, n: int, device) -> KeySwitchKey:
+def gen_relin_key(rng, sk: SecretKey, q_moduli, p_moduli, n: int, device,
+                  word_bits: int = 32) -> KeySwitchKey:
     """Relinearization key: s' = s^2."""
     def s2_ntt(moduli):
-        ring = get_rns_ring(moduli, n, device)
-        s = sk.ntt_form(moduli, n, device)
-        return _u.mulmod(s, s, ring.q, ring.pinv, ring.r2)
-    return gen_keyswitch_key(rng, sk, s2_ntt, q_moduli, p_moduli, n, device)
+        ring = get_rns_ring(moduli, n, device, word_bits)
+        s = sk.ntt_form(moduli, n, device, word_bits)
+        return ring.word.mulmod(s, s, ring.q, ring.pinv, ring.r2)
+    return gen_keyswitch_key(rng, sk, s2_ntt, q_moduli, p_moduli, n, device, word_bits)
 
 
 def gen_galois_key(rng, sk: SecretKey, galois_elt: int, q_moduli, p_moduli, n: int,
-                   device) -> KeySwitchKey:
+                   device, word_bits: int = 32) -> KeySwitchKey:
     """Galois key for element g: s' = σ_g(s)."""
     def sg_ntt(moduli):
-        ring = get_rns_ring(moduli, n, device)
+        ring = get_rns_ring(moduli, n, device, word_bits)
         s_rns = as_tensor(lift_signed(sk.coeffs, moduli), device)
         return ntt_mod.ntt(apply_automorphism_coeff(s_rns, ring.q, n, galois_elt), ring)
-    return gen_keyswitch_key(rng, sk, sg_ntt, q_moduli, p_moduli, n, device)
+    return gen_keyswitch_key(rng, sk, sg_ntt, q_moduli, p_moduli, n, device, word_bits)

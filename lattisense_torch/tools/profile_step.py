@@ -1,18 +1,25 @@
 """Where the time of one batched BFV step goes, on one CUDA card.
 
-    python -m lattisense_torch.tools.profile_step [--op mult_relin|rotate]
-        [--batch 32] [--level 7] [--steps 5]
+    python -m lattisense_torch.tools.profile_step [--chain w32|u64]
+        [--op mult_relin|rotate] [--batch 32] [--level L] [--steps 5]
 
-Builds the headline context (``BfvParams.create_tpu_param(16384)``, seed 7),
-encrypts 2·batch random messages and prints two JSON lines for the chosen
-operation:
+Builds a context (seed 7) on the chosen chain — ``w32``, the headline
+``BfvParams.create_tpu_param(16384)`` (default level 7), or ``u64``, the
+conformance chain ``BfvParams.create(16384)`` (default level 3) — encrypts
+2·batch random messages and prints two JSON lines for the chosen operation:
 
 - ``phases``: CUDA-event time of each stage of the step, called in the
-  order the engine calls them, beside the whole step's time. For
-  ``mult_relin``: kernel B2, tensor product, kernel B4 (the finish), kernel
-  B3 (the relinearization key switch), final add. For ``rotate``
+  order the engine calls them, beside the whole step's time. On the w32
+  chain, ``mult_relin``: kernel B2, tensor product, kernel B4 (the finish),
+  kernel B3 (the relinearization key switch), final add; ``rotate``
   (rotate_col by 1): the automorphism of both components, kernel B3, the
-  final add;
+  final add. On the u64 chain, ``mult_relin``: the BEHZ extension (B6),
+  the forward NTTs (B5), the tensor product, the inverse NTTs (B5),
+  ``scale_and_back`` (B6), then the key switch in its stages — digit
+  decomposition and mod-up (B6), forward NTT (B5), inner product (B7),
+  inverse NTT (B5), ``RoundDivP``'s conversion and modular arithmetic (B6)
+  and its float64 overflow estimate — and the final add; ``rotate``: the
+  automorphism, the same key-switch stages, the final add;
 - ``profile``: a ``torch.profiler`` trace of a few steps: device busy time
   per step (sum of kernel times), wall time per step, the device's idle
   share, and the kernels that take the most device time.
@@ -26,8 +33,11 @@ import numpy as np
 import torch
 
 from ..core import u64 as _u
+from ..ops.bconv_cuda import bconv64_raw
 from ..ops.behz_cuda import behz_finish32, behz_prep32
+from ..ops.ksw64_cuda import ksw_inner64
 from ..ops.ksw_cuda import ksw_switch32
+from ..ops.ntt64_cuda import ntt64_fwd, ntt64_inv
 from ..params import BfvParams
 from ..parallel.batch import bfv_mult_relin, key_tree, make_batched_step, make_rotate_step
 from ..runtime import BfvContext
@@ -80,16 +90,90 @@ def phases_rotate(engine, a, keys, level, elt):
     return _elapsed(marks), out
 
 
+def _switch64_marks(engine, x, ksk, level, marks):
+    """The 64-bit key switch of ``KeySwitcher.switch`` in its stages,
+    appending a CUDA event after each; returns (e0, e1)."""
+    sw = engine.switcher
+    ring_qp, qhat_inv, qhat_inv_shoup, src_q, qhat_conv, rd = sw._level_pre(level)
+    L = level + 1
+    alpha, beta = sw.alpha, sw.beta(level)
+    pad = beta * alpha - L
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    y = sw.word.shoup_mul(x.reshape(*x.shape[:-2], beta, alpha, sw.n), qhat_inv, qhat_inv_shoup,
+                          src_q)
+    xd = bconv64_raw(y, qhat_conv, ring_qp.q, ring_qp.pinv)
+    marks.append(('ksw: decompose + mod-up (B6 raw)', _timer()))
+    digits = ntt64_fwd(xd, ring_qp)
+    marks.append(('ksw: forward NTT (B5)', _timer()))
+    acc = ksw_inner64(digits, ksk, level, ring_qp)
+    marks.append(('ksw: inner product (B7)', _timer()))
+    c = ntt64_inv(acc, ring_qp)
+    marks.append(('ksw: inverse NTT (B5)', _timer()))
+    xq, xp = c[..., :L, :], c[..., L:, :]
+    yd = rd.conv.decompose(_u.addmod(xp, rd.half_p, rd.p_q))
+    num = _u.submod(_u.addmod(xq, rd.half_q, rd.dst_q), rd.conv.convert(yd), rd.dst_q)
+    out = rd.word.mont_mul(num, rd.pinv_mont, rd.dst_q, rd.dst_pinv)
+    marks.append(('ksw: RoundDivP conversion + modular arithmetic (B6)', _timer()))
+    e = _u.addmod(out, rd.overflow(yd)[..., None, :], rd.dst_q)
+    marks.append(('ksw: RoundDivP float64 overflow estimate', _timer()))
+    return e[..., 0, :, :], e[..., 1, :, :]
+
+
+def phases_mult_relin64(engine, a, b, keys, level):
+    """CUDA-event milliseconds of each stage of one mult + relinearize on
+    the 64-bit word."""
+    ring = engine.ring(level)
+    bz = engine.behz(level)
+    ra = bz.ring_aux
+    marks = [('start', _timer())]
+    polys = torch.cat([a[..., :2, :, :], b[..., :2, :, :]], dim=-3)
+    ext = bz.extend(polys)
+    marks.append(('BEHZ extension (B6)', _timer()))
+    fq, fa = ntt64_fwd(polys, ring, to_mont=True), ntt64_fwd(ext, ra, to_mont=True)
+    marks.append(('forward NTTs (B5)', _timer()))
+    dq, da = tensor_product(fq, ring), tensor_product(fa, ra)
+    marks.append(('tensor product', _timer()))
+    dq, da = ntt64_inv(dq, ring, from_mont=True), ntt64_inv(da, ra, from_mont=True)
+    marks.append(('inverse NTTs (B5)', _timer()))
+    ct3 = bz.scale_and_back(dq, da)
+    marks.append(('scale_and_back (B6)', _timer()))
+    e0, e1 = _switch64_marks(engine, ct3[..., 2, :, :], keys['rlk'], level, marks)
+    out = torch.stack([_u.addmod(ct3[..., 0, :, :], e0, ring.q),
+                       _u.addmod(ct3[..., 1, :, :], e1, ring.q)], dim=-3)
+    marks.append(('final add', _timer()))
+    return _elapsed(marks), out
+
+
+def phases_rotate64(engine, a, keys, level, elt):
+    """CUDA-event milliseconds of each stage of one apply_galois on the
+    64-bit word."""
+    ring = engine.ring(level)
+    marks = [('start', _timer())]
+    c0 = apply_automorphism_coeff(a[..., 0, :, :], ring.q, engine.n, elt)
+    c1 = apply_automorphism_coeff(a[..., 1, :, :], ring.q, engine.n, elt)
+    marks.append(('automorphism', _timer()))
+    e0, e1 = _switch64_marks(engine, c1, keys['glk'][elt], level, marks)
+    out = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
+    marks.append(('final add', _timer()))
+    return _elapsed(marks), out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--chain', choices=('w32', 'u64'), default='w32')
     ap.add_argument('--op', choices=('mult_relin', 'rotate'), default='mult_relin')
     ap.add_argument('--batch', type=int, default=32)
-    ap.add_argument('--level', type=int, default=7)
+    ap.add_argument('--level', type=int, default=None,
+                    help='default 7 on the w32 chain, 3 on the u64 chain')
     ap.add_argument('--steps', type=int, default=5)
     args = ap.parse_args()
+    u64 = args.chain == 'u64'
+    if args.level is None:
+        args.level = 3 if u64 else 7
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    params = BfvParams.create_tpu_param(16384)
+    params = BfvParams.create(16384) if u64 else BfvParams.create_tpu_param(16384)
     ctx = BfvContext.create_random_context(params, seed=7)
     rng = np.random.default_rng(7)
     cts = [ctx.encrypt(ctx.encode(m, args.level))
@@ -104,6 +188,8 @@ def main() -> int:
         step = make_batched_step(ctx.engine, make_rotate_step(elt), args.level, n_inputs=1)
 
         def staged():
+            if u64:
+                return phases_rotate64(ctx.engine, a, keys, args.level, elt)
             return phases_rotate(ctx.engine, a, keys, args.level, elt)
     else:
         keys = key_tree(ctx)
@@ -111,6 +197,8 @@ def main() -> int:
         step = make_batched_step(ctx.engine, bfv_mult_relin, args.level)
 
         def staged():
+            if u64:
+                return phases_mult_relin64(ctx.engine, a, b, keys, args.level)
             return phases_mult_relin(ctx.engine, a, b, keys, args.level)
     want = step(*inputs)
     for _ in range(2):
@@ -124,7 +212,8 @@ def main() -> int:
     stop.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(stop) / args.steps
-    print(json.dumps({'phases': {'gpu': gpu, 'op': args.op, 'batch': args.batch,
+    print(json.dumps({'phases': {'gpu': gpu, 'chain': args.chain, 'op': args.op,
+                                 'batch': args.batch,
                                  'level': args.level,
                                  'step_ms': step_ms, 'sum_of_phases_ms': sum(ph.values()),
                                  'ms': ph}}), flush=True)
@@ -141,7 +230,8 @@ def main() -> int:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({'profile': {
-        'gpu': gpu, 'op': args.op, 'steps': args.steps, 'wall_ms_per_step': wall_ms,
+        'gpu': gpu, 'chain': args.chain, 'op': args.op, 'steps': args.steps,
+        'wall_ms_per_step': wall_ms,
         'device_busy_ms_per_step': busy_ms if kernels else None,
         'idle_share': 1 - busy_ms / wall_ms if kernels else None,
         'kernel_launches_per_step': sum(e.count for e in kernels) / args.steps,

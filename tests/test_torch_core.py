@@ -119,8 +119,12 @@ def test_primes_params_and_aux_basis_match_reference():
     assert (len(p.q), len(p.p), p.t) == (10, 4, 65537)
     assert bfv_aux_basis(p.n, tuple(p.q), tuple(p.p)) == \
         ref_aux_basis(r.n, tuple(r.q), tuple(r.p), 32)
-    with pytest.raises(NotImplementedError, match='u64'):
-        BfvParams.create_custom(256, 257, p.q[:2], p.p[:1], word_bits=64)
+    p64, r64 = BfvParams.create(16384), RefBfvParams.create(16384)
+    assert (p64.n, p64.t, p64.q, p64.p, p64.word_bits) == (r64.n, r64.t, r64.q, r64.p, 64)
+    assert bfv_aux_basis(p64.n, tuple(p64.q), tuple(p64.p), 64) == \
+        ref_aux_basis(r64.n, tuple(r64.q), tuple(r64.p), 64)
+    with pytest.raises(ValueError, match='2\\^31'):
+        BfvParams.create_custom(256, 257, p64.q[:2], p64.p[:1], word_bits=32)
 
 
 @pytest.mark.parametrize('n', [256, 4096])

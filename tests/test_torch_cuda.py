@@ -194,3 +194,163 @@ def test_batched_rotate_card_matches_cpu(cuda):
         got = ctx.decrypt_decode(Ciphertext(data=out[i], level=3))
         assert np.array_equal(got, np.concatenate([np.roll(m[:half], -1),
                                                    np.roll(m[half:], -1)]))
+
+
+# ---------------------------------------------------------------------------
+# B1-r4 and the perm-layout entries
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('n', [256, 16384])
+def test_b1_r4_and_perm_entries_match_plain(cuda, n):
+    chain = tuple(gen_ntt_primes(n, 31, 4))
+    ring_c, ring_g = get_rns_ring(chain, n, CPU), get_rns_ring(chain, n, cuda)
+    x = residues(21, chain, n, (3,))
+    f = ntt_cuda.ntt_plain(x, ring_c)
+    before = dict(ntt_cuda.launches)
+    got = {'ntt32_fwd_r4': ntt_cuda.ntt32_fwd_r4(x.to(cuda), ring_g),
+           'ntt32_inv_r4': ntt_cuda.ntt32_inv_r4(f.to(cuda), ring_g),
+           'ntt32_fwd_perm': ntt_cuda.ntt32_fwd_perm(x.to(cuda), ring_g),
+           'ntt32_inv_perm': ntt_cuda.ntt32_inv_perm(ntt_cuda.perm_layout(f).to(cuda), ring_g)}
+    torch.cuda.synchronize()
+    want = {'ntt32_fwd_r4': f, 'ntt32_inv_r4': x, 'ntt32_fwd_perm': ntt_cuda.perm_layout(f),
+            'ntt32_inv_perm': x}
+    for name, g in got.items():
+        assert torch.equal(g.cpu(), want[name]), name
+        assert ntt_cuda.launches[name] == before[name] + 1, name
+    assert (ntt_cuda.launches['ntt32_fwd'], ntt_cuda.launches['ntt32_inv']) == \
+        (before['ntt32_fwd'], before['ntt32_inv'])
+
+
+# ---------------------------------------------------------------------------
+# the 64-bit word: B5, B6, B7
+# ---------------------------------------------------------------------------
+
+def chain64(n, count):
+    """55- to 61-bit NTT primes, the widths of the u64 chains."""
+    out = []
+    for bits in (61, 59, 57, 55):
+        out += gen_ntt_primes(n, bits, 2, exclude=tuple(out))
+    return tuple(out[:count])
+
+
+@pytest.mark.parametrize('n,lead', [(256, (3,)), (16384, (32, 4))])
+def test_b5_kernel_matches_plain(cuda, n, lead):
+    from lattisense_torch.ops import ntt64_cuda
+    chain = chain64(n, 4)
+    ring_c, ring_g = get_rns_ring(chain, n, CPU, 64), get_rns_ring(chain, n, cuda, 64)
+    x = residues(31, chain, n, lead)
+    xg = x.to(cuda)
+    before = dict(ntt64_cuda.launches)
+    f = ntt64_cuda.ntt64_fwd(xg, ring_g)
+    fm = ntt64_cuda.ntt64_fwd(xg, ring_g, to_mont=True)
+    i = ntt64_cuda.ntt64_inv(f, ring_g)
+    im = ntt64_cuda.ntt64_inv(fm, ring_g, from_mont=True)
+    torch.cuda.synchronize()
+    want_f = ntt64_cuda.ntt64_plain(x, ring_c)
+    assert torch.equal(f.cpu(), want_f)
+    assert torch.equal(fm.cpu(), ntt64_cuda.ntt64_plain(x, ring_c, to_mont=True))
+    assert torch.equal(i.cpu(), x) and torch.equal(im.cpu(), x)
+    assert ntt64_cuda.launches == {'ntt64_fwd': before['ntt64_fwd'] + 2,
+                                   'ntt64_inv': before['ntt64_inv'] + 2}
+    for alias in (ntt64_cuda.ntt_fused64, ntt64_cuda.ntt_fused):
+        assert torch.equal(alias(xg, ring_g).cpu(), want_f)
+    for alias in (ntt64_cuda.intt_fused64, ntt64_cuda.intt_fused, ntt64_cuda.intt_fused_impl):
+        assert torch.equal(alias(f, ring_g).cpu(), x)
+    with pytest.raises(ValueError):
+        ntt64_cuda.ntt64_fwd(xg, get_rns_ring(gen_ntt_primes(n, 31, 4), n, cuda))
+
+
+def test_b6_kernel_matches_plain(cuda):
+    from lattisense_torch.core.rns import BasisConv
+    from lattisense_torch.ops import bconv_cuda
+    n = 16384
+    primes = chain64(n, 8)
+    src, dst = primes[:4], primes[4:8] + (gen_ntt_primes(n, 59, 1, exclude=primes)[0],)
+    conv_c, conv_g = BasisConv(src, dst, CPU, 64), BasisConv(src, dst, cuda, 64)
+    y = conv_c.decompose(residues(41, src, n, (32, 4)))
+    before = dict(bconv_cuda.launches)
+    got = bconv_cuda.bconv64_convert(y.to(cuda), conv_g)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), bconv_cuda.bconv64_plain(y, conv_c.qhat_dst_mont,
+                                                           conv_c.dst_q, conv_c.dst_pinv))
+    # grouped: two digits of two limbs each, every digit its own constants
+    sw = KeySwitcher(primes[:4], primes[4:6], n, cuda, 64)
+    ring_qp, _, _, _, qhat_conv, _ = sw._level_pre(3)
+    yd = residues(42, primes[:4], n, (32,)).reshape(32, 2, 2, n)
+    raw = bconv_cuda.bconv64_raw(yd.to(cuda), qhat_conv, ring_qp.q, ring_qp.pinv)
+    torch.cuda.synchronize()
+    want = bconv_cuda.bconv64_plain(yd, qhat_conv.cpu(), ring_qp.q.cpu(), ring_qp.pinv.cpu())
+    assert torch.equal(raw.cpu(), want) and raw.shape == (32, 2, 6, n)
+    assert bconv_cuda.launches == {'bconv64_convert': before['bconv64_convert'] + 1,
+                                   'bconv64_raw': before['bconv64_raw'] + 1}
+    with pytest.raises(ValueError):
+        bconv_cuda.bconv64_convert(y[..., :3, :].to(cuda), conv_g)          # L = 3 for 4 limbs
+    small = tuple(gen_ntt_primes(n, 31, 3))
+    with pytest.raises(ValueError):                                         # a 32-bit holder
+        bconv_cuda.bconv64_convert(y[..., :2, :].to(cuda), BasisConv(small[:2], small[2:], cuda))
+    assert bconv_cuda.launches['bconv64_convert'] == before['bconv64_convert'] + 1
+
+
+@pytest.mark.parametrize('levels', [(3, 2)])
+def test_b7_kernel_matches_plain(cuda, levels):
+    from lattisense_torch.ops import ksw64_cuda
+    n = 16384
+    chain = chain64(n, 8)
+    q, p = chain[:6], chain[6:]
+    key_c = random_key(51, q, p, n)
+    key_g = KeySwitchKey(key_q=key_c.key_q.to(cuda), key_p=key_c.key_p.to(cuda))
+    for level in levels:                               # level 2: the second digit is ragged
+        sw_c, sw_g = KeySwitcher(q, p, n, CPU, 64), KeySwitcher(q, p, n, cuda, 64)
+        beta, T = sw_c.beta(level), level + 1 + len(p)
+        d = residues(52 + level, sw_c.ring_qp(level).moduli, n, (32, beta))
+        before = dict(ksw64_cuda.launches)
+        got = ksw64_cuda.ksw_inner64(d.to(cuda), key_g, level, sw_g.ring_qp(level))
+        torch.cuda.synchronize()
+        want = ksw64_cuda.ksw_inner64_plain(d, key_c, level, sw_c.ring_qp(level))
+        assert got.shape == (32, 2, T, n) and torch.equal(got.cpu(), want), level
+        assert ksw64_cuda.launches['ksw_inner64'] == before['ksw_inner64'] + 1
+        # the whole 64-bit key switch: B6, B5, B7, B5, B6 against the plain composition
+        x = residues(60 + level, q[:level + 1], n, (4,))
+        for output_ntt in (False, True):
+            e = sw_g.switch(x.to(cuda), key_g, level, output_ntt)
+            w = sw_c.switch_plain(x, key_c, level, output_ntt)
+            assert torch.equal(e[0].cpu(), w[0]) and torch.equal(e[1].cpu(), w[1])
+
+
+def test_batched_u64_card_matches_cpu(cuda):
+    """mult_relin and rotate_col at BfvParams.create(16384), level 3, B=2:
+    the card's kernels against the port's plain path on the CPU."""
+    from lattisense_torch.ops import bconv_cuda, ksw64_cuda, ntt64_cuda
+    params = BfvParams.create(16384)
+    ctx = BfvContext.create_random_context(params, seed=8, device=cuda)
+    elt = galois_elt_col(1, params.n)
+    ctx.gen_galois_keys_for_elements([elt])
+    rng = np.random.default_rng(8)
+    ma, mb = rng.integers(0, params.t, (2, 2, params.n))
+    a = torch.stack([ctx.encrypt(ctx.encode(m, 3)).data for m in ma])
+    b = torch.stack([ctx.encrypt(ctx.encode(m, 3)).data for m in mb])
+    keys = key_tree(ctx, galois_elts=[elt])
+    counts = (ntt64_cuda.launches, bconv_cuda.launches, ksw64_cuda.launches, ntt_cuda.launches)
+    before = [dict(c) for c in counts]
+    out = make_batched_step(ctx.engine, bfv_mult_relin, 3)(a, b, keys)
+    rot = make_batched_step(ctx.engine, make_rotate_step(elt), 3, n_inputs=1)(a, keys)
+    for k in ('ntt64_fwd', 'ntt64_inv'):
+        assert ntt64_cuda.launches[k] > before[0][k]
+    assert bconv_cuda.launches['bconv64_convert'] > before[1]['bconv64_convert']
+    assert bconv_cuda.launches['bconv64_raw'] > before[1]['bconv64_raw']
+    assert ksw64_cuda.launches['ksw_inner64'] == before[2]['ksw_inner64'] + 2
+    assert ntt_cuda.launches == before[3]
+    cpu_keys = {'rlk': KeySwitchKey(key_q=ctx.rlk.key_q.cpu(), key_p=ctx.rlk.key_p.cpu()),
+                'glk': {elt: KeySwitchKey(key_q=keys['glk'][elt].key_q.cpu(),
+                                          key_p=keys['glk'][elt].key_p.cpu())}}
+    eng_c = BfvEngine(params, CPU)
+    want = make_batched_step(eng_c, bfv_mult_relin, 3)(a.cpu(), b.cpu(), cpu_keys)
+    want_rot = make_batched_step(eng_c, make_rotate_step(elt), 3, n_inputs=1)(a.cpu(), cpu_keys)
+    assert torch.equal(out.cpu(), want) and torch.equal(rot.cpu(), want_rot)
+    half = params.n // 2
+    for i in range(2):
+        assert np.array_equal(ctx.decrypt_decode(Ciphertext(data=out[i], level=3)),
+                              (ma[i] * mb[i]) % params.t)
+        assert np.array_equal(ctx.decrypt_decode(Ciphertext(data=rot[i], level=3)),
+                              np.concatenate([np.roll(ma[i][:half], -1),
+                                              np.roll(ma[i][half:], -1)]))

@@ -17,6 +17,8 @@ _IMPORT = re.compile(r'^\s*(?:import|from)\s+(jax|lattisense_tpu)\b', re.M)
 
 def test_import_pulls_in_no_jax():
     code = ("import lattisense_torch, lattisense_torch.runtime, lattisense_torch.parallel.batch, "
+            "lattisense_torch.ops.ntt64_cuda, lattisense_torch.ops.bconv_cuda, "
+            "lattisense_torch.ops.ksw64_cuda, lattisense_torch.tools.profile_step, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -30,6 +32,8 @@ def test_sources_import_no_jax():
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
     assert len(files) > 15
+    for new in ('ops/ntt64_cuda.py', 'ops/bconv_cuda.py', 'ops/ksw64_cuda.py'):
+        assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:
         with open(path, encoding='utf-8') as f:
