@@ -177,6 +177,18 @@ def ksw64_work(G: int, beta: int, T: int, n: int) -> tuple[float, float]:
     return nbytes, float(G * 2 * T * n * (beta * OPS64_MONT + (beta - 1) * OPS64_ADDSUB))
 
 
+def ptxas_lines(lib: str, log: str) -> list[str]:
+    """ptxas's registers, stack and spill lines of each kernel; of the NTT
+    libraries, which hold one kernel per size, only the n=2^14 and 2^15 ones."""
+    out, keep = [], True
+    for ln in log.splitlines():
+        if 'Compiling entry' in ln:
+            keep = not lib.startswith('ntt') or 'Li14E' in ln or 'Li15E' in ln
+        if keep and ('registers' in ln or 'spill' in ln or 'Compiling' in ln):
+            out.append(ln.strip())
+    return out
+
+
 def time_ms(torch, fn, iters: int) -> float:
     for _ in range(WARMUP):
         fn()
@@ -234,12 +246,16 @@ def main() -> int:
     gpu = nvidia_smi()
     name, power = (s.strip() for s in gpu.split(',', 1))
     dev = torch.device('cuda', torch.cuda.current_device())
-    ptxas = {lib: [ln.strip() for ln in log.splitlines()
-                   if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
-             for lib, log in reports.items()}
+    ptxas = {lib: ptxas_lines(lib, log) for lib, log in reports.items()}
+    logn = N.bit_length() - 1
+    occupancy = {f'{word}_{d}': {'n': N, 'threads': N >> ntt_cuda.schedule(logn)[0],
+                                 'blocks_per_sm': mod.blocks_per_sm(logn, d == 'inv')}
+                 for word, mod in (('ntt32', ntt_cuda), ('ntt64', ntt64_cuda))
+                 for d in ('fwd', 'inv')}
     print(json.dumps({'setup': {'torch': torch.__version__, 'cuda': torch.version.cuda,
                                 'nvcc': cuda_build.nvcc_path(), 'gpu': gpu,
-                                'build_s': round(build_s, 3), 'ptxas': ptxas}}), flush=True)
+                                'build_s': round(build_s, 3), 'ptxas': ptxas,
+                                'ntt_occupancy': occupancy}}), flush=True)
 
     params = BfvParams.create_tpu_param(N)
     t1 = time.perf_counter()

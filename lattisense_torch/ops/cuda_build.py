@@ -4,8 +4,10 @@ Each source is compiled on its own into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 -shared -Xcompiler -fPIC``) under ``build/kernels/`` at the repository root,
 which ``.gitignore`` lists. The library's file name carries a hash of its
-source and of the flags, so an edited source is rebuilt and a stale library
-is never loaded. Nothing is built at import: the first launch builds what it
+source, of every header it includes from ``csrc/`` (``#include "..."``,
+followed recursively: B1 and B5 share ``ntt_passes.cuh``) and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. Nothing is built at import: the first launch builds what it
 needs, and ``build_all`` builds every source at once, one nvcc each, all
 started together.
 """
@@ -13,6 +15,7 @@ started together.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,10 +40,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes, directly
+    or through another header, in the order first met."""
+    paths, todo = [], [os.path.join(CSRC, name + '.cu')]
+    while todo:
+        path = todo.pop(0)
+        if path in paths:
+            continue
+        paths.append(path)
+        with open(path, 'rb') as f:
+            todo += [os.path.join(os.path.dirname(path), inc.decode())
+                     for inc in _INCLUDE.findall(f.read())]
+    return paths
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sources_of(name):
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + b'\0' + f.read())
+    return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
 
 
 def build_all(names=SOURCES) -> dict[str, str]:

@@ -5,10 +5,15 @@ the u64 transforms of ``lattisense_tpu/core/ntt.py``:
 ``ops/ntt_pallas64f.py`` ``ntt_fused64`` / ``intt_fused64`` (B5),
 ``ops/ntt_pallas.py`` ``ntt_fused`` (B5-a), ``_intt_fused_impl`` (B5-b) and
 ``intt_fused`` / ``_intt_conj_impl`` (B5-c). The CUDA source is
-``csrc/ntt64.cu``: one thread block per (batch·limb) row with the whole row
-in shared memory (128 KB at n=16384), log2(n) 64-bit Shoup-butterfly stages
-between one read and one write of the row. ``ntt64_fwd`` / ``ntt64_inv`` are
-the entries; the reference's names are aliases of them.
+``csrc/ntt64.cu`` on the body it shares with B1, ``csrc/ntt_passes.cuh``:
+persistent blocks walk the (batch·limb) rows, each row held in registers
+(16 residues a thread, 1024 threads at n=16384) through four register passes
+of lazy 64-bit Shoup butterflies, exchanged whole through a 128 KB
+shared-memory buffer, the row read and written in coalesced 8-byte pieces.
+The schedule
+and the pass tables are B1's (``ops/ntt_cuda.py`` ``schedule``,
+``pass_tables``), built here from the 64-bit tables. ``ntt64_fwd`` /
+``ntt64_inv`` are the entries; the reference's names are aliases of them.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 PyTorch twin, the radix-2 loops of ``lattisense_tpu/core/ntt.py`` on the
@@ -19,11 +24,12 @@ tables. Every launch is counted in ``launch``.
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core import u64 as _u
 from . import cuda_build
-from .ntt_cuda import check_stack, intt_plain, ntt_plain
+from .ntt_cuda import check_stack, intt_plain, ntt_plain, pass_tables, run_aligned
 
 #: launches of each direction since the last reset, counted in ``launch``
 launches = {'ntt64_fwd': 0, 'ntt64_inv': 0}
@@ -31,10 +37,11 @@ launches = {'ntt64_fwd': 0, 'ntt64_inv': 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'ntt64_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    'ntt64_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt64_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    'ntt64_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    'ntt64_blocks_per_sm': [_I, _I],
 }
-MAX_LOGN = 14          # the row lives in shared memory: 2^14 · 8 B = 128 KB
+MAX_LOGN = 14          # the exchange buffer 2^14 · 8 B = 128 KB
 
 
 # ---------------------------------------------------------------------------
@@ -61,23 +68,30 @@ def intt64_plain(x, ring, from_mont: bool = False):
 # kernel launch
 # ---------------------------------------------------------------------------
 
-def _posts(ring):
-    """Per-limb epilogue constants as int64 (value, Shoup companion)
-    columns, cached on the ring: 2^64 mod q for to-Montgomery, and
-    n^-1·2^-64 mod q for an inverse with the from-Montgomery folded in."""
-    tabs = getattr(ring, '_b5_posts', None)
+def _tables(ring):
+    """B5's pass tables, (L, entries, 2) int64 (value, Shoup companion) per
+    direction, and its per-limb epilogue constants as int64 columns, cached
+    on the ring: 2^64 mod q for to-Montgomery, and n^-1·2^-64 mod q for an
+    inverse with the from-Montgomery folded in."""
+    tabs = getattr(ring, '_b5_tables', None)
     if tabs is None:
         rs, dev = ring.rings, ring.device
+        logn = ring.n.bit_length() - 1
 
         def col(vals):
             return torch.tensor([_u.to_s64(v) for v in vals], dtype=torch.int64, device=dev)
 
+        def table(attr, inverse):
+            stack = [np.stack([getattr(r, a) for r in rs]) for a in (attr, attr + '_shoup')]
+            return torch.from_numpy(pass_tables(*stack, logn, inverse, 1)).to(dev)
+
         nir = [r.n_inv * pow(1 << 64, -1, r.q) % r.q for r in rs]
-        tabs = {'r1': col([r.r1 for r in rs]),
+        tabs = {'fwd': table('psi_rev', False), 'inv': table('psi_inv_rev', True),
+                'r1': col([r.r1 for r in rs]),
                 'r1_shoup': col([(r.r1 << 64) // r.q for r in rs]),
                 'n_inv_rinv': col(nir),
                 'n_inv_rinv_shoup': col([(v << 64) // r.q for v, r in zip(nir, rs)])}
-        ring._b5_posts = tabs
+        ring._b5_tables = tabs
     return tabs
 
 
@@ -97,30 +111,32 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
         raise ValueError('to_mont is a forward epilogue, from_mont an inverse one')
     logn = ring.n.bit_length() - 1
     if not 1 <= logn <= MAX_LOGN:
-        raise ValueError(f'B5 supports 2 <= n <= 2^{MAX_LOGN} (one row in shared memory), '
-                         f'got n={ring.n}')
+        raise ValueError(f'B5 supports 2 <= n <= 2^{MAX_LOGN} (a row of 64-bit words in shared '
+                         f'memory), got n={ring.n}')
     rows = x.numel() // ring.n
     if rows == 0:
         return
     lib = cuda_build.load('ntt64', _SIGNATURES)
-    posts = _posts(ring)
+    tabs = _tables(ring)
     if inverse:
-        fn, tw, tws = lib.ntt64_inv_launch, ring.psi_inv_rev, ring.psi_inv_rev_shoup
-        post, postsh = ((posts['n_inv_rinv'], posts['n_inv_rinv_shoup']) if from_mont
+        fn = lib.ntt64_inv_launch
+        post, postsh = ((tabs['n_inv_rinv'], tabs['n_inv_rinv_shoup']) if from_mont
                         else (ring.n_inv, ring.n_inv_shoup))
     else:
-        fn, tw, tws = lib.ntt64_fwd_launch, ring.psi_rev, ring.psi_rev_shoup
-        post, postsh = (posts['r1'], posts['r1_shoup']) if to_mont else (None, None)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), rows, len(ring.moduli), logn,
-                 tw.data_ptr(), tws.data_ptr(), ring.q.data_ptr(),
-                 None if post is None else post.data_ptr(),
-                 None if postsh is None else postsh.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'ntt64 {"inverse" if inverse else "forward"} launch failed: '
-                           f'cudaError_t {err}')
+        fn = lib.ntt64_fwd_launch
+        post, postsh = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
+    run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
+                ring.q, post, postsh, f'ntt64 {"inverse" if inverse else "forward"}')
     launches['ntt64_inv' if inverse else 'ntt64_fwd'] += 1
+
+
+def blocks_per_sm(logn: int, inverse: bool) -> int:
+    """Blocks of B5's kernel at n = 2^logn that one SM of the current card
+    holds, from the occupancy calculator (registers, shared memory, threads)."""
+    got = cuda_build.load('ntt64', _SIGNATURES).ntt64_blocks_per_sm(logn, int(inverse))
+    if got < 0:
+        raise RuntimeError(f'ntt64 occupancy query failed: cudaError_t {-got}')
+    return got
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,22 @@
 
 Replaces ``lattisense_tpu/ops/ntt_pallas32.py`` ``ntt_fused32`` /
 ``intt_fused32`` (kernels ``_fwd_kernel`` / ``_inv_kernel``). The CUDA source
-is ``csrc/ntt32.cu``: one thread block per (batch·limb) row with the whole
-row in shared memory, log2(n) Shoup-butterfly stages between one read and
-one write of the row. The transform is bound by device-memory bytes (a row
-moves in and out as int64, against ~12 integer operations per butterfly);
-keeping the row in shared memory is what holds the traffic to that one
-round trip.
+is ``csrc/ntt32.cu`` on the shared body ``csrc/ntt_passes.cuh``: persistent
+blocks walk the (batch·limb) rows, each row held in registers by n/E threads
+(E = 16 residues a thread up to n = 2^14) and transformed in register passes
+of up to four butterfly stages, exchanged between passes through shared
+memory, while the block's next row streams into a staging buffer. The
+transform is bound by device-memory bytes (a row moves in and out as int64,
+against ~12 integer operations per butterfly); the design touches each
+element once each way and reads each twiddle once per row.
+
+The schedule lives here as well as in the source, in plain Python:
+``schedule`` (the register bits and the passes' windows), ``element_index``
+(which thread holds which elements in which pass), ``pass_tables`` (each
+pass's twiddles in the order a thread reads them) and ``exchange_slot`` /
+``staging_slot`` (the shared-memory swizzles).
+``tests/test_torch_ntt_schedule.py`` walks that schedule on the CPU against
+``lattisense_tpu/core/ntt.py``.
 
 ``ntt32_fwd`` / ``ntt32_inv`` take an int64 (..., L, n) stack of residues in
 [0, q) for the ring's L limbs. A CUDA tensor launches the kernel (or raises);
@@ -42,12 +52,14 @@ launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'ntt32_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    'ntt32_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    'ntt32_fwd_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    'ntt32_inv_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt32_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    'ntt32_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    'ntt32_blocks_per_sm': [_I, _I],
+    'ntt32_fwd_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    'ntt32_inv_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
-MAX_LOGN = 15          # the row lives in shared memory: 2^15 · 4 B = 128 KB
+MAX_LOGN = 15          # 1024 threads of 32 residues; the exchange buffer 2^15 · 4 B = 128 KB
+SMEM_LIMIT = 232448    # bytes of shared memory a block may use (sm_90)
 LANES = 128            # the tile width of the perm layout
 
 
@@ -114,6 +126,108 @@ def unperm_layout(x):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' pass schedule (csrc/ntt_passes.cuh builds the same)
+# ---------------------------------------------------------------------------
+
+def schedule(logn: int):
+    """The pass schedule of B1 and B5 at n = 2^logn: ``(K, windows)``.
+
+    Each thread holds E = 2^K residues of a row in registers, n/E threads a
+    row (K = 4 up to n = 2^14, K = 5 at n = 2^15). ``windows`` lists the
+    passes in forward order as ``(lo, kp)``: in that pass register i covers
+    element bits [lo, lo + K) (``element_index``), and the pass runs the
+    butterfly stages of the window's low kp bits. The forward runs the
+    windows in this order (top bits first), the inverse in reverse. All but
+    the last are full (kp = K); the last, the chunk window (lo = 0), takes
+    the remaining kr = logn - K·(P-1) stages."""
+    K = logn if logn <= 4 else (4 if logn <= 14 else logn - 10)
+    passes = -(-logn // K)
+    kr = logn - K * (passes - 1)
+    return K, [(logn - K * (f + 1), K) for f in range(passes - 1)] + [(0, kr)]
+
+
+def element_index(logn: int, lo: int) -> torch.Tensor:
+    """(n/E, E) int64: the element that register i of thread ``lane`` holds
+    in the window starting at element bit ``lo``."""
+    K, _ = schedule(logn)
+    lane = torch.arange(1 << (logn - K)).reshape(-1, 1)
+    i = torch.arange(1 << K).reshape(1, -1)
+    return (lane & ((1 << lo) - 1)) | (i << lo) | ((lane >> lo) << (lo + K))
+
+
+def pass_indices(logn: int, inverse: bool, per_vector: int) -> np.ndarray:
+    """Which entry of the ring's bit-reversed table (psi_rev for the forward,
+    psi_inv_rev for the inverse) each slot of the direction's pass table
+    holds. Passes follow in execution order, 2^(logn - lo) slots each.
+
+    Within a pass, group G = element >> (lo + kp) owns 2^kp slots and thread
+    group u = lane >> lo owns the E slots of its groups, k = x·2^kp + slot
+    (x the extra bits). Forward stage j of the pass (element bit
+    lo + kp - 1 - j) takes slots 2^j + h: psi_rev[2^(s0 + j) + G·2^j + h],
+    s0 = logn - lo - kp; inverse stage j (element bit lo + j) takes slots
+    2^kp - 2^(kp-j) + h: psi_inv_rev[2^(logn-lo-j-1) + G·2^(kp-j-1) + h]. The
+    one unused slot of each group holds entry 0. Slots are stored by 16-byte
+    vector of ``per_vector`` entries: vector v of every u in turn, so a warp
+    reads one vector index in one contiguous piece."""
+    K, windows = schedule(logn)
+    out = []
+    for lo, kp in (windows[::-1] if inverse else windows):
+        groups = np.arange(1 << (logn - lo - kp)).reshape(-1, 1)
+        slots = np.zeros((len(groups), 1 << kp), dtype=np.int64)
+        for j in range(kp):
+            if inverse:
+                cnt, off, base = 1 << (kp - j - 1), (1 << kp) - (1 << (kp - j)), 1 << (logn - lo - j - 1)
+            else:
+                cnt, off, base = 1 << j, 1 << j, 1 << (logn - lo - kp + j)
+            slots[:, off:off + cnt] = base + groups * cnt + np.arange(cnt)
+        by_thread = slots.reshape(-1, (1 << K) // per_vector, per_vector)      # (u, v, entry)
+        out.append(by_thread.transpose(1, 0, 2).reshape(-1))
+    return np.concatenate(out)
+
+
+def pass_tables(tw, tws, logn: int, inverse: bool, per_vector: int):
+    """The direction's pass table of (L, n) arrays of twiddles ``tw`` and
+    their Shoup companions ``tws``: a C-contiguous (L, entries, 2) array,
+    each entry (value, companion) at the slot of ``pass_indices``."""
+    idx = pass_indices(logn, inverse, per_vector)
+    return np.ascontiguousarray(np.stack([np.asarray(tw)[:, idx], np.asarray(tws)[:, idx]],
+                                         axis=-1))
+
+
+def table_position(logn: int, lo: int, lane, k, per_vector: int):
+    """Slot, within its pass, of entry k of thread ``lane`` in the window
+    starting at element bit ``lo`` (the layout of ``pass_indices``)."""
+    K, _ = schedule(logn)
+    groups = (1 << (logn - K)) >> lo
+    return ((k // per_vector) * groups + (lane >> lo)) * per_vector + k % per_vector
+
+
+def exchange_slot(idx, word_bits: int):
+    """The slot of the exchange buffer that holds element ``idx``. 32-bit
+    words: the bank bits XORed with a linear map of element bits 5..9;
+    64-bit words (16 to a row of banks): the slot bits XORed with element
+    bits 4..7. Under either no exchange of any window has a bank conflict."""
+    if word_bits == 64:
+        return idx ^ ((idx >> 4) & 15)
+    h = (idx >> 5) & 31
+    return idx ^ (((h << 1) & 30) | (((h >> 3) ^ (h >> 4)) & 1))
+
+
+def staging_slot(idx):
+    """The int64 slot of B1's staging buffer that holds element ``idx``: its
+    16-byte chunk permuted within each aligned group of eight chunks."""
+    c = idx >> 1
+    return ((c ^ ((c >> 3) & 7)) << 1) | (idx & 1)
+
+
+def stages_rows(logn: int, word_bits: int) -> bool:
+    """Whether the kernel stages the next row by cp.async: at the 32-bit word
+    where the 8n-byte staging buffer fits beside the 4n-byte exchange buffer
+    (n <= 2^14); never at the 64-bit word."""
+    return word_bits == 32 and (12 << logn) <= SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
 
@@ -125,18 +239,24 @@ def u32_tensor(values, device):
 
 
 def _tables(ring):
-    """The ring's tables in the kernel's uint32 layout, cached on the ring."""
+    """The ring's pass tables and per-limb constants in the kernel's uint32
+    layout, cached on the ring."""
     tabs = getattr(ring, '_b1_tables', None)
     if tabs is None:
         rs, dev = ring.rings, ring.device
+        logn = ring.n.bit_length() - 1
         r1 = [r.r1 for r in rs]
         nir = [r.n_inv * pow(1 << 32, -1, r.q) % r.q for r in rs]
+
+        def stacked(attr):
+            return np.stack([getattr(r, attr) for r in rs])
+
         tabs = {
             'q': u32_tensor([r.q for r in rs], dev),
-            'psi_rev': u32_tensor(np.stack([r.psi_rev for r in rs]), dev),
-            'psi_rev_shoup': u32_tensor(np.stack([r.psi_rev_shoup for r in rs]), dev),
-            'psi_inv_rev': u32_tensor(np.stack([r.psi_inv_rev for r in rs]), dev),
-            'psi_inv_rev_shoup': u32_tensor(np.stack([r.psi_inv_rev_shoup for r in rs]), dev),
+            'fwd': u32_tensor(pass_tables(stacked('psi_rev'), stacked('psi_rev_shoup'),
+                                          logn, False, 2), dev),
+            'inv': u32_tensor(pass_tables(stacked('psi_inv_rev'), stacked('psi_inv_rev_shoup'),
+                                          logn, True, 2), dev),
             'n_inv': u32_tensor([r.n_inv for r in rs], dev),
             'n_inv_shoup': u32_tensor([r.n_inv_shoup for r in rs], dev),
             'r1': u32_tensor(r1, dev),
@@ -190,23 +310,40 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     tabs = _tables(ring)
     if inverse:
         fn = lib.ntt32_inv_perm_launch if perm else lib.ntt32_inv_launch
-        tw, tws = tabs['psi_inv_rev'], tabs['psi_inv_rev_shoup']
         post, posts = ((tabs['n_inv_rinv'], tabs['n_inv_rinv_shoup']) if from_mont
                        else (tabs['n_inv'], tabs['n_inv_shoup']))
     else:
         fn = lib.ntt32_fwd_perm_launch if perm else lib.ntt32_fwd_launch
-        tw, tws = tabs['psi_rev'], tabs['psi_rev_shoup']
         post, posts = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
+    run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
+                tabs['q'], post, posts, f'ntt32 {"inverse" if inverse else "forward"}')
+    launches[name or ('ntt32_inv' if inverse else 'ntt32_fwd')] += 1
+
+
+def run_aligned(fn, x, y, rows, limbs, logn, tab, q, post, posts, what: str):
+    """Call the C entry ``fn`` of B1 or B5 on the current stream. The kernel
+    moves rows in 16-byte pieces, so a stack that does not start on 16 bytes
+    (a view into a larger tensor) goes through an aligned copy."""
+    xin = x if x.data_ptr() % 16 == 0 else x.clone()
+    out = y if y.data_ptr() % 16 == 0 else torch.empty_like(y)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), rows, len(ring.moduli), logn,
-                 tw.data_ptr(), tws.data_ptr(), tabs['q'].data_ptr(),
-                 None if post is None else post.data_ptr(),
+        err = fn(xin.data_ptr(), out.data_ptr(), rows, limbs, logn, tab.data_ptr(),
+                 q.data_ptr(), None if post is None else post.data_ptr(),
                  None if posts is None else posts.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f'ntt32 {"inverse" if inverse else "forward"} launch failed: '
-                           f'cudaError_t {err}')
-    launches[name or ('ntt32_inv' if inverse else 'ntt32_fwd')] += 1
+        raise RuntimeError(f'{what} launch failed: cudaError_t {err}')
+    if out is not y:
+        y.copy_(out)
+
+
+def blocks_per_sm(logn: int, inverse: bool) -> int:
+    """Blocks of B1's kernel at n = 2^logn that one SM of the current card
+    holds, from the occupancy calculator (registers, shared memory, threads)."""
+    got = cuda_build.load('ntt32', _SIGNATURES).ntt32_blocks_per_sm(logn, int(inverse))
+    if got < 0:
+        raise RuntimeError(f'ntt32 occupancy query failed: cudaError_t {-got}')
+    return got
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 Each kernel is checked at a small shape and at the main path's shape, with
-its launch count and its refusal of bad input.
+its launch count and its refusal of bad input; the NTTs B1 and B5 at every
+n they take, at row counts around their persistent grid, bit for bit.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -40,23 +41,53 @@ def residues(seed, moduli, n, lead=()):
                                       for q in moduli], axis=-2))
 
 
-@pytest.mark.parametrize('n,rows', [(256, 3), (16384, 12)])
-def test_b1_kernel_matches_plain(cuda, n, rows):
-    chain = tuple(gen_ntt_primes(n, 31, rows))
-    ring_c, ring_g = get_rns_ring(chain, n, CPU), get_rns_ring(chain, n, cuda)
-    x = residues(7, chain, n, (4,))
-    before = dict(ntt_cuda.launches)
-    f = ntt_cuda.ntt32_fwd(x.to(cuda), ring_g)
-    fm = ntt_cuda.ntt32_fwd(x.to(cuda), ring_g, to_mont=True)
-    i = ntt_cuda.ntt32_inv(f, ring_g)
-    torch.cuda.synchronize()
-    assert torch.equal(f.cpu(), ntt_cuda.ntt_plain(x, ring_c))
-    assert torch.equal(fm.cpu(), ntt_cuda.ntt_plain(x, ring_c, to_mont=True))
-    assert torch.equal(i.cpu(), x)
-    assert ntt_cuda.launches['ntt32_fwd'] == before['ntt32_fwd'] + 2
-    assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv'] + 1
+def card_residues(ring, lead, seed):
+    """A (*lead, L, n) stack of residues made on the card from a seed."""
+    gen = torch.Generator(device=ring.device).manual_seed(seed)
+    x = torch.randint(0, 1 << 62, (*lead, len(ring.moduli), ring.n), generator=gen,
+                      device=ring.device)
+    return x % ring.q
+
+
+def row_cases(logn):
+    """(L, lead) stacks of 1 row, a prime count of rows, and counts that are
+    no multiple of the rows a persistent block takes (the grid is at most 32
+    blocks per SM, so 4812 rows exceed it at every n up to 2^12)."""
+    return [(1, ()), (1, (13,)), (12, (37,))] + ([(12, (401,))] if logn <= 12 else [])
+
+
+def misaligned(x):
+    """A copy of x that starts 8 bytes past a 16-byte boundary."""
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize('logn', range(1, 16))
+def test_b1_kernel_matches_plain(cuda, logn):
+    """Every n B1 takes, L = 1 and L = 12, both epilogues of each direction."""
+    n = 1 << logn
+    chain = tuple(gen_ntt_primes(n, 31, 12))
+    before, calls = dict(ntt_cuda.launches), 0
+    for L, lead in row_cases(logn):
+        ring = get_rns_ring(chain[:L], n, cuda)
+        x = card_residues(ring, lead, 7 + logn)
+        f = ntt_cuda.ntt32_fwd(x, ring)
+        fm = ntt_cuda.ntt32_fwd(x, ring, to_mont=True)
+        i = ntt_cuda.ntt32_inv(x, ring)
+        im = torch.empty_like(x)
+        ntt_cuda.launch(fm, im, ring, inverse=True, from_mont=True)
+        fa = ntt_cuda.ntt32_fwd(misaligned(x), ring)
+        ia = misaligned(torch.zeros_like(x))
+        ntt_cuda.launch(f, ia, ring, inverse=True)
+        calls += 3
+        torch.cuda.synchronize()
+        assert torch.equal(f, ntt_cuda.ntt_plain(x, ring)), (L, lead)
+        assert torch.equal(fm, ntt_cuda.ntt_plain(x, ring, to_mont=True)), (L, lead)
+        assert torch.equal(i, ntt_cuda.intt_plain(x, ring)), (L, lead)
+        assert torch.equal(im, x) and torch.equal(ia, x) and torch.equal(fa, f), (L, lead)
+    assert ntt_cuda.launches['ntt32_fwd'] == before['ntt32_fwd'] + calls
+    assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv'] + calls
     with pytest.raises(ValueError):
-        ntt_cuda.ntt32_fwd(x.to(cuda).transpose(0, 1), ring_g)
+        ntt_cuda.ntt32_fwd(x.transpose(0, 1), ring)
 
 
 def test_b2_kernel_matches_plain(cuda):
@@ -233,31 +264,36 @@ def chain64(n, count):
     return tuple(out[:count])
 
 
-@pytest.mark.parametrize('n,lead', [(256, (3,)), (16384, (32, 4))])
-def test_b5_kernel_matches_plain(cuda, n, lead):
+@pytest.mark.parametrize('logn', range(1, 15))
+def test_b5_kernel_matches_plain(cuda, logn):
+    """Every n B5 takes, L = 1 and L = 12, both epilogues of each direction,
+    and the reference's five names."""
     from lattisense_torch.ops import ntt64_cuda
-    chain = chain64(n, 4)
-    ring_c, ring_g = get_rns_ring(chain, n, CPU, 64), get_rns_ring(chain, n, cuda, 64)
-    x = residues(31, chain, n, lead)
-    xg = x.to(cuda)
-    before = dict(ntt64_cuda.launches)
-    f = ntt64_cuda.ntt64_fwd(xg, ring_g)
-    fm = ntt64_cuda.ntt64_fwd(xg, ring_g, to_mont=True)
-    i = ntt64_cuda.ntt64_inv(f, ring_g)
-    im = ntt64_cuda.ntt64_inv(fm, ring_g, from_mont=True)
-    torch.cuda.synchronize()
-    want_f = ntt64_cuda.ntt64_plain(x, ring_c)
-    assert torch.equal(f.cpu(), want_f)
-    assert torch.equal(fm.cpu(), ntt64_cuda.ntt64_plain(x, ring_c, to_mont=True))
-    assert torch.equal(i.cpu(), x) and torch.equal(im.cpu(), x)
-    assert ntt64_cuda.launches == {'ntt64_fwd': before['ntt64_fwd'] + 2,
-                                   'ntt64_inv': before['ntt64_inv'] + 2}
+    n = 1 << logn
+    chain = tuple(p for bits in (61, 59, 57, 55) for p in gen_ntt_primes(n, bits, 3))
+    before, calls = dict(ntt64_cuda.launches), 0
+    for L, lead in row_cases(logn):
+        ring = get_rns_ring(chain[:L], n, cuda, 64)
+        x = card_residues(ring, lead, 31 + logn)
+        f = ntt64_cuda.ntt64_fwd(x, ring)
+        fm = ntt64_cuda.ntt64_fwd(x, ring, to_mont=True)
+        i = ntt64_cuda.ntt64_inv(x, ring)
+        im = ntt64_cuda.ntt64_inv(fm, ring, from_mont=True)
+        ia = ntt64_cuda.ntt64_inv(misaligned(f), ring)
+        calls += 2
+        torch.cuda.synchronize()
+        assert torch.equal(f, ntt64_cuda.ntt64_plain(x, ring)), (L, lead)
+        assert torch.equal(fm, ntt64_cuda.ntt64_plain(x, ring, to_mont=True)), (L, lead)
+        assert torch.equal(i, ntt64_cuda.intt64_plain(x, ring)), (L, lead)
+        assert torch.equal(im, x) and torch.equal(ia, x), (L, lead)
+    assert ntt64_cuda.launches == {'ntt64_fwd': before['ntt64_fwd'] + calls,
+                                   'ntt64_inv': before['ntt64_inv'] + calls + len(row_cases(logn))}
     for alias in (ntt64_cuda.ntt_fused64, ntt64_cuda.ntt_fused):
-        assert torch.equal(alias(xg, ring_g).cpu(), want_f)
+        assert torch.equal(alias(x, ring), f)
     for alias in (ntt64_cuda.intt_fused64, ntt64_cuda.intt_fused, ntt64_cuda.intt_fused_impl):
-        assert torch.equal(alias(f, ring_g).cpu(), x)
+        assert torch.equal(alias(f, ring), x)
     with pytest.raises(ValueError):
-        ntt64_cuda.ntt64_fwd(xg, get_rns_ring(gen_ntt_primes(n, 31, 4), n, cuda))
+        ntt64_cuda.ntt64_fwd(x, get_rns_ring(gen_ntt_primes(n, 31, len(chain[:L])), n, cuda))
 
 
 def test_b6_kernel_matches_plain(cuda):
