@@ -117,11 +117,14 @@ def behz_work(polys: int, L: int, T: int, n: int) -> tuple[float, float]:
 
 def ksw_work(G: int, L: int, alpha: int, beta: int, n: int,
              output_ntt: bool = False) -> tuple[float, float]:
-    """Bytes and operations of one B3 call on G polynomials: x read once,
-    the key's β digits over T = L+α rows read once, e0 and e1 written once,
-    the Q_ℓ∪P twiddle tables of both directions read once; per coefficient
-    the decomposition and mod-up, the β·T-row forward NTT, the inner
-    product, the 2T-row inverse NTT and the mod-down."""
+    """Bytes and operations of one B3 call on G polynomials. The bytes are
+    the inputs and outputs only, the traffic any implementation must have:
+    x read once, the key's β digits over T = L+α rows read once, the
+    Q_ℓ∪P twiddle tables of both directions read once, e0 and e1 written
+    once (int64); no intermediate counts, whichever route a kernel takes, so
+    the bound is one yardstick for every design. The operations: per
+    coefficient the decomposition and mod-up, the β·T-row forward NTT, the
+    inner product, the 2T-row inverse NTT and the mod-down."""
     T = L + alpha
     nbytes = 8.0 * G * L * n + 8.0 * beta * 2 * T * n + 16.0 * G * L * n + 16.0 * T * n
     per_coef = (L * OPS_SHOUP + beta * T * alpha * (OPS_SHOUP + OPS_ADDSUB)
@@ -137,11 +140,14 @@ def ksw_work(G: int, L: int, alpha: int, beta: int, n: int,
 
 
 def finish_work(polys: int, L: int, T: int, n: int) -> tuple[float, float]:
-    """Bytes and operations of one B4 call: dq and da read once, the output
-    written once, both rings' inverse twiddle tables read once; the inverse
-    NTT with its epilogue over L+T rows, then per coefficient [tX]_Q, the
-    conversion to the aux basis, the Q^-1 scale and Shenoy–Kumaresan back
-    to Q."""
+    """Bytes and operations of one B4 call. The bytes are the inputs and
+    outputs only, the traffic any implementation must have: dq and da read
+    once, both rings' inverse twiddle tables read once, the output written
+    once (int64); no intermediate counts, whichever route a kernel takes, so
+    the bound is one yardstick for every design. The operations: the
+    inverse NTT with its epilogue over L+T rows, then per coefficient
+    [tX]_Q, the conversion to the aux basis, the Q^-1 scale and
+    Shenoy–Kumaresan back to Q."""
     Tb = T - 1
     nbytes = 8.0 * polys * (2 * L + T) * n + 8.0 * (L + T) * n
     per_coef = (2 * L * OPS_SHOUP + T * (L * (OPS_SHOUP + OPS_ADDSUB) + 2 * OPS_SHOUP
@@ -252,19 +258,27 @@ def main() -> int:
                                  'blocks_per_sm': mod.blocks_per_sm(logn, d == 'inv')}
                  for word, mod in (('ntt32', ntt_cuda), ('ntt64', ntt64_cuda))
                  for d in ('fwd', 'inv')}
+    params = BfvParams.create_tpu_param(N)
+    eng_c = BfvEngine(params, 'cpu')
+    bz_c = eng_c.behz(LEVEL)
+    L, T = LEVEL + 1, len(bz_c.ring_aux.moduli)
+    # B3's route and blocks per SM at the main path's shapes (B4 runs B1's
+    # kernel body with its own row ends, at B1's occupancy)
+    fused = {'ksw_switch32': {'route': ksw_cuda.switch_route(N), 'n': N,
+                              'threads': N >> ntt_cuda.schedule(logn)[0],
+                              'blocks_per_sm': ksw_cuda.rows_blocks_per_sm(N)},
+             'behz_finish32': {'route': 'chain', 'n': N, 'L': L, 'T': T}}
     print(json.dumps({'setup': {'torch': torch.__version__, 'cuda': torch.version.cuda,
                                 'nvcc': cuda_build.nvcc_path(), 'gpu': gpu,
                                 'build_s': round(build_s, 3), 'ptxas': ptxas,
-                                'ntt_occupancy': occupancy}}), flush=True)
+                                'ntt_occupancy': occupancy, 'fused': fused}}), flush=True)
 
-    params = BfvParams.create_tpu_param(N)
     t1 = time.perf_counter()
     ctx = BfvContext.create_random_context(params, seed=SEED, device=dev)
     keygen_s = time.perf_counter() - t1
-    eng_g, eng_c = ctx.engine, BfvEngine(params, 'cpu')
-    bz_g, bz_c = eng_g.behz(LEVEL), eng_c.behz(LEVEL)
+    eng_g = ctx.engine
+    bz_g = eng_g.behz(LEVEL)
     sw_g, sw_c = eng_g.switcher, eng_c.switcher
-    L, T = LEVEL + 1, len(bz_g.ring_aux.moduli)
     alpha, beta = sw_g.alpha, sw_g.beta(LEVEL)
     qp = tuple(params.q[:L]) + tuple(params.p)
     rings = {  # name -> (gpu ring, cpu ring)
@@ -285,9 +299,11 @@ def main() -> int:
         return max(int((g.cpu() - w).abs().max()) for g, w in pairs)
 
     # ---- 2. kernels against their plain twins -----------------------------
-    # B1 at the row stacks one batched mult_relin gives it: forward inside B2
-    # (4 polynomials over q and aux) and B3 (β digits over q∪p); inverse
-    # inside B4 (3 products over q and aux) and B3 (2 components over q∪p)
+    # B1 at the row stacks one batched mult_relin gave it before B3 and B4
+    # ran their own NTTs: forward inside B2 (4 polynomials over q and aux,
+    # still on the path) and B3's split route (β digits over q∪p); inverse
+    # inside B4's and B3's split routes (3 products over q and aux, 2
+    # components over q∪p), on no path at the main path's shapes
     fwd_calls = [('q', (BATCH, 4)), ('aux', (BATCH, 4)), ('qp', (BATCH, beta))]
     inv_calls = [('q', (BATCH, 3)), ('aux', (BATCH, 3)), ('qp', (BATCH, 2))]
 
@@ -320,7 +336,7 @@ def main() -> int:
                                       ntt_cuda.ntt_plain, ntt_work)),
         'ntt32_inv': dict(route='cuda', source='lattisense_torch/csrc/ntt32.cu',
                           replaces='lattisense_tpu/ops/ntt_pallas32.py:173',
-                          replaces_function='intt_fused32 (_inv_kernel)', path='main_path',
+                          replaces_function='intt_fused32 (_inv_kernel)', path=None,
                           **check_ntt('ntt32_inv', inv_calls, ntt_cuda.ntt32_inv,
                                       ntt_cuda.intt_plain, ntt_work)),
     }
@@ -366,6 +382,7 @@ def main() -> int:
     bound_ms, bound_by = bound(*ksw_work(BATCH, L, alpha, beta, N))
     kernels['ksw_switch32'] = dict(
         route='cuda', source='lattisense_torch/csrc/ksw32.cu',
+        design=fused['ksw_switch32']['route'], cluster=None,
         replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
         replaces_function='ksw_switch32 (_ksw_kernel)', path='main_path',
         shapes=[{'x': list(x.shape), 'level': LEVEL, 'alpha': alpha, 'beta': beta,
@@ -389,6 +406,7 @@ def main() -> int:
     bound_ms, bound_by = bound(*finish_work(BATCH * 3, L, T, N))
     kernels['behz_finish32'] = dict(
         route='cuda', source='lattisense_torch/csrc/behz32.cu',
+        design='chain', cluster=None,
         replaces='lattisense_tpu/ops/behz_pallas32.py:368',
         replaces_function='behz_finish32 (_k3_kernel)', path='main_path',
         shapes=[[list(dq.shape), list(da.shape)]], equal=True,

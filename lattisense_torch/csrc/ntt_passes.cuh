@@ -356,6 +356,56 @@ __device__ __forceinline__ void passes(typename W::T (&a)[1 << reg_bits(LOGN)],
 }
 
 // ---------------------------------------------------------------------------
+// a row in and out of the pass layout (B1, B5 and the fused kernels B3, B4)
+// ---------------------------------------------------------------------------
+
+// Row xr into the registers of the direction's first window, straight from
+// device memory: read in the top window, where a warp's lanes hold
+// consecutive elements (the inverse perm entry reads the perm layout); the
+// inverse, which starts in the chunk window, goes there through one exchange
+// of xb.
+template <class W, int LOGN, bool INV, bool PERM = false>
+__device__ __forceinline__ void load_row(typename W::T (&a)[1 << reg_bits(LOGN)],
+                                         const int64_t* __restrict__ xr, typename W::T* xb) {
+  constexpr int K = reg_bits(LOGN), TOP = window_lo(LOGN, 0);
+  const int lane = lane_id();
+#pragma unroll
+  for (int i = 0; i < (1 << K); ++i) {
+    int idx = element<TOP, K>(lane, i);
+    if constexpr (PERM && INV) idx = perm_pos<LOGN>(idx);
+    a[i] = static_cast<typename W::T>(xr[idx]);
+  }
+  if constexpr (INV && num_passes(LOGN) > 1) exchange<W, LOGN, TOP, 0>(a, xb);
+}
+
+// The epilogue: the canonical residue, times the per-limb post constant
+// (pv, its Shoup companion pvs) where `post` is set.
+template <class W, int E>
+__device__ __forceinline__ void epilogue(typename W::T (&a)[E], typename W::T q, bool post,
+                                         typename W::T pv, typename W::T pvs) {
+  if (post) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) a[i] = W::canon(W::shoup_lazy(a[i], pv, pvs, q), q);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) a[i] = W::canon(a[i], q);
+  }
+}
+
+// The registers of the direction's last window to row yr in the top window;
+// the forward, which ends in the chunk window, goes there through one
+// exchange of xb.
+template <class W, int LOGN, bool INV>
+__device__ __forceinline__ void store_row(typename W::T (&a)[1 << reg_bits(LOGN)],
+                                          int64_t* __restrict__ yr, typename W::T* xb) {
+  constexpr int K = reg_bits(LOGN), TOP = window_lo(LOGN, 0);
+  if constexpr (!INV && num_passes(LOGN) > 1) exchange<W, LOGN, 0, TOP>(a, xb);
+  const int out_lane = lane_id();
+#pragma unroll
+  for (int i = 0; i < (1 << K); ++i) yr[element<TOP, K>(out_lane, i)] = static_cast<int64_t>(a[i]);
+}
+
+// ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
@@ -372,17 +422,53 @@ __device__ __forceinline__ void stage_row(int64_t* stage, const int64_t* src, in
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// B1 and B5's end of a row: the canonical residue times the per-limb post
+// constant (where `post` is set), stored as int64 in the top window, or in
+// the perm layout (the forward perm entry).
 template <class W, int LOGN, bool INV, bool PERM>
+struct StoreRow {
+  using T = typename W::T;
+  int64_t* y;
+  const T* post;
+  const T* posts;
+
+  __device__ __forceinline__ void operator()(T (&a)[1 << reg_bits(LOGN)], T* xb, int row,
+                                             int limb, T q) const {
+    constexpr int K = reg_bits(LOGN), E = 1 << K, TOP = window_lo(LOGN, 0);
+    epilogue<W>(a, q, post != nullptr, post != nullptr ? post[limb] : T(0),
+                post != nullptr ? posts[limb] : T(0));
+    int64_t* yr = y + static_cast<size_t>(row) * (1 << LOGN);
+    if constexpr (PERM && !INV) {
+      // the perm layout: the chunk window goes to the exchange buffer and each
+      // thread stores consecutive positions, fetching each one's element
+      const int from = W::xslot(element<0, K>(lane_id(), 0));
+#pragma unroll
+      for (int i = 0; i < E; ++i) xb[from ^ W::xslot(i)] = a[i];
+      __syncthreads();
+      const int out_lane = lane_id();
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int pos = element<TOP, K>(out_lane, i);
+        yr[pos] = static_cast<int64_t>(xb[W::xslot(perm_element<LOGN>(pos))]);
+      }
+    } else {
+      store_row<W, LOGN, INV>(a, yr, xb);
+    }
+  }
+};
+
+// Persistent blocks walk the rows of x; each row is transformed in registers
+// and handed, in the direction's last window, to `end(a, xb, row, limb, q)`
+// (B1 and B5: StoreRow; the fused kernels' row-local steps otherwise).
+template <class W, int LOGN, bool INV, bool PERM, class End>
 __global__ void __launch_bounds__(row_threads(LOGN))
-ntt_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y, int rows, int limbs,
-           const unsigned char* __restrict__ tw, const typename W::T* __restrict__ qv,
-           const typename W::T* __restrict__ post, const typename W::T* __restrict__ posts) {
+ntt_kernel(const int64_t* __restrict__ x, int rows, int limbs,
+           const unsigned char* __restrict__ tw, const typename W::T* __restrict__ qv, End end) {
   using T = typename W::T;
   constexpr int N = 1 << LOGN, K = reg_bits(LOGN), E = 1 << K, P = num_passes(LOGN);
   constexpr bool STAGE = W::stages(LOGN);
-  // device memory is read and written in the top window, where a warp's
-  // lanes hold consecutive elements; the inverse starts, the forward ends, in
-  // the chunk window
+  // device memory is read in the top window, where a warp's lanes hold
+  // consecutive elements; the inverse starts in the chunk window
   constexpr int TOP = window_lo(LOGN, 0);
   constexpr int LO_IN = INV ? 0 : TOP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -418,14 +504,7 @@ ntt_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y, int rows, int
         for (int i = 0; i < E; ++i) a[i] = static_cast<T>(stage[base ^ sswz(i << LO_IN)]);
       }
     } else {
-      const int64_t* xr = x + static_cast<size_t>(row) * N;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        int idx = element<TOP, K>(lane, i);
-        if constexpr (PERM && INV) idx = perm_pos<LOGN>(idx);
-        a[i] = static_cast<T>(xr[idx]);
-      }
-      if constexpr (INV && P > 1) exchange<W, LOGN, TOP, 0>(a, xb);
+      load_row<W, LOGN, INV, PERM>(a, x + static_cast<size_t>(row) * N, xb);
     }
 
     const unsigned char* tl = tw + static_cast<size_t>(limb) * table_entries(LOGN) *
@@ -448,44 +527,15 @@ ntt_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ y, int rows, int
     } else {
       passes<W, LOGN, INV>(a, xb, tl, q);
     }
-
-    // epilogue: the canonical residue, times the per-limb post constant
-    if (post != nullptr) {
-      const T pv = post[limb], pvs = posts[limb];
-#pragma unroll
-      for (int i = 0; i < E; ++i) a[i] = W::canon(W::shoup_lazy(a[i], pv, pvs, q), q);
-    } else {
-#pragma unroll
-      for (int i = 0; i < E; ++i) a[i] = W::canon(a[i], q);
-    }
-    int64_t* yr = y + static_cast<size_t>(row) * N;
-    if constexpr (PERM && !INV) {
-      // the perm layout: the chunk window goes to the exchange buffer and each
-      // thread stores consecutive positions, fetching each one's element
-      const int from = W::xslot(element<0, K>(lane_id(), 0));
-#pragma unroll
-      for (int i = 0; i < E; ++i) xb[from ^ W::xslot(i)] = a[i];
-      __syncthreads();
-      const int out_lane = lane_id();
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const int pos = element<TOP, K>(out_lane, i);
-        yr[pos] = static_cast<int64_t>(xb[W::xslot(perm_element<LOGN>(pos))]);
-      }
-    } else {
-      if constexpr (!INV && P > 1) exchange<W, LOGN, 0, TOP>(a, xb);
-      const int out_lane = lane_id();
-#pragma unroll
-      for (int i = 0; i < E; ++i) yr[element<TOP, K>(out_lane, i)] = static_cast<int64_t>(a[i]);
-    }
+    end(a, xb, row, limb, q);
   }
 }
 
 // Set the kernel's shared-memory attribute and ask the occupancy calculator
 // how many of its blocks an SM holds.
-template <class W, int LOGN, bool INV, bool PERM>
+template <class W, int LOGN, bool INV, bool PERM, class End = StoreRow<W, LOGN, INV, PERM>>
 int blocks_per_sm(int* per_sm) {
-  auto kernel = ntt_kernel<W, LOGN, INV, PERM>;
+  auto kernel = ntt_kernel<W, LOGN, INV, PERM, End>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          W::smem_bytes(LOGN));
   if (err == cudaSuccess)
@@ -494,11 +544,12 @@ int blocks_per_sm(int* per_sm) {
   return static_cast<int>(err);
 }
 
-// Launch on `stream`. The attribute and the persistent grid (blocks per SM
-// times the SMs) are set up once per kernel and device.
-template <class W, int LOGN, bool INV, bool PERM>
-int launch(const int64_t* x, int64_t* y, int rows, int limbs, const void* tw, const void* q,
-           const void* post, const void* posts, cudaStream_t stream) {
+// Launch the rows of x with `end` on `stream`. The attribute and the
+// persistent grid (blocks per SM times the SMs) are set up once per kernel
+// and device.
+template <class W, int LOGN, bool INV, bool PERM, class End>
+int launch_rows(const int64_t* x, int rows, int limbs, const void* tw, const void* q,
+                const End& end, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static int grid_of[kMaxDevices] = {};
   int dev = 0;
@@ -507,7 +558,7 @@ int launch(const int64_t* x, int64_t* y, int rows, int limbs, const void* tw, co
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (grid_of[dev] == 0) {
     int per_sm = 0, sms = 0;
-    int e = blocks_per_sm<W, LOGN, INV, PERM>(&per_sm);
+    int e = blocks_per_sm<W, LOGN, INV, PERM, End>(&per_sm);
     if (e != 0) return e;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -515,11 +566,21 @@ int launch(const int64_t* x, int64_t* y, int rows, int limbs, const void* tw, co
     grid_of[dev] = per_sm * sms;
   }
   const int grid = rows < grid_of[dev] ? rows : grid_of[dev];
-  ntt_kernel<W, LOGN, INV, PERM><<<grid, row_threads(LOGN), W::smem_bytes(LOGN), stream>>>(
-      x, y, rows, limbs, static_cast<const unsigned char*>(tw),
-      static_cast<const typename W::T*>(q), static_cast<const typename W::T*>(post),
-      static_cast<const typename W::T*>(posts));
+  ntt_kernel<W, LOGN, INV, PERM, End><<<grid, row_threads(LOGN), W::smem_bytes(LOGN), stream>>>(
+      x, rows, limbs, static_cast<const unsigned char*>(tw),
+      static_cast<const typename W::T*>(q), end);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B1 and B5: x -> y, int64 rows.
+template <class W, int LOGN, bool INV, bool PERM>
+int launch(const int64_t* x, int64_t* y, int rows, int limbs, const void* tw, const void* q,
+           const void* post, const void* posts, cudaStream_t stream) {
+  using T = typename W::T;
+  return launch_rows<W, LOGN, INV, PERM>(
+      x, rows, limbs, tw, q,
+      StoreRow<W, LOGN, INV, PERM>{y, static_cast<const T*>(post), static_cast<const T*>(posts)},
+      stream);
 }
 
 // f(std::integral_constant<int, logn>) for logn known at run time, 1 <= logn <= MAX_LOGN

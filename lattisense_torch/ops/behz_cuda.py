@@ -23,15 +23,19 @@ B4, ``behz_finish32``, the back half. Replaces ``behz_pallas32.py``
 ``behz_finish32`` (kernel ``_k3_kernel``): for the NTT + Montgomery tensor
 products dq (..., L, n) and da (..., T, n) it returns
 ``scale_and_back(intt(from_mont(dq)), intt(from_mont(da)))`` over Q. The TPU
-kernel keeps the L+T rows of one product in VMEM; here kernel B1's inverse
-runs over both stacks with the from-Montgomery folded into its n^-1
-epilogue (the transform is linear), then ``csrc/behz32.cu``'s scale-back
-kernel reads the L+T residues of each coefficient and writes L. Both parts
-are bound by device-memory bytes.
+kernel keeps the L+T rows of one product in VMEM. Here the work stays where
+the rows are (``csrc/behz32.cu``): kernel B1's loop over the dq rows ends
+each row, still in registers, with the q half of the scale-back (the
+inverse NTT with the from-Montgomery folded into n^-1, then [tX]_Q
+decomposed), its loop over the da rows ends each with the inverse NTT, both
+store 32-bit rows, and one thread per coefficient finishes the scale-back
+from them: three launches, no int64 intermediate, bound by device-memory
+bytes.
 
-Each wrapper counts one launch per call; B1's own launches show under
-``ntt32_fwd``/``ntt32_inv``. A CPU tensor runs the plain PyTorch composition
-below; a CUDA tensor launches the kernels or raises.
+Each wrapper counts one launch per call; B2's B1 launches show under
+``ntt32_fwd`` (B4 launches none of B1's entries). A CPU tensor runs the
+plain PyTorch composition below; a CUDA tensor launches the kernels or
+raises.
 """
 
 import ctypes
@@ -51,7 +55,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'behz32_extend_launch': [_P, _P, _I, _I, _I, _I, _P, _P],
-    'behz32_scale_back_launch': [_P, _P, _P, _I, _I, _I, _P, _P],
+    'behz32_finish_launch': [_P] * 5 + [_I] * 4 + [_P] * 10,
     'behz32_max_limbs': [],
     'behz32_max_aux': [],
 }
@@ -191,18 +195,25 @@ def behz_finish32(dq, da, bz):
     if L > lib.behz32_max_limbs() or T > lib.behz32_max_aux():
         raise ValueError(f'behz_finish32 supports at most {lib.behz32_max_limbs()} limbs and '
                          f'{lib.behz32_max_aux()} aux limbs, got {L} and {T}')
+    if not 1 <= n.bit_length() - 1 <= ntt_cuda.MAX_LOGN:
+        raise ValueError(f'behz_finish32 supports 2 <= n <= 2^{ntt_cuda.MAX_LOGN}, got n={n}')
     out = torch.empty(dq.shape, dtype=torch.int64, device=dq.device)
     polys = dq.numel() // (L * n)
     if polys:
-        iq, ia = torch.empty_like(dq), torch.empty_like(da)
-        ntt_cuda.launch(dq, iq, rq, inverse=True, from_mont=True)
-        ntt_cuda.launch(da, ia, ra, inverse=True, from_mont=True)
-        consts = _finish_consts(bz)
+        # the row kernels stage rows in 16-byte pieces
+        dq = dq if dq.data_ptr() % 16 == 0 else dq.clone()
+        da = da if da.data_ptr() % 16 == 0 else da.clone()
+        y = torch.empty(dq.shape, dtype=torch.int32, device=dq.device)
+        xa = torch.empty(da.shape, dtype=torch.int32, device=dq.device)
+        tq, ta = ntt_cuda._tables(rq), ntt_cuda._tables(ra)
         with torch.cuda.device(dq.device):
-            err = lib.behz32_scale_back_launch(iq.data_ptr(), ia.data_ptr(), out.data_ptr(),
-                                               polys, L, T, n, consts.data_ptr(),
-                                               torch.cuda.current_stream(dq.device).cuda_stream)
+            err = lib.behz32_finish_launch(
+                dq.data_ptr(), da.data_ptr(), out.data_ptr(), y.data_ptr(), xa.data_ptr(),
+                polys, L, T, n.bit_length() - 1,
+                *(t[k].data_ptr() for t in (tq, ta)
+                  for k in ('inv', 'q', 'n_inv_rinv', 'n_inv_rinv_shoup')),
+                _finish_consts(bz).data_ptr(), torch.cuda.current_stream(dq.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f'behz32 scale-back launch failed: cudaError_t {err}')
+            raise RuntimeError(f'behz32 finish launch failed: cudaError_t {err}')
         launches['behz_finish32'] += 1
     return out

@@ -8,11 +8,17 @@ per-digit FastBConv mod-up to Q_ℓ∪P, forward NTT, gadget inner product with
 the Montgomery-form key, inverse NTT of both components, ``RoundDivP``
 mod-down, and with ``output_ntt`` a forward NTT of the result.
 
-The TPU kernel keeps one ciphertext's ~48 rows (~3 MB at n=16384) in VMEM;
-a block here holds three such rows at most, so the work is split into
-per-coefficient kernels (``csrc/ksw32.cu``: mod-up, inner product, mod-down)
-and kernel B1's NTTs, all launched in one sequence on the current stream.
-Each stage is bound by device-memory bytes.
+The TPU kernel keeps one ciphertext's ~48 rows (~3 MB at n=16384) in VMEM.
+The gadget inner product is local to a row, so the fused route
+(``csrc/ksw32.cu``) runs one block per (ciphertext, row t): the mod-up of
+each digit's row t from x, its forward NTT, the product with the key read
+in place and both components' inverse NTTs stay in the block's registers
+and shared memory, and only the coefficient-domain product leaves, as 32-bit
+residues; one per-coefficient kernel then runs the mod-down, the only step
+across rows. n = 2^15 (``switch_route``) takes the split route: mod-up,
+inner-product and mod-down kernels around kernel B1's NTTs, meeting in
+device memory as int64 stacks. With ``output_ntt`` either route ends in a
+B1 forward over the result.
 
 ``ksw_switch32`` counts one launch per call, for the whole sequence (B1's
 own launches show under ``ntt32_fwd``/``ntt32_inv``). A CUDA tensor launches
@@ -38,9 +44,21 @@ _SIGNATURES = {
     'ksw32_modup_launch': [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     'ksw32_inner_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'ksw32_moddown_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    'ksw32_moddown32_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    'ksw32_rows_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P],
+    'ksw32_rows_blocks_per_sm': [_I],
     'ksw32_max_alpha': [],
 }
 _MAX_GRID_YZ = 65535
+FUSED_MAX_LOGN = 14    # three 32-bit rows of 2^15 (384 KB) do not fit a block
+
+
+def switch_route(n: int) -> str:
+    """The route B3 takes at n, chosen by shape: 'fused' (one block per
+    ciphertext and row, three 32-bit rows of shared memory) up to
+    n = 2^14, 'split' above."""
+    return 'fused' if n.bit_length() - 1 <= FUSED_MAX_LOGN else 'split'
 
 
 def _consts(sw, level: int):
@@ -121,6 +139,12 @@ def ksw_switch32(x, ksk, sw, level: int, output_ntt: bool = False):
     _check(x, ksk, sw, level)
     if not x.is_cuda:
         return sw.switch_plain(x, ksk, level, output_ntt)
+    return _switch(x, ksk, sw, level, output_ntt, switch_route(sw.n))
+
+
+def _switch(x, ksk, sw, level: int, output_ntt: bool, route: str):
+    """B3 on a CUDA stack through ``route`` ('fused' or 'split'); the card
+    tests call it to hold both routes against the twin."""
     lib = cuda_build.load('ksw32', _SIGNATURES)
     L, n = level + 1, sw.n
     alpha, beta, Lq = sw.alpha, sw.beta(level), len(sw.q_moduli)
@@ -131,6 +155,11 @@ def ksw_switch32(x, ksk, sw, level: int, output_ntt: bool = False):
     if not (ksk.key_q.is_contiguous() and ksk.key_p.is_contiguous()):
         raise ValueError('ksw_switch32 reads the key in place: key_q and key_p must be '
                          'contiguous')
+    if route == 'fused' and switch_route(n) != 'fused':
+        raise ValueError(f'the fused B3 does not take n={n}')
+    if route == 'fused' and (ksk.key_q.data_ptr() % 16 or ksk.key_p.data_ptr() % 16):
+        raise ValueError('the fused B3 reads the key in 16-byte pieces: key_q and key_p must '
+                         'start on 16 bytes')
     lead = x.shape[:-2]
     G = x.numel() // (L * n)
     if 2 * G > _MAX_GRID_YZ:
@@ -142,30 +171,52 @@ def ksw_switch32(x, ksk, sw, level: int, output_ntt: bool = False):
         tabs = _consts(sw, level)
         ring_qp = get_rns_ring(tuple(sw.q_moduli[:L]) + sw.p_moduli, n, sw.device)
         dev = x.device
-        digits = torch.empty((G, beta, T, n), dtype=torch.int64, device=dev)
-        digits_ntt = torch.empty_like(digits)
-        acc = torch.empty((G, 2, T, n), dtype=torch.int64, device=dev)
-        acc_coef = torch.empty_like(acc)
+        out = e if not output_ntt else torch.empty_like(e)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = lib.ksw32_modup_launch(x.data_ptr(), digits.data_ptr(), G, L, alpha, beta,
-                                         T, n, tabs['modup'].data_ptr(), stream)
-            _raise(err, 'mod-up')
-            ntt_cuda.launch(digits, digits_ntt, ring_qp, inverse=False)
-            err = lib.ksw32_inner_launch(digits_ntt.data_ptr(), ksk.key_q.data_ptr(),
-                                         ksk.key_p.data_ptr(), acc.data_ptr(), G, L, Lq,
-                                         alpha, beta, T, n, tabs['inner'].data_ptr(), stream)
-            _raise(err, 'inner product')
-            ntt_cuda.launch(acc, acc_coef, ring_qp, inverse=True)
-            out = e if not output_ntt else torch.empty_like(e)
-            err = lib.ksw32_moddown_launch(acc_coef.data_ptr(), out.data_ptr(), 2 * G, L,
-                                           alpha, T, n, tabs['moddown'].data_ptr(), stream)
+            if route == 'fused':
+                ntab = ntt_cuda._tables(ring_qp)
+                prod = torch.empty((G, 2, T, n), dtype=torch.int32, device=dev)
+                err = lib.ksw32_rows_launch(
+                    x.data_ptr(), ksk.key_q.data_ptr(), ksk.key_p.data_ptr(), prod.data_ptr(),
+                    G, L, Lq, alpha, beta, T, n.bit_length() - 1, ntab['fwd'].data_ptr(),
+                    ntab['inv'].data_ptr(), ntab['n_inv'].data_ptr(),
+                    ntab['n_inv_shoup'].data_ptr(), tabs['modup'].data_ptr(),
+                    tabs['inner'].data_ptr(), stream)
+                _raise(err, 'fused rows')
+                err = lib.ksw32_moddown32_launch(prod.data_ptr(), out.data_ptr(), 2 * G, L,
+                                                 alpha, T, n, tabs['moddown'].data_ptr(), stream)
+            else:
+                digits = torch.empty((G, beta, T, n), dtype=torch.int64, device=dev)
+                digits_ntt = torch.empty_like(digits)
+                acc = torch.empty((G, 2, T, n), dtype=torch.int64, device=dev)
+                acc_coef = torch.empty_like(acc)
+                err = lib.ksw32_modup_launch(x.data_ptr(), digits.data_ptr(), G, L, alpha, beta,
+                                             T, n, tabs['modup'].data_ptr(), stream)
+                _raise(err, 'mod-up')
+                ntt_cuda.launch(digits, digits_ntt, ring_qp, inverse=False)
+                err = lib.ksw32_inner_launch(digits_ntt.data_ptr(), ksk.key_q.data_ptr(),
+                                             ksk.key_p.data_ptr(), acc.data_ptr(), G, L, Lq,
+                                             alpha, beta, T, n, tabs['inner'].data_ptr(), stream)
+                _raise(err, 'inner product')
+                ntt_cuda.launch(acc, acc_coef, ring_qp, inverse=True)
+                err = lib.ksw32_moddown_launch(acc_coef.data_ptr(), out.data_ptr(), 2 * G, L,
+                                               alpha, T, n, tabs['moddown'].data_ptr(), stream)
             _raise(err, 'mod-down')
             if output_ntt:
                 ntt_cuda.launch(out, e, get_rns_ring(sw.q_moduli[:L], n, sw.device),
                                 inverse=False)
         launches['ksw_switch32'] += 1
     return e[..., 0, :, :], e[..., 1, :, :]
+
+
+def rows_blocks_per_sm(n: int) -> int:
+    """Blocks of the fused B3 kernel at n that one SM of the current card
+    holds (the occupancy calculator)."""
+    got = cuda_build.load('ksw32', _SIGNATURES).ksw32_rows_blocks_per_sm(n.bit_length() - 1)
+    if got < 0:
+        raise RuntimeError(f'ksw32 occupancy query failed: cudaError_t {-got}')
+    return got
 
 
 def _raise(err: int, stage: str):

@@ -1,0 +1,157 @@
+"""Time kernels B2, B3 and B4 of one checkout on one CUDA card, whole and by stage.
+
+    python lattisense_torch/tools/fused_bench.py [--root DIR] [--iters 20] [--batch 32]
+
+Imports ``lattisense_torch`` from the checkout at ``--root`` (by default the
+one holding this script), so one call can time two checkouts on the same
+card, in turns (A, B, B, A), as ``ntt_bench.py`` does for B1 and B5. At the
+w32 main path's shapes (``create_tpu_param(16384)``, level 7, batch B) it
+times:
+
+- the wrappers ``behz_prep32`` (4 polynomials a ciphertext pair),
+  ``ksw_switch32`` (the (B, L, n) third component, a random key) and
+  ``behz_finish32`` (3 tensor products), each held against its plain twin
+  on the card, with CUDA events over ``--iters`` rounds;
+- the device time of each CUDA kernel one wrapper call launches, from
+  ``torch.profiler`` over ``--iters`` calls (``*_kernels_ms``: kernel
+  name → ms per call), which splits each wrapper into its stages whatever
+  its design;
+- B3's split route whole, where the checkout has more than one route
+  (``_switch`` with route 'split').
+
+Prints one JSON line ``{"fused_bench": {...}}`` with the times in ms, the
+equality flags, the routes the wrappers took, the root and the card's name
+and power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+N = 16384
+LEVEL = 7
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--root', default=HERE)
+    ap.add_argument('--iters', type=int, default=20)
+    ap.add_argument('--batch', type=int, default=32)
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print('fused_bench: needs a CUDA card', file=sys.stderr)
+        return 2
+    import lattisense_torch
+    if os.path.dirname(os.path.dirname(os.path.abspath(lattisense_torch.__file__))) != root:
+        print(f'fused_bench: lattisense_torch was not imported from {root}', file=sys.stderr)
+        return 2
+    from lattisense_torch.core.modring import get_rns_ring
+    from lattisense_torch.ops import behz_cuda, ksw_cuda
+    from lattisense_torch.params import BfvParams
+    from lattisense_torch.schemes.bfv import BfvEngine
+    from lattisense_torch.schemes.types import KeySwitchKey
+
+    dev = torch.device('cuda', torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B = args.batch
+
+    def stack(ring, lead):
+        x = torch.randint(0, 1 << 62, (*lead, len(ring.moduli), N), generator=gen, device=dev)
+        return x % ring.q
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / args.iters
+
+    def kernel_ms(fn):
+        """Device ms per call of each CUDA kernel `fn` launches."""
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(args.iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            key = ev.key.replace('(anonymous namespace)::', '').replace('void ', '')
+            cut = key.find('>(')
+            name = (key[:cut + 1] if cut >= 0 else key.split('(')[0]).replace('ntt::', '')
+            dev_us = getattr(ev, 'device_time_total', None)
+            if dev_us is None:
+                dev_us = ev.cuda_time_total
+            out[name[:120]] = out.get(name[:120], 0.0) + dev_us / 1e3 / args.iters
+        return out
+
+    params = BfvParams.create_tpu_param(N)
+    eng = BfvEngine(params, dev)
+    bz, sw = eng.behz(LEVEL), eng.switcher
+    rq, ra = bz.ring_q, bz.ring_aux
+    L = len(rq.moduli)
+    out = {}
+
+    # B2 on the 4 input polynomials of each operation
+    x = stack(rq, (B, 4))
+    fq, fa = behz_cuda.behz_prep32(x, bz)
+    want = behz_cuda.behz_prep_plain(x, bz)
+    out['behz_prep32_equal'] = torch.equal(fq, want[0]) and torch.equal(fa, want[1])
+    out['behz_prep32_ms'] = timed(lambda: behz_cuda.behz_prep32(x, bz))
+    out['behz_prep32_kernels_ms'] = kernel_ms(lambda: behz_cuda.behz_prep32(x, bz))
+    del x, fq, fa, want
+
+    # B3: the relinearization-shaped switch of (B, L, n) with a random key
+    beta = sw.beta(LEVEL)
+    kq = stack(get_rns_ring(tuple(params.q), N, dev), (beta + 1, 2))
+    kp = stack(get_rns_ring(tuple(params.p), N, dev), (beta + 1, 2))
+    key = KeySwitchKey(key_q=kq, key_p=kp)
+    x = stack(rq, (B,))
+    e = ksw_cuda.ksw_switch32(x, key, sw, LEVEL)
+    want = sw.switch_plain(x, key, LEVEL)
+    out['ksw_switch32_equal'] = torch.equal(e[0], want[0]) and torch.equal(e[1], want[1])
+    out['ksw_switch32_route'] = getattr(ksw_cuda, 'switch_route', lambda n: 'split')(N)
+    out['ksw_switch32_ms'] = timed(lambda: ksw_cuda.ksw_switch32(x, key, sw, LEVEL))
+    out['ksw_switch32_kernels_ms'] = kernel_ms(lambda: ksw_cuda.ksw_switch32(x, key, sw, LEVEL))
+    if hasattr(ksw_cuda, '_switch'):
+        e = ksw_cuda._switch(x, key, sw, LEVEL, False, 'split')
+        out['ksw_switch32_split_equal'] = torch.equal(e[0], want[0]) and torch.equal(e[1], want[1])
+        out['ksw_switch32_split_ms'] = timed(
+            lambda: ksw_cuda._switch(x, key, sw, LEVEL, False, 'split'))
+        out['ksw_switch32_split_kernels_ms'] = kernel_ms(
+            lambda: ksw_cuda._switch(x, key, sw, LEVEL, False, 'split'))
+    del x, e, want, key, kq, kp
+
+    # B4: the (B, 3, L, n) and (B, 3, T, n) tensor products
+    dq, da = stack(rq, (B, 3)), stack(ra, (B, 3))
+    got = behz_cuda.behz_finish32(dq, da, bz)
+    out['behz_finish32_equal'] = torch.equal(got, behz_cuda.behz_finish_plain(dq, da, bz))
+    out['behz_finish32_ms'] = timed(lambda: behz_cuda.behz_finish32(dq, da, bz))
+    out['behz_finish32_kernels_ms'] = kernel_ms(lambda: behz_cuda.behz_finish32(dq, da, bz))
+    out['batch'], out['level'], out['limbs'] = B, LEVEL, L
+    gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({'fused_bench': {'root': os.path.relpath(root), 'device': str(dev),
+                                      'gpu': gpu, 'iters': args.iters, **out}}),
+          flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -146,8 +146,9 @@ def test_b3_kernel_matches_plain(cuda, n, nq, npp, levels, lead):
             w0, w1 = sw_c.switch_plain(x, key_c, level, output_ntt)
             assert torch.equal(e0.cpu(), w0) and torch.equal(e1.cpu(), w1), (level, output_ntt)
             assert ksw_cuda.launches['ksw_switch32'] == before['ksw_switch32'] + 1
-            assert ntt_cuda.launches['ntt32_fwd'] == before['ntt32_fwd'] + 1 + output_ntt
-            assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv'] + 1
+            # the fused route runs its own NTTs: B1 only for the output NTT
+            assert ntt_cuda.launches['ntt32_fwd'] == before['ntt32_fwd'] + output_ntt
+            assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv']
     # a strided view (the relinearize path's ct3.data[..., 2, :, :]) is copied
     level = levels[0]
     x3 = residues(5, q[:level + 1], n, (2, 3))
@@ -193,12 +194,129 @@ def test_b4_kernel_matches_plain(cuda, n, nq, npp, level, lead):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), behz_cuda.behz_finish_plain(dq, da, bz_c))
     assert behz_cuda.launches['behz_finish32'] == before['behz_finish32'] + 1
-    assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv'] + 2
+    assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv']     # fused: no B1 launch
     with pytest.raises(ValueError):
         behz_cuda.behz_finish32(dq.to(cuda).transpose(0, 1), da.to(cuda).transpose(0, 1), bz_g)
     with pytest.raises(ValueError):
         behz_cuda.behz_finish32(dq.to(cuda)[:1], da.to(cuda), bz_g)
     assert behz_cuda.launches['behz_finish32'] == before['behz_finish32'] + 1
+
+
+# ---------------------------------------------------------------------------
+# B3 and B4 through both routes
+# ---------------------------------------------------------------------------
+
+def card_key(ksk, dev):
+    return KeySwitchKey(key_q=ksk.key_q.to(dev), key_p=ksk.key_p.to(dev))
+
+
+def b3_both_routes(cuda, q, p, n, levels, leads):
+    """B3 through every route that takes n, at each level, lead and
+    output_ntt, against ``switch_plain`` on the card; the wrapper's route is
+    ``switch_route``'s."""
+    sw = KeySwitcher(q, p, n, cuda)
+    key = card_key(random_key(70 + n.bit_length(), q, p, n), cuda)
+    routes = ['split'] + (['fused'] if ksw_cuda.switch_route(n) == 'fused' else [])
+    for level in levels:
+        for lead in leads:
+            x = card_residues(get_rns_ring(q[:level + 1], n, cuda), lead, level + 3 * len(lead))
+            for output_ntt in (False, True):
+                want = sw.switch_plain(x, key, level, output_ntt)
+                for route in routes:
+                    got = ksw_cuda._switch(x, key, sw, level, output_ntt, route)
+                    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                        (route, level, lead, output_ntt)
+                got = ksw_cuda.ksw_switch32(x, key, sw, level, output_ntt)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return sw, key
+
+
+@pytest.mark.parametrize('logn', range(1, 16))
+def test_b3_routes_match_plain(cuda, logn):
+    """Every n B1 takes, alpha = 2 with a ragged last digit (level 4) and
+    without (level 3), batch 1 and an odd batch, both outputs."""
+    n = 1 << logn
+    chain = tuple(gen_ntt_primes(n, 31, 7))
+    sw, key = b3_both_routes(cuda, chain[:5], chain[5:], n, (4, 3), ((1,), (3,)))
+    if ksw_cuda.switch_route(n) == 'split':
+        x = card_residues(get_rns_ring(chain[:4], n, cuda), (1,), 1)
+        with pytest.raises(ValueError):
+            ksw_cuda._switch(x, key, sw, 3, False, 'fused')
+
+
+def test_b3_every_level_of_the_headline_chain(cuda):
+    """create_tpu_param(16384): levels 0..9 (beta 1..3, a ragged last digit
+    at levels 4..6 and 8), batch 1 and 5."""
+    params = BfvParams.create_tpu_param(16384)
+    b3_both_routes(cuda, tuple(params.q), tuple(params.p), params.n, range(len(params.q)),
+                   ((1,), (5,)))
+
+
+def test_b3_alpha_maximum_and_refusals(cuda):
+    n = 1024
+    chain = tuple(gen_ntt_primes(n, 31, 19))
+    # alpha = 8, the kernels' maximum: level 9 has a ragged second digit
+    b3_both_routes(cuda, chain[:10], chain[10:18], n, (9, 0), ((3,),))
+    q, p = chain[:10], chain[10:19]                                 # alpha = 9
+    sw = KeySwitcher(q, p, n, cuda)
+    key = card_key(random_key(3, q, p, n), cuda)
+    x = card_residues(get_rns_ring(q[:4], n, cuda), (2,), 1)
+    before = dict(ksw_cuda.launches)
+    for route in ('fused', 'split'):
+        with pytest.raises(ValueError):
+            ksw_cuda._switch(x, key, sw, 3, False, route)
+    with pytest.raises(ValueError):
+        ksw_cuda.ksw_switch32(x, key, sw, 3)
+    assert ksw_cuda.launches == before
+
+
+def b4_matches_plain(cuda, params, levels, leads):
+    """B4 at each level and lead against ``behz_finish_plain`` on the card,
+    one count a call and no launch of B1's entries; a misaligned view of
+    the inputs too."""
+    eng = BfvEngine(params, cuda)
+    for level in levels:
+        bz = eng.behz(level)
+        for lead in leads:
+            dq = card_residues(bz.ring_q, lead, 2 * level + len(lead))
+            da = card_residues(bz.ring_aux, lead, 2 * level + len(lead) + 1)
+            want = behz_cuda.behz_finish_plain(dq, da, bz)
+            before = {**ntt_cuda.launches, **behz_cuda.launches}
+            assert torch.equal(behz_cuda.behz_finish32(dq, da, bz), want), (level, lead)
+            assert behz_cuda.launches['behz_finish32'] == before['behz_finish32'] + 1
+            assert all(ntt_cuda.launches[k] == before[k] for k in ntt_cuda.launches)
+        got = behz_cuda.behz_finish32(misaligned(dq), misaligned(da), bz)
+        assert torch.equal(got, want), level
+
+
+@pytest.mark.parametrize('logn', range(1, 16))
+def test_b4_every_n_matches_plain(cuda, logn):
+    """Every n B1 takes, L = 5 and L = 2, batch 1 and an odd batch."""
+    n = 1 << logn
+    chain = gen_ntt_primes(n, 31, 6)
+    params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]])
+    b4_matches_plain(cuda, params, (4, 1), ((1,), (3,), (2, 3)))
+
+
+def test_b4_every_level_of_the_headline_chain(cuda):
+    """create_tpu_param(16384): levels 0..9 (L + T = 5..23 rows), batch 1
+    and 5."""
+    b4_matches_plain(cuda, BfvParams.create_tpu_param(16384), range(10), ((1,), (5,)))
+
+
+def test_b4_limb_maxima_and_refusals(cuda):
+    """L = 32, the scale-back's largest instance (T = 34), and the refusal of
+    L = 33."""
+    n = 1024
+    chain = gen_ntt_primes(n, 31, 34)
+    params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]])
+    b4_matches_plain(cuda, params, (15, 31), ((3,),))
+    bz = BfvEngine(params, cuda).behz(32)
+    dq, da = card_residues(bz.ring_q, (1,), 0), card_residues(bz.ring_aux, (1,), 1)
+    before = dict(behz_cuda.launches)
+    with pytest.raises(ValueError):
+        behz_cuda.behz_finish32(dq, da, bz)
+    assert behz_cuda.launches == before
 
 
 def test_batched_rotate_card_matches_cpu(cuda):
