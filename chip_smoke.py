@@ -5,7 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Set-up: builds the CUDA kernels from ``lattisense_torch/csrc`` (one nvcc
    per source, all started together) and prints the toolchain, the card and
-   each kernel's ptxas report.
+   a summary of each library's ptxas report (the whole report goes to
+   ``build/kernels/ptxas/``).
 2. Kernels: calls each kernel wrapper on the card at the shapes its path
    gives it, holds the result bit for bit against the plain PyTorch twin run
    on a CPU copy, and times kernel and twin on the card with CUDA events:
@@ -13,12 +14,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``ksw_switch32``, ``behz_finish32`` and the B1-r4 / perm entries
    (``ntt32_fwd_r4``, ``ntt32_inv_r4``, ``ntt32_fwd_perm``,
    ``ntt32_inv_perm``), and the 64-bit word's ``ntt64_fwd``, ``ntt64_inv``
-   (B5), ``bconv64_convert``, ``bconv64_raw`` (B6) and ``ksw_inner64`` (B7).
+   (B5), ``bconv64_convert`` (each of its four conversions alone and the
+   four together), ``bconv64_raw`` (B6) and ``ksw_inner64`` (B7).
 3. Main path: the batched BFV mult_relin at the headline configuration
    (``BfvParams.create_tpu_param(16384)``, level 7, batch 32): every output
    must decrypt to a·b mod t slot-wise, element 0 must equal the port's plain
    path on the CPU bit for bit, and each kernel's launch count, reset just
-   before the run, must have risen.
+   before the run, must have risen, B1's standalone entries' excepted, which
+   the path must not launch (B2, B3 and B4 run their own NTTs).
 4. Rotate path: the batched BFV rotate_col by 1 on the same context, level
    and batch (``make_rotate_step``): every output must decrypt to each half
    of the slot vector rolled by -1, element 0 must equal the port's CPU path
@@ -183,16 +186,41 @@ def ksw64_work(G: int, beta: int, T: int, n: int) -> tuple[float, float]:
     return nbytes, float(G * 2 * T * n * (beta * OPS64_MONT + (beta - 1) * OPS64_ADDSUB))
 
 
-def ptxas_lines(lib: str, log: str) -> list[str]:
-    """ptxas's registers, stack and spill lines of each kernel; of the NTT
-    libraries, which hold one kernel per size, only the n=2^14 and 2^15 ones."""
-    out, keep = [], True
+def ptxas_summary(log: str, keep) -> dict:
+    """ptxas's report of one library in brief: how many kernels and device
+    functions it compiled, the largest stack frame and spill among them,
+    each one that has a stack frame or spills, and the registers, stack and
+    spills of the kernels ``keep(name)`` picks (the main path's instances).
+    The whole report is written to ``build/kernels/ptxas/<lib>.log``."""
+    funcs, cur = {}, None
     for ln in log.splitlines():
-        if 'Compiling entry' in ln:
-            keep = not lib.startswith('ntt') or 'Li14E' in ln or 'Li15E' in ln
-        if keep and ('registers' in ln or 'spill' in ln or 'Compiling' in ln):
-            out.append(ln.strip())
-    return out
+        if 'Function properties for ' in ln:
+            cur = ln.split('Function properties for ')[1].strip()
+            funcs.setdefault(cur, {})
+        elif cur and 'bytes stack frame' in ln:
+            nums = [int(w) for w in ln.replace(',', ' ').split() if w.isdigit()]
+            funcs[cur].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur and 'Used' in ln and 'registers' in ln:
+            funcs[cur]['registers'] = int(ln.split('Used')[1].split()[0])
+    heavy = {k: v for k, v in funcs.items()
+             if v.get('stack', 0) or v.get('spill_stores', 0) or v.get('spill_loads', 0)}
+    return {'functions': len(funcs),
+            'max_stack': max((v.get('stack', 0) for v in funcs.values()), default=0),
+            'max_spill': max((v.get('spill_stores', 0) for v in funcs.values()), default=0),
+            'with_stack_or_spill': heavy,
+            'main_path': {k: v for k, v in funcs.items() if keep(k)}}
+
+
+def main_path_instance(lib: str, name: str) -> bool:
+    """The template instances the four paths run (n = 2^14), with the NTTs'
+    2^15 ones: the NTT-sized kernels at 2^14 and 2^15, B2's extension and
+    B4's scale-back at L = 8, B6's compile-time (L, T) instances (its
+    run-time-T ones are <L, 0>)."""
+    if lib in ('ntt32', 'ntt64', 'ksw32'):
+        return 'Li14E' in name or 'Li15E' in name
+    if lib == 'behz32':
+        return 'Li14E' in name or 'Li8E' in name
+    return 'Li0EE' not in name
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -252,7 +280,12 @@ def main() -> int:
     gpu = nvidia_smi()
     name, power = (s.strip() for s in gpu.split(',', 1))
     dev = torch.device('cuda', torch.cuda.current_device())
-    ptxas = {lib: ptxas_lines(lib, log) for lib, log in reports.items()}
+    os.makedirs(os.path.join(cuda_build.BUILD_DIR, 'ptxas'), exist_ok=True)
+    for lib, log in reports.items():
+        with open(os.path.join(cuda_build.BUILD_DIR, 'ptxas', f'{lib}.log'), 'w') as f:
+            f.write(log)
+    ptxas = {lib: ptxas_summary(log, lambda k, lib=lib: main_path_instance(lib, k))
+             for lib, log in reports.items()}
     logn = N.bit_length() - 1
     occupancy = {f'{word}_{d}': {'n': N, 'threads': N >> ntt_cuda.schedule(logn)[0],
                                  'blocks_per_sm': mod.blocks_per_sm(logn, d == 'inv')}
@@ -299,11 +332,11 @@ def main() -> int:
         return max(int((g.cpu() - w).abs().max()) for g, w in pairs)
 
     # ---- 2. kernels against their plain twins -----------------------------
-    # B1 at the row stacks one batched mult_relin gave it before B3 and B4
-    # ran their own NTTs: forward inside B2 (4 polynomials over q and aux,
-    # still on the path) and B3's split route (β digits over q∪p); inverse
-    # inside B4's and B3's split routes (3 products over q and aux, 2
-    # components over q∪p), on no path at the main path's shapes
+    # B1 at the row stacks one batched mult_relin gave it before B2, B3 and
+    # B4 ran their own NTTs: forward inside B2 (4 polynomials over q and aux)
+    # and B3's split route (β digits over q∪p); inverse inside B4's and B3's
+    # split routes (3 products over q and aux, 2 components over q∪p); on no
+    # path at the main path's shapes, which must launch neither
     fwd_calls = [('q', (BATCH, 4)), ('aux', (BATCH, 4)), ('qp', (BATCH, beta))]
     inv_calls = [('q', (BATCH, 3)), ('aux', (BATCH, 3)), ('qp', (BATCH, 2))]
 
@@ -331,7 +364,7 @@ def main() -> int:
     kernels = {
         'ntt32_fwd': dict(route='cuda', source='lattisense_torch/csrc/ntt32.cu',
                           replaces='lattisense_tpu/ops/ntt_pallas32.py:101',
-                          replaces_function='ntt_fused32 (_fwd_kernel)', path='main_path',
+                          replaces_function='ntt_fused32 (_fwd_kernel)', path=None,
                           **check_ntt('ntt32_fwd', fwd_calls, ntt_cuda.ntt32_fwd,
                                       ntt_cuda.ntt_plain, ntt_work)),
         'ntt32_inv': dict(route='cuda', source='lattisense_torch/csrc/ntt32.cu',
@@ -341,17 +374,23 @@ def main() -> int:
                                       ntt_cuda.intt_plain, ntt_work)),
     }
 
-    # B2 on the 4 input polynomials of each operation
+    # B2 on the 4 input polynomials of each operation; it launches none of
+    # B1's entries
     x = residues(rings['q'][1].moduli, (BATCH, 4))
     xg = x.to(dev)
+    before = dict(ntt_cuda.launches)
     fq, fa = behz_cuda.behz_prep32(xg, bz_g)
     torch.cuda.synchronize()
     want_fq, want_fa = behz_cuda.behz_prep_plain(x, bz_c)
     if not (torch.equal(fq.cpu(), want_fq) and torch.equal(fa.cpu(), want_fa)):
         raise AssertionError('behz_prep32 differs from its plain twin')
+    if ntt_cuda.launches != before:
+        raise AssertionError('behz_prep32 launched a B1 entry')
     bound_ms, bound_by = bound(*behz_work(BATCH * 4, L, T, N))
     kernels['behz_prep32'] = dict(
         route='cuda', source='lattisense_torch/csrc/behz32.cu',
+        design='extend32 + joint rows: L-templated extension into a uint32 scratch, then '
+               "B1's row loop over the L+T rows of the joint ring q ∪ aux",
         replaces='lattisense_tpu/ops/behz_pallas32.py:55',
         replaces_function='behz_prep32 (_k1_kernel)', path='main_path',
         shapes=[[list(x.shape), L, T]], equal=True,
@@ -475,14 +514,15 @@ def main() -> int:
                     ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain,
                     lambda r, lb, n: ntt64_work(r, lb, n, True)))
 
-    # B6 convert on the five conversions of the path: the BEHZ extension,
-    # scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q
+    # B6 convert on the four conversions of the path: the BEHZ extension,
+    # scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q;
+    # each shape timed alone and the four together
     rdp_g, rdp_c = sw64_g._level_pre(LEVEL64)[5], sw64_c._level_pre(LEVEL64)[5]
     convs = [('extend', bz64_g.extend.conv, bz64_c.extend.conv, (BATCH, 4)),
              ('scale_and_back', bz64_g.conv_q_to_aux, bz64_c.conv_q_to_aux, (BATCH, 3)),
              ('shenoy', bz64_g.shenoy.conv, bz64_c.shenoy.conv, (BATCH, 3)),
              ('round_div_p', rdp_g.conv, rdp_c.conv, (BATCH, 2))]
-    ins, pairs, shapes, wk = [], [], [], []
+    ins, pairs, per_shape, wk = [], [], [], []
     for cname, cg, cc, lead in convs:
         y = cc.decompose(residues(cc.src, lead))
         got = bconv_cuda.bconv64_convert(y.to(dev), cg)
@@ -490,16 +530,29 @@ def main() -> int:
         want = bconv_cuda.bconv64_plain(y, cc.qhat_dst_mont, cc.dst_q, cc.dst_pinv)
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f'bconv64_convert differs from its plain twin ({cname})')
+        yg = y.to(dev)
         pairs.append((got, want))
-        ins.append((y.to(dev), cg))
-        shapes.append({cname: [list(y.shape), list(got.shape)]})
-        wk.append(bconv64_work(y.numel() // (len(cc.src) * N), len(cc.src), len(cc.dst), N))
+        ins.append((yg, cg))
+        Ls, Ts = len(cc.src), len(cc.dst)
+        w = bconv64_work(y.numel() // (Ls * N), Ls, Ts, N)
+        wk.append(w)
+        b_ms, b_by = bound(*w)
+        per_shape.append({
+            'conversion': cname, 'in': list(y.shape), 'out': list(got.shape),
+            'instance': bconv_cuda.instance(Ls, Ts, max(cc.src) - 1),
+            'fold': bconv_cuda.lazy_fold(Ls, max(cc.src) - 1),
+            'ms': time_ms(torch, lambda yg=yg, cg=cg: bconv_cuda.bconv64_convert(yg, cg), ITERS),
+            'plain_ms': time_ms(torch, lambda yg=yg, cg=cg: bconv_cuda.bconv64_plain(
+                yg, cg.qhat_dst_mont, cg.dst_q, cg.dst_pinv), ITERS),
+            'bound_ms': b_ms, 'bound_by': b_by})
     bound_ms, bound_by = bound(sum(w[0] for w in wk), sum(w[1] for w in wk))
     kernels['bconv64_convert'] = dict(
         route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        design='lazy: compile-time (L, T) instances, one Montgomery reduction an output',
         replaces='lattisense_tpu/ops/bconv_pallas.py:57',
         replaces_function='bconv_convert_fused (_bconv_kernel)', path='u64_path',
-        shapes=shapes, equal=True, max_abs_err=max_err(pairs),
+        shapes=[{s['conversion']: [s['in'], s['out']]} for s in per_shape],
+        per_shape=per_shape, equal=True, max_abs_err=max_err(pairs),
         ms=time_ms(torch, lambda: [bconv_cuda.bconv64_convert(y, c) for y, c in ins], ITERS),
         plain_ms=time_ms(torch, lambda: [bconv_cuda.bconv64_plain(
             y, c.qhat_dst_mont, c.dst_q, c.dst_pinv) for y, c in ins], ITERS),
@@ -519,6 +572,9 @@ def main() -> int:
     bound_ms, bound_by = bound(*bconv64_work(BATCH * beta64, alpha64, L64 + alpha64, N))
     kernels['bconv64_raw'] = dict(
         route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        design='lazy: compile-time (L, T) instances, one Montgomery reduction an output',
+        instance=bconv_cuda.instance(alpha64, L64 + alpha64, bconv_cuda.WORD_GUARD),
+        fold=bconv_cuda.lazy_fold(alpha64, bconv_cuda.WORD_GUARD),
         replaces='lattisense_tpu/ops/bconv_pallas.py:57',
         replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
         path='u64_path', shapes=[[list(y.shape), list(got.shape)]], equal=True,
@@ -605,7 +661,7 @@ def main() -> int:
     path_launches['main_path'] = run_path(
         'main_path', ctx, eng_c, LEVEL, bfv_mult_relin, 2, key_tree(ctx), {'rlk': rlk_c}, msgs,
         lambda i: (msgs[i] * msgs[BATCH + i]) % params.t,
-        [k for k, v in kernels.items() if v['path'] == 'main_path'], [],
+        [k for k, v in kernels.items() if v['path'] == 'main_path'], ['ntt32_fwd', 'ntt32_inv'],
         {'op': 'mult_relin', 'aux_limbs': T, 'keygen_s': keygen_s})
 
     elt = galois_elt_col(1, N)
@@ -645,8 +701,9 @@ def main() -> int:
               'params': 'BfvParams.create(16384)', 'word_bits': 64,
               'galois_keygen_s': galois_keygen64_s})
 
+    # launches on the path a kernel serves; B1's entries on the main path (0)
     for kname, entry in kernels.items():
-        entry['launches'] = path_launches[entry['path']][kname] if entry['path'] else 0
+        entry['launches'] = path_launches[entry['path'] or 'main_path'][kname]
         entry['library_ms'] = None
     print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)
     print(gpu, flush=True)

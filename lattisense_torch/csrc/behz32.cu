@@ -1,31 +1,42 @@
-// Kernel B2's per-coefficient half and kernel B4, the two ends of the BEHZ
-// multiply at the 32-bit word.
+// Kernels B2 and B4, the two ends of the BEHZ multiply at the 32-bit word.
 //
-// B2, first half: BEHZ exact extension Q -> B u {m_sk}, one thread per
-// coefficient of one polynomial.
+// B2: lattisense_tpu/ops/behz_pallas32.py `behz_prep32` (kernel `_k1_kernel`):
+// for the (L rows over Q) coefficient-domain polynomials x it returns
+//   (to_mont(ntt(x, ring_q)), to_mont(ntt(ExactExtend(x), ring_aux))),
+// the BEHZ exact extension Q -> B u {m_sk} being x * m~ -> digit
+// decomposition -> FastBConv to the aux basis -> the m~ channel -> SmMRq
+// overflow removal.
 //
-// Replaces the extension part of lattisense_tpu/ops/behz_pallas32.py
-// `behz_prep32` (kernel `_k1_kernel`): x * m~ -> digit decomposition ->
-// FastBConv to the aux basis -> the m~ channel -> SmMRq overflow removal.
-// The wrapper (ops/behz_cuda.py) then runs kernel B1's forward NTT with the
-// to-Montgomery epilogue over the q rows and over these aux rows, which
-// completes behz_prep32's contract:
-//   (to_mont(ntt(x, ring_q)), to_mont(ntt(ExactExtend(x), ring_aux))).
+// What bounds it: x read once as int64 and fq, fa written once as int64,
+// 8 L + 8 (L + T) bytes a coefficient, against ~(9 L + 12) T 32-bit
+// operations of the extension and the L + T rows' forward NTT: bytes bound
+// it (0.136 ms at the main path's shapes, B = 32, four polynomials a pair,
+// L = 8, T = 11, n = 16384). The TPU kernel keeps all L + T rows of a
+// polynomial in VMEM (~1.2 MB at n = 16384), more than a block's 227 KB
+// here, so the extension, which needs every limb of a coefficient, and the
+// NTT, which needs every coefficient of a row, meet in device memory once,
+// as 32-bit rows, in two launches:
+//   1. one thread per two coefficients reads the L int64 residues of x
+//      (16 bytes a limb), extends them and writes the T aux residues as
+//      uint32 into a scratch (polys, T, n); L is a template parameter, so
+//      the decomposed digits stay in registers (a run-time L put them in a
+//      local-memory stack frame);
+//   2. kernel B1's row loop (ntt::ntt_kernel, csrc/ntt_passes.cuh), restated
+//      for two sources, walks the polys (L + T) rows of the joint stack, q row k < L from x (int64, the staging of
+//      B1) and aux row k - L from the scratch (uint32, a 4-byte staging
+//      variant), each with limb k of one joint (L + T)-limb table, ring_q's
+//      limbs followed by ring_aux's, and ends each row with the
+//      to-Montgomery epilogue and int64 stores to fq or fa, 16 bytes a
+//      store (B1 stores 8: with pairs the launch measured 0.28 ms at the
+//      main path's shapes against 0.33).
+// Device memory sees 8 L + 4 T + 8 L + 4 T + 8 (L + T) bytes a coefficient,
+// 1.7 times the bound's, with one wave tail for all the rows; no B1 entry
+// point is called. Measured on the H100 at the main path's shapes: 0.40 ms
+// (the extension 0.11, the rows 0.28) against 0.50 for the first design, an
+// extension into int64 rows and B1's forward over the q rows and the aux
+// rows (0.16 + 0.33).
 //
-// What bounds it: each coefficient reads L int64 residues and writes T int64
-// residues against ~(9 L + 12) T 32-bit operations; at L = 8, T = 11 that is
-// ~1 000 operations per 152 bytes, 6.6 per byte, under the ~20 per byte at
-// which the card's 32-bit peak meets its memory rate: bytes bound it, with
-// the integer multiplies not far behind. The TPU kernel keeps all L + T rows of a
-// polynomial in VMEM (~1.2 MB at n = 16384), which does not fit a block's
-// 227 KB here; this design instead keeps the L decomposed digits of one
-// coefficient in a per-thread array (L is a runtime value, so ptxas places
-// it in a 128-byte stack frame in local memory, L1-cached, with no spills)
-// and all conversion constants in shared memory, so the only device-memory
-// traffic is one read of x and one write of the aux rows (which the NTT
-// kernel reads back once).
-//
-// Constant block (uint32), loaded to shared memory by every block:
+// Extension constant block (uint32), loaded to shared memory by every block:
 //   src  6L : q, m~ mod q, its Shoup, (Q/q_i)^-1 mod q_i, its Shoup, Q/q_i mod m~
 //   dst  5T : d, Q mod d, its Shoup, m~^-1 mod d, its Shoup
 //   conv 2LT: [Q/q_i]_{d_t} at [i*T + t], then its Shoup companions
@@ -86,8 +97,15 @@ constexpr int kMaxLogn = 15;
 constexpr int kThreads = 256;
 constexpr uint32_t kMtilde = 1u << 16;
 
+// ---------------------------------------------------------------------------
+// B2, step 1: the extension, two coefficients a thread
+// ---------------------------------------------------------------------------
+
+// From x (polys, L, n) int64 to the aux residues ext (polys, T, n) uint32,
+// coefficients j, j + 1 of polynomial blockIdx.x.
+template <int L>
 __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
-    const int64_t* __restrict__ x, int64_t* __restrict__ ext, int L, int T, int n,
+    const int64_t* __restrict__ x, uint32_t* __restrict__ ext, int T, int n,
     const uint32_t* __restrict__ consts) {
   extern __shared__ uint32_t c[];
   const int total = 6 * L + 5 * T + 2 * L * T + 1;
@@ -109,33 +127,222 @@ __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
   const uint32_t* cs = cv + L * T;
   const uint32_t neg_qinv = cs[L * T];
 
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = 2 * (blockIdx.y * blockDim.x + threadIdx.x);
   if (j >= n) return;
-  const size_t poly = blockIdx.y;
+  const size_t poly = blockIdx.x;
   const int64_t* xp = x + poly * L * n + j;
 
-  uint32_t y[kMaxL];
-  uint32_t emt = 0;  // m~ channel: wraps mod 2^32, exact mod m~ = 2^16
-#pragma unroll 4
+  uint32_t y0[L], y1[L];
+  uint32_t e0 = 0, e1 = 0;  // m~ channel: wraps mod 2^32, exact mod m~ = 2^16
+#pragma unroll
   for (int i = 0; i < L; ++i) {
-    const uint32_t xm = shoup_mul(static_cast<uint32_t>(xp[static_cast<size_t>(i) * n]), mt[i],
-                                  mts[i], q[i]);
-    y[i] = shoup_mul(xm, qhi[i], qhis[i], q[i]);
-    emt += (y[i] & (kMtilde - 1)) * qmt[i];
+    const longlong2 v = *reinterpret_cast<const longlong2*>(xp + static_cast<size_t>(i) * n);
+    const uint32_t qi = q[i], m = mt[i], ms = mts[i], h = qhi[i], hs = qhis[i];
+    y0[i] = shoup_mul(shoup_mul(static_cast<uint32_t>(v.x), m, ms, qi), h, hs, qi);
+    y1[i] = shoup_mul(shoup_mul(static_cast<uint32_t>(v.y), m, ms, qi), h, hs, qi);
+    e0 += (y0[i] & (kMtilde - 1)) * qmt[i];
+    e1 += (y1[i] & (kMtilde - 1)) * qmt[i];
   }
-  emt &= kMtilde - 1;
-  const uint32_t r = (emt * neg_qinv) & (kMtilde - 1);
+  const uint32_t r0 = ((e0 & (kMtilde - 1)) * neg_qinv) & (kMtilde - 1);
+  const uint32_t r1 = ((e1 & (kMtilde - 1)) * neg_qinv) & (kMtilde - 1);
 
-  int64_t* ep = ext + poly * T * n + j;
+  uint32_t* ep = ext + poly * T * n + j;
+#pragma unroll 1
   for (int t = 0; t < T; ++t) {
     const uint32_t dt = d[t];
-    uint32_t acc = 0;
-#pragma unroll 4
-    for (int i = 0; i < L; ++i) acc = add_mod(acc, shoup_mul(y[i], cv[i * T + t], cs[i * T + t], dt), dt);
-    const uint32_t r_mod = r >= kMtilde / 2 ? dt - (kMtilde - r) : r;
-    const uint32_t s = add_mod(acc, shoup_mul(r_mod, qm[t], qms[t], dt), dt);
-    ep[static_cast<size_t>(t) * n] = shoup_mul(s, mti[t], mtis[t], dt);
+    uint32_t a0 = 0, a1 = 0;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      const uint32_t w = cv[i * T + t], ws = cs[i * T + t];
+      a0 = add_mod(a0, shoup_mul(y0[i], w, ws, dt), dt);
+      a1 = add_mod(a1, shoup_mul(y1[i], w, ws, dt), dt);
+    }
+    const uint32_t rm0 = r0 >= kMtilde / 2 ? dt - (kMtilde - r0) : r0;
+    const uint32_t rm1 = r1 >= kMtilde / 2 ? dt - (kMtilde - r1) : r1;
+    const uint32_t s0 = add_mod(a0, shoup_mul(rm0, qm[t], qms[t], dt), dt);
+    const uint32_t s1 = add_mod(a1, shoup_mul(rm1, qm[t], qms[t], dt), dt);
+    *reinterpret_cast<uint2*>(ep + static_cast<size_t>(t) * n) =
+        make_uint2(shoup_mul(s0, mti[t], mtis[t], dt), shoup_mul(s1, mti[t], mtis[t], dt));
   }
+}
+
+// ---------------------------------------------------------------------------
+// B2, step 2: the forward NTT of the joint (L + T)-row stack
+// ---------------------------------------------------------------------------
+
+// Where row `row` of the joint stack comes from and goes to: q row k < L of
+// polynomial `poly` is x's (int64) and fq's, aux row k - L the scratch's
+// (uint32) and fa's.
+struct PrepRows {
+  const int64_t* x;
+  const uint32_t* ext;
+  int64_t* fq;
+  int64_t* fa;
+  int L, T;
+};
+
+// A uint32 row into the staging buffer by cp.async, 16 bytes (4 residues)
+// a copy, in element order: the forward's first window reads 32
+// consecutive residues a warp, one to a bank.
+template <int LOGN>
+__device__ __forceinline__ void stage_row32(uint32_t* stage, const uint32_t* src, int lane) {
+  constexpr int CHUNKS = 1 << (LOGN - 2), T = ntt::row_threads(LOGN);
+#pragma unroll
+  for (int c = lane; c < CHUNKS; c += T) ntt::cp_async16(stage + 4 * c, src + 4 * c);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int LOGN>
+__device__ __forceinline__ void stage_prep_row(unsigned char* stage, const PrepRows& p, int row) {
+  const int lt = p.L + p.T, poly = row / lt, k = row - poly * lt;
+  if (k < p.L)
+    ntt::stage_row<LOGN>(reinterpret_cast<int64_t*>(stage),
+                         p.x + ((static_cast<size_t>(poly) * p.L + k) << LOGN), ntt::lane_id());
+  else
+    stage_row32<LOGN>(reinterpret_cast<uint32_t*>(stage),
+                      p.ext + ((static_cast<size_t>(poly) * p.T + k - p.L) << LOGN),
+                      ntt::lane_id());
+}
+
+// The row's registers, in the forward's last window (the chunk window), to
+// yr as int64, through one exchange to the layout where registers 2j and
+// 2j + 1 of thread `lane` hold elements 2 lane + {0, 1} + j 2^(LOGN - K + 1):
+// 16-byte stores, 512 consecutive bytes a warp, half the store
+// instructions of B1's 8-byte ones. Slots of an element pair are adjacent
+// (xswz32 is linear and leaves bit 0 to the pair), so each pair is one
+// 8-byte shared-memory read, conflict-free by half-warp.
+template <int LOGN>
+__device__ __forceinline__ void store_row_pairs(uint32_t (&a)[1 << ntt::reg_bits(LOGN)],
+                                                int64_t* __restrict__ yr, uint32_t* xb) {
+  constexpr int K = ntt::reg_bits(LOGN), E = 1 << K, TB = LOGN - K;
+  if constexpr (ntt::num_passes(LOGN) == 1) {      // one thread holds the row in order
+#pragma unroll
+    for (int j = 0; j < E / 2; ++j)
+      *reinterpret_cast<longlong2*>(yr + 2 * j) = make_longlong2(a[2 * j], a[2 * j + 1]);
+  } else {
+    const int from = ntt::xswz32(ntt::element<0, K>(ntt::lane_id(), 0));
+#pragma unroll
+    for (int i = 0; i < E; ++i) xb[from ^ ntt::xswz32(i)] = a[i];
+    __syncthreads();
+    const int lane = ntt::lane_id();
+#pragma unroll
+    for (int j = 0; j < E / 2; ++j) {
+      const int e = (lane << 1) | (j << (TB + 1));
+      const int slot = ntt::xswz32(e);
+      const uint2 v = *reinterpret_cast<const uint2*>(xb + (slot & ~1));
+      const bool swap = slot & 1;
+      *reinterpret_cast<longlong2*>(yr + e) = make_longlong2(swap ? v.y : v.x, swap ? v.x : v.y);
+    }
+  }
+}
+
+// ntt::ntt_kernel's forward row loop on two sources: persistent blocks walk
+// the rows, the next row streams into the staging buffer (8-byte or 4-byte
+// residues as its source has them) behind the passes of the current one,
+// and each row ends with the to-Montgomery epilogue (`post`, `posts`: 2^32
+// mod q and its companion, per joint limb) and int64 stores in 16-byte
+// pairs.
+template <int LOGN>
+__global__ void __launch_bounds__(ntt::row_threads(LOGN)) behz32_prep_rows_kernel(
+    PrepRows p, int rows, const unsigned char* __restrict__ tw, const uint32_t* __restrict__ qv,
+    const uint32_t* __restrict__ post, const uint32_t* __restrict__ posts) {
+  using ntt::W32;
+  constexpr int N = 1 << LOGN, K = ntt::reg_bits(LOGN), E = 1 << K, P = ntt::num_passes(LOGN);
+  constexpr int TOP = ntt::window_lo(LOGN, 0);
+  constexpr bool STAGE = W32::stages(LOGN) && LOGN >= 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* xb = reinterpret_cast<uint32_t*>(smem + (STAGE ? 8 * N : 0));
+  const int lt = p.L + p.T;
+  int row = blockIdx.x;
+  if constexpr (STAGE) {
+    if (row < rows) stage_prep_row<LOGN>(smem, p, row);
+  }
+  for (; row < rows; row += gridDim.x) {
+    const int poly = row / lt, k = row - poly * lt;
+    const bool qrow = k < p.L;
+    const uint32_t q = qv[k];
+    uint32_t a[E];
+    if constexpr (STAGE) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // the staged row has landed; the last row's exchange is read
+
+    // the first window: the top one, where a warp's lanes hold consecutive elements
+    const int lane = ntt::lane_id();
+    if constexpr (STAGE) {
+      if (qrow) {
+        const int64_t* st = reinterpret_cast<const int64_t*>(smem);
+        const int base = ntt::sswz(ntt::element<TOP, K>(lane, 0));   // sswz is linear
+#pragma unroll
+        for (int i = 0; i < E; ++i) a[i] = static_cast<uint32_t>(st[base ^ ntt::sswz(i << TOP)]);
+      } else {
+        const uint32_t* st = reinterpret_cast<const uint32_t*>(smem);
+#pragma unroll
+        for (int i = 0; i < E; ++i) a[i] = st[ntt::element<TOP, K>(lane, i)];
+      }
+    } else if (qrow) {
+      const int64_t* xr = p.x + ((static_cast<size_t>(poly) * p.L + k) << LOGN);
+#pragma unroll
+      for (int i = 0; i < E; ++i) a[i] = static_cast<uint32_t>(xr[ntt::element<TOP, K>(lane, i)]);
+    } else {
+      const uint32_t* er = p.ext + ((static_cast<size_t>(poly) * p.T + k - p.L) << LOGN);
+#pragma unroll
+      for (int i = 0; i < E; ++i) a[i] = er[ntt::element<TOP, K>(lane, i)];
+    }
+
+    const unsigned char* tl = tw + static_cast<size_t>(k) * ntt::table_entries(LOGN) *
+                                       W32::kEntryBytes;
+    if constexpr (STAGE) {
+      // the staging buffer is free once every thread has read its first
+      // window: fetch the next row behind the passes, after the first
+      // exchange's barrier
+      const auto fetch_next = [&] {
+        if (row + static_cast<int>(gridDim.x) < rows)
+          stage_prep_row<LOGN>(smem, p, row + gridDim.x);
+      };
+      if constexpr (P == 1) {
+        __syncthreads();
+        fetch_next();
+        ntt::passes<W32, LOGN, false>(a, xb, tl, q);
+      } else {
+        ntt::passes<W32, LOGN, false>(a, xb, tl, q, fetch_next);
+      }
+    } else {
+      ntt::passes<W32, LOGN, false>(a, xb, tl, q);
+    }
+    ntt::epilogue<W32>(a, q, true, post[k], posts[k]);
+    int64_t* yr = qrow ? p.fq + ((static_cast<size_t>(poly) * p.L + k) << LOGN)
+                       : p.fa + ((static_cast<size_t>(poly) * p.T + k - p.L) << LOGN);
+    store_row_pairs<LOGN>(a, yr, xb);
+  }
+}
+
+// Launch the rows kernel at 2^LOGN on a persistent grid (blocks per SM
+// times the SMs, set up once per device).
+template <int LOGN>
+int prep_rows_launch(const PrepRows& p, int rows, const void* tw, const void* q, const void* post,
+                     const void* posts, cudaStream_t stream) {
+  static int grid_of[fused::kMaxDevices] = {};
+  static int allowed[fused::kMaxDevices] = {};
+  auto kernel = behz32_prep_rows_kernel<LOGN>;
+  constexpr int smem = ntt::W32::smem_bytes(LOGN);
+  int e = fused::allow_smem(kernel, smem, allowed);
+  if (e != 0) return e;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grid_of[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, ntt::row_threads(LOGN),
+                                                        smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid_of[dev] = per_sm * sms;
+  }
+  const int grid = rows < grid_of[dev] ? rows : grid_of[dev];
+  behz32_prep_rows_kernel<LOGN><<<grid, ntt::row_threads(LOGN), smem, stream>>>(
+      p, rows, static_cast<const unsigned char*>(tw), static_cast<const uint32_t*>(q),
+      static_cast<const uint32_t*>(post), static_cast<const uint32_t*>(posts));
+  return static_cast<int>(cudaGetLastError());
 }
 
 __host__ __device__ inline int scale_back_consts(int L, int T) {
@@ -325,18 +532,33 @@ extern "C" int behz32_finish_launch(const int64_t* dq, const int64_t* da, int64_
   });
 }
 
-// x: (polys, L, n) int64 residues mod q; ext: (polys, T, n) int64 output.
-extern "C" int behz32_extend_launch(const int64_t* x, int64_t* ext, int polys, int L, int T, int n,
-                                    const uint32_t* consts, void* stream) {
-  if (L > kMaxL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) * (6 * L + 5 * T + 2 * L * T + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        behz32_extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  dim3 grid((n + kThreads - 1) / kThreads, polys);
-  behz32_extend_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, ext, L, T,
-                                                                                   n, consts);
-  return static_cast<int>(cudaGetLastError());
+// B2 on x: (polys, L, n) int64 residues mod q starting on 16 bytes, into
+// fq: (polys, L, n) and fa: (polys, T, n), through the uint32 scratch ext:
+// (polys, T, n). `consts` is the extension's block; `tw`, `q`, `post`,
+// `posts` are kernel B1's forward pass table and per-limb q and
+// to-Montgomery constants (2^32 mod q) of the joint ring, ring_q's L limbs
+// followed by ring_aux's T. Two launches on `stream`.
+extern "C" int behz32_prep_launch(const int64_t* x, uint32_t* ext, int64_t* fq, int64_t* fa,
+                                  int polys, int L, int T, int logn, const uint32_t* consts,
+                                  const void* tw, const void* q, const void* post,
+                                  const void* posts, void* stream) {
+  if (L < 1 || L > kMaxL || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = 1 << logn;
+  const int smem = static_cast<int>(sizeof(uint32_t)) * (6 * L + 5 * T + 2 * L * T + 1);
+  int err = fused::by_value<kMaxL>(L, [&](auto size) -> int {
+    constexpr int LL = decltype(size)::value;
+    static int allowed[fused::kMaxDevices] = {};
+    int e = fused::allow_smem(behz32_extend_kernel<LL>, smem, allowed);
+    if (e != 0) return e;
+    const int threads = n / 2 < kThreads ? n / 2 : kThreads;
+    dim3 grid(polys, n / 2 / threads);
+    behz32_extend_kernel<LL><<<grid, threads, smem, st>>>(x, ext, T, n, consts);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0) return err;
+  const PrepRows p{x, ext, fq, fa, L, T};
+  return ntt::by_logn<kMaxLogn>(logn, [&](auto size) -> int {
+    return prep_rows_launch<decltype(size)::value>(p, polys * (L + T), tw, q, post, posts, st);
+  });
 }

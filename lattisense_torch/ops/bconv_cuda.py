@@ -5,10 +5,15 @@ Replaces ``lattisense_tpu/ops/bconv_pallas.py`` ``bconv_convert_fused`` and
 
     out[..., t, i] = Σ_l mont_mul(y[..., l, i], C[t, l]) mod d_t
 
-with Montgomery constants C (T, L) for R = 2^64, the sum folded with modular
-adds. The CUDA source is ``csrc/bconv64.cu``: one thread per (row,
-coefficient) reads the L source residues once and writes all T outputs; the
-constants sit in shared memory.
+with Montgomery constants C (T, L) for R = 2^64, every output the
+canonical residue. The CUDA source is ``csrc/bconv64.cu``: one thread per
+two coefficients of a row holds its L source residues in registers
+(compile-time (L, T) instances for the path's shapes, an instance of each
+L with a run-time T otherwise) and sums the L 128-bit products y·C before
+one Montgomery reduction an output. That single reduction is exact while
+the sum stays below d·2^64, which the wrapper proves from the largest
+source residue (``lazy_fold``); where it cannot for all L terms, the kernel
+folds the sum's high word after each term past the proven count.
 
 Entries:
 
@@ -39,10 +44,22 @@ launches = {'bconv64_convert': 0, 'bconv64_raw': 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'bconv64_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    'bconv64_launch': [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     'bconv64_max_src': [],
     'bconv64_max_const_words': [],
+    'bconv64_specific': [_I, _I, _I],
 }
+#: the largest residue of the 64-bit word: every modulus is below 2^62
+WORD_GUARD = (1 << 62) - 1
+
+
+def lazy_fold(L: int, ymax: int) -> int:
+    """How many of the L terms y_l·C_l (y_l ≤ ymax, C_l < d) the kernel may
+    sum before its one Montgomery reduction: the most F ≤ L with
+    F·ymax ≤ 2^64, so that the sum stays below d·2^64. F = L: the lazy sum
+    of all terms is exact; F < L: the kernel folds the high word after each
+    term past the F-th."""
+    return max(1, min(L, (1 << 64) // max(ymax, 1)))
 
 
 def bconv64_plain(y, C, dst_q, dst_pinv):
@@ -78,8 +95,9 @@ def _check(y, C, dst_q, dst_pinv):
             raise ValueError(f'tensor on {y.device}, constants on {t.device}')
 
 
-def _launch(y, C, dst_q, dst_pinv, name: str):
-    """Launch B6 over y's rows on the current stream and count it."""
+def _launch(y, C, dst_q, dst_pinv, ymax: int, name: str):
+    """Launch B6 over y's rows on the current stream and count it; ``ymax``
+    bounds y's residues."""
     for t in (C, dst_q, dst_pinv):
         if not t.is_contiguous():
             raise ValueError(f'{name}: constants must be contiguous')
@@ -92,12 +110,14 @@ def _launch(y, C, dst_q, dst_pinv, name: str):
                          f'{lib.bconv64_max_const_words()} constant words, got L={L}, '
                          f'G·T·L+2T={G * T * L + 2 * T}')
     y = y.contiguous()
+    y = y if y.data_ptr() % 16 == 0 else y.clone()        # rows move in 16-byte pieces
     out = torch.empty((*y.shape[:-2], T, n), dtype=torch.int64, device=y.device)
     rows = y.numel() // (L * n)
     if rows:
         with torch.cuda.device(y.device):
             err = lib.bconv64_launch(y.data_ptr(), out.data_ptr(), rows, G, L, T, n,
-                                     C.data_ptr(), dst_q.data_ptr(), dst_pinv.data_ptr(),
+                                     lazy_fold(L, ymax), C.data_ptr(), dst_q.data_ptr(),
+                                     dst_pinv.data_ptr(),
                                      torch.cuda.current_stream(y.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'{name} launch failed: cudaError_t {err}')
@@ -105,21 +125,31 @@ def _launch(y, C, dst_q, dst_pinv, name: str):
     return out
 
 
+def instance(L: int, T: int, ymax: int) -> str:
+    """Which kernel instance B6 takes for L source and T destination limbs
+    with residues up to ``ymax``: 'specific' (compile-time L and T, the lazy
+    sum proven exact) or 'generic' (compile-time L, run-time T and fold)."""
+    lib = cuda_build.load('bconv64', _SIGNATURES)
+    return 'specific' if lib.bconv64_specific(L, T, lazy_fold(L, ymax)) else 'generic'
+
+
 def bconv64_raw(y, C, dst_q, dst_pinv):
     """FastBConv sum with caller-supplied 64-bit Montgomery constants: y
-    (..., L, n) with C (T, L), or y (..., G, L, n) with C (G, T, L)."""
+    (..., L, n) with C (T, L), or y (..., G, L, n) with C (G, T, L). The
+    residues of y are taken below 2^62, the word's guard; C's below their
+    moduli."""
     _check(y, C, dst_q, dst_pinv)
     if not y.is_cuda:
         return bconv64_plain(y, C, dst_q, dst_pinv)
-    return _launch(y, C, dst_q, dst_pinv, 'bconv64_raw')
+    return _launch(y, C, dst_q, dst_pinv, WORD_GUARD, 'bconv64_raw')
 
 
 def bconv64_convert(y, conv):
     """``BasisConv.convert`` of a 64-bit-word BasisConv: decomposed
-    residues y (..., L, n) → (..., T, n)."""
+    residues y (..., L, n), each below its source modulus, → (..., T, n)."""
     _u.require_word(conv, 64, 'bconv64_convert')
     C, q, pinv = conv.qhat_dst_mont, conv.dst_q, conv.dst_pinv
     _check(y, C, q, pinv)
     if not y.is_cuda:
         return bconv64_plain(y, C, q, pinv)
-    return _launch(y, C, q, pinv, 'bconv64_convert')
+    return _launch(y, C, q, pinv, max(conv.src) - 1, 'bconv64_convert')

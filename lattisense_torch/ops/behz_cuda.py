@@ -9,15 +9,17 @@ exactly the composition of ``BfvEngine.mult`` in the reference
 (``schemes/bfv.py:347-349``).
 
 The TPU kernel keeps all L+T rows of a polynomial resident in VMEM (~1.2 MB at
-n=16384), more than the 227 KB a block may hold on this card, so the work is
-split in two: ``csrc/behz32.cu`` extends each coefficient in its own thread
-(the L decomposed digits in a per-thread local array, every conversion
-constant in shared memory) into a scratch (..., T, n) tensor, then kernel
-B1's forward NTT with its to-Montgomery epilogue runs over the q rows and
-over the aux rows. Both
-parts are bound by device-memory bytes (the extension does ~(9L+12)·T 32-bit
-operations per coefficient, ~6.6 per byte moved at L=8, T=11); the split
-costs one extra write and read of the T aux rows.
+n=16384), more than the 227 KB a block may hold on this card, so the
+extension (every limb of a coefficient) and the NTT (every coefficient of a
+row) meet in device memory once, as 32-bit rows (``csrc/behz32.cu``): one
+thread per two coefficients extends x into a uint32 (..., T, n) scratch,
+with L a template parameter so that its digits stay in registers; then
+kernel B1's row loop walks the L+T rows of every polynomial in one launch,
+the q rows from x and the aux rows from the scratch, each with its limb of
+the joint ring q ∪ aux (``prep_ring``), ending in the to-Montgomery
+epilogue and int64 stores to fq and fa in 16-byte pairs. Bound by
+device-memory bytes: the design moves 8L+4T+8L+4T+8(L+T) bytes a
+coefficient against the bound's 8L+8(L+T).
 
 B4, ``behz_finish32``, the back half. Replaces ``behz_pallas32.py``
 ``behz_finish32`` (kernel ``_k3_kernel``): for the NTT + Montgomery tensor
@@ -32,10 +34,9 @@ store 32-bit rows, and one thread per coefficient finishes the scale-back
 from them: three launches, no int64 intermediate, bound by device-memory
 bytes.
 
-Each wrapper counts one launch per call; B2's B1 launches show under
-``ntt32_fwd`` (B4 launches none of B1's entries). A CPU tensor runs the
-plain PyTorch composition below; a CUDA tensor launches the kernels or
-raises.
+Each wrapper counts one launch per call; neither launches any of B1's
+entries. A CPU tensor runs the plain PyTorch composition below; a CUDA
+tensor launches the kernels or raises.
 """
 
 import ctypes
@@ -44,6 +45,7 @@ import math
 import torch
 
 from ..core import u64 as _u
+from ..core.modring import get_rns_ring
 from ..core.rns import _shoup
 from ..params import MTILDE
 from . import cuda_build, ntt_cuda
@@ -54,7 +56,7 @@ launches = {'behz_prep32': 0, 'behz_finish32': 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'behz32_extend_launch': [_P, _P, _I, _I, _I, _I, _P, _P],
+    'behz32_prep_launch': [_P] * 4 + [_I] * 4 + [_P] * 6,
     'behz32_finish_launch': [_P] * 5 + [_I] * 4 + [_P] * 10,
     'behz32_max_limbs': [],
     'behz32_max_aux': [],
@@ -99,6 +101,13 @@ def _consts(bz):
     return tab
 
 
+def prep_ring(bz):
+    """The joint ring of B2's row launch: ring_q's L limbs followed by
+    ring_aux's T, so that row k of a polynomial's L+T rows takes limb k."""
+    rq, ra = bz.ring_q, bz.ring_aux
+    return get_rns_ring(tuple(rq.moduli) + tuple(ra.moduli), rq.n, rq.device, 32)
+
+
 def behz_prep32(x, bz):
     """Fused BEHZ prep for an int64 (..., L, n) stack of coefficient-domain
     polynomials over ``bz.ring_q``: returns (fq (..., L, n), fa (..., T, n))."""
@@ -113,21 +122,24 @@ def behz_prep32(x, bz):
     lib = cuda_build.load('behz32', _SIGNATURES)
     if L > lib.behz32_max_limbs():
         raise ValueError(f'behz_prep32 supports at most {lib.behz32_max_limbs()} limbs, got {L}')
+    if not 1 <= n.bit_length() - 1 <= ntt_cuda.MAX_LOGN:
+        raise ValueError(f'behz_prep32 supports 2 <= n <= 2^{ntt_cuda.MAX_LOGN}, got n={n}')
     lead = x.shape[:-2]
     polys = x.numel() // (L * n)
-    ext = torch.empty((*lead, T, n), dtype=torch.int64, device=x.device)
     fq = torch.empty(x.shape, dtype=torch.int64, device=x.device)
-    fa = torch.empty(ext.shape, dtype=torch.int64, device=x.device)
+    fa = torch.empty((*lead, T, n), dtype=torch.int64, device=x.device)
     if polys:
-        consts = _consts(bz)
+        x = x if x.data_ptr() % 16 == 0 else x.clone()    # rows move in 16-byte pieces
+        ext = torch.empty((*lead, T, n), dtype=torch.int32, device=x.device)
+        tabs = ntt_cuda._tables(prep_ring(bz))
         with torch.cuda.device(x.device):
-            err = lib.behz32_extend_launch(x.data_ptr(), ext.data_ptr(), polys, L, T, n,
-                                           consts.data_ptr(),
-                                           torch.cuda.current_stream(x.device).cuda_stream)
+            err = lib.behz32_prep_launch(
+                x.data_ptr(), ext.data_ptr(), fq.data_ptr(), fa.data_ptr(), polys, L, T,
+                n.bit_length() - 1, _consts(bz).data_ptr(),
+                *(tabs[k].data_ptr() for k in ('fwd', 'q', 'r1', 'r1_shoup')),
+                torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f'behz32 extension launch failed: cudaError_t {err}')
-        ntt_cuda.launch(x, fq, rq, inverse=False, to_mont=True)
-        ntt_cuda.launch(ext, fa, ra, inverse=False, to_mont=True)
+            raise RuntimeError(f'behz32 prep launch failed: cudaError_t {err}')
         launches['behz_prep32'] += 1
     return fq, fa
 

@@ -35,11 +35,11 @@ def _recut31_capped(log_q: int, log_p: int) -> tuple[int, int]:
 
 class BfvParams:
     """BFV parameters: ring degree n, plaintext modulus t, q chain, special
-    primes p, and the machine word: ``word_bits=32`` (all primes < 2^31) or
-    64 (all primes < 2^62)."""
+    primes p, and the machine word: 64 (all primes < 2^62; the default, as in
+    the reference) or ``word_bits=32`` (all primes < 2^31)."""
 
     def __init__(self, n: int, t: int, q: list[int], p: list[int],
-                 word_bits: int = 32):
+                 word_bits: int = 64):
         self.n = int(n)
         if self.n < 2 or self.n & (self.n - 1):
             raise ValueError(f'n must be a power of two, got {n}')
@@ -56,7 +56,7 @@ class BfvParams:
 
     @classmethod
     def create_custom(cls, n: int, t: int, q: list[int], p: list[int],
-                      word_bits: int = 32) -> 'BfvParams':
+                      word_bits: int = 64) -> 'BfvParams':
         return cls(n, t, q, p, word_bits)
 
     @classmethod
@@ -77,7 +77,7 @@ class BfvParams:
             sum(int(x).bit_length() for x in entry['q']),
             sum(int(x).bit_length() for x in entry['p']))
         primes = gen_ntt_primes(n, 31, nq + npr)
-        return cls(n, t if t is not None else entry['t'], primes[:nq], primes[nq:])
+        return cls(n, t if t is not None else entry['t'], primes[:nq], primes[nq:], word_bits=32)
 
     def q_prod(self, level: int) -> int:
         return math.prod(self.q[:level + 1])
@@ -89,7 +89,7 @@ class BfvParams:
 
 @functools.lru_cache(maxsize=None)
 def bfv_aux_basis(n: int, q: tuple[int, ...], p: tuple[int, ...],
-                  word_bits: int = 32) -> tuple[tuple[int, ...], int]:
+                  word_bits: int = 64) -> tuple[tuple[int, ...], int]:
     """Auxiliary basis (B, m_sk) for BEHZ multiplication: NTT primes at the
     word's size (31 or 59 bits) distinct from q ∪ p, sized so every
     per-level prefix B_ℓ exceeds the scaled tensor-product bound 8·t·n·Q_ℓ,

@@ -1,4 +1,4 @@
-"""Time kernels B2, B3 and B4 of one checkout on one CUDA card, whole and by stage.
+"""Time kernels B2, B3, B4 and B6 of one checkout on one CUDA card, whole and by stage.
 
     python lattisense_torch/tools/fused_bench.py [--root DIR] [--iters 20] [--batch 32]
 
@@ -17,7 +17,13 @@ times:
   name → ms per call), which splits each wrapper into its stages whatever
   its design;
 - B3's split route whole, where the checkout has more than one route
-  (``_switch`` with route 'split').
+  (``_switch`` with route 'split');
+- at the u64 path's shapes (``create(16384)``, level 3, batch B), B6's four
+  conversions of a mult_relin (``bconv64_convert``: the BEHZ extension,
+  scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q) each
+  alone and together, and the key switch's mod-up of all β digits
+  (``bconv64_raw``), held against the plain twin, with each CUDA kernel's
+  device time.
 
 Prints one JSON line ``{"fused_bench": {...}}`` with the times in ms, the
 equality flags, the routes the wrappers took, the root and the card's name
@@ -33,6 +39,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 N = 16384
 LEVEL = 7
+LEVEL64 = 3
 
 
 def main(argv=None) -> int:
@@ -143,7 +150,43 @@ def main(argv=None) -> int:
     out['behz_finish32_equal'] = torch.equal(got, behz_cuda.behz_finish_plain(dq, da, bz))
     out['behz_finish32_ms'] = timed(lambda: behz_cuda.behz_finish32(dq, da, bz))
     out['behz_finish32_kernels_ms'] = kernel_ms(lambda: behz_cuda.behz_finish32(dq, da, bz))
-    out['batch'], out['level'], out['limbs'] = B, LEVEL, L
+    del dq, da, got
+
+    # B6 at the u64 path's shapes
+    from lattisense_torch.ops import bconv_cuda
+    p64 = BfvParams.create(N)
+    eng64 = BfvEngine(p64, dev)
+    bz64, sw64 = eng64.behz(LEVEL64), eng64.switcher
+
+    def src_residues(moduli, lead):
+        x = torch.randint(0, 1 << 62, (*lead, len(moduli), N), generator=gen, device=dev)
+        return x % torch.tensor(moduli, device=dev).reshape(-1, 1)
+
+    convs = [('extend', bz64.extend.conv, (B, 4)), ('scale_and_back', bz64.conv_q_to_aux, (B, 3)),
+             ('shenoy', bz64.shenoy.conv, (B, 3)),
+             ('round_div_p', sw64._level_pre(LEVEL64)[5].conv, (B, 2))]
+    ins = []
+    for cname, conv, lead in convs:
+        y = conv.decompose(src_residues(conv.src, lead))
+        got = bconv_cuda.bconv64_convert(y, conv)
+        out[f'bconv64_{cname}_equal'] = torch.equal(got, bconv_cuda.bconv64_plain(
+            y, conv.qhat_dst_mont, conv.dst_q, conv.dst_pinv))
+        out[f'bconv64_{cname}_ms'] = timed(lambda y=y, conv=conv: bconv_cuda.bconv64_convert(y, conv))
+        ins.append((y, conv))
+    out['bconv64_convert_ms'] = timed(lambda: [bconv_cuda.bconv64_convert(y, c) for y, c in ins])
+    out['bconv64_convert_kernels_ms'] = kernel_ms(
+        lambda: [bconv_cuda.bconv64_convert(y, c) for y, c in ins])
+    del ins
+    pre, rqp = sw64._level_pre(LEVEL64), sw64.ring_qp(LEVEL64)
+    alpha, beta = sw64.alpha, sw64.beta(LEVEL64)
+    y = src_residues(p64.q[:LEVEL64 + 1], (B,)).reshape(B, beta, alpha, N)
+    got = bconv_cuda.bconv64_raw(y, pre[4], rqp.q, rqp.pinv)
+    out['bconv64_raw_equal'] = torch.equal(got, bconv_cuda.bconv64_plain(y, pre[4], rqp.q,
+                                                                         rqp.pinv))
+    out['bconv64_raw_ms'] = timed(lambda: bconv_cuda.bconv64_raw(y, pre[4], rqp.q, rqp.pinv))
+    out['bconv64_raw_kernels_ms'] = kernel_ms(
+        lambda: bconv_cuda.bconv64_raw(y, pre[4], rqp.q, rqp.pinv))
+    out['batch'], out['level'], out['limbs'], out['level64'] = B, LEVEL, L, LEVEL64
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]

@@ -41,7 +41,7 @@ def pair():
     q, p = chain[:5], chain[5:]
     ref = RefContext.create_random_context(
         RefBfvParams.create_custom(N, T_MOD, q, p, word_bits=32), seed=21)
-    port = BfvContext.create_random_context(BfvParams.create_custom(N, T_MOD, q, p),
+    port = BfvContext.create_random_context(BfvParams.create_custom(N, T_MOD, q, p, word_bits=32),
                                             seed=21, device='cpu')
     return ref, port
 
@@ -134,7 +134,7 @@ def _batched_case(params_ref, params_port, level, seed, batch=2):
 def test_batched_mult_relin_n4096_matches_reference():
     chain = ref_primes(4096, 31, 5)
     _batched_case(RefBfvParams.create_custom(4096, 65537, chain[:3], chain[3:], word_bits=32),
-                  BfvParams.create_custom(4096, 65537, chain[:3], chain[3:]), 2, seed=3)
+                  BfvParams.create_custom(4096, 65537, chain[:3], chain[3:], word_bits=32), 2, seed=3)
 
 
 def test_batched_mult_relin_headline_matches_reference():

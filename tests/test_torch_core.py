@@ -117,7 +117,7 @@ def test_primes_params_and_aux_basis_match_reference():
     p, r = BfvParams.create_tpu_param(16384), RefBfvParams.create_tpu_param(16384)
     assert (p.n, p.t, p.q, p.p) == (r.n, r.t, r.q, r.p)
     assert (len(p.q), len(p.p), p.t) == (10, 4, 65537)
-    assert bfv_aux_basis(p.n, tuple(p.q), tuple(p.p)) == \
+    assert bfv_aux_basis(p.n, tuple(p.q), tuple(p.p), 32) == \
         ref_aux_basis(r.n, tuple(r.q), tuple(r.p), 32)
     p64, r64 = BfvParams.create(16384), RefBfvParams.create(16384)
     assert (p64.n, p64.t, p64.q, p64.p, p64.word_bits) == (r64.n, r64.t, r64.q, r64.p, 64)

@@ -2,8 +2,9 @@
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 Each kernel is checked at a small shape and at the main path's shape, with
-its launch count and its refusal of bad input; the NTTs B1 and B5 at every
-n they take, at row counts around their persistent grid, bit for bit.
+its launch count and its refusal of bad input; the NTTs B1 and B5 and the
+kernels built on B1's row loop (B2, B3, B4) at every n they take, B6 through
+each of its instances and its fold, bit for bit.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -93,7 +94,7 @@ def test_b1_kernel_matches_plain(cuda, logn):
 def test_b2_kernel_matches_plain(cuda):
     n = 1024
     chain = tuple(gen_ntt_primes(n, 31, 6))
-    params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]])
+    params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]], word_bits=32)
     bz_c, bz_g = BfvEngine(params, CPU).behz(4), BfvEngine(params, cuda).behz(4)
     x = residues(8, bz_c.ring_q.moduli, n, (2, 4))
     fq, fa = behz_cuda.behz_prep32(x.to(cuda), bz_g)
@@ -104,10 +105,71 @@ def test_b2_kernel_matches_plain(cuda):
                        ntt_cuda.ntt_plain(x, bz_c.ring_q))
 
 
+def b2_matches_plain(cuda, params, levels, leads):
+    """B2 at each level and lead against ``behz_prep_plain`` on the card, one
+    count a call and no launch of B1's entries; a misaligned view of the
+    input too."""
+    eng = BfvEngine(params, cuda)
+    for level in levels:
+        bz = eng.behz(level)
+        for lead in leads:
+            x = card_residues(bz.ring_q, lead, 3 * level + len(lead))
+            want = behz_cuda.behz_prep_plain(x, bz)
+            before = {**ntt_cuda.launches, **behz_cuda.launches}
+            fq, fa = behz_cuda.behz_prep32(x, bz)
+            assert torch.equal(fq, want[0]) and torch.equal(fa, want[1]), (level, lead)
+            assert behz_cuda.launches['behz_prep32'] == before['behz_prep32'] + 1
+            assert all(ntt_cuda.launches[k] == before[k] for k in ntt_cuda.launches)
+        fq, fa = behz_cuda.behz_prep32(misaligned(x), bz)
+        assert torch.equal(fq, want[0]) and torch.equal(fa, want[1]), level
+
+
+@pytest.mark.parametrize('logn', range(1, 16))
+def test_b2_every_n_matches_plain(cuda, logn):
+    """Every n B2 takes, L = 5 and L = 2, batch 1 and an odd batch."""
+    n = 1 << logn
+    chain = gen_ntt_primes(n, 31, 6)
+    params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]], word_bits=32)
+    b2_matches_plain(cuda, params, (4, 1), ((1,), (3,), (2, 3)))
+
+
+def test_b2_every_level_of_the_headline_chain(cuda):
+    """create_tpu_param(16384): levels 0..9 (L + T = 5..23 rows), batch 1
+    and 5."""
+    b2_matches_plain(cuda, BfvParams.create_tpu_param(16384), range(10), ((1,), (5,)))
+
+
+def test_b2_limb_maxima_and_refusals(cuda):
+    """L = 32, the extension's largest instance, with the aux basis of that
+    chain; the refusal of L = 33, of n = 2^16, of a non-contiguous stack and
+    of an int32 one, each before any launch."""
+    n = 1024
+    chain = gen_ntt_primes(n, 31, 34)
+    params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]], word_bits=32)
+    b2_matches_plain(cuda, params, (15, 31), ((3,),))
+    eng = BfvEngine(params, cuda)
+    x = card_residues(eng.behz(32).ring_q, (1,), 0)
+    wide = torch.cat([x, x], dim=-1)[..., ::2]
+    before = {**ntt_cuda.launches, **behz_cuda.launches}
+    with pytest.raises(ValueError):
+        behz_cuda.behz_prep32(x, eng.behz(32))
+    with pytest.raises(ValueError):
+        behz_cuda.behz_prep32(wide[:, :31], eng.behz(30))
+    with pytest.raises(TypeError):
+        behz_cuda.behz_prep32(x[:, :31].to(torch.int32), eng.behz(30))
+    big = 1 << 16
+    chain16 = gen_ntt_primes(big, 31, 3)
+    bz16 = BfvEngine(BfvParams.create_custom(big, 65537, chain16[:2], chain16[2:], word_bits=32),
+                     cuda).behz(1)
+    with pytest.raises(ValueError):
+        behz_cuda.behz_prep32(card_residues(bz16.ring_q, (1,), 1), bz16)
+    assert {**ntt_cuda.launches, **behz_cuda.launches} == before
+
+
 def test_batched_mult_relin_card_matches_cpu(cuda):
     n = 4096
     chain = gen_ntt_primes(n, 31, 6)
-    params = BfvParams.create_custom(n, 65537, chain[:4], chain[4:])
+    params = BfvParams.create_custom(n, 65537, chain[:4], chain[4:], word_bits=32)
     ctx = BfvContext.create_random_context(params, seed=5, device=cuda)
     rng = np.random.default_rng(5)
     ma, mb = rng.integers(0, params.t, (2, 2, n))
@@ -185,7 +247,7 @@ def test_b3_wrapper_rejects_bad_input(cuda):
 ])
 def test_b4_kernel_matches_plain(cuda, n, nq, npp, level, lead):
     chain = gen_ntt_primes(n, 31, nq + npp)
-    params = BfvParams.create_custom(n, 65537, list(chain[:nq]), list(chain[nq:]))
+    params = BfvParams.create_custom(n, 65537, list(chain[:nq]), list(chain[nq:]), word_bits=32)
     bz_c, bz_g = BfvEngine(params, CPU).behz(level), BfvEngine(params, cuda).behz(level)
     dq = residues(9, bz_c.ring_q.moduli, n, lead)
     da = residues(10, bz_c.ring_aux.moduli, n, lead)
@@ -294,7 +356,7 @@ def test_b4_every_n_matches_plain(cuda, logn):
     """Every n B1 takes, L = 5 and L = 2, batch 1 and an odd batch."""
     n = 1 << logn
     chain = gen_ntt_primes(n, 31, 6)
-    params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]])
+    params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]], word_bits=32)
     b4_matches_plain(cuda, params, (4, 1), ((1,), (3,), (2, 3)))
 
 
@@ -309,7 +371,7 @@ def test_b4_limb_maxima_and_refusals(cuda):
     L = 33."""
     n = 1024
     chain = gen_ntt_primes(n, 31, 34)
-    params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]])
+    params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]], word_bits=32)
     b4_matches_plain(cuda, params, (15, 31), ((3,),))
     bz = BfvEngine(params, cuda).behz(32)
     dq, da = card_residues(bz.ring_q, (1,), 0), card_residues(bz.ring_aux, (1,), 1)
@@ -322,7 +384,7 @@ def test_b4_limb_maxima_and_refusals(cuda):
 def test_batched_rotate_card_matches_cpu(cuda):
     n = 4096
     chain = gen_ntt_primes(n, 31, 6)
-    params = BfvParams.create_custom(n, 65537, chain[:4], chain[4:])
+    params = BfvParams.create_custom(n, 65537, chain[:4], chain[4:], word_bits=32)
     ctx = BfvContext.create_random_context(params, seed=6, device=cuda)
     elt = galois_elt_col(1, n)
     ctx.gen_galois_keys_for_elements([elt])
@@ -443,6 +505,56 @@ def test_b6_kernel_matches_plain(cuda):
     with pytest.raises(ValueError):                                         # a 32-bit holder
         bconv_cuda.bconv64_convert(y[..., :2, :].to(cuda), BasisConv(small[:2], small[2:], cuda))
     assert bconv_cuda.launches['bconv64_convert'] == before['bconv64_convert'] + 1
+
+
+@pytest.mark.parametrize('bits,L,T,groups,top,instance,fold', [
+    (57, 4, 6, 1, False, 'specific', 4),     # the extension and scale_and_back's Q -> aux
+    (59, 5, 5, 1, True, 'specific', 5),      # Shenoy's B -> Q u m_sk
+    (55, 2, 4, 1, False, 'specific', 2),     # RoundDivP's P -> Q
+    (57, 2, 6, 2, True, 'specific', 2),      # the key switch's mod-up, two digits
+    (57, 3, 6, 1, False, 'generic', 3),
+    (61, 10, 4, 1, True, 'generic', 8),      # ten 61-bit sources: a fold past the eighth term
+    (57, 6, 5, 3, True, 'generic', 4),       # raw at the word's guard: a fold past the fourth
+    (55, 32, 3, 1, True, 'generic', 32),
+], ids=['extend', 'shenoy', 'round_div_p', 'modup', 'generic', 'fold8', 'fold4_groups3',
+        'L32'])
+def test_b6_instances_and_fold_match_plain(cuda, bits, L, T, groups, top, instance, fold):
+    """Every compile-time (L, T) instance, the generic one, and the fold,
+    through ``bconv64_convert`` (groups = 1: a BasisConv, its sources
+    decomposed or all q - 1) or ``bconv64_raw`` (groups > 1: every group its
+    own constants, residues up to the word's guard 2^62 - 1), at n = 2048."""
+    from lattisense_torch.core.rns import BasisConv
+    from lattisense_torch.ops import bconv_cuda
+    n = 2048
+    src = tuple(gen_ntt_primes(n, bits, L))
+    dst = tuple(gen_ntt_primes(n, 59 if bits != 59 else 57, T, exclude=src))
+    before = dict(bconv_cuda.launches)
+    if groups == 1:
+        conv_c, conv_g = BasisConv(src, dst, CPU, 64), BasisConv(src, dst, cuda, 64)
+        assert bconv_cuda.instance(L, T, max(src) - 1) == instance
+        assert bconv_cuda.lazy_fold(L, max(src) - 1) == fold
+        y = conv_c.decompose(residues(L + T, src, n, (5,)))
+        if top:
+            y[1:3] = torch.tensor(src).reshape(-1, 1) - 1
+        got = bconv_cuda.bconv64_convert(y.to(cuda), conv_g)
+        want = bconv_cuda.bconv64_plain(y, conv_c.qhat_dst_mont, conv_c.dst_q, conv_c.dst_pinv)
+        name = 'bconv64_convert'
+    else:
+        assert bconv_cuda.instance(L, T, bconv_cuda.WORD_GUARD) == instance
+        assert bconv_cuda.lazy_fold(L, bconv_cuda.WORD_GUARD) == fold
+        gen = torch.Generator().manual_seed(L + T)
+        y = torch.randint(0, 1 << 62, (5, groups, L, n), generator=gen)
+        if top:
+            y[1:3] = bconv_cuda.WORD_GUARD
+        convs = [BasisConv(src, dst, CPU, 64) for _ in range(groups)]
+        C = torch.stack([(c.qhat_dst_mont + g) % c.dst_q for g, c in enumerate(convs)])
+        dq, dpinv = convs[0].dst_q, convs[0].dst_pinv
+        got = bconv_cuda.bconv64_raw(y.to(cuda), C.to(cuda), dq.to(cuda), dpinv.to(cuda))
+        want = bconv_cuda.bconv64_plain(y, C, dq, dpinv)
+        name = 'bconv64_raw'
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert bconv_cuda.launches[name] == before[name] + 1
 
 
 @pytest.mark.parametrize('levels', [(3, 2)])

@@ -113,7 +113,7 @@ def walk_finish(dq, da, bz):
 @pytest.mark.parametrize('level', [5, 2])
 def test_walk_finish_matches_plain(n, level):
     chain = gen_ntt_primes(n, 31, 7)
-    params = BfvParams.create_custom(n, 65537, list(chain[:6]), [chain[6]])
+    params = BfvParams.create_custom(n, 65537, list(chain[:6]), [chain[6]], word_bits=32)
     bz = BfvEngine(params, CPU).behz(level)
     dq = residues(n + level, bz.ring_q.moduli, n, (2, 3))
     da = residues(n + level + 1, bz.ring_aux.moduli, n, (2, 3))

@@ -59,7 +59,7 @@ def test_entry_points_default_to_cuda():
         assert resolve_device().type == 'cuda'
         return
     chain = gen_ntt_primes(64, 31, 3)
-    params = BfvParams.create_custom(64, 257, chain[:2], chain[2:])
+    params = BfvParams.create_custom(64, 257, chain[:2], chain[2:], word_bits=32)
     for entry in (lambda: BfvContext.create_random_context(params, seed=1),
                   lambda: BfvContext(params),
                   lambda: BfvEngine(params)):

@@ -100,7 +100,7 @@ def _behz_case():
     q, p = list(chain[:3]), [chain[3]]
     ref_eng = RefContext.create_random_context(
         RefBfvParams.create_custom(n, 257, q, p, word_bits=32), seed=13).engine
-    eng = BfvEngine(BfvParams.create_custom(n, 257, q, p), CPU)
+    eng = BfvEngine(BfvParams.create_custom(n, 257, q, p, word_bits=32), CPU)
     return n, ref_eng.behz(2), eng.behz(2)
 
 

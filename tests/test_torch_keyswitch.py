@@ -48,7 +48,7 @@ def ksw_pair():
     q, p = list(chain[:5]), list(chain[5:7])
     ref = RefContext.create_random_context(
         RefBfvParams.create_custom(N, 257, q, p, word_bits=32), seed=15)
-    port = BfvContext.from_arrays(BfvParams.create_custom(N, 257, q, p), ref.sk.coeffs,
+    port = BfvContext.from_arrays(BfvParams.create_custom(N, 257, q, p, word_bits=32), ref.sk.coeffs,
                                   ref.pk.data, ref.rlk.key_q, ref.rlk.key_p, device='cpu')
     return ref, port
 
@@ -116,7 +116,7 @@ def finish_pair():
     q, p = list(chain[:3]), [chain[3]]
     ref = RefContext.create_random_context(
         RefBfvParams.create_custom(N, 257, q, p, word_bits=32), seed=14)
-    port = BfvContext.from_arrays(BfvParams.create_custom(N, 257, q, p), ref.sk.coeffs,
+    port = BfvContext.from_arrays(BfvParams.create_custom(N, 257, q, p, word_bits=32), ref.sk.coeffs,
                                   ref.pk.data, ref.rlk.key_q, ref.rlk.key_p, device='cpu')
     return ref.engine.behz(2), port.engine.behz(2)
 

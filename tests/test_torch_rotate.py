@@ -56,7 +56,7 @@ def pair():
         RefBfvParams.create_custom(N, T_MOD, q, p, word_bits=32), seed=31)
     ref.gen_rotation_keys_for_rotations(list(STEPS), swap_rows=True)
     ref.gen_galois_keys_for_elements([galois.galois_elt_col(s, N) for s in STEPS])
-    port = BfvContext.from_arrays(BfvParams.create_custom(N, T_MOD, q, p), ref.sk.coeffs,
+    port = BfvContext.from_arrays(BfvParams.create_custom(N, T_MOD, q, p, word_bits=32), ref.sk.coeffs,
                                   ref.pk.data, ref.rlk.key_q, ref.rlk.key_p, device='cpu')
     for elt, k in ref.glk.keys.items():
         port.add_galois_key_arrays(elt, k.key_q, k.key_p)
@@ -109,7 +109,7 @@ def test_same_seed_same_galois_keys():
     q, p = chain[:5], chain[5:]
     ref = RefContext.create_random_context(
         RefBfvParams.create_custom(N, T_MOD, q, p, word_bits=32), seed=41)
-    port = BfvContext.create_random_context(BfvParams.create_custom(N, T_MOD, q, p), seed=41,
+    port = BfvContext.create_random_context(BfvParams.create_custom(N, T_MOD, q, p, word_bits=32), seed=41,
                                             device='cpu')
     ref.gen_rotation_keys_for_rotations([3, -5], swap_rows=True)
     port.gen_rotation_keys_for_rotations([3, -5], swap_rows=True)
