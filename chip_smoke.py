@@ -31,11 +31,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (``BfvParams.create(16384)``, level 3, batch 32), checked as in 3; the
    counts of B5, B6 and B7 must have risen and the 32-bit kernels' must not.
 6. u64 rotate path: the batched rotate_col by 1 on the u64 context, checked
-   as in 4 and 5.
+   as in 4 and 5. None of the paths at n=16384 may launch the columns kernel
+   of B1's or B5's split.
+7. BFV at n=32768 on the u64 chain (``BfvParams.create(32768)``, level 11,
+   the chain's full width, batch 32): B5 through its split (columns kernel,
+   then the row kernel on sub-rows of 2^14), B6 and B7, each held against
+   its plain twin on the card at the path's shapes; then ``u64_32k_path``
+   (mult_relin) and ``u64_32k_rotate_path`` (rotate_col by 1), checked as in
+   5 and 6, with the split's columns launches required.
+8. BFV at n=32768 on the 31-bit profile (``create_tpu_param(32768)``, level
+   21, batch 32): B2, B3 (its split route, whose B1 launches count under
+   ``ksw32_split_*``) and B4 held against their twins on the card, then
+   ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1 entry.
+9. B5 and B1 at n=2^16 (a card-test shape, on no path) against their twins.
 
 Prints a line for each path (``main_path``, ``rotate_path``, ``u64_path``,
-``u64_rotate_path``), a ``{"kernels": [...]}`` line, the card's name and
-power limit as nvidia-smi reports them, and as its last line ``{"ok": true,
+``u64_rotate_path``, ``u64_32k_path``, ``u64_32k_rotate_path``,
+``w32_32k_path``), a ``{"kernels": [...]}`` line, the card's name and power
+limit as nvidia-smi reports them, and as its last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; without a CUDA
 card, or without the package beside it, it exits 2 and prints no result.
 """
@@ -56,6 +69,11 @@ WARMUP = 3
 ITERS = 20
 MAIN_ITERS = 10
 SEED = 7
+N32K = 32768
+LEVEL_U32K = 11        # create(32768): all 12 q limbs
+LEVEL_W32K = 21        # create_tpu_param(32768): all 22 q limbs
+ITERS_32K = 5          # the n=32768 steps and the plain twins at the large shapes
+N64K = 1 << 16
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
 # and the float32 rate outside the tensor cores, the table's only 32-bit
@@ -212,19 +230,19 @@ def ptxas_summary(log: str, keep) -> dict:
 
 
 def main_path_instance(lib: str, name: str) -> bool:
-    """The template instances the four paths run (n = 2^14), with the NTTs'
-    2^15 ones: the NTT-sized kernels at 2^14 and 2^15, B2's extension and
-    B4's scale-back at L = 8, B6's compile-time (L, T) instances (its
-    run-time-T ones are <L, 0>)."""
+    """The template instances the paths run: the NTT-sized kernels at 2^14
+    and 2^15 and the split's columns kernels, B2's extension and B4's
+    scale-back at L = 8, B6's compile-time (L, T) instances (its run-time-T
+    ones are <L, 0>)."""
     if lib in ('ntt32', 'ntt64', 'ksw32'):
-        return 'Li14E' in name or 'Li15E' in name
+        return 'Li14E' in name or 'Li15E' in name or 'columns_kernel' in name
     if lib == 'behz32':
         return 'Li14E' in name or 'Li8E' in name
     return 'Li0EE' not in name
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    for _ in range(WARMUP):
+def time_ms(torch, fn, iters: int, warmup: int = WARMUP) -> float:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -234,6 +252,31 @@ def time_ms(torch, fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def split_device_ms(torch, fn, per_call: int, reps: int = 5) -> dict:
+    """Device milliseconds per call of the split's two kernels, each
+    launched ``per_call`` times by ``fn`` (the columns kernel, the row
+    kernel), from torch.profiler: the mean over the launches it traced (it
+    may trace fewer than it ran), times ``per_call``; and the traced and run
+    counts."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, traced = {'columns': 0.0, 'rows': 0.0}, {'columns': 0, 'rows': 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for part, kernel in (('columns', 'columns_kernel'), ('rows', 'ntt_kernel')):
+                if kernel in e.key:
+                    us[part] += e.device_time_total
+                    traced[part] += e.count
+    out = {part: us[part] / 1e3 / traced[part] * per_call if traced[part] else None
+           for part in us}
+    return {**out, 'traced': traced, 'ran': reps * per_call}
 
 
 def main() -> int:
@@ -250,7 +293,7 @@ def main() -> int:
     if os.path.dirname(os.path.dirname(os.path.abspath(lattisense_torch.__file__))) != HERE:
         return fail('lattisense_torch was imported from outside this checkout')
 
-    from lattisense_torch.core.modring import get_rns_ring
+    from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
     from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
                                       ntt64_cuda, ntt_cuda)
     from lattisense_torch.params import BfvParams
@@ -264,6 +307,7 @@ def main() -> int:
     counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
               bconv_cuda.launches, ksw64_cuda.launches)
     w32_kernels = [k for c in counts[:3] for k in c]
+    u64_kernel_counts = [k for c in counts[3:] for k in c]
 
     def reset_counts():
         for c in counts:
@@ -611,13 +655,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3.-6. the paths --------------------------------------------------
-    half = N // 2
-
     def run_path(label, c, eng_cpu, level, step_fn, n_inputs, keys, cpu_keys, msgs, expect,
-                 must_launch, must_not_launch, extra):
+                 must_launch, must_not_launch, extra, iters=MAIN_ITERS):
         """Warm up, run once between a reset and a read of every count, time
         the step, check decryption of every output and element 0 against the
         port's plain path on the CPU, and print the path's line."""
+        n = c.params.n
         t1 = time.perf_counter()
         cts = [c.encrypt(c.encode(m, level)) for m in msgs]
         encrypt_s = time.perf_counter() - t1
@@ -638,8 +681,8 @@ def main() -> int:
         stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
         if stray:
             raise AssertionError(f'the {label} launched {stray}')
-        step_ms = time_ms(torch, lambda: step(*args, keys), MAIN_ITERS)
-        if out.shape != (BATCH, 2, level + 1, N):
+        step_ms = time_ms(torch, lambda: step(*args, keys), iters)
+        if out.shape != (BATCH, 2, level + 1, n):
             raise AssertionError(f'{label} output shape {tuple(out.shape)}')
         correct = all(np.array_equal(c.decrypt_decode(Ciphertext(data=out[i], level=level)),
                                      expect(i)) for i in range(BATCH))
@@ -647,7 +690,7 @@ def main() -> int:
             *[a[:1].cpu() for a in args], cpu_keys)
         bit_exact = torch.equal(out_cpu[0], out[0].cpu())
         print(json.dumps({label: {
-            **extra, 'n': N, 'level': level, 'batch': BATCH, 'limbs': level + 1,
+            **extra, 'n': n, 'level': level, 'batch': BATCH, 'limbs': level + 1,
             'correct': correct, 'bit_exact_vs_plain': bit_exact,
             'ms_per_step': step_ms, 'ops_per_s': BATCH * 1e3 / step_ms,
             'launches_per_step': launches, 'peak_mem_bytes': peak_mem,
@@ -657,12 +700,17 @@ def main() -> int:
         return launches
 
     path_launches = {}
+    # no path at n=16384 runs the split (B1's or B5's columns kernel); the w32
+    # paths run no B1 entry and B3's fused route
+    split_cols = ['ntt32_fwd_cols', 'ntt32_inv_cols', 'ntt64_fwd_cols', 'ntt64_inv_cols']
+    no_b1 = ['ntt32_fwd', 'ntt32_inv', 'ksw32_split_fwd', 'ksw32_split_inv'] + split_cols
     msgs = rng.integers(0, params.t, (2 * BATCH, N))
     path_launches['main_path'] = run_path(
         'main_path', ctx, eng_c, LEVEL, bfv_mult_relin, 2, key_tree(ctx), {'rlk': rlk_c}, msgs,
         lambda i: (msgs[i] * msgs[BATCH + i]) % params.t,
-        [k for k, v in kernels.items() if v['path'] == 'main_path'], ['ntt32_fwd', 'ntt32_inv'],
-        {'op': 'mult_relin', 'aux_limbs': T, 'keygen_s': keygen_s})
+        [k for k, v in kernels.items() if v['path'] == 'main_path'], no_b1,
+        {'op': 'mult_relin', 'params': 'BfvParams.create_tpu_param(16384)', 'word_bits': 32,
+         'aux_limbs': T, 'alpha': alpha, 'beta': beta, 'keygen_s': keygen_s})
 
     elt = galois_elt_col(1, N)
     t1 = time.perf_counter()
@@ -671,11 +719,12 @@ def main() -> int:
     rkeys = key_tree(ctx, galois_elts=[elt])
 
     def rolled(m):
+        half = len(m) // 2
         return np.concatenate([np.roll(m[:half], -1), np.roll(m[half:], -1)])
 
     run_path('rotate_path', ctx, eng_c, LEVEL, make_rotate_step(elt), 1, rkeys,
              {'glk': {elt: cpu_key(rkeys['glk'][elt])}}, msgs[:BATCH],
-             lambda i: rolled(msgs[i]), ['ksw_switch32'], [],
+             lambda i: rolled(msgs[i]), ['ksw_switch32'], no_b1,
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
               'galois_keygen_s': galois_keygen_s})
     del ctx, rkeys
@@ -686,7 +735,7 @@ def main() -> int:
     path_launches['u64_path'] = run_path(
         'u64_path', ctx64, eng64_c, LEVEL64, bfv_mult_relin, 2, key_tree(ctx64),
         {'rlk': rlk64_c}, msgs64, lambda i: (msgs64[i] * msgs64[BATCH + i]) % params64.t,
-        u64_kernels, w32_kernels,
+        u64_kernels, w32_kernels + split_cols,
         {'op': 'mult_relin', 'params': 'BfvParams.create(16384)', 'word_bits': 64,
          'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})
 
@@ -696,14 +745,241 @@ def main() -> int:
     rkeys64 = key_tree(ctx64, galois_elts=[elt])
     run_path('u64_rotate_path', ctx64, eng64_c, LEVEL64, make_rotate_step(elt), 1, rkeys64,
              {'glk': {elt: cpu_key(rkeys64['glk'][elt])}}, msgs64[:BATCH],
-             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels,
+             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels + split_cols,
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
               'params': 'BfvParams.create(16384)', 'word_bits': 64,
               'galois_keygen_s': galois_keygen64_s})
 
-    # launches on the path a kernel serves; B1's entries on the main path (0)
+    del ctx64, rkeys64
+    torch.cuda.empty_cache()
+
+    # ---- 7.-9. n=32768 and n=2^16 -----------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def card_residues(moduli, lead, n):
+        """(*lead, len(moduli), n) residues made on the card from the seed."""
+        q = torch.tensor(moduli, dtype=torch.int64, device=dev).reshape(-1, 1)
+        return torch.randint(0, 1 << 62, (*lead, len(moduli), n), generator=gen, device=dev) % q
+
+    def hold(kernel_fn, plain_fn, works, iters=ITERS_32K):
+        """The kernel's outputs (a list of tensors) against its plain twin's on
+        the same inputs, both on the card; times and the bound of ``works``
+        (a list of (bytes, operations))."""
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError('differs from its plain twin')
+        bound_ms, bound_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        return {'equal': True, 'max_abs_err': err,
+                'ms': time_ms(torch, kernel_fn, ITERS),
+                'plain_ms': time_ms(torch, plain_fn, iters, warmup=1),
+                'bound_ms': bound_ms, 'bound_by': bound_by}
+
+    def hold_ntt(name, calls, kernel, plain, work, split):
+        """B1 or B5 on each (ring, lead) stack; with ``split`` the device
+        time of its columns and row kernels."""
+        inputs = [(card_residues(r.moduli, lead, r.n), r) for r, lead in calls]
+        try:
+            entry = hold(lambda: [kernel(x, r) for x, r in inputs],
+                         lambda: [plain(x, r) for x, r in inputs],
+                         [work(x.numel() // r.n, len(r.moduli), r.n) for x, r in inputs])
+        except AssertionError as exc:
+            raise AssertionError(f'{name} {exc}') from None
+        entry['shapes'] = [[list(x.shape), len(r.moduli)] for x, r in inputs]
+        if split:
+            entry['device_ms'] = split_device_ms(torch, lambda: [kernel(x, r) for x, r in inputs],
+                                                 len(inputs))
+        return entry
+
+    def fwd64(r, lb, n):
+        return ntt64_work(r, lb, n, False)
+
+    def inv64(r, lb, n):
+        return ntt64_work(r, lb, n, True)
+
+    # 7. the u64 chain at n=32768, level 11
+    params_u = BfvParams.create(N32K)
+    t1 = time.perf_counter()
+    ctx_u = BfvContext.create_random_context(params_u, seed=SEED, device=dev)
+    keygen_u_s = time.perf_counter() - t1
+    eng_u_g, eng_u_c = ctx_u.engine, BfvEngine(params_u, 'cpu')
+    bz_u = eng_u_g.behz(LEVEL_U32K)
+    sw_u = eng_u_g.switcher
+    L_u, T_u = LEVEL_U32K + 1, len(bz_u.ring_aux.moduli)
+    alpha_u, beta_u = sw_u.alpha, sw_u.beta(LEVEL_U32K)
+    rq_u = sw_u.ring_qp(LEVEL_U32K)
+    # B5 split on the stacks of the u64 path above, at this chain's widths
+    kernels['ntt64_fwd_split'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt64.cu',
+        design='split: columns kernel (1 stage), then the row kernel on sub-rows of 2^14',
+        replaces='lattisense_tpu/ops/ntt_pallas.py:134',
+        replaces_function='ntt_fused: _launch (:326) with _phase1_kernel :134, _phase2_kernel :167',
+        path='u64_32k_path', counted_as='ntt64_fwd_cols',
+        **hold_ntt('ntt64_fwd_split', [(bz_u.ring_q, (BATCH, 4)), (bz_u.ring_aux, (BATCH, 4)),
+                                       (rq_u, (BATCH, beta_u))],
+                   ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64, True))
+    kernels['ntt64_inv_split'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt64.cu',
+        design='split: the row kernel on sub-rows of 2^14, then the columns kernel (1 stage)',
+        replaces='lattisense_tpu/ops/ntt_pallas.py:471',
+        replaces_function=('_intt_fused_impl: _ilaunch (:546) with _iphase_a_kernel :471, '
+                           '_iphase_b_kernel :509; intt_fused: _claunch (:820) with '
+                           '_cinv1_kernel :745, _cinv2_kernel :779'),
+        path='u64_32k_path', counted_as='ntt64_inv_cols',
+        **hold_ntt('ntt64_inv_split', [(bz_u.ring_q, (BATCH, 3)), (bz_u.ring_aux, (BATCH, 3)),
+                                       (rq_u, (BATCH, 2))],
+                   ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64, True))
+    # B6 on the path's four conversions and its mod-up, B7 on the path's digits
+    rdp_u = sw_u._level_pre(LEVEL_U32K)[5]
+    convs = [(bz_u.extend.conv, (BATCH, 4)), (bz_u.conv_q_to_aux, (BATCH, 3)),
+             (bz_u.shenoy.conv, (BATCH, 3)), (rdp_u.conv, (BATCH, 2))]
+    ins = [(cv.decompose(card_residues(cv.src, lead, N32K)), cv) for cv, lead in convs]
+    kernels['bconv64_convert_32k'] = dict(
+        route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+        replaces_function='bconv_convert_fused (_bconv_kernel)', path='u64_32k_path',
+        counted_as='bconv64_convert',
+        shapes=[[list(y.shape), len(cv.dst)] for y, cv in ins],
+        instances=[bconv_cuda.instance(len(cv.src), len(cv.dst), max(cv.src) - 1) for _, cv in ins],
+        **hold(lambda: [bconv_cuda.bconv64_convert(y, cv) for y, cv in ins],
+               lambda: [bconv_cuda.bconv64_plain(y, cv.qhat_dst_mont, cv.dst_q, cv.dst_pinv)
+                        for y, cv in ins],
+               [bconv64_work(y.numel() // (len(cv.src) * N32K), len(cv.src), len(cv.dst), N32K)
+                for y, cv in ins]))
+    del ins
+    pre_u = sw_u._level_pre(LEVEL_U32K)
+    y = card_residues(params_u.q[:L_u], (BATCH,), N32K).reshape(BATCH, beta_u, alpha_u, N32K)
+    kernels['bconv64_raw_32k'] = dict(
+        route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+        replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
+        path='u64_32k_path', counted_as='bconv64_raw', shapes=[list(y.shape)],
+        instance=bconv_cuda.instance(alpha_u, L_u + alpha_u, bconv_cuda.WORD_GUARD),
+        **hold(lambda: [bconv_cuda.bconv64_raw(y, pre_u[4], rq_u.q, rq_u.pinv)],
+               lambda: [bconv_cuda.bconv64_plain(y, pre_u[4], rq_u.q, rq_u.pinv)],
+               [bconv64_work(BATCH * beta_u, alpha_u, L_u + alpha_u, N32K)]))
+    d = card_residues(rq_u.moduli, (BATCH, beta_u), N32K)
+    kernels['ksw_inner64_32k'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ksw64.cu',
+        replaces='lattisense_tpu/ops/ksw_pallas.py:29',
+        replaces_function='ksw_inner_fused (_ksw_kernel)', path='u64_32k_path',
+        counted_as='ksw_inner64', shapes=[list(d.shape)],
+        **hold(lambda: [ksw64_cuda.ksw_inner64(d, ctx_u.rlk, LEVEL_U32K, rq_u)],
+               lambda: [ksw64_cuda.ksw_inner64_plain(d, ctx_u.rlk, LEVEL_U32K, rq_u)],
+               [ksw64_work(BATCH, beta_u, L_u + alpha_u, N32K)]))
+    del y, d
+    torch.cuda.empty_cache()
+
+    u32k_kernels = ['ntt64_fwd', 'ntt64_inv'] + [v['counted_as'] for v in kernels.values()
+                                                 if v['path'] == 'u64_32k_path']
+    msgs_u = rng.integers(0, params_u.t, (2 * BATCH, N32K))
+    path_launches['u64_32k_path'] = run_path(
+        'u64_32k_path', ctx_u, eng_u_c, LEVEL_U32K, bfv_mult_relin, 2, key_tree(ctx_u),
+        {'rlk': cpu_key(ctx_u.rlk)}, msgs_u, lambda i: (msgs_u[i] * msgs_u[BATCH + i]) % params_u.t,
+        u32k_kernels, w32_kernels,
+        {'op': 'mult_relin', 'params': 'BfvParams.create(32768)', 'word_bits': 64,
+         'aux_limbs': T_u, 'alpha': alpha_u, 'beta': beta_u, 'keygen_s': keygen_u_s},
+        iters=ITERS_32K)
+    elt_u = galois_elt_col(1, N32K)
+    t1 = time.perf_counter()
+    ctx_u.gen_galois_keys_for_elements([elt_u])
+    galois_keygen_u_s = time.perf_counter() - t1
+    rkeys_u = key_tree(ctx_u, galois_elts=[elt_u])
+    run_path('u64_32k_rotate_path', ctx_u, eng_u_c, LEVEL_U32K, make_rotate_step(elt_u), 1,
+             rkeys_u, {'glk': {elt_u: cpu_key(rkeys_u['glk'][elt_u])}}, msgs_u[:BATCH],
+             lambda i: rolled(msgs_u[i]), u32k_kernels, w32_kernels,
+             {'op': 'rotate_col', 'step': 1, 'galois_elt': elt_u,
+              'params': 'BfvParams.create(32768)', 'word_bits': 64, 'aux_limbs': T_u,
+              'alpha': alpha_u, 'beta': beta_u, 'galois_keygen_s': galois_keygen_u_s},
+             iters=ITERS_32K)
+    del ctx_u, rkeys_u
+    torch.cuda.empty_cache()
+
+    # 8. the 31-bit profile at n=32768, level 21
+    params_w = BfvParams.create_tpu_param(N32K)
+    t1 = time.perf_counter()
+    ctx_w = BfvContext.create_random_context(params_w, seed=SEED, device=dev)
+    keygen_w_s = time.perf_counter() - t1
+    eng_w_g, eng_w_c = ctx_w.engine, BfvEngine(params_w, 'cpu')
+    bz_w = eng_w_g.behz(LEVEL_W32K)
+    sw_w = eng_w_g.switcher
+    L_w, T_w = LEVEL_W32K + 1, len(bz_w.ring_aux.moduli)
+    alpha_w, beta_w = sw_w.alpha, sw_w.beta(LEVEL_W32K)
+    x = card_residues(bz_w.ring_q.moduli, (BATCH, 4), N32K)
+    kernels['behz_prep32_32k'] = dict(
+        route='cuda', source='lattisense_torch/csrc/behz32.cu',
+        replaces='lattisense_tpu/ops/behz_pallas32.py:55',
+        replaces_function='behz_prep32 (_k1_kernel)', path='w32_32k_path',
+        counted_as='behz_prep32', shapes=[[list(x.shape), L_w, T_w]],
+        **hold(lambda: list(behz_cuda.behz_prep32(x, bz_w)),
+               lambda: list(behz_cuda.behz_prep_plain(x, bz_w)),
+               [behz_work(BATCH * 4, L_w, T_w, N32K)]))
+    x = card_residues(params_w.q[:L_w], (BATCH,), N32K)
+    kernels['ksw_switch32_32k'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ksw32.cu',
+        design=ksw_cuda.switch_route(N32K),
+        replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
+        replaces_function='ksw_switch32 (_ksw_kernel)', path='w32_32k_path',
+        counted_as='ksw_switch32',
+        shapes=[{'x': list(x.shape), 'level': LEVEL_W32K, 'alpha': alpha_w, 'beta': beta_w,
+                 'T': L_w + alpha_w}],
+        **hold(lambda: list(ksw_cuda.ksw_switch32(x, ctx_w.rlk, sw_w, LEVEL_W32K)),
+               lambda: list(sw_w.switch_plain(x, ctx_w.rlk, LEVEL_W32K)),
+               [ksw_work(BATCH, L_w, alpha_w, beta_w, N32K)]))
+    dq = card_residues(bz_w.ring_q.moduli, (BATCH, 3), N32K)
+    da = card_residues(bz_w.ring_aux.moduli, (BATCH, 3), N32K)
+    kernels['behz_finish32_32k'] = dict(
+        route='cuda', source='lattisense_torch/csrc/behz32.cu',
+        replaces='lattisense_tpu/ops/behz_pallas32.py:368',
+        replaces_function='behz_finish32 (_k3_kernel)', path='w32_32k_path',
+        counted_as='behz_finish32', shapes=[[list(dq.shape), list(da.shape)]],
+        **hold(lambda: [behz_cuda.behz_finish32(dq, da, bz_w)],
+               lambda: [behz_cuda.behz_finish_plain(dq, da, bz_w)],
+               [finish_work(BATCH * 3, L_w, T_w, N32K)]))
+    del x, dq, da
+    torch.cuda.empty_cache()
+
+    msgs_w = rng.integers(0, params_w.t, (2 * BATCH, N32K))
+    w32k_kernels = ['ksw32_split_fwd', 'ksw32_split_inv'] + [
+        v['counted_as'] for v in kernels.values() if v['path'] == 'w32_32k_path']
+    path_launches['w32_32k_path'] = run_path(
+        'w32_32k_path', ctx_w, eng_w_c, LEVEL_W32K, bfv_mult_relin, 2, key_tree(ctx_w),
+        {'rlk': cpu_key(ctx_w.rlk)}, msgs_w, lambda i: (msgs_w[i] * msgs_w[BATCH + i]) % params_w.t,
+        w32k_kernels, [k for k in w32_kernels if k not in w32k_kernels] + u64_kernel_counts,
+        {'op': 'mult_relin', 'params': 'BfvParams.create_tpu_param(32768)', 'word_bits': 32,
+         'aux_limbs': T_w, 'alpha': alpha_w, 'beta': beta_w,
+         'ksw_route': ksw_cuda.switch_route(N32K), 'keygen_s': keygen_w_s},
+        iters=ITERS_32K)
+    del ctx_w
+    torch.cuda.empty_cache()
+
+    # 9. B5 and B1 at n = 2^16 on a card-test stack (37, 12, n), on no path
+    r64 = get_rns_ring([p for bits in (61, 60) for p in gen_ntt_primes(N64K, bits, 6)], N64K,
+                       dev, 64)
+    r32 = get_rns_ring(gen_ntt_primes(N64K, 31, 12), N64K, dev)
+    for kname, ring, kernel, plain, work, fn, line in (
+            ('ntt64_fwd_n65536', r64, ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64,
+             'ntt_fused: _phase1_kernel / _phase2_kernel', 'ntt_pallas.py:134'),
+            ('ntt64_inv_n65536', r64, ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64,
+             '_intt_fused_impl / intt_fused: _iphase_a/_b, _cinv1/_cinv2', 'ntt_pallas.py:471'),
+            ('ntt32_fwd_n65536', r32, ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain, ntt_work,
+             'ntt_fused32 (_fwd_kernel)', 'ntt_pallas32.py:101'),
+            ('ntt32_inv_n65536', r32, ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, ntt_work,
+             'intt_fused32 (_inv_kernel)', 'ntt_pallas32.py:173')):
+        word = 'ntt64' if ring is r64 else 'ntt32'
+        kernels[kname] = dict(
+            route='cuda', source=f'lattisense_torch/csrc/ntt_columns.cuh + csrc/{word}.cu',
+            replaces=f'lattisense_tpu/ops/{line}', replaces_function=fn, path=None,
+            counted_as=kname.replace('_n65536', '_cols'),
+            **hold_ntt(kname, [(ring, (37,))], kernel, plain, work, True))
+    torch.cuda.empty_cache()
+
+    # launches on the path a kernel serves; B1's entries and the n = 2^16
+    # holds on the main path (0)
     for kname, entry in kernels.items():
-        entry['launches'] = path_launches[entry['path'] or 'main_path'][kname]
+        counted = entry.pop('counted_as', kname)
+        entry['launches'] = path_launches[entry['path'] or 'main_path'][counted]
         entry['library_ms'] = None
     print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)
     print(gpu, flush=True)

@@ -21,7 +21,10 @@
 // and twiddles are read once per row, in pass order. 192 KB of shared memory
 // hold one block per SM (64 registers a thread at 1024 threads). At
 // n = 2^15 (32 residues a thread) the staging buffer does not fit: rows are
-// read straight from device memory.
+// read straight from device memory. n = 2^16 takes the split of
+// csrc/ntt_columns.cuh: the columns kernel runs the top stage (forward) or
+// the last one (inverse), this row kernel the rest on the two sub-rows of
+// 2^15, each a limb of its own. Above 2^16 is refused.
 //
 // Rows are laid out (rows, n) contiguous; row r uses limb r % limbs of the
 // tables, so any (..., L, n) stack is one launch.
@@ -33,10 +36,12 @@
 // Only the row's load or store changes (scattered, off the main path).
 
 #include "ntt_passes.cuh"
+#include "ntt_columns.cuh"
 
 namespace {
 
-constexpr int kMaxLogn = 15;
+constexpr int kMaxLogn = 15;       // the row kernel: 1024 threads of 32 residues
+constexpr int kMaxSplit = 1;       // columns stages: n up to 2^16
 
 template <bool kInverse, bool kPerm>
 int run(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const void* tab,
@@ -84,4 +89,17 @@ extern "C" int ntt32_inv_perm_launch(const int64_t* x, int64_t* y, int rows, int
 extern "C" int ntt32_blocks_per_sm(int logn, int inverse) {
   return inverse ? ntt::occupancy<ntt::W32, kMaxLogn, true>(logn)
                  : ntt::occupancy<ntt::W32, kMaxLogn, false>(logn);
+}
+
+// The column stage of the split at depth k (n = 2^logn, rows of 2^(logn-k)
+// for the row kernel): forward before the row kernel, inverse after it
+// (inverse != 0). `tab` is the (limbs, 2^k, 2) column table of uint32
+// (value, Shoup companion), `q` the limbs' primes as uint32.
+extern "C" int ntt32_cols_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
+                                 int k, int inverse, const void* tab, const void* q,
+                                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return inverse
+      ? ntt::launch_columns<ntt::W32, kMaxSplit, true>(x, y, rows, limbs, logn, k, tab, q, s)
+      : ntt::launch_columns<ntt::W32, kMaxSplit, false>(x, y, rows, limbs, logn, k, tab, q, s);
 }

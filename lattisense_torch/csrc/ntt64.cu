@@ -22,18 +22,27 @@
 // coalesced 8-byte pieces, and the four register passes (16 residues a
 // thread, 1024 threads at n = 2^14) exchange whole 64-bit words through a
 // 128 KB buffer. There is no room to stage the next row beside it; a staged
-// row with an exchange in 32-bit halves spilled more and ran slower. n above
-// 2^14 is refused (its exchange buffer would not fit a block).
+// row with an exchange in 32-bit halves spilled more and ran slower.
+//
+// n = 2^15 and 2^16 (a row of 256 or 512 KB, above the 227 KB a block may
+// hold) take the split of csrc/ntt_columns.cuh, the reference's two-phase
+// form (`_launch` / `_ilaunch` / `_claunch` of ntt_pallas.py): the columns
+// kernel runs the k = log2 n - 14 stages that span sub-rows, and this row
+// kernel the rest at 2^14, each sub-row a limb of its own (the host
+// re-indexes the tables, ops/ntt_cuda.py `split_pass_tables`). Above 2^16 is
+// refused.
 //
 // Rows are laid out (rows, n) contiguous; row r uses limb r % limbs of the
 // tables, so any (..., L, n) stack is one launch. Tables and residues are
 // int64 tensors on the Python side, read here as the same 64-bit patterns.
 
 #include "ntt_passes.cuh"
+#include "ntt_columns.cuh"
 
 namespace {
 
-constexpr int kMaxLogn = 14;
+constexpr int kMaxLogn = 14;       // the row kernel: a 64-bit row of 2^14 in 128 KB
+constexpr int kMaxSplit = 2;       // columns stages: n up to 2^16
 
 template <bool kInverse>
 int run(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const void* tab,
@@ -68,4 +77,17 @@ extern "C" int ntt64_inv_launch(const int64_t* x, int64_t* y, int rows, int limb
 extern "C" int ntt64_blocks_per_sm(int logn, int inverse) {
   return inverse ? ntt::occupancy<ntt::W64, kMaxLogn, true>(logn)
                  : ntt::occupancy<ntt::W64, kMaxLogn, false>(logn);
+}
+
+// The column stages of the split at depth k (n = 2^logn, rows of 2^(logn-k)
+// for the row kernel): forward before the row kernel, inverse after it
+// (inverse != 0). `tab` is the (limbs, 2^k, 2) column table of uint64
+// (value, Shoup companion), `q` the limbs' primes.
+extern "C" int ntt64_cols_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
+                                 int k, int inverse, const void* tab, const void* q,
+                                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return inverse
+      ? ntt::launch_columns<ntt::W64, kMaxSplit, true>(x, y, rows, limbs, logn, k, tab, q, s)
+      : ntt::launch_columns<ntt::W64, kMaxSplit, false>(x, y, rows, limbs, logn, k, tab, q, s);
 }

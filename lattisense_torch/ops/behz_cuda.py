@@ -61,6 +61,9 @@ _SIGNATURES = {
     'behz32_max_limbs': [],
     'behz32_max_aux': [],
 }
+# B1's row loop holds a row of 2^15; B2's and B4's row-local steps cannot take
+# the split that B1 and B5 run above it
+MAX_LOGN = ntt_cuda.ROW_MAX_LOGN
 
 
 def behz_prep_plain(x, bz):
@@ -122,8 +125,8 @@ def behz_prep32(x, bz):
     lib = cuda_build.load('behz32', _SIGNATURES)
     if L > lib.behz32_max_limbs():
         raise ValueError(f'behz_prep32 supports at most {lib.behz32_max_limbs()} limbs, got {L}')
-    if not 1 <= n.bit_length() - 1 <= ntt_cuda.MAX_LOGN:
-        raise ValueError(f'behz_prep32 supports 2 <= n <= 2^{ntt_cuda.MAX_LOGN}, got n={n}')
+    if not 1 <= n.bit_length() - 1 <= MAX_LOGN:
+        raise ValueError(f'behz_prep32 supports 2 <= n <= 2^{MAX_LOGN}, got n={n}')
     lead = x.shape[:-2]
     polys = x.numel() // (L * n)
     fq = torch.empty(x.shape, dtype=torch.int64, device=x.device)
@@ -207,8 +210,8 @@ def behz_finish32(dq, da, bz):
     if L > lib.behz32_max_limbs() or T > lib.behz32_max_aux():
         raise ValueError(f'behz_finish32 supports at most {lib.behz32_max_limbs()} limbs and '
                          f'{lib.behz32_max_aux()} aux limbs, got {L} and {T}')
-    if not 1 <= n.bit_length() - 1 <= ntt_cuda.MAX_LOGN:
-        raise ValueError(f'behz_finish32 supports 2 <= n <= 2^{ntt_cuda.MAX_LOGN}, got n={n}')
+    if not 1 <= n.bit_length() - 1 <= MAX_LOGN:
+        raise ValueError(f'behz_finish32 supports 2 <= n <= 2^{MAX_LOGN}, got n={n}')
     out = torch.empty(dq.shape, dtype=torch.int64, device=dq.device)
     polys = dq.numel() // (L * n)
     if polys:

@@ -20,9 +20,12 @@ inner-product and mod-down kernels around kernel B1's NTTs, meeting in
 device memory as int64 stacks. With ``output_ntt`` either route ends in a
 B1 forward over the result.
 
-``ksw_switch32`` counts one launch per call, for the whole sequence (B1's
-own launches show under ``ntt32_fwd``/``ntt32_inv``). A CUDA tensor launches
-the kernels or raises; a CPU tensor runs the plain twin.
+``ksw_switch32`` counts one launch per call, for the whole sequence (the
+split route's B1 launches show under ``ntt_cuda.launches``
+``ksw32_split_fwd``/``ksw32_split_inv``, the output NTT's under
+``ntt32_fwd``). Both routes stop at n = 2^15: the split route runs B1's row
+kernel unsplit. A CUDA tensor launches the kernels or raises; a CPU tensor
+runs the plain twin.
 """
 
 import ctypes
@@ -52,6 +55,7 @@ _SIGNATURES = {
 }
 _MAX_GRID_YZ = 65535
 FUSED_MAX_LOGN = 14    # three 32-bit rows of 2^15 (384 KB) do not fit a block
+MAX_LOGN = ntt_cuda.ROW_MAX_LOGN   # the split route runs B1's row kernel, unsplit
 
 
 def switch_route(n: int) -> str:
@@ -155,6 +159,8 @@ def _switch(x, ksk, sw, level: int, output_ntt: bool, route: str):
     if not (ksk.key_q.is_contiguous() and ksk.key_p.is_contiguous()):
         raise ValueError('ksw_switch32 reads the key in place: key_q and key_p must be '
                          'contiguous')
+    if n.bit_length() - 1 > MAX_LOGN:
+        raise ValueError(f'ksw_switch32 supports n <= 2^{MAX_LOGN}, got n={n}')
     if route == 'fused' and switch_route(n) != 'fused':
         raise ValueError(f'the fused B3 does not take n={n}')
     if route == 'fused' and (ksk.key_q.data_ptr() % 16 or ksk.key_p.data_ptr() % 16):
@@ -194,12 +200,13 @@ def _switch(x, ksk, sw, level: int, output_ntt: bool, route: str):
                 err = lib.ksw32_modup_launch(x.data_ptr(), digits.data_ptr(), G, L, alpha, beta,
                                              T, n, tabs['modup'].data_ptr(), stream)
                 _raise(err, 'mod-up')
-                ntt_cuda.launch(digits, digits_ntt, ring_qp, inverse=False)
+                ntt_cuda.launch(digits, digits_ntt, ring_qp, inverse=False,
+                                name='ksw32_split_fwd')
                 err = lib.ksw32_inner_launch(digits_ntt.data_ptr(), ksk.key_q.data_ptr(),
                                              ksk.key_p.data_ptr(), acc.data_ptr(), G, L, Lq,
                                              alpha, beta, T, n, tabs['inner'].data_ptr(), stream)
                 _raise(err, 'inner product')
-                ntt_cuda.launch(acc, acc_coef, ring_qp, inverse=True)
+                ntt_cuda.launch(acc, acc_coef, ring_qp, inverse=True, name='ksw32_split_inv')
                 err = lib.ksw32_moddown_launch(acc_coef.data_ptr(), out.data_ptr(), 2 * G, L,
                                                alpha, T, n, tabs['moddown'].data_ptr(), stream)
             _raise(err, 'mod-down')

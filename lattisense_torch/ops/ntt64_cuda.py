@@ -15,6 +15,13 @@ and the pass tables are B1's (``ops/ntt_cuda.py`` ``schedule``,
 ``pass_tables``), built here from the 64-bit tables. ``ntt64_fwd`` /
 ``ntt64_inv`` are the entries; the reference's names are aliases of them.
 
+A 64-bit row of 2^15 or 2^16 (256 or 512 KB) does not fit a block: n = 2^15
+and 2^16 take B1's split (``ops/ntt_cuda.py`` ``run_split``,
+``csrc/ntt_columns.cuh``), the phase split of B5-a/b/c: the columns kernel
+runs the k = log2 n - 14 stages that span sub-rows of 2^14 and the row
+kernel the rest, each (limb, sub-row) a virtual limb. The columns launches
+count under ``ntt64_fwd_cols`` / ``ntt64_inv_cols``.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 PyTorch twin, the radix-2 loops of ``lattisense_tpu/core/ntt.py`` on the
 64-bit word functions (``ops/ntt_cuda.py`` ``ntt_plain``/``intt_plain``).
@@ -29,10 +36,12 @@ import torch
 
 from ..core import u64 as _u
 from . import cuda_build
-from .ntt_cuda import check_stack, intt_plain, ntt_plain, pass_tables, run_aligned
+from .ntt_cuda import (check_stack, column_tables, intt_plain, ntt_plain, run_aligned, run_split,
+                       split_depth, split_pass_tables)
 
-#: launches of each direction since the last reset, counted in ``launch``
-launches = {'ntt64_fwd': 0, 'ntt64_inv': 0}
+#: launches of each direction since the last reset, counted in ``launch``; the
+#: split's columns kernel under ``*_cols``
+launches = {'ntt64_fwd': 0, 'ntt64_inv': 0, 'ntt64_fwd_cols': 0, 'ntt64_inv_cols': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,8 +49,10 @@ _SIGNATURES = {
     'ntt64_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt64_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt64_blocks_per_sm': [_I, _I],
+    'ntt64_cols_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
-MAX_LOGN = 14          # the exchange buffer 2^14 · 8 B = 128 KB
+ROW_MAX_LOGN = 14      # the row kernel's exchange buffer 2^14 · 8 B = 128 KB
+MAX_LOGN = 16          # the split: up to two columns stages, then rows of 2^14
 
 
 # ---------------------------------------------------------------------------
@@ -69,28 +80,43 @@ def intt64_plain(x, ring, from_mont: bool = False):
 # ---------------------------------------------------------------------------
 
 def _tables(ring):
-    """B5's pass tables, (L, entries, 2) int64 (value, Shoup companion) per
-    direction, and its per-limb epilogue constants as int64 columns, cached
-    on the ring: 2^64 mod q for to-Montgomery, and n^-1·2^-64 mod q for an
-    inverse with the from-Montgomery folded in."""
+    """B5's pass tables, (rows, entries, 2) int64 (value, Shoup companion)
+    per direction, and its per-row constants as int64 columns, cached on
+    the ring: q, n^-1, 2^64 mod q for to-Montgomery, and n^-1·2^-64 mod q for
+    an inverse with the from-Montgomery folded in. Rows are the limbs, or
+    above the row kernel's cap the split's virtual limbs (each limb's
+    constants repeated 2^k times; n^-1 is the full n's), with the columns
+    kernel's tables and primes (``cols_*``)."""
     tabs = getattr(ring, '_b5_tables', None)
     if tabs is None:
         rs, dev = ring.rings, ring.device
         logn = ring.n.bit_length() - 1
+        k = split_depth(logn, ROW_MAX_LOGN)
 
-        def col(vals):
-            return torch.tensor([_u.to_s64(v) for v in vals], dtype=torch.int64, device=dev)
+        def per_row(vals):
+            return torch.tensor([_u.to_s64(v) for v in vals for _ in range(1 << k)],
+                                dtype=torch.int64, device=dev)
+
+        def stacked(attr):
+            return [np.stack([getattr(r, a) for r in rs]) for a in (attr, attr + '_shoup')]
 
         def table(attr, inverse):
-            stack = [np.stack([getattr(r, a) for r in rs]) for a in (attr, attr + '_shoup')]
-            return torch.from_numpy(pass_tables(*stack, logn, inverse, 1)).to(dev)
+            return torch.from_numpy(split_pass_tables(*stacked(attr), logn, k, inverse, 1)).to(dev)
 
         nir = [r.n_inv * pow(1 << 64, -1, r.q) % r.q for r in rs]
         tabs = {'fwd': table('psi_rev', False), 'inv': table('psi_inv_rev', True),
-                'r1': col([r.r1 for r in rs]),
-                'r1_shoup': col([(r.r1 << 64) // r.q for r in rs]),
-                'n_inv_rinv': col(nir),
-                'n_inv_rinv_shoup': col([(v << 64) // r.q for v, r in zip(nir, rs)])}
+                'q': per_row([r.q for r in rs]),
+                'n_inv': per_row([r.n_inv for r in rs]),
+                'n_inv_shoup': per_row([(r.n_inv << 64) // r.q for r in rs]),
+                'r1': per_row([r.r1 for r in rs]),
+                'r1_shoup': per_row([(r.r1 << 64) // r.q for r in rs]),
+                'n_inv_rinv': per_row(nir),
+                'n_inv_rinv_shoup': per_row([(v << 64) // r.q for v, r in zip(nir, rs)])}
+        if k:
+            tabs.update({
+                'cols_q': ring.q.reshape(-1).contiguous(),
+                'cols_fwd': torch.from_numpy(column_tables(*stacked('psi_rev'), k)).to(dev),
+                'cols_inv': torch.from_numpy(column_tables(*stacked('psi_inv_rev'), k)).to(dev)})
         ring._b5_tables = tabs
     return tabs
 
@@ -111,8 +137,7 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
         raise ValueError('to_mont is a forward epilogue, from_mont an inverse one')
     logn = ring.n.bit_length() - 1
     if not 1 <= logn <= MAX_LOGN:
-        raise ValueError(f'B5 supports 2 <= n <= 2^{MAX_LOGN} (a row of 64-bit words in shared '
-                         f'memory), got n={ring.n}')
+        raise ValueError(f'B5 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
     rows = x.numel() // ring.n
     if rows == 0:
         return
@@ -121,12 +146,18 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     if inverse:
         fn = lib.ntt64_inv_launch
         post, postsh = ((tabs['n_inv_rinv'], tabs['n_inv_rinv_shoup']) if from_mont
-                        else (ring.n_inv, ring.n_inv_shoup))
+                        else (tabs['n_inv'], tabs['n_inv_shoup']))
     else:
         fn = lib.ntt64_fwd_launch
         post, postsh = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
-    run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
-                ring.q, post, postsh, f'ntt64 {"inverse" if inverse else "forward"}')
+    what = f'ntt64 {"inverse" if inverse else "forward"}'
+    k = split_depth(logn, ROW_MAX_LOGN)
+    if k:
+        run_split(fn, lib.ntt64_cols_launch, x, y, ring, k, inverse, tabs, post, postsh, what)
+        launches['ntt64_inv_cols' if inverse else 'ntt64_fwd_cols'] += 1
+    else:
+        run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
+                    tabs['q'], post, postsh, what)
     launches['ntt64_inv' if inverse else 'ntt64_fwd'] += 1
 
 

@@ -34,7 +34,17 @@ the TPU compiler with no meaning here, so they launch B1 itself.
 ``intt_fused32_perm``: B1 with its output stored (forward) or its input
 loaded (inverse) in the transposed tile layout of ``perm_layout``, where
 position b·(n/128)+a holds standard-order element a·128+b. Each counts its
-launches under its own name.
+launches under its own name. They take n up to 2^15.
+
+The split. A row of 2^16 32-bit words (B1) or of 2^15 and 2^16 64-bit words
+(B5) does not fit a block's shared memory. Such a transform runs in two
+launches (``csrc/ntt_columns.cuh``): the columns kernel runs the k stages
+whose butterflies span sub-rows of n/2^k, and the row kernel the rest, with
+each (limb, sub-row) a virtual limb of its own over tables re-indexed from
+the ring's (``split_indices``, ``split_pass_tables``); forward columns
+first, inverse rows first. The columns launches count under
+``ntt32_fwd_cols`` / ``ntt32_inv_cols``. ``tests/test_torch_ntt_split.py``
+walks the split on the CPU.
 """
 
 import ctypes
@@ -45,9 +55,11 @@ import torch
 from ..core import u64 as _u
 from . import cuda_build
 
-#: launches of each entry since the last reset, counted in ``launch``
-launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0,
-            'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0}
+#: launches of each entry since the last reset, counted in ``launch``: the
+#: split's columns kernel under ``*_cols``, B3's split route under ``ksw32_split_*``
+launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_cols': 0, 'ntt32_inv_cols': 0,
+            'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0, 'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0,
+            'ksw32_split_fwd': 0, 'ksw32_split_inv': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,8 +69,10 @@ _SIGNATURES = {
     'ntt32_blocks_per_sm': [_I, _I],
     'ntt32_fwd_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt32_inv_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    'ntt32_cols_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
-MAX_LOGN = 15          # 1024 threads of 32 residues; the exchange buffer 2^15 · 4 B = 128 KB
+ROW_MAX_LOGN = 15      # the row kernel: 1024 threads of 32 residues; exchange 2^15 · 4 B = 128 KB
+MAX_LOGN = 16          # the split: one columns stage, then rows of 2^15
 SMEM_LIMIT = 232448    # bytes of shared memory a block may use (sm_90)
 LANES = 128            # the tile width of the perm layout
 
@@ -228,6 +242,55 @@ def stages_rows(logn: int, word_bits: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the split above the row kernel's cap (csrc/ntt_columns.cuh)
+# ---------------------------------------------------------------------------
+
+def split_depth(logn: int, row_max_logn: int) -> int:
+    """k: the stages the columns kernel runs at n = 2^logn, so that the
+    row kernel takes sub-rows of 2^(logn - k) <= 2^row_max_logn."""
+    return max(0, logn - row_max_logn)
+
+
+def split_indices(logn: int, k: int) -> np.ndarray:
+    """(2^k, n/2^k) int64: the entry of the ring's bit-reversed table
+    (psi_rev forward, psi_inv_rev inverse) that slot v of sub-row s's
+    virtual table holds. After the k column stages, sub-row s's local stage
+    m' (a power of two) and block i' (slot v = m' + i') take the full
+    transform's twiddle of stage 2^k·m', block s·m' + i':
+    entry (2^k + s)·m' + i'. Slot 0 (unused) holds entry 0. At k = 0 the
+    map is the identity."""
+    sub = 1 << (logn - k)
+    v = np.arange(sub, dtype=np.int64)
+    m = np.ones(sub, dtype=np.int64)
+    for b in range(1, logn - k):
+        m[v >= 1 << b] = 1 << b
+    idx = ((1 << k) + np.arange(1 << k, dtype=np.int64)).reshape(-1, 1) * m + (v - m)
+    idx[:, 0] = 0
+    return idx
+
+
+def split_pass_tables(tw, tws, logn: int, k: int, inverse: bool, per_vector: int):
+    """The row kernel's pass table over the virtual limbs of a split at
+    depth k: (L·2^k, entries, 2), virtual limb l·2^k + s for sub-row s of
+    limb l, built by ``pass_tables`` at log2 n - k from the (L, n) tables
+    ``tw``/``tws`` re-indexed by ``split_indices``. At k = 0 it is
+    ``pass_tables`` itself."""
+    idx = split_indices(logn, k).reshape(-1)
+    L, sub = np.asarray(tw).shape[0], 1 << (logn - k)
+    return pass_tables(np.asarray(tw)[:, idx].reshape(L << k, sub),
+                       np.asarray(tws)[:, idx].reshape(L << k, sub), logn - k, inverse,
+                       per_vector)
+
+
+def column_tables(tw, tws, k: int) -> np.ndarray:
+    """The columns kernel's (L, 2^k, 2) table: entries 0 .. 2^k - 1 of the
+    (L, n) tables ``tw``/``tws`` as (value, companion) pairs; stage m reads
+    entries m .. 2m - 1 (entry 0 is unused)."""
+    return np.ascontiguousarray(np.stack([np.asarray(tw)[:, :1 << k],
+                                          np.asarray(tws)[:, :1 << k]], axis=-1))
+
+
+# ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
 
@@ -240,30 +303,46 @@ def u32_tensor(values, device):
 
 def _tables(ring):
     """The ring's pass tables and per-limb constants in the kernel's uint32
-    layout, cached on the ring."""
+    layout, cached on the ring. Above the row kernel's cap the pass tables
+    and the constants (``q``, the epilogues') are per virtual limb of the
+    split, each limb's repeated 2^k times, and the columns kernel's tables
+    and primes (``cols_*``) are added."""
     tabs = getattr(ring, '_b1_tables', None)
     if tabs is None:
         rs, dev = ring.rings, ring.device
         logn = ring.n.bit_length() - 1
+        k = split_depth(logn, ROW_MAX_LOGN)
         r1 = [r.r1 for r in rs]
         nir = [r.n_inv * pow(1 << 32, -1, r.q) % r.q for r in rs]
 
         def stacked(attr):
             return np.stack([getattr(r, attr) for r in rs])
 
+        def per_row(vals):
+            return u32_tensor([v for v in vals for _ in range(1 << k)], dev)
+
+        def table(attr, inverse):
+            return u32_tensor(split_pass_tables(stacked(attr), stacked(attr + '_shoup'), logn, k,
+                                                inverse, 2), dev)
+
         tabs = {
-            'q': u32_tensor([r.q for r in rs], dev),
-            'fwd': u32_tensor(pass_tables(stacked('psi_rev'), stacked('psi_rev_shoup'),
-                                          logn, False, 2), dev),
-            'inv': u32_tensor(pass_tables(stacked('psi_inv_rev'), stacked('psi_inv_rev_shoup'),
-                                          logn, True, 2), dev),
-            'n_inv': u32_tensor([r.n_inv for r in rs], dev),
-            'n_inv_shoup': u32_tensor([r.n_inv_shoup for r in rs], dev),
-            'r1': u32_tensor(r1, dev),
-            'r1_shoup': u32_tensor([(v << 32) // r.q for v, r in zip(r1, rs)], dev),
-            'n_inv_rinv': u32_tensor(nir, dev),
-            'n_inv_rinv_shoup': u32_tensor([(v << 32) // r.q for v, r in zip(nir, rs)], dev),
+            'q': per_row([r.q for r in rs]),
+            'fwd': table('psi_rev', False),
+            'inv': table('psi_inv_rev', True),
+            'n_inv': per_row([r.n_inv for r in rs]),
+            'n_inv_shoup': per_row([r.n_inv_shoup for r in rs]),
+            'r1': per_row(r1),
+            'r1_shoup': per_row([(v << 32) // r.q for v, r in zip(r1, rs)]),
+            'n_inv_rinv': per_row(nir),
+            'n_inv_rinv_shoup': per_row([(v << 32) // r.q for v, r in zip(nir, rs)]),
         }
+        if k:
+            tabs.update({
+                'cols_q': u32_tensor([r.q for r in rs], dev),
+                'cols_fwd': u32_tensor(column_tables(stacked('psi_rev'), stacked('psi_rev_shoup'),
+                                                     k), dev),
+                'cols_inv': u32_tensor(column_tables(stacked('psi_inv_rev'),
+                                                     stacked('psi_inv_rev_shoup'), k), dev)})
         ring._b1_tables = tabs
     return tabs
 
@@ -301,8 +380,8 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     logn = ring.n.bit_length() - 1
     if not 1 <= logn <= MAX_LOGN:
         raise ValueError(f'B1 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
-    if perm and ring.n % LANES:
-        raise ValueError(f'the perm layout needs n divisible by {LANES}, got n={ring.n}')
+    if perm and not LANES <= ring.n <= 1 << ROW_MAX_LOGN:
+        raise ValueError(f'the perm layout needs 128 <= n <= 2^{ROW_MAX_LOGN}, got n={ring.n}')
     rows = x.numel() // ring.n
     if rows == 0:
         return
@@ -315,8 +394,14 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     else:
         fn = lib.ntt32_fwd_perm_launch if perm else lib.ntt32_fwd_launch
         post, posts = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
-    run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
-                tabs['q'], post, posts, f'ntt32 {"inverse" if inverse else "forward"}')
+    what = f'ntt32 {"inverse" if inverse else "forward"}'
+    k = split_depth(logn, ROW_MAX_LOGN)
+    if k:
+        run_split(fn, lib.ntt32_cols_launch, x, y, ring, k, inverse, tabs, post, posts, what)
+        launches['ntt32_inv_cols' if inverse else 'ntt32_fwd_cols'] += 1
+    else:
+        run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
+                    tabs['q'], post, posts, what)
     launches[name or ('ntt32_inv' if inverse else 'ntt32_fwd')] += 1
 
 
@@ -335,6 +420,37 @@ def run_aligned(fn, x, y, rows, limbs, logn, tab, q, post, posts, what: str):
         raise RuntimeError(f'{what} launch failed: cudaError_t {err}')
     if out is not y:
         y.copy_(out)
+
+
+def run_split(row_fn, cols_fn, x, y, ring, k: int, inverse: bool, tabs, post, posts, what: str):
+    """The split of B1 or B5 at depth k on contiguous CUDA stacks x -> y:
+    the columns kernel ``cols_fn`` and the row kernel ``row_fn`` over the
+    virtual limbs (rows of 2^(log2 n - k)), meeting in device memory;
+    forward columns first, inverse rows first. ``tabs`` holds the virtual
+    pass tables and constants and the column tables (``_tables``)."""
+    logn = ring.n.bit_length() - 1
+    rows, limbs = x.numel() // ring.n, len(ring.moduli)
+    mid = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+
+    def columns(src, dst):
+        with torch.cuda.device(x.device):
+            err = cols_fn(src.data_ptr(), dst.data_ptr(), rows, limbs, logn, k, int(inverse),
+                          tabs['cols_inv' if inverse else 'cols_fwd'].data_ptr(),
+                          tabs['cols_q'].data_ptr(),
+                          torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'{what} columns launch failed: cudaError_t {err}')
+
+    def row_pass(src, dst):
+        run_aligned(row_fn, src, dst, rows << k, limbs << k, logn - k,
+                    tabs['inv' if inverse else 'fwd'], tabs['q'], post, posts, what)
+
+    if inverse:
+        row_pass(x, mid)
+        columns(mid, y)
+    else:
+        columns(x, mid)
+        row_pass(mid, y)
 
 
 def blocks_per_sm(logn: int, inverse: bool) -> int:
@@ -386,6 +502,8 @@ def _entry(x, ring, inverse: bool, perm: bool, name: str):
         return perm_layout(out) if perm else out
     if not x.is_contiguous():
         raise ValueError(f'{name} takes a contiguous tensor')
+    if ring.n > 1 << ROW_MAX_LOGN:
+        raise ValueError(f'{name} supports n <= 2^{ROW_MAX_LOGN} on the card, got n={ring.n}')
     y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     launch(x, y, ring, inverse=inverse, perm=perm, name=name)
     return y

@@ -1,12 +1,15 @@
 """Where the time of one batched BFV step goes, on one CUDA card.
 
     python -m lattisense_torch.tools.profile_step [--chain w32|u64]
-        [--op mult_relin|rotate] [--batch 32] [--level L] [--steps 5]
+        [--op mult_relin|rotate] [--n 16384] [--batch 32] [--level L] [--steps 5]
 
-Builds a context (seed 7) on the chosen chain — ``w32``, the headline
-``BfvParams.create_tpu_param(16384)`` (default level 7), or ``u64``, the
-conformance chain ``BfvParams.create(16384)`` (default level 3) — encrypts
-2·batch random messages and prints two JSON lines for the chosen operation:
+Builds a context (seed 7) on the chosen chain at ring degree n — ``w32``,
+the 31-bit profile ``BfvParams.create_tpu_param(n)`` (default level 7 at
+n=16384, the headline), or ``u64``, the conformance chain
+``BfvParams.create(n)`` (default level 3 at n=16384); at any other n the
+default level is the chain's top (11 and 21 at n=32768, where B5 runs
+split) — encrypts 2·batch random messages and prints two JSON lines for the
+chosen operation:
 
 - ``phases``: CUDA-event time of each stage of the step, called in the
   order the engine calls them, beside the whole step's time. On the w32
@@ -163,17 +166,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--chain', choices=('w32', 'u64'), default='w32')
     ap.add_argument('--op', choices=('mult_relin', 'rotate'), default='mult_relin')
+    ap.add_argument('--n', type=int, default=16384, help='ring degree: 16384 or 32768')
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--level', type=int, default=None,
-                    help='default 7 on the w32 chain, 3 on the u64 chain')
+                    help='default at n=16384 7 on the w32 chain, 3 on the u64 chain; '
+                         'else the chain\'s top level')
     ap.add_argument('--steps', type=int, default=5)
     args = ap.parse_args()
     u64 = args.chain == 'u64'
-    if args.level is None:
-        args.level = 3 if u64 else 7
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    params = BfvParams.create(16384) if u64 else BfvParams.create_tpu_param(16384)
+    params = BfvParams.create(args.n) if u64 else BfvParams.create_tpu_param(args.n)
+    if args.level is None:
+        args.level = (3 if u64 else 7) if args.n == 16384 else params.max_level
     ctx = BfvContext.create_random_context(params, seed=7)
     rng = np.random.default_rng(7)
     cts = [ctx.encrypt(ctx.encode(m, args.level))
@@ -213,7 +218,7 @@ def main() -> int:
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(stop) / args.steps
     print(json.dumps({'phases': {'gpu': gpu, 'chain': args.chain, 'op': args.op,
-                                 'batch': args.batch,
+                                 'n': args.n, 'batch': args.batch,
                                  'level': args.level,
                                  'step_ms': step_ms, 'sum_of_phases_ms': sum(ph.values()),
                                  'ms': ph}}), flush=True)
@@ -230,7 +235,7 @@ def main() -> int:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({'profile': {
-        'gpu': gpu, 'chain': args.chain, 'op': args.op, 'steps': args.steps,
+        'gpu': gpu, 'chain': args.chain, 'op': args.op, 'n': args.n, 'steps': args.steps,
         'wall_ms_per_step': wall_ms,
         'device_busy_ms_per_step': busy_ms if kernels else None,
         'idle_share': 1 - busy_ms / wall_ms if kernels else None,

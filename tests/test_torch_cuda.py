@@ -3,8 +3,9 @@
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 Each kernel is checked at a small shape and at the main path's shape, with
 its launch count and its refusal of bad input; the NTTs B1 and B5 and the
-kernels built on B1's row loop (B2, B3, B4) at every n they take, B6 through
-each of its instances and its fold, bit for bit.
+kernels built on B1's row loop (B2, B3, B4) at every n they take (B1 and B5
+split above their row kernel's cap: B1 at 2^16, B5 at 2^15 and 2^16), B6
+through each of its instances and its fold, bit for bit.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -62,9 +63,10 @@ def misaligned(x):
     return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape).copy_(x)
 
 
-@pytest.mark.parametrize('logn', range(1, 16))
+@pytest.mark.parametrize('logn', range(1, 17))
 def test_b1_kernel_matches_plain(cuda, logn):
-    """Every n B1 takes, L = 1 and L = 12, both epilogues of each direction."""
+    """Every n B1 takes, L = 1 and L = 12, both epilogues of each direction;
+    at 2^16 through the split, whose columns launches count apart."""
     n = 1 << logn
     chain = tuple(gen_ntt_primes(n, 31, 12))
     before, calls = dict(ntt_cuda.launches), 0
@@ -85,8 +87,11 @@ def test_b1_kernel_matches_plain(cuda, logn):
         assert torch.equal(fm, ntt_cuda.ntt_plain(x, ring, to_mont=True)), (L, lead)
         assert torch.equal(i, ntt_cuda.intt_plain(x, ring)), (L, lead)
         assert torch.equal(im, x) and torch.equal(ia, x) and torch.equal(fa, f), (L, lead)
+    split = calls if logn > ntt_cuda.ROW_MAX_LOGN else 0
     assert ntt_cuda.launches['ntt32_fwd'] == before['ntt32_fwd'] + calls
     assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv'] + calls
+    assert ntt_cuda.launches['ntt32_fwd_cols'] == before['ntt32_fwd_cols'] + split
+    assert ntt_cuda.launches['ntt32_inv_cols'] == before['ntt32_inv_cols'] + split
     with pytest.raises(ValueError):
         ntt_cuda.ntt32_fwd(x.transpose(0, 1), ring)
 
@@ -444,10 +449,11 @@ def chain64(n, count):
     return tuple(out[:count])
 
 
-@pytest.mark.parametrize('logn', range(1, 15))
+@pytest.mark.parametrize('logn', range(1, 17))
 def test_b5_kernel_matches_plain(cuda, logn):
     """Every n B5 takes, L = 1 and L = 12, both epilogues of each direction,
-    and the reference's five names."""
+    and the reference's five names; at 2^15 and 2^16 through the split,
+    whose columns launches count apart."""
     from lattisense_torch.ops import ntt64_cuda
     n = 1 << logn
     chain = tuple(p for bits in (61, 59, 57, 55) for p in gen_ntt_primes(n, bits, 3))
@@ -466,8 +472,12 @@ def test_b5_kernel_matches_plain(cuda, logn):
         assert torch.equal(fm, ntt64_cuda.ntt64_plain(x, ring, to_mont=True)), (L, lead)
         assert torch.equal(i, ntt64_cuda.intt64_plain(x, ring)), (L, lead)
         assert torch.equal(im, x) and torch.equal(ia, x), (L, lead)
+    inv = calls + len(row_cases(logn))
+    split = logn > ntt64_cuda.ROW_MAX_LOGN
     assert ntt64_cuda.launches == {'ntt64_fwd': before['ntt64_fwd'] + calls,
-                                   'ntt64_inv': before['ntt64_inv'] + calls + len(row_cases(logn))}
+                                   'ntt64_inv': before['ntt64_inv'] + inv,
+                                   'ntt64_fwd_cols': before['ntt64_fwd_cols'] + split * calls,
+                                   'ntt64_inv_cols': before['ntt64_inv_cols'] + split * inv}
     for alias in (ntt64_cuda.ntt_fused64, ntt64_cuda.ntt_fused):
         assert torch.equal(alias(x, ring), f)
     for alias in (ntt64_cuda.intt_fused64, ntt64_cuda.intt_fused, ntt64_cuda.intt_fused_impl):
@@ -620,3 +630,86 @@ def test_batched_u64_card_matches_cpu(cuda):
         assert np.array_equal(ctx.decrypt_decode(Ciphertext(data=rot[i], level=3)),
                               np.concatenate([np.roll(ma[i][:half], -1),
                                               np.roll(ma[i][half:], -1)]))
+
+
+# ---------------------------------------------------------------------------
+# the split's limits, and the n=32768 u64 path
+# ---------------------------------------------------------------------------
+
+def test_split_refusals(cuda):
+    """B1 and B5 refuse 2^17, and B1's r4 / perm entries 2^16 (they stay at
+    the row kernel's sizes); B2, B3 and B4 refuse 2^16, whose row loops do
+    not split. Each before any launch."""
+    from lattisense_torch.ops import ntt64_cuda
+    counts = (ntt_cuda.launches, ntt64_cuda.launches, behz_cuda.launches, ksw_cuda.launches)
+    before = [dict(c) for c in counts]
+    n17 = 1 << 17
+    r17 = get_rns_ring(gen_ntt_primes(n17, 31, 1), n17, cuda)
+    r17_64 = get_rns_ring(gen_ntt_primes(n17, 59, 1), n17, cuda, 64)
+    x17, x17_64 = card_residues(r17, (1,), 1), card_residues(r17_64, (1,), 2)
+    for fn, x, ring in ((ntt_cuda.ntt32_fwd, x17, r17), (ntt_cuda.ntt32_inv, x17, r17),
+                        (ntt64_cuda.ntt64_fwd, x17_64, r17_64),
+                        (ntt64_cuda.ntt64_inv, x17_64, r17_64)):
+        with pytest.raises(ValueError):
+            fn(x, ring)
+    n = 1 << 16
+    chain = gen_ntt_primes(n, 31, 5)
+    r16 = get_rns_ring(chain[:2], n, cuda)
+    x = card_residues(r16, (1,), 3)
+    for fn in (ntt_cuda.ntt32_fwd_r4, ntt_cuda.ntt32_inv_r4, ntt_cuda.ntt32_fwd_perm,
+               ntt_cuda.ntt32_inv_perm):
+        with pytest.raises(ValueError):
+            fn(x, r16)
+    params = BfvParams.create_custom(n, 65537, chain[:3], chain[3:], word_bits=32)
+    bz = BfvEngine(params, cuda).behz(2)
+    with pytest.raises(ValueError):
+        behz_cuda.behz_finish32(card_residues(bz.ring_q, (1,), 4), card_residues(bz.ring_aux,
+                                                                                 (1,), 5), bz)
+    sw = KeySwitcher(tuple(chain[:3]), tuple(chain[3:]), n, cuda)
+    key = card_key(random_key(6, tuple(chain[:3]), tuple(chain[3:]), n), cuda)
+    xq = card_residues(get_rns_ring(chain[:3], n, cuda), (1,), 7)
+    for route in ('fused', 'split'):
+        with pytest.raises(ValueError):
+            ksw_cuda._switch(xq, key, sw, 2, False, route)
+    with pytest.raises(ValueError):
+        ksw_cuda.ksw_switch32(xq, key, sw, 2)
+    assert [dict(c) for c in counts] == before
+
+
+def test_batched_u64_32k_card_matches_cpu(cuda):
+    """mult_relin and rotate_col at BfvParams.create(32768), level 11 (the
+    chain's full width), B=1: B5 through the split (its columns launches
+    counted), B6 and B7 on the card against the port's plain path on the
+    CPU, and no 32-bit kernel."""
+    from lattisense_torch.ops import bconv_cuda, ksw64_cuda, ntt64_cuda
+    level = 11
+    params = BfvParams.create(32768)
+    ctx = BfvContext.create_random_context(params, seed=9, device=cuda)
+    elt = galois_elt_col(1, params.n)
+    ctx.gen_galois_keys_for_elements([elt])
+    rng = np.random.default_rng(9)
+    ma, mb = rng.integers(0, params.t, (2, 1, params.n))
+    a = torch.stack([ctx.encrypt(ctx.encode(m, level)).data for m in ma])
+    b = torch.stack([ctx.encrypt(ctx.encode(m, level)).data for m in mb])
+    keys = key_tree(ctx, galois_elts=[elt])
+    counts = (ntt64_cuda.launches, bconv_cuda.launches, ksw64_cuda.launches, ntt_cuda.launches)
+    before = [dict(c) for c in counts]
+    out = make_batched_step(ctx.engine, bfv_mult_relin, level)(a, b, keys)
+    rot = make_batched_step(ctx.engine, make_rotate_step(elt), level, n_inputs=1)(a, keys)
+    for k in ntt64_cuda.launches:
+        assert ntt64_cuda.launches[k] > before[0][k], k
+    assert ntt64_cuda.launches['ntt64_fwd_cols'] - before[0]['ntt64_fwd_cols'] == \
+        ntt64_cuda.launches['ntt64_fwd'] - before[0]['ntt64_fwd']
+    assert bconv_cuda.launches['bconv64_convert'] > before[1]['bconv64_convert']
+    assert ksw64_cuda.launches['ksw_inner64'] == before[2]['ksw_inner64'] + 2
+    assert ntt_cuda.launches == before[3]
+    cpu_keys = {'rlk': KeySwitchKey(key_q=ctx.rlk.key_q.cpu(), key_p=ctx.rlk.key_p.cpu()),
+                'glk': {elt: KeySwitchKey(key_q=keys['glk'][elt].key_q.cpu(),
+                                          key_p=keys['glk'][elt].key_p.cpu())}}
+    eng_c = BfvEngine(params, CPU)
+    want = make_batched_step(eng_c, bfv_mult_relin, level)(a.cpu(), b.cpu(), cpu_keys)
+    want_rot = make_batched_step(eng_c, make_rotate_step(elt), level, n_inputs=1)(a.cpu(),
+                                                                                  cpu_keys)
+    assert torch.equal(out.cpu(), want) and torch.equal(rot.cpu(), want_rot)
+    assert np.array_equal(ctx.decrypt_decode(Ciphertext(data=out[0], level=level)),
+                          (ma[0] * mb[0]) % params.t)

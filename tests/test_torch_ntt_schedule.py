@@ -101,23 +101,28 @@ def kernel_tables(ring):
 
 
 def walk(x, ring, inverse, post=None):
-    """Kernel B1 / B5 on an int64 (..., L, n) stack, step for step: the
-    first window (from the staging buffer, or from device memory through an
-    exchange), passes, exchanges, epilogue, the output exchange and the store
-    of the top window. ``post`` is a per-limb (value, companion) pair of
-    (L, 1) columns or None."""
-    bits = ring.word_bits
+    """Kernel B1 / B5 on an int64 (..., L, n) stack, step for step, with the
+    pass tables the kernel is handed (``walk_rows``). ``post`` is a per-limb
+    (value, companion) pair of (L, 1) columns or None."""
+    tab = kernel_tables(ring)['inv' if inverse else 'fwd']
+    return walk_rows(x, ring.word_bits, ring.q.reshape(-1, 1), tab, inverse, post)
+
+
+def walk_rows(x, bits, q, tab, inverse, post=None):
+    """The row kernel on an int64 (..., L, n) stack of ``bits``-bit words,
+    row l on prime q[l] ((L, 1)) and pass table tab[l] ((L, entries, 2)
+    int64), step for step: the first window (from the staging buffer, or
+    from device memory through an exchange), passes, exchanges, epilogue,
+    the output exchange and the store of the top window."""
     lazy = Lazy32 if bits == 32 else Lazy64
     per_vector = 16 // (8 if bits == 32 else 16)
-    n, L = ring.n, len(ring.moduli)
+    n, L = x.shape[-1], x.shape[-2]
     logn = n.bit_length() - 1
     K, windows = ntt_cuda.schedule(logn)
     E, T = 1 << K, n >> K
     order = windows[::-1] if inverse else windows
     top = windows[0][0]
-    q = ring.q.reshape(L, 1)
     bound = (lazy.inv_bound if inverse else lazy.fwd_bound) * q
-    tab = kernel_tables(ring)['inv' if inverse else 'fwd']
     lane = torch.arange(T).reshape(-1, 1)
 
     def exchange(a, lo_from, lo_to):
@@ -301,7 +306,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     loaded."""
     from lattisense_torch.ops import cuda_build
     assert [p.rsplit('/', 1)[1] for p in cuda_build.sources_of('ntt64')] == \
-        ['ntt64.cu', 'ntt_passes.cuh']
+        ['ntt64.cu', 'ntt_passes.cuh', 'ntt_columns.cuh']
     (tmp_path / 'k.cu').write_text('#include "a.cuh"\nint k;\n')
     (tmp_path / 'a.cuh').write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / 'b.cuh').write_text('int b = 1;\n')
