@@ -6,7 +6,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Set-up: builds the CUDA kernels from ``lattisense_torch/csrc`` (one nvcc
    per source, all started together) and prints the toolchain, the card and
    a summary of each library's ptxas report (the whole report goes to
-   ``build/kernels/ptxas/``).
+   ``build/kernels/ptxas/``), the clusters of B5's cluster kernel that fit
+   the card, and the IMAD-family instructions a butterfly (B5) or a
+   Montgomery product (B6, B7) in the SASS of the built libraries
+   (``cuobjdump -sass``), from which each 64-bit kernel's
+   ``imad_bound_ms`` is computed.
 2. Kernels: calls each kernel wrapper on the card at the shapes its path
    gives it, holds the result bit for bit against the plain PyTorch twin run
    on a CPU copy, and times kernel and twin on the card with CUDA events:
@@ -31,19 +35,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (``BfvParams.create(16384)``, level 3, batch 32), checked as in 3; the
    counts of B5, B6 and B7 must have risen and the 32-bit kernels' must not.
 6. u64 rotate path: the batched rotate_col by 1 on the u64 context, checked
-   as in 4 and 5. None of the paths at n=16384 may launch the columns kernel
-   of B1's or B5's split.
+   as in 4 and 5. None of the paths at n=16384 may launch B1's columns
+   kernel or B5's cluster kernel.
 7. BFV at n=32768 on the u64 chain (``BfvParams.create(32768)``, level 11,
-   the chain's full width, batch 32): B5 through its split (columns kernel,
-   then the row kernel on sub-rows of 2^14), B6 and B7, each held against
-   its plain twin on the card at the path's shapes; then ``u64_32k_path``
-   (mult_relin) and ``u64_32k_rotate_path`` (rotate_col by 1), checked as in
-   5 and 6, with the split's columns launches required.
+   the chain's full width, batch 32): B5 through its cluster kernel (one
+   launch a call: clusters of 4 blocks over sub-rows of 2^13), B6 and B7,
+   each held against its plain twin on the card at the path's shapes; then
+   ``u64_32k_path`` (mult_relin) and ``u64_32k_rotate_path`` (rotate_col by
+   1), checked as in 5 and 6, with the cluster kernel's launches required
+   and B5's row kernel's refused.
 8. BFV at n=32768 on the 31-bit profile (``create_tpu_param(32768)``, level
    21, batch 32): B2, B3 (its split route, whose B1 launches count under
    ``ksw32_split_*``) and B4 held against their twins on the card, then
    ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1 entry.
-9. B5 and B1 at n=2^16 (a card-test shape, on no path) against their twins.
+9. B5 (clusters of 8) and B1 (its split) at n=2^16 (a card-test shape, on
+   no path) against their twins.
 
 Prints a line for each path (``main_path``, ``rotate_path``, ``u64_path``,
 ``u64_rotate_path``, ``u64_32k_path``, ``u64_32k_rotate_path``,
@@ -54,7 +60,9 @@ card, or without the package beside it, it exits 2 and prints no result.
 """
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +104,12 @@ OPS_BUTTERFLY = OPS_SHOUP + 2 * OPS_ADDSUB
 # adds and the carry) + 4 (compare, select) = 40.
 OPS64_SHOUP, OPS64_ADDSUB, OPS64_MONT = 26, 6, 40
 OPS64_BUTTERFLY = OPS64_SHOUP + 2 * OPS64_ADDSUB
+# The integer multiply-add pipe: 64 IMAD results a clock an SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions), half the float32 rate above. The 64-bit kernels' products
+# run there, so ``imad_bound_ms`` counts their IMAD-family instructions (from
+# the SASS) at this rate, the SMs and the card's maximum SM clock.
+IMAD_PER_CLOCK_SM = 64
 
 
 def fail(msg: str) -> int:
@@ -220,6 +234,8 @@ def ptxas_summary(log: str, keep) -> dict:
             funcs[cur].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
         elif cur and 'Used' in ln and 'registers' in ln:
             funcs[cur]['registers'] = int(ln.split('Used')[1].split()[0])
+            if 'bytes smem' in ln:
+                funcs[cur]['static_smem'] = int(ln.split('bytes smem')[0].split()[-1])
     heavy = {k: v for k, v in funcs.items()
              if v.get('stack', 0) or v.get('spill_stores', 0) or v.get('spill_loads', 0)}
     return {'functions': len(funcs),
@@ -231,14 +247,39 @@ def ptxas_summary(log: str, keep) -> dict:
 
 def main_path_instance(lib: str, name: str) -> bool:
     """The template instances the paths run: the NTT-sized kernels at 2^14
-    and 2^15 and the split's columns kernels, B2's extension and B4's
-    scale-back at L = 8, B6's compile-time (L, T) instances (its run-time-T
-    ones are <L, 0>)."""
+    and 2^15, B1's split columns kernels and B5's cluster kernels, B2's
+    extension and B4's scale-back at L = 8, B6's compile-time (L, T)
+    instances (its run-time-T ones are <L, 0>), B7's compile-time beta
+    instances."""
     if lib in ('ntt32', 'ntt64', 'ksw32'):
-        return 'Li14E' in name or 'Li15E' in name or 'columns_kernel' in name
+        return ('Li14E' in name or 'Li15E' in name or 'columns_kernel' in name
+                or 'cluster_kernel' in name)
     if lib == 'behz32':
         return 'Li14E' in name or 'Li8E' in name
     return 'Li0EE' not in name
+
+
+def sass_imad(cuda_build) -> dict:
+    """IMAD-family instructions (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X, IMAD.MOV,
+    IMAD.SHL, IMAD.IADD, ...: each issues on the integer multiply-add pipe)
+    in the SASS of every function of the 64-bit word's libraries, by mangled
+    name, from ``cuobjdump -sass`` of the built library (the toolkit's, beside
+    nvcc); empty where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), 'cuobjdump')
+    if not os.path.exists(tool):
+        return {}
+    counts = {}
+    for lib in ('ntt64', 'bconv64', 'ksw64'):
+        text = subprocess.run([tool, '-sass', cuda_build.library_path(lib)], capture_output=True,
+                              text=True, timeout=600, check=True).stdout
+        cur = None
+        for ln in text.splitlines():
+            if 'Function : ' in ln:
+                cur = ln.split('Function : ')[1].strip()
+                counts[cur] = 0
+            elif cur and re.match(r'\s*/\*[0-9a-f]+\*/\s+(@!?U?P[T0-9]\s+)?IMAD', ln):
+                counts[cur] += 1
+    return counts
 
 
 def time_ms(torch, fn, iters: int, warmup: int = WARMUP) -> float:
@@ -254,10 +295,10 @@ def time_ms(torch, fn, iters: int, warmup: int = WARMUP) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def split_device_ms(torch, fn, per_call: int, reps: int = 5) -> dict:
-    """Device milliseconds per call of the split's two kernels, each
-    launched ``per_call`` times by ``fn`` (the columns kernel, the row
-    kernel), from torch.profiler: the mean over the launches it traced (it
+def device_ms(torch, fn, per_call: int, parts: dict, reps: int = 5) -> dict:
+    """Device milliseconds per call of each kernel of ``parts`` (part name ->
+    a substring of the kernel's name), each launched ``per_call`` times by
+    ``fn``, from torch.profiler: the mean over the launches it traced (it
     may trace fewer than it ran), times ``per_call``; and the traced and run
     counts."""
     fn()
@@ -267,10 +308,10 @@ def split_device_ms(torch, fn, per_call: int, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, traced = {'columns': 0.0, 'rows': 0.0}, {'columns': 0, 'rows': 0}
+    us, traced = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0)
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            for part, kernel in (('columns', 'columns_kernel'), ('rows', 'ntt_kernel')):
+            for part, kernel in parts.items():
                 if kernel in e.key:
                     us[part] += e.device_time_total
                     traced[part] += e.count
@@ -335,6 +376,66 @@ def main() -> int:
                                  'blocks_per_sm': mod.blocks_per_sm(logn, d == 'inv')}
                  for word, mod in (('ntt32', ntt_cuda), ('ntt64', ntt64_cuda))
                  for d in ('fwd', 'inv')}
+    # B5's cluster kernel: clusters of 2^k blocks over sub-rows of 2^SUB_LOGN
+    # that the card runs at once (cudaOccupancyMaxActiveClusters)
+    clusters = {f'ntt64_{d}_cluster_n{1 << lg}': {
+        'blocks': 1 << ntt64_cuda.cluster_depth(lg), 'sub_row': 1 << ntt64_cuda.SUB_LOGN,
+        'threads': 1 << (ntt64_cuda.SUB_LOGN - ntt_cuda.schedule(ntt64_cuda.SUB_LOGN)[0]),
+        'dynamic_smem': 8 << ntt64_cuda.SUB_LOGN,
+        'active_clusters': ntt64_cuda.cluster_fit(lg, d == 'inv')}
+        for lg in (15, 16) for d in ('fwd', 'inv')}
+    # the integer multiply-add pipe's rate, and the IMAD-family instructions
+    # of the 64-bit kernels' instances in the SASS
+    clock_mhz = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm', '--format=csv,noheader,nounits'],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    imad_rate = IMAD_PER_CLOCK_SM * sms * clock_mhz * 1e6
+    imad = sass_imad(cuda_build)
+
+    def imad_per(patterns, units_per_body):
+        """IMAD-family instructions a unit (a butterfly or a Montgomery
+        product) in the one function whose name holds every pattern: its
+        static count over the units its straight-line body does per thread
+        (one iteration of its outer loop, where it has one; address and
+        epilogue instructions fall on the units too); None without SASS."""
+        hits = [c for f, c in imad.items() if all(p in f for p in patterns)]
+        return hits[0] / units_per_body if len(hits) == 1 else None
+
+    def imad_bound_ms(terms):
+        """The IMAD pipe's least time for [(IMAD a unit, units), ...]."""
+        if not terms or any(per is None for per, _ in terms):
+            return None
+        return sum(per * units for per, units in terms) / imad_rate * 1e3
+
+    def b5_imad(logn, inverse):
+        """IMAD a butterfly of B5's instance at 2^logn: the row kernel (8
+        butterflies a stage a thread, 16 residues) or the cluster kernel."""
+        inv = 'Lb1E' if inverse else 'Lb0E'
+        k = ntt64_cuda.cluster_depth(logn)
+        if k:
+            return imad_per(['cluster_kernel', f'ILi{ntt64_cuda.SUB_LOGN}ELi{k}E{inv}'], 8 * logn)
+        return imad_per(['ntt_kernel', f'W64ELi{logn}E{inv}Lb0ENS_8StoreRow'], 8 * logn)
+
+    def b6_imad(L, T, specific):
+        """IMAD a Montgomery product of B6's <L, T> (or run-time-T <L, 0>)
+        instance: two coefficients, T outputs (one a loop turn at <L, 0>)."""
+        TT = T if specific else 0
+        return imad_per(['bconv64_kernel', f'ILi{L}ELi{TT}EE'], 2 * L * (TT or 1))
+
+    def b7_imad(beta):
+        """IMAD a Montgomery product of B7's compile-time-beta instance: a
+        polynomial a loop turn, two components of two coefficients."""
+        return imad_per(['ksw64_inner_kernel', f'ILi{beta}EE'], 4 * beta)
+
+    def butterflies(shapes, n):
+        return sum(math.prod(sh) // n for sh, _ in shapes) * (n // 2) * (n.bit_length() - 1)
+
+    imad_table = {'clock_max_mhz': clock_mhz, 'sms': sms, 'per_clock_sm': IMAD_PER_CLOCK_SM,
+                  'sass_functions': len(imad),
+                  'b5_per_butterfly': {f'{"inv" if inv else "fwd"}_n{1 << lg}': b5_imad(lg, inv)
+                                       for lg in (14, 15, 16) for inv in (False, True)},
+                  'b7_per_product': {f'beta{b}': b7_imad(b) for b in (2, 4)}}
     params = BfvParams.create_tpu_param(N)
     eng_c = BfvEngine(params, 'cpu')
     bz_c = eng_c.behz(LEVEL)
@@ -348,7 +449,8 @@ def main() -> int:
     print(json.dumps({'setup': {'torch': torch.__version__, 'cuda': torch.version.cuda,
                                 'nvcc': cuda_build.nvcc_path(), 'gpu': gpu,
                                 'build_s': round(build_s, 3), 'ptxas': ptxas,
-                                'ntt_occupancy': occupancy, 'fused': fused}}), flush=True)
+                                'ntt_occupancy': occupancy, 'ntt64_clusters': clusters,
+                                'imad': imad_table, 'fused': fused}}), flush=True)
 
     t1 = time.perf_counter()
     ctx = BfvContext.create_random_context(params, seed=SEED, device=dev)
@@ -557,6 +659,9 @@ def main() -> int:
                                   ('qp64', (BATCH, 2))],
                     ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain,
                     lambda r, lb, n: ntt64_work(r, lb, n, True)))
+    for kname in ('ntt64_fwd', 'ntt64_inv'):
+        kernels[kname]['imad_bound_ms'] = imad_bound_ms(
+            [(b5_imad(logn, kname == 'ntt64_inv'), butterflies(kernels[kname]['shapes'], N))])
 
     # B6 convert on the four conversions of the path: the BEHZ extension,
     # scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q;
@@ -566,7 +671,7 @@ def main() -> int:
              ('scale_and_back', bz64_g.conv_q_to_aux, bz64_c.conv_q_to_aux, (BATCH, 3)),
              ('shenoy', bz64_g.shenoy.conv, bz64_c.shenoy.conv, (BATCH, 3)),
              ('round_div_p', rdp_g.conv, rdp_c.conv, (BATCH, 2))]
-    ins, pairs, per_shape, wk = [], [], [], []
+    ins, pairs, per_shape, wk, imad_terms = [], [], [], [], []
     for cname, cg, cc, lead in convs:
         y = cc.decompose(residues(cc.src, lead))
         got = bconv_cuda.bconv64_convert(y.to(dev), cg)
@@ -581,9 +686,11 @@ def main() -> int:
         w = bconv64_work(y.numel() // (Ls * N), Ls, Ts, N)
         wk.append(w)
         b_ms, b_by = bound(*w)
+        inst = bconv_cuda.instance(Ls, Ts, max(cc.src) - 1)
+        imad_terms.append((b6_imad(Ls, Ts, inst == 'specific'), y.numel() // Ls * Ts * Ls))
         per_shape.append({
             'conversion': cname, 'in': list(y.shape), 'out': list(got.shape),
-            'instance': bconv_cuda.instance(Ls, Ts, max(cc.src) - 1),
+            'instance': inst, 'imad_bound_ms': imad_bound_ms(imad_terms[-1:]),
             'fold': bconv_cuda.lazy_fold(Ls, max(cc.src) - 1),
             'ms': time_ms(torch, lambda yg=yg, cg=cg: bconv_cuda.bconv64_convert(yg, cg), ITERS),
             'plain_ms': time_ms(torch, lambda yg=yg, cg=cg: bconv_cuda.bconv64_plain(
@@ -600,7 +707,7 @@ def main() -> int:
         ms=time_ms(torch, lambda: [bconv_cuda.bconv64_convert(y, c) for y, c in ins], ITERS),
         plain_ms=time_ms(torch, lambda: [bconv_cuda.bconv64_plain(
             y, c.qhat_dst_mont, c.dst_q, c.dst_pinv) for y, c in ins], ITERS),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, imad_bound_ms=imad_bound_ms(imad_terms))
     del ins, pairs
 
     # B6 raw: the key switch's mod-up of all β digits in one launch
@@ -627,7 +734,11 @@ def main() -> int:
                    ITERS),
         plain_ms=time_ms(torch, lambda: bconv_cuda.bconv64_plain(yg, pre_g[4], rq_g.q,
                                                                  rq_g.pinv), ITERS),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by,
+        imad_bound_ms=imad_bound_ms([(b6_imad(
+            alpha64, L64 + alpha64,
+            bconv_cuda.instance(alpha64, L64 + alpha64, bconv_cuda.WORD_GUARD) == 'specific'),
+            y.numel() * (L64 + alpha64))]))
     del y, yg, got, want
 
     # B7: the relinearization key's inner product with (B, β, T, n) digits
@@ -650,7 +761,8 @@ def main() -> int:
         ms=time_ms(torch, lambda: ksw64_cuda.ksw_inner64(dg, ctx64.rlk, LEVEL64, rq_g), ITERS),
         plain_ms=time_ms(torch, lambda: ksw64_cuda.ksw_inner64_plain(dg, ctx64.rlk, LEVEL64,
                                                                      rq_g), ITERS),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by,
+        imad_bound_ms=imad_bound_ms([(b7_imad(beta64), got.numel() * beta64)]))
     del d, dg, got, want
     torch.cuda.empty_cache()
 
@@ -700,9 +812,11 @@ def main() -> int:
         return launches
 
     path_launches = {}
-    # no path at n=16384 runs the split (B1's or B5's columns kernel); the w32
+    # no path at n=16384 runs B1's split or B5's cluster kernel; the w32
     # paths run no B1 entry and B3's fused route
-    split_cols = ['ntt32_fwd_cols', 'ntt32_inv_cols', 'ntt64_fwd_cols', 'ntt64_inv_cols']
+    split_cols = ['ntt32_fwd_cols', 'ntt32_inv_cols', 'ntt64_fwd_cluster', 'ntt64_inv_cluster']
+    if any(k.startswith('ntt64') and k.endswith('_cols') for k in read_counts()):
+        raise AssertionError('B5 still counts a columns route')
     no_b1 = ['ntt32_fwd', 'ntt32_inv', 'ksw32_split_fwd', 'ksw32_split_inv'] + split_cols
     msgs = rng.integers(0, params.t, (2 * BATCH, N))
     path_launches['main_path'] = run_path(
@@ -776,9 +890,9 @@ def main() -> int:
                 'plain_ms': time_ms(torch, plain_fn, iters, warmup=1),
                 'bound_ms': bound_ms, 'bound_by': bound_by}
 
-    def hold_ntt(name, calls, kernel, plain, work, split):
-        """B1 or B5 on each (ring, lead) stack; with ``split`` the device
-        time of its columns and row kernels."""
+    def hold_ntt(name, calls, kernel, plain, work, parts):
+        """B1 or B5 on each (ring, lead) stack, with the device time of each
+        kernel of ``parts`` (see ``device_ms``); B5's with its IMAD bound."""
         inputs = [(card_residues(r.moduli, lead, r.n), r) for r, lead in calls]
         try:
             entry = hold(lambda: [kernel(x, r) for x, r in inputs],
@@ -787,9 +901,13 @@ def main() -> int:
         except AssertionError as exc:
             raise AssertionError(f'{name} {exc}') from None
         entry['shapes'] = [[list(x.shape), len(r.moduli)] for x, r in inputs]
-        if split:
-            entry['device_ms'] = split_device_ms(torch, lambda: [kernel(x, r) for x, r in inputs],
-                                                 len(inputs))
+        entry['device_ms'] = device_ms(torch, lambda: [kernel(x, r) for x, r in inputs],
+                                       len(inputs), parts)
+        if name.startswith('ntt64'):
+            n = inputs[0][1].n
+            entry['imad_bound_ms'] = imad_bound_ms(
+                [(b5_imad(n.bit_length() - 1, kernel is ntt64_cuda.ntt64_inv),
+                  butterflies(entry['shapes'], n))])
         return entry
 
     def fwd64(r, lb, n):
@@ -809,27 +927,30 @@ def main() -> int:
     L_u, T_u = LEVEL_U32K + 1, len(bz_u.ring_aux.moduli)
     alpha_u, beta_u = sw_u.alpha, sw_u.beta(LEVEL_U32K)
     rq_u = sw_u.ring_qp(LEVEL_U32K)
-    # B5 split on the stacks of the u64 path above, at this chain's widths
+    # B5's cluster kernel on the stacks of the u64 path above, at this
+    # chain's widths
+    cluster = {'cluster': 'cluster_kernel'}
+    design = (f'cluster: {1 << ntt64_cuda.cluster_depth(15)} blocks a row over sub-rows of '
+              f'2^{ntt64_cuda.SUB_LOGN}, the cross stages through distributed shared memory')
     kernels['ntt64_fwd_split'] = dict(
-        route='cuda', source='lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt64.cu',
-        design='split: columns kernel (1 stage), then the row kernel on sub-rows of 2^14',
-        replaces='lattisense_tpu/ops/ntt_pallas.py:134',
+        route='cuda', source='lattisense_torch/csrc/ntt_cluster.cuh + csrc/ntt64.cu',
+        design=design, replaces='lattisense_tpu/ops/ntt_pallas.py:134',
         replaces_function='ntt_fused: _launch (:326) with _phase1_kernel :134, _phase2_kernel :167',
-        path='u64_32k_path', counted_as='ntt64_fwd_cols',
+        path='u64_32k_path', counted_as='ntt64_fwd_cluster',
         **hold_ntt('ntt64_fwd_split', [(bz_u.ring_q, (BATCH, 4)), (bz_u.ring_aux, (BATCH, 4)),
                                        (rq_u, (BATCH, beta_u))],
-                   ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64, True))
+                   ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64, cluster))
     kernels['ntt64_inv_split'] = dict(
-        route='cuda', source='lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt64.cu',
-        design='split: the row kernel on sub-rows of 2^14, then the columns kernel (1 stage)',
+        route='cuda', source='lattisense_torch/csrc/ntt_cluster.cuh + csrc/ntt64.cu',
+        design=design,
         replaces='lattisense_tpu/ops/ntt_pallas.py:471',
         replaces_function=('_intt_fused_impl: _ilaunch (:546) with _iphase_a_kernel :471, '
                            '_iphase_b_kernel :509; intt_fused: _claunch (:820) with '
                            '_cinv1_kernel :745, _cinv2_kernel :779'),
-        path='u64_32k_path', counted_as='ntt64_inv_cols',
+        path='u64_32k_path', counted_as='ntt64_inv_cluster',
         **hold_ntt('ntt64_inv_split', [(bz_u.ring_q, (BATCH, 3)), (bz_u.ring_aux, (BATCH, 3)),
                                        (rq_u, (BATCH, 2))],
-                   ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64, True))
+                   ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64, cluster))
     # B6 on the path's four conversions and its mod-up, B7 on the path's digits
     rdp_u = sw_u._level_pre(LEVEL_U32K)[5]
     convs = [(bz_u.extend.conv, (BATCH, 4)), (bz_u.conv_q_to_aux, (BATCH, 3)),
@@ -842,6 +963,9 @@ def main() -> int:
         counted_as='bconv64_convert',
         shapes=[[list(y.shape), len(cv.dst)] for y, cv in ins],
         instances=[bconv_cuda.instance(len(cv.src), len(cv.dst), max(cv.src) - 1) for _, cv in ins],
+        imad_bound_ms=imad_bound_ms([(b6_imad(len(cv.src), len(cv.dst), bconv_cuda.instance(
+            len(cv.src), len(cv.dst), max(cv.src) - 1) == 'specific'), y.numel() * len(cv.dst))
+            for y, cv in ins]),
         **hold(lambda: [bconv_cuda.bconv64_convert(y, cv) for y, cv in ins],
                lambda: [bconv_cuda.bconv64_plain(y, cv.qhat_dst_mont, cv.dst_q, cv.dst_pinv)
                         for y, cv in ins],
@@ -856,6 +980,9 @@ def main() -> int:
         replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
         path='u64_32k_path', counted_as='bconv64_raw', shapes=[list(y.shape)],
         instance=bconv_cuda.instance(alpha_u, L_u + alpha_u, bconv_cuda.WORD_GUARD),
+        imad_bound_ms=imad_bound_ms([(b6_imad(alpha_u, L_u + alpha_u, bconv_cuda.instance(
+            alpha_u, L_u + alpha_u, bconv_cuda.WORD_GUARD) == 'specific'),
+            y.numel() * (L_u + alpha_u))]),
         **hold(lambda: [bconv_cuda.bconv64_raw(y, pre_u[4], rq_u.q, rq_u.pinv)],
                lambda: [bconv_cuda.bconv64_plain(y, pre_u[4], rq_u.q, rq_u.pinv)],
                [bconv64_work(BATCH * beta_u, alpha_u, L_u + alpha_u, N32K)]))
@@ -865,19 +992,22 @@ def main() -> int:
         replaces='lattisense_tpu/ops/ksw_pallas.py:29',
         replaces_function='ksw_inner_fused (_ksw_kernel)', path='u64_32k_path',
         counted_as='ksw_inner64', shapes=[list(d.shape)],
+        imad_bound_ms=imad_bound_ms([(b7_imad(beta_u),
+                                      BATCH * 2 * (L_u + alpha_u) * N32K * beta_u)]),
         **hold(lambda: [ksw64_cuda.ksw_inner64(d, ctx_u.rlk, LEVEL_U32K, rq_u)],
                lambda: [ksw64_cuda.ksw_inner64_plain(d, ctx_u.rlk, LEVEL_U32K, rq_u)],
                [ksw64_work(BATCH, beta_u, L_u + alpha_u, N32K)]))
     del y, d
     torch.cuda.empty_cache()
 
-    u32k_kernels = ['ntt64_fwd', 'ntt64_inv'] + [v['counted_as'] for v in kernels.values()
-                                                 if v['path'] == 'u64_32k_path']
+    # the cluster kernel, B6 and B7; no 32-bit kernel and not B5's row kernel
+    u32k_kernels = [v['counted_as'] for v in kernels.values() if v['path'] == 'u64_32k_path']
+    no_u32k = w32_kernels + ['ntt64_fwd', 'ntt64_inv']
     msgs_u = rng.integers(0, params_u.t, (2 * BATCH, N32K))
     path_launches['u64_32k_path'] = run_path(
         'u64_32k_path', ctx_u, eng_u_c, LEVEL_U32K, bfv_mult_relin, 2, key_tree(ctx_u),
         {'rlk': cpu_key(ctx_u.rlk)}, msgs_u, lambda i: (msgs_u[i] * msgs_u[BATCH + i]) % params_u.t,
-        u32k_kernels, w32_kernels,
+        u32k_kernels, no_u32k,
         {'op': 'mult_relin', 'params': 'BfvParams.create(32768)', 'word_bits': 64,
          'aux_limbs': T_u, 'alpha': alpha_u, 'beta': beta_u, 'keygen_s': keygen_u_s},
         iters=ITERS_32K)
@@ -888,7 +1018,7 @@ def main() -> int:
     rkeys_u = key_tree(ctx_u, galois_elts=[elt_u])
     run_path('u64_32k_rotate_path', ctx_u, eng_u_c, LEVEL_U32K, make_rotate_step(elt_u), 1,
              rkeys_u, {'glk': {elt_u: cpu_key(rkeys_u['glk'][elt_u])}}, msgs_u[:BATCH],
-             lambda i: rolled(msgs_u[i]), u32k_kernels, w32_kernels,
+             lambda i: rolled(msgs_u[i]), u32k_kernels, no_u32k,
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt_u,
               'params': 'BfvParams.create(32768)', 'word_bits': 64, 'aux_limbs': T_u,
               'alpha': alpha_u, 'beta': beta_u, 'galois_keygen_s': galois_keygen_u_s},
@@ -967,12 +1097,17 @@ def main() -> int:
              'ntt_fused32 (_fwd_kernel)', 'ntt_pallas32.py:101'),
             ('ntt32_inv_n65536', r32, ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, ntt_work,
              'intt_fused32 (_inv_kernel)', 'ntt_pallas32.py:173')):
-        word = 'ntt64' if ring is r64 else 'ntt32'
+        if ring is r64:       # B5: the cluster kernel, clusters of 2^(16 - SUB_LOGN)
+            source, counted, parts = ('lattisense_torch/csrc/ntt_cluster.cuh + csrc/ntt64.cu',
+                                      kname.replace('_n65536', '_cluster'), cluster)
+        else:                 # B1: its split, the columns kernel then the row kernel
+            source, counted, parts = ('lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt32.cu',
+                                      kname.replace('_n65536', '_cols'),
+                                      {'columns': 'columns_kernel', 'rows': 'ntt_kernel'})
         kernels[kname] = dict(
-            route='cuda', source=f'lattisense_torch/csrc/ntt_columns.cuh + csrc/{word}.cu',
-            replaces=f'lattisense_tpu/ops/{line}', replaces_function=fn, path=None,
-            counted_as=kname.replace('_n65536', '_cols'),
-            **hold_ntt(kname, [(ring, (37,))], kernel, plain, work, True))
+            route='cuda', source=source, replaces=f'lattisense_tpu/ops/{line}',
+            replaces_function=fn, path=None, counted_as=counted,
+            **hold_ntt(kname, [(ring, (37,))], kernel, plain, work, parts))
     torch.cuda.empty_cache()
 
     # launches on the path a kernel serves; B1's entries and the n = 2^16
@@ -981,6 +1116,7 @@ def main() -> int:
         counted = entry.pop('counted_as', kname)
         entry['launches'] = path_launches[entry['path'] or 'main_path'][counted]
         entry['library_ms'] = None
+        entry.setdefault('imad_bound_ms', None)
     print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

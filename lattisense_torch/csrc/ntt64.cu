@@ -25,24 +25,30 @@
 // row with an exchange in 32-bit halves spilled more and ran slower.
 //
 // n = 2^15 and 2^16 (a row of 256 or 512 KB, above the 227 KB a block may
-// hold) take the split of csrc/ntt_columns.cuh, the reference's two-phase
-// form (`_launch` / `_ilaunch` / `_claunch` of ntt_pallas.py): the columns
-// kernel runs the k = log2 n - 14 stages that span sub-rows, and this row
-// kernel the rest at 2^14, each sub-row a limb of its own (the host
-// re-indexes the tables, ops/ntt_cuda.py `split_pass_tables`). Above 2^16 is
-// refused.
+// hold) take the cluster kernel of csrc/ntt_cluster.cuh, one launch for the
+// reference's phase split (`_launch` / `_ilaunch` / `_claunch` of
+// ntt_pallas.py): a cluster of 2^k blocks (4 at 2^15, 8 at 2^16) holds a
+// row in sub-rows of 2^13, trades the k stages that span sub-rows through
+// distributed shared memory and runs this row body on each sub-row as a
+// limb of its own (the host re-indexes the tables, ops/ntt_cuda.py
+// `split_pass_tables`). Above 2^16 is refused.
 //
 // Rows are laid out (rows, n) contiguous; row r uses limb r % limbs of the
 // tables, so any (..., L, n) stack is one launch. Tables and residues are
 // int64 tensors on the Python side, read here as the same 64-bit patterns.
 
 #include "ntt_passes.cuh"
-#include "ntt_columns.cuh"
+#include "ntt_cluster.cuh"
 
 namespace {
 
-constexpr int kMaxLogn = 14;       // the row kernel: a 64-bit row of 2^14 in 128 KB
-constexpr int kMaxSplit = 2;       // columns stages: n up to 2^16
+constexpr int kMaxLogn = 14;          // the row kernel: a 64-bit row of 2^14 in 128 KB
+constexpr int kMaxLognCluster = 16;   // the cluster kernel: n up to 2^16
+// its sub-rows: at 2^13 (64 KB, 512 threads of up to 128 registers) B5's
+// row body takes a butterfly in about 0.6 of its time at 2^14, where 1024
+// threads hold 64 registers each and spill (PERF.md §6,
+// lattisense_torch/tools/ntt_bench.py)
+constexpr int kSubLogn = 13;
 
 template <bool kInverse>
 int run(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const void* tab,
@@ -79,15 +85,54 @@ extern "C" int ntt64_blocks_per_sm(int logn, int inverse) {
                  : ntt::occupancy<ntt::W64, kMaxLogn, false>(logn);
 }
 
-// The column stages of the split at depth k (n = 2^logn, rows of 2^(logn-k)
-// for the row kernel): forward before the row kernel, inverse after it
-// (inverse != 0). `tab` is the (limbs, 2^k, 2) column table of uint64
-// (value, Shoup companion), `q` the limbs' primes.
-extern "C" int ntt64_cols_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
-                                 int k, int inverse, const void* tab, const void* q,
-                                 void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  return inverse
-      ? ntt::launch_columns<ntt::W64, kMaxSplit, true>(x, y, rows, limbs, logn, k, tab, q, s)
-      : ntt::launch_columns<ntt::W64, kMaxSplit, false>(x, y, rows, limbs, logn, k, tab, q, s);
+namespace {
+
+// f(std::integral_constant<int, k>) for the cluster kernel's instances:
+// sub-rows of 2^kSubLogn, k = logn - kSubLogn cross stages, n = 2^15 or 2^16.
+template <class F>
+int by_cluster(int logn, int logs, const F& f) {
+  if (logs != kSubLogn || logn <= kMaxLogn || logn > kMaxLognCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return logn == 15 ? f(std::integral_constant<int, 15 - kSubLogn>{})
+                    : f(std::integral_constant<int, 16 - kSubLogn>{});
+}
+
+template <bool kInverse>
+int cluster(const int64_t* x, int64_t* y, int rows, int limbs, int logn, int logs,
+            const void* tab, const void* ctab, const void* q, const void* post,
+            const void* posts, void* stream, int* fit) {
+  return by_cluster(logn, logs, [&](auto depth) -> int {
+    return ntt::launch_cluster<kSubLogn, decltype(depth)::value, kInverse>(
+        x, y, rows, limbs, tab, ctab, q, post, posts, static_cast<cudaStream_t>(stream), fit);
+  });
+}
+
+}  // namespace
+
+// The transform of `rows` rows of n = 2^logn (15 or 16) in one launch of
+// clusters of 2^(logn - logs) blocks over sub-rows of 2^logs (logs must be
+// kSubLogn, the host's SUB_LOGN). `tab` is the
+// direction's pass table over the virtual limbs (limbs 2^k, entries, 2),
+// `ctab` the (limbs, 2^k, 2) column table, `q` the limbs' primes; `post` /
+// `posts` per virtual limb as above (the inverse's n^-1 always).
+extern "C" int ntt64_cluster_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
+                                    int logs, int inverse, const void* tab, const void* ctab,
+                                    const void* q, const void* post, const void* posts,
+                                    void* stream) {
+  return inverse ? cluster<true>(x, y, rows, limbs, logn, logs, tab, ctab, q, post, posts,
+                                 stream, nullptr)
+                 : cluster<false>(x, y, rows, limbs, logn, logs, tab, ctab, q, post, posts,
+                                  stream, nullptr);
+}
+
+// Clusters of the cluster kernel at n = 2^logn over sub-rows of 2^logs that
+// the current card holds at once (cudaOccupancyMaxActiveClusters), or minus
+// a cudaError_t.
+extern "C" int ntt64_cluster_fit(int logn, int logs, int inverse) {
+  int fit = 0;
+  const int err = inverse ? cluster<true>(nullptr, nullptr, 0, 1, logn, logs, nullptr, nullptr,
+                                          nullptr, nullptr, nullptr, nullptr, &fit)
+                          : cluster<false>(nullptr, nullptr, 0, 1, logn, logs, nullptr, nullptr,
+                                           nullptr, nullptr, nullptr, nullptr, &fit);
+  return err != 0 ? -err : fit;
 }

@@ -1,6 +1,7 @@
-// The split of kernels B1 (csrc/ntt32.cu) and B5 (csrc/ntt64.cu) for rows
-// longer than the row kernel of csrc/ntt_passes.cuh holds in shared memory
-// (2^15 32-bit words, 2^14 64-bit words): the columns kernel.
+// The split of kernel B1 (csrc/ntt32.cu) for rows longer than the row kernel
+// of csrc/ntt_passes.cuh holds in shared memory (2^15 32-bit words): the
+// columns kernel. It is written for either word; B5 (csrc/ntt64.cu) takes
+// its rows of 2^15 and 2^16 in one launch instead (csrc/ntt_cluster.cuh).
 //
 // Replaces the phase split of lattisense_tpu/ops/ntt_pallas.py (`_launch`,
 // `_ilaunch`, `_claunch`: a first pallas_call over the stages whose
@@ -25,12 +26,10 @@
 //   runs stages m = 2^(k-1) .. 1 with psi_inv_rev[1 .. 2^k - 1].
 //
 // What bounds it: the split moves the stack through device memory twice
-// (once per launch) against B1's and B5's once, so it can reach at most half
-// of their byte bound. The columns kernel does k butterflies an element
-// pair and is bound by bytes: a warp reads and writes 256 contiguous bytes
-// per register; its twiddles (2^k - 1 per limb) are broadcast loads. A
-// single launch that trades the column stages between the 2^k blocks of a
-// cluster through distributed shared memory is later work.
+// (once per launch) against B1's once, so it can reach at most half of its
+// byte bound. The columns kernel does k butterflies an element pair and is
+// bound by bytes: a warp reads and writes 256 contiguous bytes per
+// register; its twiddles (2^k - 1 per limb) are broadcast loads.
 
 #pragma once
 

@@ -7,10 +7,14 @@ key-switching key in NTT + Montgomery form it returns
     acc[..., c, t, i] = Σ_β mont_mul(d[..., β, t, i], key[β, c, t, i]) mod q_t,
 
 c ∈ {0, 1}, as one (..., 2, T, n) stack. The CUDA source is
-``csrc/ksw64.cu``: one thread per (polynomial, limb, coefficient) reads each
-digit residue once and accumulates both key components; the key is read in
-place from ``key_q`` / ``key_p`` by row index, so no per-call ``torch.cat``
-of the level's key slice is needed.
+``csrc/ksw64.cu``: a thread owns a limb and a pair of coefficients, holds
+the key's β·2 values for both in registers and walks a chunk of ``CHUNK``
+polynomials, reading each one's digits and writing its outputs in 16-byte
+pairs; the chunks run fastest in the grid, so the blocks that share a key
+slice run together and the key crosses device memory once a call. The key is
+read in place from ``key_q`` / ``key_p`` by row index, so no per-call
+``torch.cat`` of the level's key slice is needed. ``thread_map`` gives the
+thread → (polynomial chunk, limb, coefficient pair) map in plain Python.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 twin ``ksw_inner64_plain`` (the reference's product and addmod fold on the
@@ -32,7 +36,32 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'ksw64_inner_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     'ksw64_max_polys': [],
+    'ksw64_chunk': [],
+    'ksw64_threads': [],
+    'ksw64_max_beta': [],
 }
+CHUNK = 4          # polynomials a thread walks (csrc/ksw64.cu kChunk)
+THREADS = 128      # threads a block (kThreads), fewer where n / 2 is smaller
+
+
+def thread_map(G: int, T: int, n: int):
+    """The kernel's grid and work split as plain Python: the block shape and
+    grid, and for every thread (chunk, coefficient block, limb, lane) the
+    polynomials, limb and coefficients it computes — a list of
+    ((g0, g1), t, i): polynomials g0 .. g1 - 1, limb t, coefficients i and
+    i + 1 (threads with i >= n return at once and are left out)."""
+    threads = min(THREADS, n // 2)
+    grid = (-(-G // CHUNK), -(-(n // 2) // threads), T)
+    work = []
+    for bx in range(grid[0]):
+        g0, g1 = bx * CHUNK, min(bx * CHUNK + CHUNK, G)
+        for by in range(grid[1]):
+            for t in range(T):
+                for lane in range(threads):
+                    i = 2 * (by * threads + lane)
+                    if i < n:
+                        work.append(((g0, g1), t, i))
+    return threads, grid, work
 
 
 def ksw_inner64_plain(digits_ntt, ksk, level: int, ring_qp):
@@ -84,16 +113,22 @@ def ksw_inner64(digits_ntt, ksk, level: int, ring_qp):
     if G > lib.ksw64_max_polys():
         raise ValueError(f'ksw_inner64 takes at most {lib.ksw64_max_polys()} polynomials per '
                          f'call, got {G}')
-    d = digits_ntt.contiguous()
+    d = _aligned(digits_ntt.contiguous())
+    kq, kp = _aligned(ksk.key_q), _aligned(ksk.key_p)
     out = torch.empty((*lead, 2, T, n), dtype=torch.int64, device=d.device)
     if G:
         with torch.cuda.device(d.device):
-            err = lib.ksw64_inner_launch(d.data_ptr(), ksk.key_q.data_ptr(),
-                                         ksk.key_p.data_ptr(), out.data_ptr(), G, L,
-                                         ksk.key_q.shape[2], T - L, beta, T, n,
+            err = lib.ksw64_inner_launch(d.data_ptr(), kq.data_ptr(), kp.data_ptr(),
+                                         out.data_ptr(), G, L, kq.shape[2], T - L, beta, T, n,
                                          ring_qp.q.data_ptr(), ring_qp.pinv.data_ptr(),
                                          torch.cuda.current_stream(d.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'ksw64 inner product launch failed: cudaError_t {err}')
         launches['ksw_inner64'] += 1
     return out
+
+
+def _aligned(x):
+    """x, or a copy of it where it does not start on 16 bytes (the kernel
+    moves coefficient pairs as 16-byte vectors)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()

@@ -16,11 +16,14 @@ and the pass tables are B1's (``ops/ntt_cuda.py`` ``schedule``,
 ``ntt64_inv`` are the entries; the reference's names are aliases of them.
 
 A 64-bit row of 2^15 or 2^16 (256 or 512 KB) does not fit a block: n = 2^15
-and 2^16 take B1's split (``ops/ntt_cuda.py`` ``run_split``,
-``csrc/ntt_columns.cuh``), the phase split of B5-a/b/c: the columns kernel
-runs the k = log2 n - 14 stages that span sub-rows of 2^14 and the row
-kernel the rest, each (limb, sub-row) a virtual limb. The columns launches
-count under ``ntt64_fwd_cols`` / ``ntt64_inv_cols``.
+and 2^16 take the cluster kernel (``csrc/ntt_cluster.cuh``), one launch
+for the phase split of B5-a/b/c: a thread-block cluster of 2^k blocks holds
+a row in sub-rows of 2^``SUB_LOGN``, trades the k = log2 n - ``SUB_LOGN``
+stages that span sub-rows through distributed shared memory and runs the row
+body on each sub-row, each (limb, sub-row) a virtual limb with B1's split
+tables (``ops/ntt_cuda.py`` ``split_pass_tables``, ``column_tables``). Its
+launches count under ``ntt64_fwd_cluster`` / ``ntt64_inv_cluster``, the row
+kernel's under ``ntt64_fwd`` / ``ntt64_inv``.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 PyTorch twin, the radix-2 loops of ``lattisense_tpu/core/ntt.py`` on the
@@ -36,12 +39,12 @@ import torch
 
 from ..core import u64 as _u
 from . import cuda_build
-from .ntt_cuda import (check_stack, column_tables, intt_plain, ntt_plain, run_aligned, run_split,
-                       split_depth, split_pass_tables)
+from .ntt_cuda import (check_stack, column_tables, intt_plain, ntt_plain, run_aligned,
+                       split_pass_tables)
 
-#: launches of each direction since the last reset, counted in ``launch``; the
-#: split's columns kernel under ``*_cols``
-launches = {'ntt64_fwd': 0, 'ntt64_inv': 0, 'ntt64_fwd_cols': 0, 'ntt64_inv_cols': 0}
+#: launches of each kernel and direction since the last reset, counted in
+#: ``launch``: the row kernel (n <= 2^14) and the cluster kernel (2^15, 2^16)
+launches = {'ntt64_fwd': 0, 'ntt64_inv': 0, 'ntt64_fwd_cluster': 0, 'ntt64_inv_cluster': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,10 +52,19 @@ _SIGNATURES = {
     'ntt64_fwd_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt64_inv_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt64_blocks_per_sm': [_I, _I],
-    'ntt64_cols_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    'ntt64_cluster_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt64_cluster_fit': [_I, _I, _I],
 }
 ROW_MAX_LOGN = 14      # the row kernel's exchange buffer 2^14 · 8 B = 128 KB
-MAX_LOGN = 16          # the split: up to two columns stages, then rows of 2^14
+SUB_LOGN = 13          # the cluster kernel's sub-rows: 2^13 · 8 B = 64 KB a block
+MAX_LOGN = 16          # the cluster kernel: clusters of up to 2^(16 - SUB_LOGN) blocks
+
+
+def cluster_depth(logn: int) -> int:
+    """k: the stages the cluster kernel trades between the blocks of a
+    cluster at n = 2^logn (clusters of 2^k blocks over sub-rows of
+    2^SUB_LOGN); 0 where the row kernel holds a whole row."""
+    return 0 if logn <= ROW_MAX_LOGN else logn - SUB_LOGN
 
 
 # ---------------------------------------------------------------------------
@@ -84,14 +96,14 @@ def _tables(ring):
     per direction, and its per-row constants as int64 columns, cached on
     the ring: q, n^-1, 2^64 mod q for to-Montgomery, and n^-1·2^-64 mod q for
     an inverse with the from-Montgomery folded in. Rows are the limbs, or
-    above the row kernel's cap the split's virtual limbs (each limb's
-    constants repeated 2^k times; n^-1 is the full n's), with the columns
-    kernel's tables and primes (``cols_*``)."""
+    above the row kernel's cap the cluster kernel's virtual limbs (each
+    limb's constants repeated 2^k times; n^-1 is the full n's), with the
+    cross stages' column tables and the limbs' primes (``cols_*``)."""
     tabs = getattr(ring, '_b5_tables', None)
     if tabs is None:
         rs, dev = ring.rings, ring.device
         logn = ring.n.bit_length() - 1
-        k = split_depth(logn, ROW_MAX_LOGN)
+        k = cluster_depth(logn)
 
         def per_row(vals):
             return torch.tensor([_u.to_s64(v) for v in vals for _ in range(1 << k)],
@@ -151,14 +163,23 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
         fn = lib.ntt64_fwd_launch
         post, postsh = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
     what = f'ntt64 {"inverse" if inverse else "forward"}'
-    k = split_depth(logn, ROW_MAX_LOGN)
+    k = cluster_depth(logn)
     if k:
-        run_split(fn, lib.ntt64_cols_launch, x, y, ring, k, inverse, tabs, post, postsh, what)
-        launches['ntt64_inv_cols' if inverse else 'ntt64_fwd_cols'] += 1
+        with torch.cuda.device(x.device):
+            err = lib.ntt64_cluster_launch(
+                x.data_ptr(), y.data_ptr(), rows, len(ring.moduli), logn, logn - k, int(inverse),
+                tabs['inv' if inverse else 'fwd'].data_ptr(),
+                tabs['cols_inv' if inverse else 'cols_fwd'].data_ptr(), tabs['cols_q'].data_ptr(),
+                None if post is None else post.data_ptr(),
+                None if postsh is None else postsh.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'{what} cluster launch failed: cudaError_t {err}')
+        launches['ntt64_inv_cluster' if inverse else 'ntt64_fwd_cluster'] += 1
     else:
         run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
                     tabs['q'], post, postsh, what)
-    launches['ntt64_inv' if inverse else 'ntt64_fwd'] += 1
+        launches['ntt64_inv' if inverse else 'ntt64_fwd'] += 1
 
 
 def blocks_per_sm(logn: int, inverse: bool) -> int:
@@ -167,6 +188,17 @@ def blocks_per_sm(logn: int, inverse: bool) -> int:
     got = cuda_build.load('ntt64', _SIGNATURES).ntt64_blocks_per_sm(logn, int(inverse))
     if got < 0:
         raise RuntimeError(f'ntt64 occupancy query failed: cudaError_t {-got}')
+    return got
+
+
+def cluster_fit(logn: int, inverse: bool) -> int:
+    """Clusters of the cluster kernel at n = 2^logn (2^15 or 2^16) that the
+    current card runs at once, from ``cudaOccupancyMaxActiveClusters``;
+    raises where none fits."""
+    got = cuda_build.load('ntt64', _SIGNATURES).ntt64_cluster_fit(
+        logn, logn - cluster_depth(logn), int(inverse))
+    if got <= 0:
+        raise RuntimeError(f'ntt64 cluster occupancy query failed: cudaError_t {-got}')
     return got
 
 

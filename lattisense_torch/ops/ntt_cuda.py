@@ -36,15 +36,16 @@ loaded (inverse) in the transposed tile layout of ``perm_layout``, where
 position b·(n/128)+a holds standard-order element a·128+b. Each counts its
 launches under its own name. They take n up to 2^15.
 
-The split. A row of 2^16 32-bit words (B1) or of 2^15 and 2^16 64-bit words
-(B5) does not fit a block's shared memory. Such a transform runs in two
-launches (``csrc/ntt_columns.cuh``): the columns kernel runs the k stages
-whose butterflies span sub-rows of n/2^k, and the row kernel the rest, with
-each (limb, sub-row) a virtual limb of its own over tables re-indexed from
-the ring's (``split_indices``, ``split_pass_tables``); forward columns
-first, inverse rows first. The columns launches count under
-``ntt32_fwd_cols`` / ``ntt32_inv_cols``. ``tests/test_torch_ntt_split.py``
-walks the split on the CPU.
+The split. A row of 2^16 32-bit words does not fit a block's shared memory.
+Such a transform runs in two launches (``csrc/ntt_columns.cuh``): the
+columns kernel runs the k stages whose butterflies span sub-rows of n/2^k,
+and the row kernel the rest, with each (limb, sub-row) a virtual limb of its
+own over tables re-indexed from the ring's (``split_indices``,
+``split_pass_tables``); forward columns first, inverse rows first. The
+columns launches count under ``ntt32_fwd_cols`` / ``ntt32_inv_cols``.
+``tests/test_torch_ntt_split.py`` walks the split on the CPU. B5 uses the
+same tables for its rows of 2^15 and 2^16 64-bit words, in one launch of
+its cluster kernel (``ops/ntt64_cuda.py``).
 """
 
 import ctypes
@@ -423,7 +424,7 @@ def run_aligned(fn, x, y, rows, limbs, logn, tab, q, post, posts, what: str):
 
 
 def run_split(row_fn, cols_fn, x, y, ring, k: int, inverse: bool, tabs, post, posts, what: str):
-    """The split of B1 or B5 at depth k on contiguous CUDA stacks x -> y:
+    """The split of B1 at depth k on contiguous CUDA stacks x -> y:
     the columns kernel ``cols_fn`` and the row kernel ``row_fn`` over the
     virtual limbs (rows of 2^(log2 n - k)), meeting in device memory;
     forward columns first, inverse rows first. ``tabs`` holds the virtual

@@ -23,6 +23,10 @@ times:
   scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q) each
   alone and together, and the key switch's mod-up of all β digits
   (``bconv64_raw``), held against the plain twin, with each CUDA kernel's
+  device time;
+- B7's gadget inner product (``ksw_inner64``) at the u64 path's digits
+  (B, 2, 6, n) and at the u64 n=32768 path's (``create(32768)``, level 11:
+  (B, 4, 15, n)), with random keys, held against the plain twin, with its
   device time.
 
 Prints one JSON line ``{"fused_bench": {...}}`` with the times in ms, the
@@ -186,6 +190,27 @@ def main(argv=None) -> int:
     out['bconv64_raw_ms'] = timed(lambda: bconv_cuda.bconv64_raw(y, pre[4], rqp.q, rqp.pinv))
     out['bconv64_raw_kernels_ms'] = kernel_ms(
         lambda: bconv_cuda.bconv64_raw(y, pre[4], rqp.q, rqp.pinv))
+    del y, got
+
+    # B7 at both u64 paths' digits
+    from lattisense_torch.ops import ksw64_cuda
+    for n, level, tag in ((N, LEVEL64, 'ksw_inner64'), (2 * N, 11, 'ksw_inner64_32k')):
+        pn = BfvParams.create(n)
+        swn = BfvEngine(pn, dev).switcher
+        rqp, beta = swn.ring_qp(level), swn.beta(level)
+
+        def n_residues(moduli, lead, n=n):
+            x = torch.randint(0, 1 << 62, (*lead, len(moduli), n), generator=gen, device=dev)
+            return x % torch.tensor(moduli, device=dev).reshape(-1, 1)
+
+        key = KeySwitchKey(key_q=n_residues(pn.q, (beta, 2)), key_p=n_residues(pn.p, (beta, 2)))
+        d = n_residues(rqp.moduli, (B, beta))
+        got = ksw64_cuda.ksw_inner64(d, key, level, rqp)
+        out[f'{tag}_equal'] = torch.equal(got, ksw64_cuda.ksw_inner64_plain(d, key, level, rqp))
+        out[f'{tag}_shape'] = list(d.shape)
+        out[f'{tag}_ms'] = timed(lambda: ksw64_cuda.ksw_inner64(d, key, level, rqp))
+        out[f'{tag}_kernels_ms'] = kernel_ms(lambda: ksw64_cuda.ksw_inner64(d, key, level, rqp))
+        del d, got, key
     out['batch'], out['level'], out['limbs'], out['level64'] = B, LEVEL, L, LEVEL64
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60,

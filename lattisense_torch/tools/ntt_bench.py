@@ -10,11 +10,17 @@ repository on the same card, in turns (A, B, B, A). Times ``ntt32_fwd``,
 gives them: at the w32 main path (``create_tpu_param(16384)``, level 7) the
 forward on the 4 polynomials over q and over the aux basis and on the β
 digits over q∪p, the inverse on the 3 products over q and aux and the 2 key
-components over q∪p; the same at the u64 path (``create(16384)``, level 3).
-Every call of a word and direction is timed together, as ``chip_smoke.py``'s
-``kernels`` line does, and each output is held against the plain twin on
-the card. Prints one JSON line ``{"ntt_bench": {...}}`` with the times in
-ms, the equality flags, the root and the card's name and power limit.
+components over q∪p; the same at the u64 path (``create(16384)``, level 3)
+and at the u64 n=32768 path (``create(32768)``, level 11: B5 above its row
+kernel's cap, ``ntt64_32k_*``), with each CUDA kernel's device time there
+from ``torch.profiler`` (``ntt64_32k_*_kernels_ms``). Every call of a word
+and direction is timed together, as ``chip_smoke.py``'s ``kernels`` line
+does, and each output is held against the plain twin on the card. Then B5's
+row kernel at n = 2^13 and 2^14 on stacks of the same residues (the n=32768
+forward's 5 248 rows as 20 992 or 10 496 rows), with the time a butterfly
+(``b5_rows``): the rate of the row body at either sub-row size. Prints one
+JSON line ``{"ntt_bench": {...}}`` with the times in ms, the equality flags,
+the root and the card's name and power limit.
 """
 
 import argparse
@@ -25,6 +31,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 N = 16384
+N32K = 32768
 
 
 def main(argv=None) -> int:
@@ -44,7 +51,7 @@ def main(argv=None) -> int:
     if os.path.dirname(os.path.dirname(os.path.abspath(lattisense_torch.__file__))) != root:
         print(f'ntt_bench: lattisense_torch was not imported from {root}', file=sys.stderr)
         return 2
-    from lattisense_torch.core.modring import get_rns_ring
+    from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
     from lattisense_torch.ops import ntt64_cuda, ntt_cuda
     from lattisense_torch.params import BfvParams
     from lattisense_torch.schemes.bfv import BfvEngine
@@ -54,8 +61,26 @@ def main(argv=None) -> int:
     B = args.batch
 
     def stack(ring, lead):
-        x = torch.randint(0, 1 << 62, (*lead, len(ring.moduli), N), generator=gen, device=dev)
+        x = torch.randint(0, 1 << 62, (*lead, len(ring.moduli), ring.n), generator=gen,
+                          device=dev)
         return x % ring.q
+
+    def kernel_ms(fn, calls):
+        """Device ms per round of each CUDA kernel the calls launch."""
+        fn_all = lambda: [fn(x, r) for x, r in calls]
+        fn_all()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(args.iters):
+                fn_all()
+            torch.cuda.synchronize()
+        ms = {}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                key = ev.key.split('(')[0].replace('void ', '')[:80]
+                ms[key] = ms.get(key, 0.0) + ev.device_time_total / 1e3 / args.iters
+        return ms
 
     def timed(fn, calls):
         for _ in range(3):
@@ -92,6 +117,44 @@ def main(argv=None) -> int:
         out[f'{word}_inv_ms'] = timed(inv, icalls)
         out[f'{word}_rows'] = [sum(x.numel() // N for x, _ in c) for c in (fcalls, icalls)]
         del fcalls, icalls
+
+    # B5 at the u64 n=32768 path's stacks
+    eng = BfvEngine(BfvParams.create(N32K), dev)
+    bz, sw = eng.behz(11), eng.switcher
+    qp = sw.ring_qp(11)
+    fcalls = [(stack(r, lead), r) for r, lead in ((bz.ring_q, (B, 4)), (bz.ring_aux, (B, 4)),
+                                                  (qp, (B, sw.beta(11))))]
+    icalls = [(stack(r, lead), r) for r, lead in ((bz.ring_q, (B, 3)), (bz.ring_aux, (B, 3)),
+                                                  (qp, (B, 2)))]
+    f64, i64 = ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_inv
+    out['ntt64_32k_equal'] = (
+        all(torch.equal(f64(x, r), ntt64_cuda.ntt64_plain(x, r)) for x, r in fcalls)
+        and all(torch.equal(i64(x, r), ntt64_cuda.intt64_plain(x, r)) for x, r in icalls))
+    out['ntt64_32k_fwd_ms'] = timed(f64, fcalls)
+    out['ntt64_32k_inv_ms'] = timed(i64, icalls)
+    out['ntt64_32k_fwd_kernels_ms'] = kernel_ms(f64, fcalls)
+    out['ntt64_32k_inv_kernels_ms'] = kernel_ms(i64, icalls)
+    rows32k = sum(x.numel() // N32K for x, _ in fcalls)
+    out['ntt64_32k_rows'] = [rows32k, sum(x.numel() // N32K for x, _ in icalls)]
+    del fcalls, icalls
+
+    # B5's row kernel at 2^13 and 2^14 on the same residues
+    out['b5_rows'] = {}
+    for logn in (13, 14):
+        n = 1 << logn
+        chain = tuple(p for bits in (60, 59) for p in gen_ntt_primes(n, bits, 6))
+        ring = get_rns_ring(chain, n, dev, 64)
+        x = stack(ring, ((rows32k * N32K // n) // len(chain),))
+        rows = x.numel() // n
+        butterflies = rows * n // 2 * logn
+        entry = {'rows': rows, 'equal': (torch.equal(f64(x, ring), ntt64_cuda.ntt64_plain(x, ring))
+                                         and torch.equal(i64(x, ring),
+                                                         ntt64_cuda.intt64_plain(x, ring)))}
+        for d, fn in (('fwd', f64), ('inv', i64)):
+            entry[f'{d}_ms'] = timed(fn, [(x, ring)])
+            entry[f'{d}_ps_per_butterfly'] = entry[f'{d}_ms'] * 1e9 / butterflies
+        out['b5_rows'][f'n{n}'] = entry
+        del x
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]

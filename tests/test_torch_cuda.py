@@ -452,8 +452,9 @@ def chain64(n, count):
 @pytest.mark.parametrize('logn', range(1, 17))
 def test_b5_kernel_matches_plain(cuda, logn):
     """Every n B5 takes, L = 1 and L = 12, both epilogues of each direction,
-    and the reference's five names; at 2^15 and 2^16 through the split,
-    whose columns launches count apart."""
+    and the reference's five names; at 2^15 and 2^16 through the cluster
+    kernel, whose launches count under ``ntt64_*_cluster`` in place of the
+    row kernel's."""
     from lattisense_torch.ops import ntt64_cuda
     n = 1 << logn
     chain = tuple(p for bits in (61, 59, 57, 55) for p in gen_ntt_primes(n, bits, 3))
@@ -474,10 +475,10 @@ def test_b5_kernel_matches_plain(cuda, logn):
         assert torch.equal(im, x) and torch.equal(ia, x), (L, lead)
     inv = calls + len(row_cases(logn))
     split = logn > ntt64_cuda.ROW_MAX_LOGN
-    assert ntt64_cuda.launches == {'ntt64_fwd': before['ntt64_fwd'] + calls,
-                                   'ntt64_inv': before['ntt64_inv'] + inv,
-                                   'ntt64_fwd_cols': before['ntt64_fwd_cols'] + split * calls,
-                                   'ntt64_inv_cols': before['ntt64_inv_cols'] + split * inv}
+    assert ntt64_cuda.launches == {'ntt64_fwd': before['ntt64_fwd'] + (not split) * calls,
+                                   'ntt64_inv': before['ntt64_inv'] + (not split) * inv,
+                                   'ntt64_fwd_cluster': before['ntt64_fwd_cluster'] + split * calls,
+                                   'ntt64_inv_cluster': before['ntt64_inv_cluster'] + split * inv}
     for alias in (ntt64_cuda.ntt_fused64, ntt64_cuda.ntt_fused):
         assert torch.equal(alias(x, ring), f)
     for alias in (ntt64_cuda.intt_fused64, ntt64_cuda.intt_fused, ntt64_cuda.intt_fused_impl):
@@ -678,9 +679,10 @@ def test_split_refusals(cuda):
 
 def test_batched_u64_32k_card_matches_cpu(cuda):
     """mult_relin and rotate_col at BfvParams.create(32768), level 11 (the
-    chain's full width), B=1: B5 through the split (its columns launches
-    counted), B6 and B7 on the card against the port's plain path on the
-    CPU, and no 32-bit kernel."""
+    chain's full width), B=1: B5 through its cluster kernel (counted under
+    ``ntt64_*_cluster``, never its row kernel, and no columns route), B6 and
+    B7 on the card against the port's plain path on the CPU, and no 32-bit
+    kernel."""
     from lattisense_torch.ops import bconv_cuda, ksw64_cuda, ntt64_cuda
     level = 11
     params = BfvParams.create(32768)
@@ -696,10 +698,11 @@ def test_batched_u64_32k_card_matches_cpu(cuda):
     before = [dict(c) for c in counts]
     out = make_batched_step(ctx.engine, bfv_mult_relin, level)(a, b, keys)
     rot = make_batched_step(ctx.engine, make_rotate_step(elt), level, n_inputs=1)(a, keys)
-    for k in ntt64_cuda.launches:
+    for k in ('ntt64_fwd_cluster', 'ntt64_inv_cluster'):
         assert ntt64_cuda.launches[k] > before[0][k], k
-    assert ntt64_cuda.launches['ntt64_fwd_cols'] - before[0]['ntt64_fwd_cols'] == \
-        ntt64_cuda.launches['ntt64_fwd'] - before[0]['ntt64_fwd']
+    for k in ('ntt64_fwd', 'ntt64_inv'):
+        assert ntt64_cuda.launches[k] == before[0][k], k
+    assert not [k for k in ntt64_cuda.launches if k.endswith('_cols')]
     assert bconv_cuda.launches['bconv64_convert'] > before[1]['bconv64_convert']
     assert ksw64_cuda.launches['ksw_inner64'] == before[2]['ksw_inner64'] + 2
     assert ntt_cuda.launches == before[3]
@@ -713,3 +716,113 @@ def test_batched_u64_32k_card_matches_cpu(cuda):
     assert torch.equal(out.cpu(), want) and torch.equal(rot.cpu(), want_rot)
     assert np.array_equal(ctx.decrypt_decode(Ciphertext(data=out[0], level=level)),
                           (ma[0] * mb[0]) % params.t)
+
+
+# ---------------------------------------------------------------------------
+# B5's cluster kernel and B7 at the n=32768 path's shapes
+# ---------------------------------------------------------------------------
+
+def u64_32k_rings(cuda):
+    """The rings of the u64 n=32768 path: q and aux of create(32768)'s BEHZ
+    at level 11, and its key switch's Q_11 u P."""
+    eng = BfvEngine(BfvParams.create(32768), cuda)
+    bz, sw = eng.behz(11), eng.switcher
+    return bz.ring_q, bz.ring_aux, sw.ring_qp(11), sw.beta(11)
+
+
+@pytest.mark.parametrize('logn', [15, 16])
+def test_b5_cluster_matches_plain(cuda, logn):
+    """The cluster kernel against its twin on the card at the path's stacks
+    (n=2^15: the forward's (32,4,12|14|15,n), the inverse's (32,3,12|14,n)
+    and (32,2,15,n); n=2^16: (37,12,n)) and at an odd row count, both
+    directions, with and without to_mont / from_mont; one launch a call."""
+    from lattisense_torch.ops import ntt64_cuda
+    n = 1 << logn
+    if logn == 15:
+        rq, ra, rqp, beta = u64_32k_rings(cuda)
+        fwd = [(rq, (32, 4)), (ra, (32, 4)), (rqp, (32, beta)), (rq, (7,))]
+        inv = [(rq, (32, 3)), (ra, (32, 3)), (rqp, (32, 2)), (rqp, (3,))]
+    else:
+        ring = get_rns_ring([p for bits in (61, 60) for p in gen_ntt_primes(n, bits, 6)], n,
+                            cuda, 64)
+        fwd = inv = [(ring, (37,)), (get_rns_ring(ring.moduli[:3], n, cuda, 64), (7,))]
+    for calls, inverse in ((fwd, False), (inv, True)):
+        for i, (ring, lead) in enumerate(calls):
+            x = card_residues(ring, lead, 90 + i)
+            before = dict(ntt64_cuda.launches)
+            if inverse:
+                got = [ntt64_cuda.ntt64_inv(x, ring), ntt64_cuda.ntt64_inv(x, ring, from_mont=True)]
+                want = [ntt64_cuda.intt64_plain(x, ring), ntt64_cuda.intt64_plain(x, ring, True)]
+                name = 'ntt64_inv_cluster'
+            else:
+                got = [ntt64_cuda.ntt64_fwd(x, ring), ntt64_cuda.ntt64_fwd(x, ring, to_mont=True)]
+                want = [ntt64_cuda.ntt64_plain(x, ring), ntt64_cuda.ntt64_plain(x, ring, True)]
+                name = 'ntt64_fwd_cluster'
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (inverse, lead)
+            assert ntt64_cuda.launches == {**before, name: before[name] + 2}
+
+
+def test_b5_cluster_refusals(cuda):
+    """The cluster kernel refuses n = 2^17, a non-contiguous stack at its
+    launch (the wrappers hand it a contiguous copy), and, at its C entry, a
+    sub-row size other than the one it was built for; each before any
+    launch."""
+    from lattisense_torch.ops import cuda_build, ntt64_cuda
+    before = dict(ntt64_cuda.launches)
+    n17 = 1 << 17
+    r17 = get_rns_ring(gen_ntt_primes(n17, 59, 1), n17, cuda, 64)
+    for fn in (ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_inv):
+        with pytest.raises(ValueError):
+            fn(card_residues(r17, (1,), 1), r17)
+    n = 1 << 15
+    ring = get_rns_ring(gen_ntt_primes(n, 59, 2), n, cuda, 64)
+    x = card_residues(ring, (3,), 2)
+    strided = card_residues(ring, (4,), 4)[::2]        # every other (2, n) stack
+    y = torch.empty(strided.shape, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        ntt64_cuda.launch(strided, y, ring, inverse=False)
+    lib = cuda_build.load('ntt64', ntt64_cuda._SIGNATURES)
+    tabs = ntt64_cuda._tables(ring)
+    for logs in (ntt64_cuda.SUB_LOGN - 1, ntt64_cuda.SUB_LOGN + 1):
+        assert lib.ntt64_cluster_launch(
+            x.data_ptr(), x.data_ptr(), 3, 2, 15, logs, 0, tabs['fwd'].data_ptr(),
+            tabs['cols_fwd'].data_ptr(), tabs['cols_q'].data_ptr(), None, None,
+            torch.cuda.current_stream().cuda_stream) != 0
+    assert ntt64_cuda.launches == before
+    assert ntt64_cuda.cluster_fit(15, False) > 0 and ntt64_cuda.cluster_fit(16, True) > 0
+    # a non-contiguous stack through the public wrapper: a contiguous copy
+    xs = card_residues(ring, (2, 3), 3).transpose(0, 1)
+    assert torch.equal(ntt64_cuda.ntt64_fwd(xs, ring), ntt64_cuda.ntt64_plain(xs.contiguous(), ring))
+
+
+@pytest.mark.parametrize('n,nq,npp,level,G', [
+    (16384, 6, 2, 3, 32),         # the u64 path: digits (32, 2, 6, n)
+    (32768, 12, 3, 11, 32),       # the n=32768 path: digits (32, 4, 15, n)
+    (32768, 12, 3, 11, 7),        # G no multiple of the chunk
+    (2048, 9, 1, 8, 5),           # beta = 9: the run-time-beta instance
+])
+def test_b7_path_shapes_match_plain(cuda, n, nq, npp, level, G):
+    """B7 against its twin on the card at both path shapes, at a polynomial
+    count that is no multiple of its chunk, and past its compile-time betas;
+    the constants of the thread map agree with the library's."""
+    from lattisense_torch.ops import cuda_build, ksw64_cuda
+    if n >= 16384:
+        params = BfvParams.create(n)
+        q, p = tuple(params.q), tuple(params.p)
+    else:
+        q, p = tuple(gen_ntt_primes(n, 59, nq)), tuple(gen_ntt_primes(n, 61, npp))
+    sw_c, sw_g = KeySwitcher(q, p, n, CPU, 64), KeySwitcher(q, p, n, cuda, 64)
+    beta = sw_c.beta(level)
+    key_c = random_key(81, q, p, n)
+    key_g = card_key(key_c, cuda)
+    d = residues(82, sw_c.ring_qp(level).moduli, n, (G, beta))
+    before = ksw64_cuda.launches['ksw_inner64']
+    got = ksw64_cuda.ksw_inner64(d.to(cuda), key_g, level, sw_g.ring_qp(level))
+    torch.cuda.synchronize()
+    assert got.shape == (G, 2, level + 1 + len(p), n)
+    assert torch.equal(got.cpu(), ksw64_cuda.ksw_inner64_plain(d, key_c, level, sw_c.ring_qp(level)))
+    assert ksw64_cuda.launches['ksw_inner64'] == before + 1
+    lib = cuda_build.load('ksw64', ksw64_cuda._SIGNATURES)
+    assert (lib.ksw64_chunk(), lib.ksw64_threads()) == (ksw64_cuda.CHUNK, ksw64_cuda.THREADS)
+    assert (beta > lib.ksw64_max_beta()) == (nq == 9)

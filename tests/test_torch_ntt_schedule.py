@@ -108,12 +108,14 @@ def walk(x, ring, inverse, post=None):
     return walk_rows(x, ring.word_bits, ring.q.reshape(-1, 1), tab, inverse, post)
 
 
-def walk_rows(x, bits, q, tab, inverse, post=None):
+def walk_rows(x, bits, q, tab, inverse, post=None, lazy_end=False):
     """The row kernel on an int64 (..., L, n) stack of ``bits``-bit words,
     row l on prime q[l] ((L, 1)) and pass table tab[l] ((L, entries, 2)
     int64), step for step: the first window (from the staging buffer, or
     from device memory through an exchange), passes, exchanges, epilogue,
-    the output exchange and the store of the top window."""
+    the output exchange and the store of the top window. ``lazy_end`` (the
+    inverse) skips the epilogue: the last window's lazy values, in element
+    order, as the cluster kernel parks them."""
     lazy = Lazy32 if bits == 32 else Lazy64
     per_vector = 16 // (8 if bits == 32 else 16)
     n, L = x.shape[-1], x.shape[-2]
@@ -170,7 +172,9 @@ def walk_rows(x, bits, q, tab, inverse, post=None):
             a = exchange(a, lo, order[step + 1][0])
     assert off == tab.shape[1]
     qq = q.reshape(L, 1, 1)
-    if post is None:
+    if lazy_end:
+        assert inverse
+    elif post is None:
         a = lazy.canon(a, qq)
     else:
         a = lazy.canon(lazy.shoup(a, post[0].reshape(L, 1, 1), post[1].reshape(L, 1, 1), qq), qq)
@@ -306,7 +310,9 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     loaded."""
     from lattisense_torch.ops import cuda_build
     assert [p.rsplit('/', 1)[1] for p in cuda_build.sources_of('ntt64')] == \
-        ['ntt64.cu', 'ntt_passes.cuh', 'ntt_columns.cuh']
+        ['ntt64.cu', 'ntt_passes.cuh', 'ntt_cluster.cuh']
+    assert [p.rsplit('/', 1)[1] for p in cuda_build.sources_of('ntt32')] == \
+        ['ntt32.cu', 'ntt_passes.cuh', 'ntt_columns.cuh']
     (tmp_path / 'k.cu').write_text('#include "a.cuh"\nint k;\n')
     (tmp_path / 'a.cuh').write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / 'b.cuh').write_text('int b = 1;\n')

@@ -99,17 +99,23 @@ def wrapper_tables(ring):
             for key, t in tabs.items()}
 
 
-def row_cap(bits):
-    return ntt_cuda.ROW_MAX_LOGN if bits == 32 else ntt64_cuda.ROW_MAX_LOGN
+def depth(bits, logn):
+    """The split depth of the wrapper's tables: B1's columns stages, or the
+    cross stages of B5's cluster kernel (whose tables are the same split
+    tables at its own depth)."""
+    if bits == 32:
+        return ntt_cuda.split_depth(logn, ntt_cuda.ROW_MAX_LOGN)
+    return ntt64_cuda.cluster_depth(logn)
 
 
 @pytest.mark.parametrize('bits,logn', [(32, 16), (64, 15), (64, 16)])
 def test_split_walk_matches_reference(bits, logn):
-    """The split the wrappers launch (B1 at 2^16: k = 1; B5 at 2^15: k = 1,
-    at 2^16: k = 2) with the wrapper's own tables, both directions, with and
-    without the epilogues, bit for bit against the reference."""
+    """The split at the wrappers' depths (B1 at 2^16: k = 1; B5's cluster
+    kernel at 2^15 and 2^16: k = log2 n - SUB_LOGN) with the wrapper's own
+    tables, both directions, with and without the epilogues, bit for bit
+    against the reference."""
     x, ref, ring = case(bits, logn, (), count=2)
-    k = logn - row_cap(bits)
+    k = depth(bits, logn)
     tabs = wrapper_tables(ring)
     assert tabs['fwd'].shape[0] == tabs['q'].shape[0] == 2 << k
     assert torch.equal(tabs['cols_q'].reshape(-1, 1), ring.q)
@@ -165,7 +171,9 @@ def test_split_indices_hold_each_twiddle_once(logn):
 
 
 def test_split_depths_of_the_wrappers():
-    """B1 splits at 2^16 only, B5 at 2^15 and 2^16; neither above."""
-    assert [ntt_cuda.split_depth(b, ntt_cuda.ROW_MAX_LOGN) for b in (14, 15, 16)] == [0, 0, 1]
-    assert [ntt_cuda.split_depth(b, ntt64_cuda.ROW_MAX_LOGN) for b in (14, 15, 16)] == [0, 1, 2]
+    """B1 splits at 2^16 only, B5 at 2^15 and 2^16 (its cluster kernel, over
+    sub-rows of 2^SUB_LOGN); neither above."""
+    assert [depth(32, b) for b in (14, 15, 16)] == [0, 0, 1]
+    sub = ntt64_cuda.SUB_LOGN
+    assert [depth(64, b) for b in (14, 15, 16)] == [0, 15 - sub, 16 - sub]
     assert ntt_cuda.MAX_LOGN == ntt64_cuda.MAX_LOGN == 16
