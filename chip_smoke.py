@@ -50,15 +50,31 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1 entry.
 9. B5 (clusters of 8) and B1 (its split) at n=2^16 (a card-test shape, on
    no path) against their twins.
+10. Task paths: the compiled-task runtime (``runtime/task.py``) on the task
+   directories committed under ``lattisense_torch/runtime/tasks/``.
+   ``task_path`` (after 4) runs the 32-``mult_relin`` task on the main
+   path's context and ciphertexts: eager (the per-op plan) and the captured
+   CUDA graph of the fused plan must both equal ``main_path``'s batched step
+   bit for bit and decrypt to a·b mod t; the eager run must launch B2, B3
+   and B4 and no B1 entry. ``task_mix_path`` (w32, level 7, after it) and
+   ``task_mix64_path`` (u64, level 3, after 6) run the op mix (every BFV
+   executor branch): every output of the eager run equals the port's CPU
+   run of the same task bit for bit and decrypts to its NumPy plaintext, the
+   replay equals eager, and the eager run launches B1 (w32) or B5, B6 and
+   B7 (u64). Each prints ms per run (the runtime's ``duration_ns``, which
+   ends in a synchronize) eager and replayed, and the device's idle share
+   of each (busy time from ``torch.profiler``).
 
-Prints a line for each path (``main_path``, ``rotate_path``, ``u64_path``,
-``u64_rotate_path``, ``u64_32k_path``, ``u64_32k_rotate_path``,
-``w32_32k_path``), a ``{"kernels": [...]}`` line, the card's name and power
+Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
+``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
+``u64_32k_path``, ``u64_32k_rotate_path``, ``w32_32k_path``), a
+``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi reports them, and as its last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; without a CUDA
 card, or without the package beside it, it exits 2 and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -81,6 +97,7 @@ N32K = 32768
 LEVEL_U32K = 11        # create(32768): all 12 q limbs
 LEVEL_W32K = 21        # create_tpu_param(32768): all 22 q limbs
 ITERS_32K = 5          # the n=32768 steps and the plain twins at the large shapes
+TASK_ITERS = 5         # timed runs of a task, eager and replayed
 N64K = 1 << 16
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
@@ -320,6 +337,34 @@ def device_ms(torch, fn, per_call: int, parts: dict, reps: int = 5) -> dict:
     return {**out, 'traced': traced, 'ran': reps * per_call}
 
 
+def flat_outputs(out: dict) -> list:
+    """A task's outputs in output-id order, list outputs flattened."""
+    def flat(v):
+        return [e for x in v for e in flat(x)] if isinstance(v, list) else [v]
+    return [v for k in sorted(out) for v in flat(out[k])]
+
+
+def outputs_equal(torch, a: dict, b: dict) -> bool:
+    fa, fb = flat_outputs(a), flat_outputs(b)
+    return len(fa) == len(fb) and all(
+        torch.equal(x.data.cpu(), y.data.cpu()) and (x.level, x.is_ntt, x.is_mform)
+        == (y.level, y.is_ntt, y.is_mform) for x, y in zip(fa, fb))
+
+
+def busy_ms(torch, fn) -> float | None:
+    """Device time of one call of ``fn`` (every kernel and copy on the card)
+    from torch.profiler, after a warm-up call; None if it traced none."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us else None
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -340,7 +385,7 @@ def main() -> int:
     from lattisense_torch.params import BfvParams
     from lattisense_torch.parallel.batch import (bfv_mult_relin, key_tree, make_batched_step,
                                                  make_rotate_step)
-    from lattisense_torch.runtime import BfvContext
+    from lattisense_torch.runtime import BfvContext, FheTask, tasks
     from lattisense_torch.schemes.bfv import BfvEngine
     from lattisense_torch.schemes.galois import galois_elt_col
     from lattisense_torch.schemes.types import Ciphertext, KeySwitchKey
@@ -363,7 +408,7 @@ def main() -> int:
     reports = cuda_build.build_all()
     build_s = time.perf_counter() - t0
     gpu = nvidia_smi()
-    name, power = (s.strip() for s in gpu.split(',', 1))
+    name_gpu, power = (s.strip() for s in gpu.split(',', 1))
     dev = torch.device('cuda', torch.cuda.current_device())
     os.makedirs(os.path.join(cuda_build.BUILD_DIR, 'ptxas'), exist_ok=True)
     for lib, log in reports.items():
@@ -806,10 +851,93 @@ def main() -> int:
             'correct': correct, 'bit_exact_vs_plain': bit_exact,
             'ms_per_step': step_ms, 'ops_per_s': BATCH * 1e3 / step_ms,
             'launches_per_step': launches, 'peak_mem_bytes': peak_mem,
-            'encrypt_s': encrypt_s, 'gpu': name, 'power_limit': power}}), flush=True)
+            'encrypt_s': encrypt_s, 'gpu': name_gpu, 'power_limit': power}}), flush=True)
         if not (correct and bit_exact):
             raise AssertionError(f'{label} correct={correct} bit_exact_vs_plain={bit_exact}')
-        return launches
+        return {'launches': launches, 'args': args, 'out': out, 'ms_per_step': step_ms}
+
+    def cpu_context(c):
+        """A CPU context holding c's keys."""
+        twin = BfvContext.from_arrays(c.params, c.sk.coeffs, c.pk.data.cpu(), c.rlk.key_q.cpu(),
+                                      c.rlk.key_p.cpu(), device='cpu')
+        for e, k in c.glk.keys.items():
+            twin.add_galois_key_arrays(e, k.key_q.cpu(), k.key_p.cpu())
+        return twin
+
+    def on_cpu(v):
+        return dataclasses.replace(v, data=v.data.cpu())
+
+    def run_task(label, c, name, online, offline, must_launch, must_not_launch):
+        """The committed task ``name`` on context c, eager and as a graph
+        replay: a warm-up eager run (the task engine's constants), one eager
+        run between a reset and a read of every count, the graph's warm-up
+        and capture (``compile``), one replay that must equal eager bit for
+        bit, the runtime's ms per run of each, and each one's idle share of
+        the device; → (eager outputs, the line's entries)."""
+        d = tasks.task_dir(name)
+        eager, jit = FheTask(d, mode='eager'), FheTask(d, mode='jit')
+        for t in (eager, jit):
+            t.preload(c, offline)
+        eager.run(c, online)
+        torch.cuda.synchronize()
+        reset_counts()
+        out_e, _ = eager.run(c, online)
+        launches = read_counts()
+        missing = [k for k in must_launch if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f'the eager {label} launched no {missing}')
+        stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
+        if stray:
+            raise AssertionError(f'the eager {label} launched {stray}')
+        t1 = time.perf_counter()
+        jit.compile(c, online)
+        compile_s = time.perf_counter() - t1
+        out_j, _ = jit.run(c, online)
+        if not outputs_equal(torch, out_j, out_e):
+            raise AssertionError(f'{label}: the graph replay differs from the eager run')
+        ms = {}
+        for mode, t in (('eager', eager), ('replay', jit)):
+            ms[mode] = sum(t.run(c, online)[1] for _ in range(TASK_ITERS)) / TASK_ITERS / 1e6
+        busy = {mode: busy_ms(torch, lambda t=t: t.run(c, online))
+                for mode, t in (('eager', eager), ('replay', jit))}
+        return out_e, {
+            'task': name, 'compute_nodes': len(eager.mag['compute']),
+            'plan_steps': {'eager': len(eager.plan), 'jit': len(jit.plan)},
+            'eager_ms_per_run': ms['eager'], 'replay_ms_per_run': ms['replay'],
+            'eager_busy_ms': busy['eager'], 'replay_busy_ms': busy['replay'],
+            'eager_idle_share': None if busy['eager'] is None else 1 - busy['eager'] / ms['eager'],
+            'replay_idle_share': (None if busy['replay'] is None
+                                  else 1 - busy['replay'] / ms['replay']),
+            'compile_s': compile_s, 'replay_equals_eager': True, 'launches_eager': launches,
+            'gpu': name_gpu, 'power_limit': power}
+
+    def run_mix(label, c, level, must_launch, must_not_launch, name):
+        """The op-mix task on context c at ``level``: every output of the eager
+        run equals the port's CPU run bit for bit and decrypts to its NumPy
+        plaintext; the line's entries."""
+        with open(os.path.join(tasks.task_dir(name), 'task_signature.json')) as f:
+            c.gen_galois_keys_for_elements([int(e) for e in json.load(f)['key']['glk']])
+        msgs = tasks.mix_messages(c.params.t, c.params.n, SEED)
+        online, offline = tasks.mix_arguments(c, level, msgs)
+        out_e, entry = run_task(label, c, name, online, offline, must_launch, must_not_launch)
+        twin = cpu_context(c)
+        cpu_task = FheTask(tasks.task_dir(name), mode='eager', device='cpu')
+        cpu_task.preload(twin, {k: on_cpu(v) for k, v in offline.items()})
+        t1 = time.perf_counter()
+        out_c, _ = cpu_task.run(twin, {k: on_cpu(v) for k, v in online.items()})
+        cpu_s = time.perf_counter() - t1
+        bit_exact = outputs_equal(torch, out_e, out_c)
+        expected = tasks.mix_expected(msgs, c.params.t)
+        wrong = [k for k in tasks.MIX_OUTPUTS
+                 for v, m in zip(out_e[k] if isinstance(out_e[k], list) else [out_e[k]],
+                                 expected[k] if isinstance(expected[k], list) else [expected[k]])
+                 if not np.array_equal(c.decrypt_decode(tasks.coefficient_form(c.engine, v)), m)]
+        print(json.dumps({label: {
+            **entry, 'n': c.params.n, 'level': level, 'word_bits': c.params.word_bits,
+            'outputs': len(flat_outputs(out_e)), 'correct': not wrong,
+            'bit_exact_vs_cpu': bit_exact, 'cpu_run_s': cpu_s}}), flush=True)
+        if wrong or not bit_exact:
+            raise AssertionError(f'{label}: wrong outputs {wrong}, bit_exact_vs_cpu={bit_exact}')
 
     path_launches = {}
     # no path at n=16384 runs B1's split or B5's cluster kernel; the w32
@@ -819,12 +947,13 @@ def main() -> int:
         raise AssertionError('B5 still counts a columns route')
     no_b1 = ['ntt32_fwd', 'ntt32_inv', 'ksw32_split_fwd', 'ksw32_split_inv'] + split_cols
     msgs = rng.integers(0, params.t, (2 * BATCH, N))
-    path_launches['main_path'] = run_path(
+    main = run_path(
         'main_path', ctx, eng_c, LEVEL, bfv_mult_relin, 2, key_tree(ctx), {'rlk': rlk_c}, msgs,
         lambda i: (msgs[i] * msgs[BATCH + i]) % params.t,
         [k for k, v in kernels.items() if v['path'] == 'main_path'], no_b1,
         {'op': 'mult_relin', 'params': 'BfvParams.create_tpu_param(16384)', 'word_bits': 32,
          'aux_limbs': T, 'alpha': alpha, 'beta': beta, 'keygen_s': keygen_s})
+    path_launches['main_path'] = main['launches']
 
     elt = galois_elt_col(1, N)
     t1 = time.perf_counter()
@@ -841,6 +970,31 @@ def main() -> int:
              lambda i: rolled(msgs[i]), ['ksw_switch32'], no_b1,
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
               'galois_keygen_s': galois_keygen_s})
+
+    # 10. the 32-mult_relin task on the main path's context and ciphertexts
+    a_data, b_data = main['args']
+    online = tasks.mult_relin_arguments(
+        [Ciphertext(data=a_data[i], level=LEVEL) for i in range(BATCH)],
+        [Ciphertext(data=b_data[i], level=LEVEL) for i in range(BATCH)])
+    out_t, entry = run_task('task_path', ctx, tasks.MULT_RELIN, online, {},
+                            ['behz_prep32', 'ksw_switch32', 'behz_finish32'], no_b1)
+    if entry['plan_steps']['jit'] != 2:
+        raise AssertionError(f"task_path: the fused plan has {entry['plan_steps']['jit']} steps")
+    zs = [out_t[f'z{k}'] for k in range(BATCH)]
+    equal_main = all(torch.equal(z.data, main['out'][k]) for k, z in enumerate(zs))
+    correct = all(np.array_equal(ctx.decrypt_decode(z), (msgs[k] * msgs[BATCH + k]) % params.t)
+                  for k, z in enumerate(zs))
+    print(json.dumps({'task_path': {
+        **entry, 'n': N, 'level': LEVEL, 'word_bits': 32, 'batch': BATCH,
+        'correct': correct, 'bit_exact_vs_main_path': equal_main,
+        'eager_ops_per_s': BATCH * 1e3 / entry['eager_ms_per_run'],
+        'replay_ops_per_s': BATCH * 1e3 / entry['replay_ms_per_run'],
+        'main_path_ms_per_step': main['ms_per_step']}}), flush=True)
+    if not (correct and equal_main):
+        raise AssertionError(f'task_path correct={correct} bit_exact_vs_main_path={equal_main}')
+    del main, online, out_t, zs
+    run_mix('task_mix_path', ctx, LEVEL, ['ntt32_fwd', 'ntt32_inv', 'behz_prep32', 'ksw_switch32',
+                                          'behz_finish32'], u64_kernel_counts, tasks.MIX_W32)
     del ctx, rkeys
     torch.cuda.empty_cache()
 
@@ -851,7 +1005,7 @@ def main() -> int:
         {'rlk': rlk64_c}, msgs64, lambda i: (msgs64[i] * msgs64[BATCH + i]) % params64.t,
         u64_kernels, w32_kernels + split_cols,
         {'op': 'mult_relin', 'params': 'BfvParams.create(16384)', 'word_bits': 64,
-         'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})
+         'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})['launches']
 
     t1 = time.perf_counter()
     ctx64.gen_galois_keys_for_elements([elt])
@@ -863,6 +1017,8 @@ def main() -> int:
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
               'params': 'BfvParams.create(16384)', 'word_bits': 64,
               'galois_keygen_s': galois_keygen64_s})
+    run_mix('task_mix64_path', ctx64, LEVEL64, u64_kernels, w32_kernels + split_cols,
+            tasks.MIX_U64)
 
     del ctx64, rkeys64
     torch.cuda.empty_cache()
@@ -1010,7 +1166,7 @@ def main() -> int:
         u32k_kernels, no_u32k,
         {'op': 'mult_relin', 'params': 'BfvParams.create(32768)', 'word_bits': 64,
          'aux_limbs': T_u, 'alpha': alpha_u, 'beta': beta_u, 'keygen_s': keygen_u_s},
-        iters=ITERS_32K)
+        iters=ITERS_32K)['launches']
     elt_u = galois_elt_col(1, N32K)
     t1 = time.perf_counter()
     ctx_u.gen_galois_keys_for_elements([elt_u])
@@ -1080,7 +1236,7 @@ def main() -> int:
         {'op': 'mult_relin', 'params': 'BfvParams.create_tpu_param(32768)', 'word_bits': 32,
          'aux_limbs': T_w, 'alpha': alpha_w, 'beta': beta_w,
          'ksw_route': ksw_cuda.switch_route(N32K), 'keygen_s': keygen_w_s},
-        iters=ITERS_32K)
+        iters=ITERS_32K)['launches']
     del ctx_w
     torch.cuda.empty_cache()
 

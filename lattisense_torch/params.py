@@ -1,11 +1,12 @@
-"""BFV parameter sets for both machine words.
+"""FHE parameter sets (BFV, and CKKS as a parameter class) for both words.
 
 The canonical table ``parameter.json`` (a byte-identical copy of
 ``lattisense_tpu/parameter.json``) gives the u64 chains (``BfvParams.create``,
-primes up to 61 bits, ``word_bits=64``); the runtime also re-cuts their logQP
-budgets into 31-bit NTT primes (``BfvParams.create_tpu_param``,
-``word_bits=32``) and derives the auxiliary BEHZ basis for multiplication at
-either word (``bfv_aux_basis``).
+``CkksParams.create``, primes up to 61 bits, ``word_bits=64``); the runtime
+also re-cuts their logQP budgets into 31-bit NTT primes
+(``create_tpu_param``, ``word_bits=32``), derives the auxiliary BEHZ basis
+for multiplication at either word (``bfv_aux_basis``) and rebuilds the
+parameters of a compiled task (``params_from_task_json``).
 """
 
 import functools
@@ -33,17 +34,28 @@ def _recut31_capped(log_q: int, log_p: int) -> tuple[int, int]:
     return total - npr, npr
 
 
-class BfvParams:
-    """BFV parameters: ring degree n, plaintext modulus t, q chain, special
-    primes p, and the machine word: 64 (all primes < 2^62; the default, as in
-    the reference) or ``word_bits=32`` (all primes < 2^31)."""
+def _recut31_primes(n: int, entry: dict) -> tuple[list[int], list[int]]:
+    """The (q, p) 31-bit chains of a table entry's logQP budget."""
+    from .core.modring import gen_ntt_primes
+    nq, npr = _recut31_capped(sum(int(x).bit_length() for x in entry['q']),
+                              sum(int(x).bit_length() for x in entry['p']))
+    primes = gen_ntt_primes(n, 31, nq + npr)
+    return primes[:nq], primes[nq:]
 
-    def __init__(self, n: int, t: int, q: list[int], p: list[int],
-                 word_bits: int = 64):
+
+class FheParams:
+    """The parameter base of both schemes: ring degree n (a power of two),
+    the q chain, the special primes p, and the machine word: 64 (all primes
+    < 2^62; the default, as in the reference) or ``word_bits=32`` (all
+    primes < 2^31)."""
+
+    algo = ''
+
+    def __init__(self, n: int, q: list[int], p: list[int], word_bits: int = 64):
         self.n = int(n)
         if self.n < 2 or self.n & (self.n - 1):
             raise ValueError(f'n must be a power of two, got {n}')
-        self.t = int(t)
+        self.logn = self.n.bit_length() - 1
         self.q = [int(x) for x in q]
         self.p = [int(x) for x in p]
         self.max_level = len(self.q) - 1
@@ -53,6 +65,37 @@ class BfvParams:
         limit = 31 if self.word_bits == 32 else 62
         if any(x >= (1 << limit) for x in self.q + self.p):
             raise ValueError(f'word_bits={self.word_bits} requires all primes < 2^{limit}')
+
+    @property
+    def max_sp_level(self) -> int:
+        return len(self.p) - 1
+
+    def q_prod(self, level: int) -> int:
+        return math.prod(self.q[:level + 1])
+
+    @property
+    def p_prod(self) -> int:
+        return math.prod(self.p)
+
+    def level_of(self, n_limbs: int) -> int:
+        return n_limbs - 1
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.__dict__ == other.__dict__
+
+    def __hash__(self):
+        return hash((self.algo, self.n, tuple(self.q), tuple(self.p), self.word_bits))
+
+
+class BfvParams(FheParams):
+    """BFV parameters: the ``FheParams`` fields and the plaintext modulus t."""
+
+    algo = 'BFV'
+
+    def __init__(self, n: int, t: int, q: list[int], p: list[int],
+                 word_bits: int = 64):
+        super().__init__(n, q, p, word_bits)
+        self.t = int(t)
 
     @classmethod
     def create_custom(cls, n: int, t: int, q: list[int], p: list[int],
@@ -71,20 +114,97 @@ class BfvParams:
         """The 31-bit profile: the default chain's logQP budget re-cut into
         31-bit NTT primes (limb counts floored into the budget), word_bits=32.
         The same primes as ``lattisense_tpu.params.BfvParams.create_tpu_param``."""
-        from .core.modring import gen_ntt_primes
         entry = _load_table()['BFV'][str(n)]
-        nq, npr = _recut31_capped(
-            sum(int(x).bit_length() for x in entry['q']),
-            sum(int(x).bit_length() for x in entry['p']))
-        primes = gen_ntt_primes(n, 31, nq + npr)
-        return cls(n, t if t is not None else entry['t'], primes[:nq], primes[nq:], word_bits=32)
+        q, p = _recut31_primes(n, entry)
+        return cls(n, t if t is not None else entry['t'], q, p, word_bits=32)
 
-    def q_prod(self, level: int) -> int:
-        return math.prod(self.q[:level + 1])
+    @classmethod
+    def create_tpu_custom(cls, n: int, t: int, log_q: int, log_p: int) -> 'BfvParams':
+        """A 31-bit chain meeting the requested budgets as minimums (limb
+        counts are ceiled, so logQP may pass log_q + log_p by up to 60 bits);
+        warns when that passes the ring's 128-bit table row."""
+        from .core.modring import gen_ntt_primes
+        from .utils.security import check_security
+        nq = -(-log_q // 31)
+        npr = max(1, -(-log_p // 31))
+        primes = gen_ntt_primes(n, 31, nq + npr)
+        out = cls(n, t, primes[:nq], primes[nq:], word_bits=32)
+        check_security(out, stacklevel=3)
+        return out
 
     def delta(self, level: int) -> int:
         """Δ_ℓ = floor(Q_ℓ / t) — BFV plaintext scaling at level ℓ."""
         return self.q_prod(level) // self.t
+
+
+class CkksParams(FheParams):
+    """CKKS parameters: the ``FheParams`` fields, the slot count (a power of
+    two in (0, n/2]) and the default scale (the last q prime when not
+    given). A parameter class only: the port has no CKKS engine yet."""
+
+    algo = 'CKKS'
+
+    def __init__(self, n: int, q: list[int], p: list[int], slots: int | None = None,
+                 scale: float = 0.0, word_bits: int = 64):
+        super().__init__(n, q, p, word_bits)
+        self.slots = int(slots) if slots else n // 2
+        if self.slots & (self.slots - 1) or not (0 < self.slots <= n // 2):
+            raise ValueError(f'slots must be a power of two in (0, n/2], got {slots}')
+        self.scale = float(scale) if scale else float(q[-1])
+
+    @classmethod
+    def create(cls, n: int) -> 'CkksParams':
+        entry = _load_table()['CKKS'][str(n)]
+        return cls(n, entry['q'], entry['p'], entry['slots'], entry['scale'])
+
+    @classmethod
+    def create_custom(cls, n: int, q: list[int], p: list[int], slots: int | None = None,
+                      scale: float = 0.0, word_bits: int = 64) -> 'CkksParams':
+        return cls(n, q, p, slots, scale, word_bits)
+
+    @classmethod
+    def create_tpu_param(cls, n: int, slots: int | None = None) -> 'CkksParams':
+        """The 31-bit CKKS profile: the default chain's logQP budget re-cut
+        into 31-bit NTT primes (limb counts floored into the budget),
+        word_bits=32, scale 2^30."""
+        entry = _load_table()['CKKS'][str(n)]
+        q, p = _recut31_primes(n, entry)
+        return cls(n, q, p, slots or entry.get('slots'), float(1 << 30), word_bits=32)
+
+    @classmethod
+    def create_tpu_btp_param(cls, n: int = 65536, slots: int | None = None) -> 'CkksParams':
+        """The 31-bit bootstrap profile: 48 q and 4 p limbs (logQP about
+        1612 at n=2^16), word_bits=32, scale 2^30; warns if the chain passes
+        the ring's 128-bit table row."""
+        from .core.modring import gen_ntt_primes
+        from .utils.security import check_security
+        nq, npr = 48, 4
+        primes = gen_ntt_primes(n, 31, nq + npr)
+        out = cls(n, primes[:nq], primes[nq:], slots, float(1 << 30), word_bits=32)
+        check_security(out, stacklevel=3)
+        return out
+
+    def set_log_slots(self, log_slots: int):
+        self.slots = 1 << log_slots
+
+    @property
+    def log_slots(self) -> int:
+        return self.slots.bit_length() - 1
+
+
+def params_from_task_json(parameter: dict, word_bits: int = 64) -> FheParams:
+    """Runtime parameters from a ``mega_ag.json`` 'parameter' blob: BFV when
+    it holds ``t``, else CKKS, with a bootstrap task's ``btp_*`` fields
+    attached as ``params.btp``. The blob is word-agnostic: ``word_bits`` is
+    the word the executing engine uses."""
+    if 't' in parameter:
+        return BfvParams(parameter['n'], parameter['t'], parameter['q'], parameter['p'],
+                         word_bits=word_bits)
+    p = CkksParams(parameter['n'], parameter['q'], parameter['p'], parameter.get('slots'),
+                   parameter.get('scale', 0.0), word_bits=word_bits)
+    if 'btp_cts_depth' in parameter:
+        p.btp = {k: v for k, v in parameter.items() if k.startswith('btp_')}
+    return p
 
 
 @functools.lru_cache(maxsize=None)

@@ -132,6 +132,15 @@ class BfvContext:
         self._check_message(values, level)
         return self.engine.encode(values, level)
 
+    def encode_ringt(self, values):
+        self._check_message(values, None)
+        return self.engine.encode_ringt(values)
+
+    def encode_mul(self, values, level=None):
+        level = self.params.max_level if level is None else level
+        self._check_message(values, level)
+        return self.engine.encode_mul(values, level)
+
     def encrypt(self, pt):
         return self.engine.encrypt_asymmetric(self.rng, self.pk, pt)
 

@@ -1,0 +1,632 @@
+"""Compiled-task runtime: ``mega_ag.json`` → the port's BFV engine on one device.
+
+Port of ``lattisense_tpu/runtime/task.py`` for BFV, after the reference
+SDK's ``FheTaskGpu`` (cxx_sdk_v2/cxx_fhe_task.h:132). A task directory holds
+the graph (``mega_ag.json``) and its argument signature
+(``task_signature.json``); ``FheTaskGpu(task_dir).run(context, inputs)``
+checks the arguments against the signature, runs the graph and returns
+``(outputs, duration_ns)``.
+
+The graph is ordered once at load time into topological waves, and every
+compute node is bound to an executor closure over the engine then. Two modes:
+
+- ``mode='eager'`` runs one executor per compute node, in order;
+- ``mode='jit'`` runs the fused plan: structurally identical nodes of one
+  wave (the same op, attributes and input metadata) become one engine call
+  on their stacked inputs, as ``parallel/batch.py`` stacks a batch. On a
+  CUDA device the fused plan is captured once per (input shapes and dtypes,
+  key tensors) as one ``torch.cuda.CUDAGraph``, after a warm-up run on a
+  side stream, and each run replays it: the counterpart of the reference's
+  one jitted XLA program per task. The CPU has no CUDA graph, so there the
+  fused plan runs eagerly.
+
+The kernels are the engine's: the task runtime launches nothing itself, and
+lets every error of a kernel propagate. Not ported here: CKKS tasks,
+bootstrap nodes, ``mode='partitioned'``, ``mesh`` and the ``LATTISENSE_DEV``
+memory monitor; each raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+import dataclasses
+import json
+import logging
+import os
+import time
+
+import torch
+
+from .. import resolve_device
+from ..params import params_from_task_json
+from ..schemes.bfv import BfvEngine
+from ..schemes.types import (Ciphertext, DecomposedCiphertext, KeySwitchKey, Plaintext,
+                             PlaintextMul, PlaintextRingt)
+from . import check_sig
+
+_KEY_TYPES = ('rlk', 'glk', 'swk')
+_log = logging.getLogger(__name__)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f'{what} is not ported to lattisense_torch yet '
+                               f'(ROADMAP.md §1 item {item})')
+
+
+class _Node:
+    __slots__ = ('index', 'id', 'type', 'level', 'degree', 'is_ntt', 'is_mform',
+                 'sp_level', 'galois_element', 'is_custom', 'attributes',
+                 'sp_decomped', 'is_compressed')
+
+    def __init__(self, index: int, d: dict):
+        self.index = index
+        self.id = d['id']
+        self.type = d['type']
+        self.level = d.get('level', -1)
+        self.degree = d.get('degree', -1)
+        self.is_ntt = d.get('is_ntt', False)
+        self.is_mform = d.get('is_mform', False)
+        self.sp_level = d.get('sp_level')
+        self.galois_element = d.get('galois_element')
+        self.is_custom = d.get('is_custom', False)
+        self.attributes = d.get('attributes', {})
+        self.sp_decomped = d.get('poly1_rns_sp_decomped', False)
+        self.is_compressed = d.get('is_compressed', False)
+
+
+def _wrap_input(node: _Node, data):
+    """Tensor → typed carrier from the data node's static metadata (the BFV
+    carriers have no scale)."""
+    if node.is_custom:
+        return data             # custom payloads pass through untyped
+    t = node.type
+    if t in ('ct', 'ct3'):
+        return Ciphertext(data=data, level=node.level, is_ntt=node.is_ntt,
+                          is_mform=node.is_mform)
+    if t == 'pt':
+        return Plaintext(data=data, level=node.level)
+    if t == 'pt_ringt':
+        return PlaintextRingt(data=data)
+    if t == 'pt_mul':
+        return PlaintextMul(data=data, level=node.level)
+    raise ValueError(f'cannot wrap input of type {t}')
+
+
+def _tensor_fields(v) -> tuple[str, ...]:
+    return ('c0', 'digits') if isinstance(v, DecomposedCiphertext) else ('data',)
+
+
+def _meta(v):
+    """What members of a fused group must share to be stacked: the carrier
+    type, its static fields, and each tensor's shape and dtype."""
+    tensors = _tensor_fields(v)
+    static = tuple((f.name, getattr(v, f.name)) for f in dataclasses.fields(v)
+                   if f.name not in tensors)
+    return (type(v), static, tuple((tuple(getattr(v, f).shape), getattr(v, f).dtype)
+                                   for f in tensors))
+
+
+def _stack(vals):
+    return dataclasses.replace(vals[0], **{f: torch.stack([getattr(v, f) for v in vals])
+                                           for f in _tensor_fields(vals[0])})
+
+
+def _member(v, k: int):
+    return dataclasses.replace(v, **{f: getattr(v, f)[k] for f in _tensor_fields(v)})
+
+
+class _Graph:
+    """One captured replay of the fused plan: static input buffers, the
+    graph, and its static outputs (cloned on every run)."""
+
+    def __init__(self, task, arrays, key_tree):
+        dev = task.device
+        self.inputs = [a.clone() for a in arrays]
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                # first-call work (kernel builds and loads, table caches,
+                # occupancy queries) happens here, outside the capture
+                task._trace(self.inputs, key_tree)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.outputs = task._trace(self.inputs, key_tree)
+        # the key tensors the graph reads in place stay alive with it
+        self.keys = key_tree
+
+    def __call__(self, arrays):
+        for buf, a in zip(self.inputs, arrays):
+            buf.copy_(a)
+        self.graph.replay()
+        return [o.clone() for o in self.outputs]
+
+
+class FheTaskGpu:
+    """Loads a compiled task directory and runs it on one device.
+
+    API after the reference SDK's FheTaskGpu (cxx_sdk_v2/cxx_fhe_task.h:132):
+    construct from the task directory, then ``run(context, inputs)`` →
+    (outputs, duration_ns). ``device`` defaults to the card (``resolve_device``);
+    the context must live on the same device. Custom compute nodes run
+    ``custom_executors[type](engine, inputs, attrs)``; in ``mode='jit'`` on
+    the card they are captured into the graph with the rest, so they must
+    run on the card without reading values back to the host.
+    """
+
+    def __init__(self, task_dir: str, mode: str = 'jit', batch_fuse: bool = True,
+                 custom_executors: dict | None = None, device=None, mesh=None):
+        if mode == 'partitioned':
+            raise _not_ported("mode='partitioned' (bootstrap segments)", '6')
+        if mode not in ('jit', 'eager'):
+            raise ValueError(f"mode must be 'jit' or 'eager', got {mode!r}")
+        if mesh is not None:
+            raise _not_ported('a device mesh', '10')
+        with open(os.path.join(task_dir, 'mega_ag.json')) as f:
+            self.mag = json.load(f)
+        with open(os.path.join(task_dir, 'task_signature.json')) as f:
+            self.signature = json.load(f)
+        if any(c['type'] == 'bootstrap' for c in self.mag['compute'].values()):
+            raise _not_ported('a bootstrap node', '6')
+        self.algo = self.mag['algorithm']
+        if self.algo != 'BFV':
+            raise _not_ported(f'a {self.algo} task', '5')
+        self.mode = mode
+        self.batch_fuse = batch_fuse
+        self.custom_executors = custom_executors or {}
+        self.device = resolve_device(device)
+        self._offline: dict = {}
+        self.data = {int(k): _Node(int(k), v) for k, v in self.mag['data'].items()}
+        self.inputs = list(self.mag['inputs'])
+        self.outputs = list(self.mag['outputs'])
+        self._bind(params_from_task_json(self.mag['parameter']))
+
+    def _bind(self, params):
+        """(Re)build the engine on ``params``' word, the plan, and drop the
+        captured graphs."""
+        self.params = params
+        self.engine = BfvEngine(params, self.device)
+        self._build_plan()
+        self._graphs: dict = {}
+
+    # ------------------------------------------------------------------
+    # Plan construction (load-time executor binding)
+    # ------------------------------------------------------------------
+    def _build_plan(self):
+        computes = {int(k): v for k, v in self.mag['compute'].items()}
+        # topo order over compute nodes (Kahn on data availability); the
+        # ready waves double as layers for the iso-op batching pass
+        available = set(self.inputs)
+        pending = dict(computes)
+        order, layers = [], []
+        while pending:
+            ready = [idx for idx, c in pending.items()
+                     if all(i in available for i in c['inputs'])]
+            if not ready:
+                raise ValueError('mega_ag graph contains a cycle or missing input')
+            wave = []
+            for idx in sorted(ready):
+                c = pending.pop(idx)
+                order.append(c)
+                wave.append(c)
+                for o in computes[idx]['outputs']:
+                    available.add(o)
+            layers.append(wave)
+        if self.batch_fuse and self.mode == 'jit':
+            self.plan = self._build_batched_plan(layers)
+        else:
+            self.plan = [self._bind_executor(c) for c in order]
+
+    # Iso-op batching: structurally identical nodes of one topo wave (the
+    # reference's benchmark graphs carry many parallel mult_relins) become
+    # one engine call on stacked inputs.
+    def _node_sig(self, i: int):
+        nd = self.data[i]
+        return (nd.type, nd.level, nd.degree, nd.is_ntt, nd.is_mform,
+                nd.sp_level, nd.galois_element, nd.is_compressed,
+                nd.sp_decomped)
+
+    def _compute_sig(self, c: dict):
+        static = {k: v for k, v in c.items()
+                  if k not in ('id', 'inputs', 'outputs')}
+        return (json.dumps(static, sort_keys=True),
+                tuple(self._node_sig(i) for i in c['inputs']))
+
+    def _build_batched_plan(self, layers):
+        plan = []
+        for wave in layers:
+            groups: dict = {}
+            for c in wave:
+                groups.setdefault(self._compute_sig(c), []).append(c)
+            for members in groups.values():
+                if len(members) == 1 or members[0].get('is_custom'):
+                    plan += [self._bind_executor(c) for c in members]
+                else:
+                    plan.append(self._bind_group_executor(members))
+        return plan
+
+    def _bind_group_executor(self, members):
+        """One step for a fused group: ``torch.stack`` of each input position
+        over the members, one engine call on the stacked carriers (every
+        engine op takes leading batch dimensions), then per-member views of
+        the result. Members whose inputs differ in metadata run per op,
+        with a warning; nothing here catches an error of the engine."""
+        template = members[0]
+        run_one = self._bind_executor(template)
+        in_tmpl = list(template['inputs'])
+        data_pos = [k for k, i in enumerate(in_tmpl)
+                    if self.data[i].type not in _KEY_TYPES]
+        out_tmpl = template['outputs'][0]
+        member_ins = [[c['inputs'][k] for k in data_pos] for c in members]
+        member_outs = [c['outputs'][0] for c in members]
+        per_op = []
+
+        def run(env, keys):
+            cols = [[env[ins[k]] for ins in member_ins] for k in range(len(data_pos))]
+            if any(len({_meta(v) for v in col}) > 1 for col in cols):
+                # loud on purpose: losing iso-op batching silently would drop
+                # the runtime's main parallelism mechanism
+                _log.warning('iso-op batching fell back to per-op execution for %d %r ops '
+                             '(their inputs differ in metadata); throughput will degrade',
+                             len(members), template.get('type'))
+                if not per_op:
+                    per_op.extend(self._bind_executor(c) for c in members)
+                for step in per_op:
+                    step(env, keys)
+                return
+            sub = {in_tmpl[k]: _stack(col) for k, col in zip(data_pos, cols)}
+            run_one(sub, keys)
+            out = sub[out_tmpl]
+            for k, o in enumerate(member_outs):
+                env[o] = _member(out, k)
+        return run
+
+    def _classify_inputs(self, c: dict):
+        """Split compute inputs into (cts, ct3s, pts, key_nodes) preserving
+        order — the executor-selection rule of CPU_EXECUTOR_SETUP
+        (mega_ag_executors_cpu.cpp:33)."""
+        cts, ct3s, pts, keys = [], [], [], []
+        for i in c['inputs']:
+            node = self.data[i]
+            if node.type == 'ct':
+                cts.append(node)
+            elif node.type == 'ct3':
+                ct3s.append(node)
+            elif node.type in ('pt', 'pt_ringt', 'pt_mul'):
+                pts.append(node)
+            elif node.type in _KEY_TYPES:
+                keys.append(node)
+            else:
+                raise ValueError(f'unknown input datum type {node.type}')
+        return cts, ct3s, pts, keys
+
+    def _bind_executor(self, c: dict):
+        """One compute node → closure(env, keys). Dispatch mirrors
+        bind_cpu_{add,sub,...} (mega_ag_executors_cpu.cpp:96-505)."""
+        op = c['type']
+        eng = self.engine
+        out_idx = c['outputs'][0] if c['outputs'] else None
+
+        if c.get('is_custom'):
+            fn = self.custom_executors.get(op)
+            if fn is None:
+                raise ValueError(f'no executor bound for custom compute type '
+                                 f'"{op}"; pass custom_executors={{...}}')
+            in_nodes = [self.data[i] for i in c['inputs']]
+            attrs = c.get('attributes', {})
+
+            def run(env, keys):
+                env[out_idx] = fn(eng, [env[n.index] for n in in_nodes], attrs)
+            return run
+
+        cts, ct3s, pts, keynodes = self._classify_inputs(c)
+
+        def ctv(env, k=0):
+            return env[cts[k].index]
+
+        def ringt_block(env, pi, block):
+            # one block of compressed pt_ringt storage (..., blocks, n)
+            return PlaintextRingt(data=env[pi].data[..., block, :])
+
+        if op in ('add', 'sub'):
+            f = eng.add if op == 'add' else eng.sub
+            if len(c['inputs']) == 1:
+                def run(env, keys):
+                    env[out_idx] = f(ctv(env), ctv(env))
+            elif pts:
+                pi = pts[0].index
+
+                def run(env, keys):
+                    env[out_idx] = f(ctv(env), env[pi])
+            else:
+                def run(env, keys):
+                    env[out_idx] = f(ctv(env), env[cts[1].index])
+            return run
+
+        if op == 'neg':
+            def run(env, keys):
+                env[out_idx] = eng.neg(ctv(env))
+            return run
+
+        if op == 'mult':
+            if len(c['inputs']) == 1:
+                def run(env, keys):
+                    env[out_idx] = eng.mult(ctv(env), ctv(env))
+            elif pts and pts[0].is_compressed:
+                # compressed pt_ringt storage: the op consumes one block,
+                # selected by the node's compressed_block_info
+                pi = pts[0].index
+                block = int(c['compressed_block_info'][0])
+
+                def run(env, keys):
+                    env[out_idx] = eng.mult(ctv(env), ringt_block(env, pi, block))
+            elif pts:
+                pi = pts[0].index
+
+                def run(env, keys):
+                    env[out_idx] = eng.mult(ctv(env), env[pi])
+            else:
+                def run(env, keys):
+                    env[out_idx] = eng.mult(ctv(env), env[cts[1].index])
+            return run
+
+        if op == 'relin':
+            src = ct3s[0].index
+
+            def run(env, keys):
+                env[out_idx] = eng.relinearize(env[src], keys['rlk'])
+            return run
+
+        if op == 'rescale':
+            def run(env, keys):
+                env[out_idx] = eng.rescale(ctv(env))
+            return run
+
+        if op == 'drop_level':
+            raise ValueError('DROP_LEVEL only supported for CKKS scheme')
+
+        if op in ('rotate_col', 'rotate_row'):
+            elt = keynodes[0].galois_element
+            out_node = self.data[out_idx]
+            o_ntt, o_mf = out_node.is_ntt, out_node.is_mform
+            if cts[0].sp_decomped:
+                def run(env, keys):
+                    env[out_idx] = eng.apply_galois_decomposed(
+                        env[cts[0].index], elt, keys['glk'][elt], out_ntt=o_ntt, out_mform=o_mf)
+                return run
+
+            def run(env, keys):
+                env[out_idx] = eng.apply_galois(ctv(env), elt, keys['glk'][elt],
+                                                out_ntt=o_ntt, out_mform=o_mf)
+            return run
+
+        if op in ('cmp_sum', 'cmpac_sum'):
+            n = c['sum_cnt']
+            ct_nodes = cts[:n]
+            acc_node = cts[n] if op == 'cmpac_sum' else None
+            if pts and pts[0].is_compressed:
+                pi = pts[0].index
+                blocks = [int(b) for b in c['compressed_block_info']]
+
+                def get_pt(env, i):
+                    return ringt_block(env, pi, blocks[i])
+            else:
+                pt_nodes = pts[:n]
+
+                def get_pt(env, i):
+                    return env[pt_nodes[i].index]
+
+            def run(env, keys):
+                total = None
+                for i, ci in enumerate(ct_nodes):
+                    prod = eng.mult(env[ci.index], get_pt(env, i))
+                    total = prod if total is None else eng.add(total, prod)
+                if acc_node is not None:
+                    total = eng.add(total, env[acc_node.index])
+                env[out_idx] = total
+            return run
+
+        if op in ('to_ntt', 'to_inv_ntt', 'to_mf', 'to_mul', 'rns_sp_decomp'):
+            meth = getattr(eng, op)
+
+            def run(env, keys):
+                env[out_idx] = meth(ctv(env))
+            return run
+
+        raise ValueError(f'unknown operation type "{op}"')
+
+    # ------------------------------------------------------------------
+    # Execution
+    # ------------------------------------------------------------------
+    def _key_signature_order(self):
+        """The serializer appends key nodes to mega_ag.inputs after the data
+        args: rlk, then glk (col then row, dict order), then btp swks
+        (frontend/custom_task.py process_custom_task)."""
+        return [i for i in self.inputs if self.data[i].type in _KEY_TYPES]
+
+    def _data_input_nodes(self):
+        return [self.data[i] for i in self.inputs
+                if self.data[i].type not in _KEY_TYPES]
+
+    def _flatten_args(self, input_values: dict):
+        """Positional binding: signature row order × row-major flattening,
+        exactly like CArgument marshaling (cpu_task_utils.h:235)."""
+        flat = []
+        rows = [r for r in self.signature['online'] if r['phase'] == 'in']
+        rows += self.signature.get('offline', [])
+        for row in rows:
+            flat += check_sig.flatten(input_values[row['id']])
+        return flat
+
+    def _build_keys(self, key_tree):
+        """key tree → typed KeySwitchKey env (shared by both modes)."""
+        keys = {'rlk': None, 'glk': {}, 'swk': {}}
+        for i in self._key_signature_order():
+            node = self.data[i]
+            if node.type == 'rlk':
+                kq, kp = key_tree['rlk']
+                keys['rlk'] = KeySwitchKey(key_q=kq, key_p=kp, level=node.level,
+                                           sp_level=node.sp_level)
+            elif node.type == 'glk':
+                kq, kp = key_tree['glk'][node.galois_element]
+                keys['glk'][node.galois_element] = KeySwitchKey(
+                    key_q=kq, key_p=kp, level=node.level, sp_level=node.sp_level)
+            elif node.type == 'swk':
+                kq, kp = key_tree['swk'][node.id]
+                keys['swk'][node.id] = KeySwitchKey(
+                    key_q=kq, key_p=kp, level=node.level, sp_level=node.sp_level)
+        return keys
+
+    def _trace(self, input_arrays, key_tree, progress=None):
+        """Run the plan on input tensors; → the output tensors."""
+        env = {node.index: _wrap_input(node, arr)
+               for node, arr in zip(self._data_input_nodes(), input_arrays)}
+        keys = self._build_keys(key_tree)
+        for i, step in enumerate(self.plan):
+            step(env, keys)
+            if progress is not None:
+                progress(i + 1)
+        return [env[o].data for o in self.outputs]
+
+    def _context_key_tree(self, context):
+        tree = {'rlk': None, 'glk': {}, 'swk': {}}
+        for i in self._key_signature_order():
+            node = self.data[i]
+            if node.type == 'rlk':
+                tree['rlk'] = (context.rlk.key_q, context.rlk.key_p)
+            elif node.type == 'glk':
+                k = context.glk.keys[node.galois_element]
+                tree['glk'][node.galois_element] = (k.key_q, k.key_p)
+            elif node.type == 'swk':
+                k = context.swk[node.id]
+                tree['swk'][node.id] = (k.key_q, k.key_p)
+        return tree
+
+    @staticmethod
+    def _graph_key(arrays, key_tree):
+        """A captured graph reads its keys in place: the key tensors'
+        addresses and shapes, with the inputs' shapes and dtypes, select it."""
+        keys = [key_tree['rlk']] + list(key_tree['glk'].values()) + list(key_tree['swk'].values())
+        return (tuple((tuple(a.shape), a.dtype) for a in arrays),
+                tuple((t.data_ptr(), tuple(t.shape)) for pair in keys if pair is not None
+                      for t in pair))
+
+    def _graph_for(self, arrays, key_tree):
+        gk = self._graph_key(arrays, key_tree)
+        g = self._graphs.get(gk)
+        if g is None:
+            g = self._graphs[gk] = _Graph(self, arrays, key_tree)
+        return g
+
+    def _replays(self) -> bool:
+        return self.mode == 'jit' and self.device.type == 'cuda'
+
+    def preload(self, context, offline_values: dict):
+        """Stage the offline-input phase once (reference offline_inputs:
+        constant data preloaded before many online runs,
+        frontend/custom_task.py:2190-2205). Later run() calls need only the
+        online arguments."""
+        for row in self.signature.get('offline', []):
+            if row['id'] not in offline_values:
+                raise RuntimeError(f"Missing input argument \"{row['id']}\".")
+            check_sig.check_with_sig(row['id'], offline_values[row['id']], row)
+        self._offline = dict(offline_values)
+
+    def _adopt_context_word(self, context):
+        """Re-bind the task engine onto the caller context's RNS word.
+
+        The serialized parameter blob is word-agnostic (the same primes
+        either way); a context on the 32-bit word runs the 32-bit kernels,
+        so the engine, the plan and the captured graphs are rebuilt once on
+        a change of word."""
+        wb = getattr(context.params, 'word_bits', 64)
+        if wb != self.params.word_bits:
+            self._bind(params_from_task_json(self.mag['parameter'], word_bits=wb))
+
+    def check(self, context, input_values: dict):
+        self._adopt_context_word(context)
+        check_sig.check_signatures(context, self.signature, input_values,
+                                   [r for r in self.signature['online']
+                                    if r['phase'] == 'out'])
+        check_sig.check_parameter(context, self.mag['parameter'])
+
+    def _prepare(self, context, input_values: dict):
+        """Check the arguments and the context; → (input tensors, key tree)."""
+        if self._offline:
+            input_values = {**self._offline, **input_values}
+        self.check(context, input_values)
+        ctx_dev = torch.device(getattr(context, 'device', 'cpu'))
+        if ctx_dev != self.device:
+            raise RuntimeError(f'the context is on {ctx_dev}, the task on {self.device}')
+        if os.environ.get('LATTISENSE_DEV', '') not in ('', '0'):
+            raise _not_ported('the LATTISENSE_DEV memory monitor', '8')
+        arrays = [torch.as_tensor(v.data, dtype=torch.int64, device=self.device)
+                  for v in self._flatten_args(input_values)]
+        return arrays, self._context_key_tree(context)
+
+    def run(self, context, input_values: dict, progress_cb=None):
+        """Validate, execute, return ({output_id: value}, duration_ns).
+
+        The ns return mirrors FheTaskCpu::run (cxx_fhe_task_cpu.cpp:104):
+        it covers execution only, and on the card the clock stops after
+        ``torch.cuda.synchronize``. A graph's warm-up and capture on first
+        use (or in ``compile``) are outside it. ``progress_cb(completed,
+        total)`` is called per op, throttled to 100 ms, in eager mode, and
+        at 0 and at the end otherwise."""
+        arrays, key_tree = self._prepare(context, input_values)
+        total = len(self.plan)
+        graph = self._graph_for(arrays, key_tree) if self._replays() else None
+        start = time.perf_counter_ns()
+        if self.mode == 'eager' and progress_cb is not None:
+            last = [0.0]
+
+            def wrapped_cb(done):
+                now = time.monotonic()
+                if done >= total or now - last[0] >= 0.1:   # 100 ms throttle
+                    last[0] = now
+                    progress_cb(done, total)
+            out_arrays = self._trace(arrays, key_tree, progress=wrapped_cb)
+        else:
+            if progress_cb is not None:
+                progress_cb(0, total)
+            out_arrays = graph(arrays) if graph is not None else self._trace(arrays, key_tree)
+            if progress_cb is not None:
+                progress_cb(total, total)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        duration_ns = time.perf_counter_ns() - start
+
+        # re-wrap outputs per graph metadata, grouped by signature rows
+        flat_out = []
+        for node, arr in zip((self.data[i] for i in self.outputs), out_arrays):
+            v = _wrap_input(node, arr)
+            if isinstance(v, Ciphertext):
+                v.level = arr.shape[-2] - 1   # shape is ground truth
+            flat_out.append(v)
+        outputs = {}
+        pos = 0
+        for row in (r for r in self.signature['online'] if r['phase'] == 'out'):
+            cnt = 1
+            for s in row['size']:
+                cnt *= s
+            vals = flat_out[pos:pos + cnt]
+            pos += cnt
+            outputs[row['id']] = vals[0] if row['size'] == [1] else _reshape(vals, row['size'])
+        return outputs, duration_ns
+
+    def compile(self, context, input_values: dict):
+        """The warm-up and capture of the graph for these arguments, without
+        running it (``mode='jit'`` on the card; otherwise only the checks)."""
+        arrays, key_tree = self._prepare(context, input_values)
+        if self._replays():
+            self._graph_for(arrays, key_tree)
+
+
+def _reshape(flat: list, shape: list):
+    if len(shape) <= 1:
+        return flat
+    step = len(flat) // shape[0]
+    return [_reshape(flat[i * step:(i + 1) * step], shape[1:]) for i in range(shape[0])]
+
+
+# the reference SDK's entry-point name
+FheTask = FheTaskGpu

@@ -110,6 +110,7 @@ class BfvEngine:
         self.switcher = KeySwitcher(self.q, self.p, self.n, self.device, self.word_bits)
         self._behz: dict[int, BehzMult] = {}
         self._rescaler: dict[int, DivRoundLast] = {}
+        self._delta_mont: dict = {}
 
     # ---- cached per-level helpers ----
     def ring(self, level: int):
@@ -127,10 +128,13 @@ class BfvEngine:
         return self._rescaler[level]
 
     def delta_mont(self, level: int):
-        """[Δ_ℓ]_{q_i} in Montgomery form, Δ_ℓ = floor(Q_ℓ/t)."""
-        delta = self.params.delta(level)
-        return _col([_mont(delta % qi, qi, self.word_bits) for qi in self.q[:level + 1]],
-                    self.device)
+        """[Δ_ℓ]_{q_i} in Montgomery form, Δ_ℓ = floor(Q_ℓ/t), cached per
+        level so that a captured CUDA graph copies nothing from the host."""
+        if level not in self._delta_mont:
+            delta = self.params.delta(level)
+            self._delta_mont[level] = _col(
+                [_mont(delta % qi, qi, self.word_bits) for qi in self.q[:level + 1]], self.device)
+        return self._delta_mont[level]
 
     def _tensor(self, arr):
         return as_tensor(arr, self.device)
@@ -283,7 +287,8 @@ class BfvEngine:
         if isinstance(b, Plaintext):
             return self._with_c0(a, _u.addmod(a.data[..., 0, :, :], b.data, ring.q))
         if isinstance(b, PlaintextRingt):
-            dm = ring.word.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
+            dm = ring.word.mont_mul(b.data[..., None, :], self.delta_mont(a.level), ring.q,
+                                   ring.pinv)
             return self._with_c0(a, _u.addmod(a.data[..., 0, :, :], dm, ring.q))
         raise TypeError(type(b))
 
@@ -296,7 +301,8 @@ class BfvEngine:
         if isinstance(b, Plaintext):
             return self._with_c0(a, _u.submod(a.data[..., 0, :, :], b.data, ring.q))
         if isinstance(b, PlaintextRingt):
-            dm = ring.word.mont_mul(b.data[None, :], self.delta_mont(a.level), ring.q, ring.pinv)
+            dm = ring.word.mont_mul(b.data[..., None, :], self.delta_mont(a.level), ring.q,
+                                   ring.pinv)
             return self._with_c0(a, _u.submod(a.data[..., 0, :, :], dm, ring.q))
         raise TypeError(type(b))
 
@@ -333,18 +339,22 @@ class BfvEngine:
             ra = bz.ring_aux
             pq = w.to_mont(ntt_mod.ntt(b.data, ring), ring.q, ring.pinv, ring.r2)
             pa = w.to_mont(ntt_mod.ntt(bz.extend(b.data), ra), ra.q, ra.pinv, ra.r2)
+            # a plaintext with batch dimensions meets both ciphertext components
+            pq, pa = pq.unsqueeze(-3), pa.unsqueeze(-3)
             dq = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), pq, ring.q, ring.pinv)
             da = w.mont_mul(ntt_mod.ntt(bz.extend(a.data), ra), pa, ra.q, ra.pinv)
             return Ciphertext(data=bz.scale_and_back(ntt_mod.intt(dq, ring),
                                                      ntt_mod.intt(da, ra)), level=level)
         if isinstance(b, PlaintextRingt):
-            lifted = b.data.expand(level + 1, self.n).contiguous()
+            lifted = b.data.unsqueeze(-2).expand(*b.data.shape[:-1], level + 1,
+                                                 self.n).contiguous()
             f = w.to_mont(ntt_mod.ntt(lifted, ring), ring.q, ring.pinv, ring.r2)
-            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f, ring.q, ring.pinv)
+            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f.unsqueeze(-3), ring.q,
+                              ring.pinv)
             return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
         if isinstance(b, PlaintextMul):
-            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), b.data[:level + 1],
-                              ring.q, ring.pinv)
+            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring),
+                              b.data[..., :level + 1, :].unsqueeze(-3), ring.q, ring.pinv)
             return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
         raise TypeError(type(b))
 
@@ -360,6 +370,21 @@ class BfvEngine:
         """BFV modulus switching: drop the last prime, round exactly."""
         rs = self.rescaler(ct.level)
         return Ciphertext(data=rs(ct.data), level=ct.level - 1, is_ntt=ct.is_ntt)
+
+    def mult_scalar(self, ct: Ciphertext, scalar: int) -> Ciphertext:
+        """ct · scalar over Q_ℓ (Montgomery product with [scalar·R]_{q_i})."""
+        ring = self.ring(ct.level)
+        sm = _col([_mont(scalar % qi, qi, self.word_bits) for qi in self.q[:ct.level + 1]],
+                  self.device)
+        return Ciphertext(data=ring.word.mont_mul(ct.data, sm, ring.q, ring.pinv),
+                          level=ct.level, is_ntt=ct.is_ntt)
+
+    def drop_level(self, ct: Ciphertext, levels: int = 1) -> Ciphertext:
+        # Limb truncation is not a BFV level drop: Δ = round(Q/t) changes
+        # with Q, so the truncated ciphertext decrypts wrong.
+        raise NotImplementedError(
+            'drop_level is not supported for BFV (Delta = round(Q/t) changes '
+            'with Q); use CKKS drop_level or a full BFV modulus switch')
 
     # ---- rotations ----
     def apply_galois(self, ct: Ciphertext, galois_elt: int, glk, out_ntt: bool | None = None,

@@ -5,7 +5,9 @@ Each kernel is checked at a small shape and at the main path's shape, with
 its launch count and its refusal of bad input; the NTTs B1 and B5 and the
 kernels built on B1's row loop (B2, B3, B4) at every n they take (B1 and B5
 split above their row kernel's cap: B1 at 2^16, B5 at 2^15 and 2^16), B6
-through each of its instances and its fold, bit for bit.
+through each of its instances and its fold, bit for bit; and the
+compiled-task runtime on each committed task directory (card against CPU,
+graph replay against eager, a second key set through the same task).
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -826,3 +828,112 @@ def test_b7_path_shapes_match_plain(cuda, n, nq, npp, level, G):
     lib = cuda_build.load('ksw64', ksw64_cuda._SIGNATURES)
     assert (lib.ksw64_chunk(), lib.ksw64_threads()) == (ksw64_cuda.CHUNK, ksw64_cuda.THREADS)
     assert (beta > lib.ksw64_max_beta()) == (nq == 9)
+
+
+# ---------------------------------------------------------------------------
+# the compiled-task runtime on the committed task directories
+# ---------------------------------------------------------------------------
+
+def task_context(params, elts, seed, dev):
+    ctx = BfvContext.create_random_context(params, seed=seed, device=dev)
+    ctx.gen_galois_keys_for_elements(elts)
+    return ctx
+
+
+def cpu_twin(ctx):
+    """A CPU context holding ``ctx``'s keys."""
+    twin = BfvContext.from_arrays(ctx.params, ctx.sk.coeffs, ctx.pk.data.cpu(),
+                                  ctx.rlk.key_q.cpu(), ctx.rlk.key_p.cpu(), device=CPU)
+    for elt, k in ctx.glk.keys.items():
+        twin.add_galois_key_arrays(elt, k.key_q.cpu(), k.key_p.cpu())
+    return twin
+
+
+def flat_outputs(out):
+    def flat(v):
+        return [e for x in v for e in flat(x)] if isinstance(v, list) else [v]
+    return [v for k in sorted(out) for v in flat(out[k])]
+
+
+def on_cpu(v):
+    if isinstance(v, list):
+        return [on_cpu(e) for e in v]
+    import dataclasses
+    return dataclasses.replace(v, data=v.data.cpu())
+
+
+def task_arguments(name, ctx, seed):
+    """(online, offline, expected slots by output) of a committed task."""
+    from lattisense_torch.runtime import tasks
+    t, n = ctx.params.t, ctx.params.n
+    if name == tasks.MULT_RELIN:
+        rng = np.random.default_rng(seed)
+        ma, mb = rng.integers(0, t, (2, tasks.MULT_RELIN_COUNT, n))
+        enc = [[ctx.encrypt(ctx.encode(m, 7)) for m in ms] for ms in (ma, mb)]
+        return (tasks.mult_relin_arguments(*enc), {},
+                {f'z{k}': [(ma[k] * mb[k]) % t] for k in range(len(ma))})
+    level = 7 if name == tasks.MIX_W32 else 3
+    msgs = tasks.mix_messages(t, n, seed)
+    online, offline = tasks.mix_arguments(ctx, level, msgs)
+    expected = {k: v if isinstance(v, list) else [v]
+                for k, v in tasks.mix_expected(msgs, t).items()}
+    return online, offline, expected
+
+
+@pytest.mark.parametrize('name', ['bfv_mult_relin_x32_w32_n16384_l7', 'bfv_ops_mix_w32_n16384_l7',
+                                  'bfv_ops_mix_u64_n16384_l3'])
+def test_task_fixture_card_matches_cpu(cuda, name):
+    """A committed task on the card: eager equals the port's CPU run bit for
+    bit, the graph replay equals eager (twice, the second replaying the
+    captured graph), the mult_relin task fuses to 2 steps; a second context
+    with other keys through the same task object gets its own results (a new
+    graph), and the first context's graph still replays right after it."""
+    import json
+    import os
+    from lattisense_torch.runtime import FheTask, tasks
+    d = tasks.task_dir(name)
+    params = BfvParams.create(16384) if 'u64' in name else BfvParams.create_tpu_param(16384)
+    with open(os.path.join(d, 'task_signature.json')) as f:
+        elts = [int(e) for e in json.load(f)['key']['glk']]
+    eager, jit = FheTask(d, mode='eager'), FheTask(d, mode='jit')
+    assert eager.device == jit.device == cuda
+    if name == tasks.MULT_RELIN:
+        assert len(jit.plan) == 2
+    ctx = task_context(params, elts, 11, cuda)
+    online, offline, expected = task_arguments(name, ctx, 3)
+    for task in (eager, jit):
+        task.preload(ctx, offline)
+    want, _ = eager.run(ctx, online)
+    first, _ = jit.run(ctx, online)
+    again, dur = jit.run(ctx, online)
+    assert dur > 0 and len(jit._graphs) == 1
+    for out in (first, again):
+        assert all(torch.equal(a.data, b.data) for a, b in zip(flat_outputs(out),
+                                                               flat_outputs(want)))
+    twin = cpu_twin(ctx)
+    cpu_task = FheTask(d, mode='eager', device=CPU)
+    cpu_task.preload(twin, {k: on_cpu(v) for k, v in offline.items()})
+    got_cpu, _ = cpu_task.run(twin, {k: on_cpu(v) for k, v in online.items()})
+    assert all(torch.equal(a.data.cpu(), b.data) for a, b in zip(flat_outputs(want),
+                                                                 flat_outputs(got_cpu)))
+    # a second context: other keys, other arguments, through the same objects
+    ctx2 = task_context(params, elts, 12, cuda)
+    online2, offline2, expected2 = task_arguments(name, ctx2, 4)
+    for task in (eager, jit):
+        task.preload(ctx2, offline2)
+    got2, _ = jit.run(ctx2, online2)
+    want2, _ = eager.run(ctx2, online2)
+    assert len(jit._graphs) == 2
+    assert all(torch.equal(a.data, b.data) for a, b in zip(flat_outputs(got2),
+                                                           flat_outputs(want2)))
+    for k in sorted(expected2):
+        vals = got2[k] if isinstance(got2[k], list) else [got2[k]]
+        for v, m in zip(vals, expected2[k]):
+            assert np.array_equal(ctx2.decrypt_decode(tasks.coefficient_form(ctx2.engine, v)), m), k
+    jit.preload(ctx, offline)
+    back, _ = jit.run(ctx, online)
+    assert all(torch.equal(a.data, b.data) for a, b in zip(flat_outputs(back), flat_outputs(want)))
+    k0 = sorted(expected)[0]
+    v0 = back[k0] if isinstance(back[k0], list) else [back[k0]]
+    assert np.array_equal(ctx.decrypt_decode(tasks.coefficient_form(ctx.engine, v0[0])),
+                          expected[k0][0])

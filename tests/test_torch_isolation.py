@@ -19,6 +19,9 @@ def test_import_pulls_in_no_jax():
     code = ("import lattisense_torch, lattisense_torch.runtime, lattisense_torch.parallel.batch, "
             "lattisense_torch.ops.ntt64_cuda, lattisense_torch.ops.bconv_cuda, "
             "lattisense_torch.ops.ksw64_cuda, lattisense_torch.tools.profile_step, "
+            "lattisense_torch.runtime.task, lattisense_torch.runtime.check_sig, "
+            "lattisense_torch.runtime.tasks, lattisense_torch.params, "
+            "lattisense_torch.utils.security, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -32,7 +35,8 @@ def test_sources_import_no_jax():
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
     assert len(files) > 15
-    for new in ('ops/ntt64_cuda.py', 'ops/bconv_cuda.py', 'ops/ksw64_cuda.py'):
+    for new in ('ops/ntt64_cuda.py', 'ops/bconv_cuda.py', 'ops/ksw64_cuda.py', 'runtime/task.py',
+                'runtime/check_sig.py', 'runtime/tasks/__init__.py', 'utils/security.py'):
         assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:
