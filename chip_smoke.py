@@ -25,7 +25,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    must decrypt to a·b mod t slot-wise, element 0 must equal the port's plain
    path on the CPU bit for bit, and each kernel's launch count, reset just
    before the run, must have risen, B1's standalone entries' excepted, which
-   the path must not launch (B2, B3 and B4 run their own NTTs).
+   the path must not launch (B2, B3 and B4 run their own NTTs). Each path's
+   line holds its ms a step (CUDA events) and the device's busy ms a step
+   and idle share (torch.profiler over five steps in one window).
 4. Rotate path: the batched BFV rotate_col by 1 on the same context, level
    and batch (``make_rotate_step``): every output must decrypt to each half
    of the slot vector rolled by -1, element 0 must equal the port's CPU path
@@ -64,11 +66,30 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    B7 (u64). Each prints ms per run (the runtime's ``duration_ns``, which
    ends in a synchronize) eager and replayed, and the device's idle share
    of each (busy time from ``torch.profiler``).
+11. CKKS, on two contexts made once: the u64 chain ``CkksParams.create(16384)``
+   and the composite 2^60 chain on the 31-bit primes of
+   ``CkksParams.create_tpu_param(16384)``. B1, B3, B5, B6 and B7 are held
+   against their twins at the shapes the CKKS paths give them, then, batch
+   32: ``ckks_path`` (u64 mult_relin_rescale, level 3 → 2: B5, B6, B7),
+   ``ckks_w32_path`` (w32 mult_relin_rescale2, level 10 → 8: B1's own
+   entries and B3 with an NTT-domain output), ``ckks_rotate_path`` (rotate by
+   1 on the w32 context at level 10), ``ckks_task_mix_path`` (w32, level 10)
+   and ``ckks_task_mix64_path`` (u64, level 3), the CKKS op mixes of
+   ``runtime/tasks`` eager and replayed, a second set of input scales
+   through the same task capturing its own graph. Element 0 of each path
+   equals the port's plain path on the CPU bit for bit, and elements 0 and
+   31 decode within 1e-3 of their float64 slots (a·b, or the rolled
+   vector); every task output equals the CPU run and decodes within 1e-3.
+   Each line holds the ms a step, the idle share, the peak memory, the
+   launches, the decoded errors of elements 0 and 31 and
+   ``get_precision_stats``' mean log2 precision of element 0.
 
 Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
-``u64_32k_path``, ``u64_32k_rotate_path``, ``w32_32k_path``), a
-``{"kernels": [...]}`` line, the card's name and power
+``u64_32k_path``, ``u64_32k_rotate_path``, ``w32_32k_path``, ``ckks_path``,
+``ckks_w32_path``, ``ckks_rotate_path``, ``ckks_task_mix_path``,
+``ckks_task_mix64_path``), a ``{"kernels": [...]}`` line (each kernel with
+the CKKS paths that launch it, ``ckks_launches``), the card's name and power
 limit as nvidia-smi reports them, and as its last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; without a CUDA
 card, or without the package beside it, it exits 2 and prints no result.
@@ -99,6 +120,9 @@ LEVEL_W32K = 21        # create_tpu_param(32768): all 22 q limbs
 ITERS_32K = 5          # the n=32768 steps and the plain twins at the large shapes
 TASK_ITERS = 5         # timed runs of a task, eager and replayed
 N64K = 1 << 16
+LEVEL_C64 = 3          # CkksParams.create(16384): 4 of the 10 q limbs
+LEVEL_C32 = 10         # the composite chain: all 11 q limbs, two rescales a step
+CKKS_TOL = 1e-3        # decoded error bound (the reference's tests/test_word32.py)
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
 # and the float32 rate outside the tensor cores, the table's only 32-bit
@@ -347,22 +371,28 @@ def flat_outputs(out: dict) -> list:
 def outputs_equal(torch, a: dict, b: dict) -> bool:
     fa, fb = flat_outputs(a), flat_outputs(b)
     return len(fa) == len(fb) and all(
-        torch.equal(x.data.cpu(), y.data.cpu()) and (x.level, x.is_ntt, x.is_mform)
-        == (y.level, y.is_ntt, y.is_mform) for x, y in zip(fa, fb))
+        torch.equal(x.data.cpu(), y.data.cpu()) and (x.level, x.is_ntt, x.is_mform, x.scale)
+        == (y.level, y.is_ntt, y.is_mform, y.scale) for x, y in zip(fa, fb))
 
 
-def busy_ms(torch, fn) -> float | None:
-    """Device time of one call of ``fn`` (every kernel and copy on the card)
-    from torch.profiler, after a warm-up call; None if it traced none."""
+def busy_ms(torch, fn, reps: int = 5) -> float | None:
+    """Device time a call of ``fn`` (every kernel and copy on the card): the
+    self device time of ``reps`` calls in one torch.profiler window over
+    ``reps``, after a warm-up call; None if it traced none."""
     fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 if us else None
+    return us / 1e3 / reps if us else None
+
+
+def idle_share(busy: float | None, wall_ms: float) -> float | None:
+    return None if busy is None else 1 - busy / wall_ms
 
 
 def main() -> int:
@@ -382,13 +412,17 @@ def main() -> int:
     from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
     from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
                                       ntt64_cuda, ntt_cuda)
-    from lattisense_torch.params import BfvParams
-    from lattisense_torch.parallel.batch import (bfv_mult_relin, key_tree, make_batched_step,
-                                                 make_rotate_step)
-    from lattisense_torch.runtime import BfvContext, FheTask, tasks
+    from lattisense_torch.params import BfvParams, CkksParams
+    from lattisense_torch.parallel.batch import (bfv_mult_relin, ckks_composite_params,
+                                                 ckks_mult_relin_rescale,
+                                                 ckks_mult_relin_rescale2, key_tree,
+                                                 make_batched_step, make_rotate_step)
+    from lattisense_torch.runtime import BfvContext, CkksContext, FheTask, tasks
     from lattisense_torch.schemes.bfv import BfvEngine
+    from lattisense_torch.schemes.ckks import CkksEngine
     from lattisense_torch.schemes.galois import galois_elt_col
     from lattisense_torch.schemes.types import Ciphertext, KeySwitchKey
+    from lattisense_torch.utils.precision import get_precision_stats
 
     counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
               bconv_cuda.launches, ksw64_cuda.launches)
@@ -813,17 +847,21 @@ def main() -> int:
 
     # ---- 3.-6. the paths --------------------------------------------------
     def run_path(label, c, eng_cpu, level, step_fn, n_inputs, keys, cpu_keys, msgs, expect,
-                 must_launch, must_not_launch, extra, iters=MAIN_ITERS):
+                 must_launch, must_not_launch, extra, iters=MAIN_ITERS, judge=None):
         """Warm up, run once between a reset and a read of every count, time
-        the step, check decryption of every output and element 0 against the
-        port's plain path on the CPU, and print the path's line."""
+        the step, check element 0 against the port's plain path on the CPU
+        and the decryption of the outputs, and print the path's line. By
+        default every output must decrypt to ``expect(i)`` (BFV);
+        ``judge(out, cpu_out)`` → (correct, the line's fields) replaces that
+        check. The line holds the device's busy ms a step and idle share."""
         n = c.params.n
         t1 = time.perf_counter()
         cts = [c.encrypt(c.encode(m, level)) for m in msgs]
         encrypt_s = time.perf_counter() - t1
         args = [torch.stack([ct.data for ct in cts[i * BATCH:(i + 1) * BATCH]])
                 for i in range(n_inputs)]
-        step = make_batched_step(c.engine, step_fn, level, n_inputs=n_inputs)
+        is_ntt, scale = cts[0].is_ntt, cts[0].scale
+        step = make_batched_step(c.engine, step_fn, level, n_inputs=n_inputs, is_ntt=is_ntt)
         step(*args, keys)                                  # warm-up: tables, caches
         torch.cuda.synchronize()
         reset_counts()
@@ -839,17 +877,23 @@ def main() -> int:
         if stray:
             raise AssertionError(f'the {label} launched {stray}')
         step_ms = time_ms(torch, lambda: step(*args, keys), iters)
-        if out.shape != (BATCH, 2, level + 1, n):
+        busy = busy_ms(torch, lambda: step(*args, keys))
+        out_cpu = step_fn(eng_cpu, *[Ciphertext(data=a[:1].cpu(), level=level, is_ntt=is_ntt,
+                                                scale=scale) for a in args], cpu_keys)
+        if out.shape != (BATCH, 2, out_cpu.level + 1, n):
             raise AssertionError(f'{label} output shape {tuple(out.shape)}')
-        correct = all(np.array_equal(c.decrypt_decode(Ciphertext(data=out[i], level=level)),
-                                     expect(i)) for i in range(BATCH))
-        out_cpu = make_batched_step(eng_cpu, step_fn, level, n_inputs=n_inputs)(
-            *[a[:1].cpu() for a in args], cpu_keys)
-        bit_exact = torch.equal(out_cpu[0], out[0].cpu())
+        if judge is None:
+            fields = {}
+            correct = all(np.array_equal(c.decrypt_decode(Ciphertext(data=out[i], level=level)),
+                                         expect(i)) for i in range(BATCH))
+        else:
+            correct, fields = judge(out, out_cpu)
+        bit_exact = torch.equal(out_cpu.data[0], out[0].cpu())
         print(json.dumps({label: {
-            **extra, 'n': n, 'level': level, 'batch': BATCH, 'limbs': level + 1,
+            **extra, **fields, 'n': n, 'level': level, 'batch': BATCH, 'limbs': level + 1,
             'correct': correct, 'bit_exact_vs_plain': bit_exact,
             'ms_per_step': step_ms, 'ops_per_s': BATCH * 1e3 / step_ms,
+            'busy_ms': busy, 'idle_share': idle_share(busy, step_ms),
             'launches_per_step': launches, 'peak_mem_bytes': peak_mem,
             'encrypt_s': encrypt_s, 'gpu': name_gpu, 'power_limit': power}}), flush=True)
         if not (correct and bit_exact):
@@ -858,8 +902,8 @@ def main() -> int:
 
     def cpu_context(c):
         """A CPU context holding c's keys."""
-        twin = BfvContext.from_arrays(c.params, c.sk.coeffs, c.pk.data.cpu(), c.rlk.key_q.cpu(),
-                                      c.rlk.key_p.cpu(), device='cpu')
+        twin = type(c).from_arrays(c.params, c.sk.coeffs, c.pk.data.cpu(), c.rlk.key_q.cpu(),
+                                   c.rlk.key_p.cpu(), device='cpu')
         for e, k in c.glk.keys.items():
             twin.add_galois_key_arrays(e, k.key_q.cpu(), k.key_p.cpu())
         return twin
@@ -873,7 +917,8 @@ def main() -> int:
         run between a reset and a read of every count, the graph's warm-up
         and capture (``compile``), one replay that must equal eager bit for
         bit, the runtime's ms per run of each, and each one's idle share of
-        the device; → (eager outputs, the line's entries)."""
+        the device; → (eager outputs, the line's entries, the eager task, the
+        jit task)."""
         d = tasks.task_dir(name)
         eager, jit = FheTask(d, mode='eager'), FheTask(d, mode='jit')
         for t in (eager, jit):
@@ -905,11 +950,10 @@ def main() -> int:
             'plan_steps': {'eager': len(eager.plan), 'jit': len(jit.plan)},
             'eager_ms_per_run': ms['eager'], 'replay_ms_per_run': ms['replay'],
             'eager_busy_ms': busy['eager'], 'replay_busy_ms': busy['replay'],
-            'eager_idle_share': None if busy['eager'] is None else 1 - busy['eager'] / ms['eager'],
-            'replay_idle_share': (None if busy['replay'] is None
-                                  else 1 - busy['replay'] / ms['replay']),
+            'eager_idle_share': idle_share(busy['eager'], ms['eager']),
+            'replay_idle_share': idle_share(busy['replay'], ms['replay']),
             'compile_s': compile_s, 'replay_equals_eager': True, 'launches_eager': launches,
-            'gpu': name_gpu, 'power_limit': power}
+            'gpu': name_gpu, 'power_limit': power}, eager, jit
 
     def run_mix(label, c, level, must_launch, must_not_launch, name):
         """The op-mix task on context c at ``level``: every output of the eager
@@ -919,7 +963,8 @@ def main() -> int:
             c.gen_galois_keys_for_elements([int(e) for e in json.load(f)['key']['glk']])
         msgs = tasks.mix_messages(c.params.t, c.params.n, SEED)
         online, offline = tasks.mix_arguments(c, level, msgs)
-        out_e, entry = run_task(label, c, name, online, offline, must_launch, must_not_launch)
+        out_e, entry, _, _ = run_task(label, c, name, online, offline, must_launch,
+                                      must_not_launch)
         twin = cpu_context(c)
         cpu_task = FheTask(tasks.task_dir(name), mode='eager', device='cpu')
         cpu_task.preload(twin, {k: on_cpu(v) for k, v in offline.items()})
@@ -976,8 +1021,8 @@ def main() -> int:
     online = tasks.mult_relin_arguments(
         [Ciphertext(data=a_data[i], level=LEVEL) for i in range(BATCH)],
         [Ciphertext(data=b_data[i], level=LEVEL) for i in range(BATCH)])
-    out_t, entry = run_task('task_path', ctx, tasks.MULT_RELIN, online, {},
-                            ['behz_prep32', 'ksw_switch32', 'behz_finish32'], no_b1)
+    out_t, entry, _, _ = run_task('task_path', ctx, tasks.MULT_RELIN, online, {},
+                                  ['behz_prep32', 'ksw_switch32', 'behz_finish32'], no_b1)
     if entry['plan_steps']['jit'] != 2:
         raise AssertionError(f"task_path: the fused plan has {entry['plan_steps']['jit']} steps")
     zs = [out_t[f'z{k}'] for k in range(BATCH)]
@@ -1266,11 +1311,243 @@ def main() -> int:
             **hold_ntt(kname, [(ring, (37,))], kernel, plain, work, parts))
     torch.cuda.empty_cache()
 
-    # launches on the path a kernel serves; B1's entries and the n = 2^16
-    # holds on the main path (0)
+    # ---- 11. CKKS ----------------------------------------------------------
+    # two contexts, made once: the u64 chain and the composite 2^60 chain on
+    # the 31-bit primes of create_tpu_param(16384) (two primes a level)
+    params_c64, params_c32 = CkksParams.create(N), ckks_composite_params(N)
+    t1 = time.perf_counter()
+    ctx_c64 = CkksContext.create_random_context(params_c64, seed=SEED, device=dev)
+    keygen_c64_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ctx_c32 = CkksContext.create_random_context(params_c32, seed=SEED, device=dev)
+    keygen_c32_s = time.perf_counter() - t1
+    e64, e32 = ctx_c64.engine, ctx_c32.engine
+    sw_c64, sw_c32 = e64.switcher, e32.switcher
+    alpha_c64, beta_c64 = sw_c64.alpha, sw_c64.beta(LEVEL_C64)
+    alpha_c32, beta_c32 = sw_c32.alpha, sw_c32.beta(LEVEL_C32)
+    rows = {'rows': 'ntt_kernel'}
+    # B1 at ckks_w32_path's shapes: forward at B3's output NTT (2 components
+    # over q_11) and at each rescale's NTT (over q_10, then q_9); inverse on
+    # c2 and at each rescale (over q_11, then q_10)
+    q11, q10, q9 = (e32.ring(LEVEL_C32 - k) for k in range(3))
+    kernels['ntt32_fwd_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt32.cu',
+        replaces='lattisense_tpu/ops/ntt_pallas32.py:101',
+        replaces_function='ntt_fused32 (_fwd_kernel)', path='ckks_w32_path',
+        counted_as='ntt32_fwd',
+        **hold_ntt('ntt32_fwd_ckks', [(q11, (BATCH, 2)), (q10, (BATCH, 2)), (q9, (BATCH, 2))],
+                   ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain, ntt_work, rows))
+    kernels['ntt32_inv_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt32.cu',
+        replaces='lattisense_tpu/ops/ntt_pallas32.py:173',
+        replaces_function='intt_fused32 (_inv_kernel)', path='ckks_w32_path',
+        counted_as='ntt32_inv',
+        **hold_ntt('ntt32_inv_ckks', [(q11, (BATCH,)), (q11, (BATCH, 2)), (q10, (BATCH, 2))],
+                   ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, ntt_work, rows))
+    # B3 with an NTT-domain output: the relinearization of (B, 11, n) at level 10
+    x = card_residues(q11.moduli, (BATCH,), N)
+    kernels['ksw_switch32_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ksw32.cu', design=ksw_cuda.switch_route(N),
+        replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
+        replaces_function='ksw_switch32 (_ksw_kernel), output_ntt=True', path='ckks_w32_path',
+        counted_as='ksw_switch32',
+        shapes=[{'x': list(x.shape), 'level': LEVEL_C32, 'alpha': alpha_c32, 'beta': beta_c32,
+                 'T': LEVEL_C32 + 1 + alpha_c32, 'output_ntt': True}],
+        **hold(lambda: list(ksw_cuda.ksw_switch32(x, ctx_c32.rlk, sw_c32, LEVEL_C32, True)),
+               lambda: list(sw_c32.switch_plain(x, ctx_c32.rlk, LEVEL_C32, True)),
+               [ksw_work(BATCH, LEVEL_C32 + 1, alpha_c32, beta_c32, N, output_ntt=True)]))
+    del x
+    # B5, B6 and B7 at ckks_path's shapes: forward on the β digits over
+    # q_4 ∪ P, the switch's output over q_4 and the rescale's over q_3;
+    # inverse on c2, the 2 key components over q_4 ∪ P and the rescale's
+    # input; RoundDivP's P → Q conversion, the mod-up, the inner product
+    q4, q3, qp_c64 = e64.ring(LEVEL_C64), e64.ring(LEVEL_C64 - 1), sw_c64.ring_qp(LEVEL_C64)
+    T_c64 = LEVEL_C64 + 1 + alpha_c64
+    kernels['ntt64_fwd_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt64.cu',
+        replaces='lattisense_tpu/ops/ntt_pallas64f.py:48',
+        replaces_function='ntt_fused64 (_fwd_kernel)', path='ckks_path', counted_as='ntt64_fwd',
+        **hold_ntt('ntt64_fwd_ckks', [(qp_c64, (BATCH, beta_c64)), (q4, (BATCH, 2)),
+                                      (q3, (BATCH, 2))],
+                   ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64, rows))
+    kernels['ntt64_inv_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ntt64.cu',
+        replaces='lattisense_tpu/ops/ntt_pallas64f.py:98',
+        replaces_function='intt_fused64 (_inv_kernel)', path='ckks_path', counted_as='ntt64_inv',
+        **hold_ntt('ntt64_inv_ckks', [(q4, (BATCH,)), (qp_c64, (BATCH, 2)), (q4, (BATCH, 2))],
+                   ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64, rows))
+    pre_c64 = sw_c64._level_pre(LEVEL_C64)
+    rdp_c64 = pre_c64[5].conv
+    y = rdp_c64.decompose(card_residues(rdp_c64.src, (BATCH, 2), N))
+    kernels['bconv64_convert_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+        replaces_function='bconv_convert_fused (_bconv_kernel): RoundDivP P -> Q',
+        path='ckks_path', counted_as='bconv64_convert', shapes=[list(y.shape)],
+        instance=bconv_cuda.instance(alpha_c64, LEVEL_C64 + 1, max(rdp_c64.src) - 1),
+        imad_bound_ms=imad_bound_ms([(b6_imad(alpha_c64, LEVEL_C64 + 1, bconv_cuda.instance(
+            alpha_c64, LEVEL_C64 + 1, max(rdp_c64.src) - 1) == 'specific'),
+            y.numel() * (LEVEL_C64 + 1))]),
+        **hold(lambda: [bconv_cuda.bconv64_convert(y, rdp_c64)],
+               lambda: [bconv_cuda.bconv64_plain(y, rdp_c64.qhat_dst_mont, rdp_c64.dst_q,
+                                                 rdp_c64.dst_pinv)],
+               [bconv64_work(BATCH * 2, alpha_c64, LEVEL_C64 + 1, N)]))
+    y = card_residues(params_c64.q[:LEVEL_C64 + 1], (BATCH,), N).reshape(
+        BATCH, beta_c64, alpha_c64, N)
+    inst = bconv_cuda.instance(alpha_c64, T_c64, bconv_cuda.WORD_GUARD)
+    kernels['bconv64_raw_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+        replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+        replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
+        path='ckks_path', counted_as='bconv64_raw', shapes=[list(y.shape)], instance=inst,
+        imad_bound_ms=imad_bound_ms([(b6_imad(alpha_c64, T_c64, inst == 'specific'),
+                                      y.numel() * T_c64)]),
+        **hold(lambda: [bconv_cuda.bconv64_raw(y, pre_c64[4], qp_c64.q, qp_c64.pinv)],
+               lambda: [bconv_cuda.bconv64_plain(y, pre_c64[4], qp_c64.q, qp_c64.pinv)],
+               [bconv64_work(BATCH * beta_c64, alpha_c64, T_c64, N)]))
+    d = card_residues(qp_c64.moduli, (BATCH, beta_c64), N)
+    kernels['ksw_inner64_ckks'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ksw64.cu',
+        replaces='lattisense_tpu/ops/ksw_pallas.py:29',
+        replaces_function='ksw_inner_fused (_ksw_kernel)', path='ckks_path',
+        counted_as='ksw_inner64', shapes=[list(d.shape)],
+        imad_bound_ms=imad_bound_ms([(b7_imad(beta_c64), BATCH * 2 * T_c64 * N * beta_c64)]),
+        **hold(lambda: [ksw64_cuda.ksw_inner64(d, ctx_c64.rlk, LEVEL_C64, qp_c64)],
+               lambda: [ksw64_cuda.ksw_inner64_plain(d, ctx_c64.rlk, LEVEL_C64, qp_c64)],
+               [ksw64_work(BATCH, beta_c64, T_c64, N)]))
+    del y, d
+    torch.cuda.empty_cache()
+
+    def ckks_judge(c, want):
+        """Elements 0 and BATCH - 1 of a CKKS path decode within CKKS_TOL of
+        ``want(i)``, their float64 slots."""
+        def judge(out, out_cpu):
+            got, err = {}, {}
+            for i in (0, BATCH - 1):
+                got[i] = c.decrypt_decode(Ciphertext(data=out[i], level=out_cpu.level,
+                                                     is_ntt=True, scale=out_cpu.scale))
+                err[i] = float(np.abs(got[i] - want(i)).max())
+            prec = get_precision_stats(want(0), got[0]).mean_precision
+            return max(err.values()) < CKKS_TOL, {
+                'out_level': out_cpu.level, 'out_scale': out_cpu.scale,
+                'max_abs_err_element0': err[0], 'max_abs_err_last': err[BATCH - 1],
+                'mean_log2_precision_element0': {'real': float(prec.real),
+                                                 'imag': float(prec.imag),
+                                                 'l2': float(prec.l2)}}
+        return judge
+
+    def complex_slots(count, slots):
+        return rng.uniform(-1, 1, (count, slots)) + 1j * rng.uniform(-1, 1, (count, slots))
+
+    ckks_paths = ['ckks_path', 'ckks_w32_path', 'ckks_rotate_path', 'ckks_task_mix_path',
+                  'ckks_task_mix64_path']
+    c64_kernels = ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64']
+    c32_kernels = ['ntt32_fwd', 'ntt32_inv', 'ksw_switch32']
+    no_c32 = ([k for k in w32_kernels if k not in c32_kernels] + u64_kernel_counts + split_cols)
+    msgs_c = complex_slots(2 * BATCH, params_c64.slots)
+    path_launches['ckks_path'] = run_path(
+        'ckks_path', ctx_c64, CkksEngine(params_c64, 'cpu'), LEVEL_C64, ckks_mult_relin_rescale,
+        2, key_tree(ctx_c64), {'rlk': cpu_key(ctx_c64.rlk)}, msgs_c, None, c64_kernels,
+        w32_kernels + split_cols,
+        {'op': 'mult_relin_rescale', 'params': 'CkksParams.create(16384)', 'word_bits': 64,
+         'scale': params_c64.scale, 'alpha': alpha_c64, 'beta': beta_c64,
+         'keygen_s': keygen_c64_s},
+        judge=ckks_judge(ctx_c64, lambda i, m=msgs_c: m[i] * m[BATCH + i]))['launches']
+    msgs_c = complex_slots(2 * BATCH, params_c32.slots)
+    path_launches['ckks_w32_path'] = run_path(
+        'ckks_w32_path', ctx_c32, CkksEngine(params_c32, 'cpu'), LEVEL_C32,
+        ckks_mult_relin_rescale2, 2, key_tree(ctx_c32), {'rlk': cpu_key(ctx_c32.rlk)}, msgs_c,
+        None, c32_kernels, no_c32,
+        {'op': 'mult_relin_rescale2', 'params': 'CkksParams.create_custom(16384, '
+         'create_tpu_param(16384) primes, scale=2**60, word_bits=32)', 'word_bits': 32,
+         'scale': params_c32.scale, 'alpha': alpha_c32, 'beta': beta_c32,
+         'keygen_s': keygen_c32_s},
+        judge=ckks_judge(ctx_c32, lambda i, m=msgs_c: m[i] * m[BATCH + i]))['launches']
+    t1 = time.perf_counter()
+    ctx_c32.gen_galois_keys_for_elements([elt])
+    galois_keygen_c32_s = time.perf_counter() - t1
+    rkeys_c = key_tree(ctx_c32, galois_elts=[elt])
+    path_launches['ckks_rotate_path'] = run_path(
+        'ckks_rotate_path', ctx_c32, CkksEngine(params_c32, 'cpu'), LEVEL_C32,
+        make_rotate_step(elt), 1, rkeys_c, {'glk': {elt: cpu_key(rkeys_c['glk'][elt])}},
+        msgs_c[:BATCH], None, c32_kernels, no_c32,
+        {'op': 'rotate', 'step': 1, 'galois_elt': elt, 'word_bits': 32,
+         'galois_keygen_s': galois_keygen_c32_s},
+        judge=ckks_judge(ctx_c32, lambda i, m=msgs_c: np.roll(m[i], -1)))['launches']
+    del msgs_c, rkeys_c
+
+    def run_ckks_mix(label, c, level, must_launch, must_not_launch, name):
+        """The CKKS op-mix task on context c at ``level`` at the task's scale:
+        every output of the eager run equals the port's CPU run bit for bit
+        (data, level and scale) and decodes within CKKS_TOL; then a second
+        set of input scales (1.5 times the first) through the same task objects
+        captures a second graph, whose replay equals eager at those scales
+        and decodes within CKKS_TOL; the line's entries."""
+        with open(os.path.join(tasks.task_dir(name), 'task_signature.json')) as f:
+            c.gen_galois_keys_for_elements([int(e) for e in json.load(f)['key']['glk']])
+        with open(os.path.join(tasks.task_dir(name), 'mega_ag.json')) as f:
+            scale = float(json.load(f)['parameter']['scale'])
+        msgs = tasks.ckks_mix_messages(c.params.slots, SEED)
+        expected = tasks.ckks_mix_expected(msgs)
+
+        def worst(out):
+            errs = [float(np.abs(c.decrypt_decode(v) - m).max()) for k in tasks.CKKS_MIX_OUTPUTS
+                    for v, m in zip(out[k] if isinstance(out[k], list) else [out[k]],
+                                    expected[k] if isinstance(expected[k], list)
+                                    else [expected[k]])]
+            return max(errs)
+        online, offline = tasks.ckks_mix_arguments(c, level, msgs, scale)
+        out_e, entry, eager, jit = run_task(label, c, name, online, offline, must_launch,
+                                            must_not_launch)
+        twin = cpu_context(c)
+        cpu_task = FheTask(tasks.task_dir(name), mode='eager', device='cpu')
+        cpu_task.preload(twin, {k: on_cpu(v) for k, v in offline.items()})
+        t1 = time.perf_counter()
+        out_c, _ = cpu_task.run(twin, {k: on_cpu(v) for k, v in online.items()})
+        cpu_s = time.perf_counter() - t1
+        bit_exact = outputs_equal(torch, out_e, out_c)
+        err = worst(out_e)
+        # the second set of scales: its own graph
+        online2, offline2 = tasks.ckks_mix_arguments(c, level, msgs, scale * 1.5)
+        for t in (eager, jit):
+            t.preload(c, offline2)
+        out_j2, _ = jit.run(c, online2)
+        out_e2, _ = eager.run(c, online2)
+        graphs = len(jit._graphs)
+        second_equal = outputs_equal(torch, out_j2, out_e2)
+        err2 = worst(out_j2)
+        print(json.dumps({label: {
+            **entry, 'n': c.params.n, 'level': level, 'word_bits': c.params.word_bits,
+            'scale': scale, 'outputs': len(flat_outputs(out_e)),
+            'correct': err < CKKS_TOL and err2 < CKKS_TOL, 'max_abs_err': err,
+            'bit_exact_vs_cpu': bit_exact, 'cpu_run_s': cpu_s,
+            'second_scales': {'scale': scale * 1.5, 'graphs_captured': graphs,
+                              'replay_equals_eager': second_equal, 'max_abs_err': err2}}}),
+              flush=True)
+        if not (err < CKKS_TOL and err2 < CKKS_TOL and bit_exact and second_equal
+                and graphs == 2):
+            raise AssertionError(f'{label}: max_abs_err {err} / {err2}, bit_exact_vs_cpu='
+                                 f'{bit_exact}, second scales replay_equals_eager='
+                                 f'{second_equal} with {graphs} graphs')
+        return entry['launches_eager']
+
+    path_launches['ckks_task_mix_path'] = run_ckks_mix(
+        'ckks_task_mix_path', ctx_c32, LEVEL_C32, c32_kernels, no_c32, tasks.CKKS_MIX_W32)
+    del ctx_c32
+    torch.cuda.empty_cache()
+    path_launches['ckks_task_mix64_path'] = run_ckks_mix(
+        'ckks_task_mix64_path', ctx_c64, LEVEL_C64, c64_kernels, w32_kernels + split_cols,
+        tasks.CKKS_MIX_U64)
+    del ctx_c64
+    torch.cuda.empty_cache()
+
+    # launches on the path a kernel serves (B1's entries and the n = 2^16
+    # holds: on the main path, 0), and on each CKKS path
     for kname, entry in kernels.items():
         counted = entry.pop('counted_as', kname)
         entry['launches'] = path_launches[entry['path'] or 'main_path'][counted]
+        entry['ckks_launches'] = {p: path_launches[p][counted] for p in ckks_paths
+                                  if path_launches[p].get(counted)}
         entry['library_ms'] = None
         entry.setdefault('imad_bound_ms', None)
     print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)

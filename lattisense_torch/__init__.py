@@ -37,3 +37,10 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device('cuda', torch.cuda.current_device())
     return dev
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error raised by a part of the reference the port does not have
+    yet, naming its item in ``ROADMAP.md`` §1."""
+    return NotImplementedError(f'{what} is not ported to lattisense_torch yet '
+                               f'(ROADMAP.md §1 item {item})')

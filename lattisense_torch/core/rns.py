@@ -24,7 +24,7 @@ def _col(vals, device):
                         device=device).reshape(len(vals), 1)
 
 
-def _mont(v: int, p: int, bits: int = 32) -> int:
+def _mont(v: int, p: int, bits: int) -> int:
     return (v << bits) % p
 
 
@@ -32,7 +32,7 @@ def _shoup(v: int, p: int, bits: int = 32) -> int:
     return (v << bits) // p
 
 
-def _pinv(p: int, bits: int = 32) -> int:
+def _pinv(p: int, bits: int) -> int:
     return (-pow(p, -1, 1 << bits)) % (1 << bits)
 
 
@@ -180,7 +180,7 @@ class DivRoundLast:
     """c' = round(c / q_last) on RNS limbs: BFV modulus switching (drops the
     last limb)."""
 
-    def __init__(self, moduli: tuple[int, ...], device, word_bits: int = 32):
+    def __init__(self, moduli: tuple[int, ...], device, word_bits: int):
         if len(moduli) < 2:
             raise ValueError('DivRoundLast needs at least two moduli')
         b = word_bits

@@ -1,6 +1,7 @@
 """User-facing contexts and the compiled-task runtime."""
 
-from .context import BfvContext
+from .context import BfvContext, CkksContext, FheContext, create_context_for_params
 from .task import FheTask, FheTaskGpu
 
-__all__ = ['BfvContext', 'FheTask', 'FheTaskGpu']
+__all__ = ['BfvContext', 'CkksContext', 'FheContext', 'FheTask', 'FheTaskGpu',
+           'create_context_for_params']

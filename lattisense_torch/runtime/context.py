@@ -1,53 +1,67 @@
-"""User-facing BFV context: key ownership and the eager op facade.
+"""User-facing contexts: key ownership and the eager op facade.
 
-Port of the ``BfvContext`` subset of ``lattisense_tpu/runtime/context.py``:
-a context owns the parameter set, the secret, public, relinearization and
-Galois keys, and exposes encode / encrypt / decrypt, the multiplication ops
-and the rotations. It runs on the card unless created with
-``device='cpu'``.
+Port of ``lattisense_tpu/runtime/context.py`` (after the reference SDK's
+BfvContext and CkksContext, fhe_lib_v2.h:358-706, :831-1163). A context owns
+the parameter set, the secret, public, relinearization, Galois and switching
+keys, and exposes encode / encrypt / decrypt, the evaluation ops, the
+rotations and serialization. ``FheContext`` holds what both schemes share;
+``BfvContext`` and ``CkksContext`` pick the engine. A context runs on the
+card unless created with ``device='cpu'``; keys from a seed equal the JAX
+package's context keys for the same seed.
+
+``make_public_context()`` drops the secret key for the server side of
+client/server protocols.
 """
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import not_ported, resolve_device
 from ..params import BfvParams
 from ..schemes import keys as K
 from ..schemes.bfv import BfvEngine
+from ..schemes.ckks import CkksEngine
 from ..schemes.galois import col_sub_steps, galois_elt_col, galois_elt_row
 from ..schemes.types import GaloisKeys, KeySwitchKey, PublicKey
 from ..utils.csprng import default_crypto_rng
 
 
-class BfvContext:
-    """BFV keys + engine on one device (reference: fhe_lib_v2.h BfvContext)."""
+class FheContext:
+    """Keys and engine of either scheme on one device."""
 
-    def __init__(self, params: BfvParams, seed=None, device=None):
+    engine_cls = None
+
+    def __init__(self, params, seed=None, device=None):
         self.params = params
         self.device = resolve_device(device)
-        self.engine = BfvEngine(params, self.device)
+        self.engine = self.engine_cls(params, self.device)
+        # CSPRNG for all secret sampling (keys, noise, compressed-ct seeds)
         self.rng = default_crypto_rng(seed)
         self.sk = None
         self.pk = None
         self.rlk = None
         self.glk = GaloisKeys()
+        self.swk = {}              # name -> KeySwitchKey
 
     # ---- key generation / import ----
     @classmethod
-    def create_random_context(cls, params: BfvParams, seed=None, device=None) -> 'BfvContext':
+    def create_random_context(cls, params, seed=None, device=None) -> 'FheContext':
         """Sample sk/pk/rlk; deterministic when ``seed`` is given, with the
         same keys as ``lattisense_tpu``'s context of the same seed."""
         ctx = cls(params, seed, device)
-        q, p, n = tuple(params.q), tuple(params.p), params.n
+        q, p, n, wb = tuple(params.q), tuple(params.p), params.n, params.word_bits
         ctx.sk = K.SecretKey(K.sample_ternary(ctx.rng, n))
-        wb = params.word_bits
         ctx.pk = K.gen_public_key(ctx.rng, ctx.sk, q, n, ctx.device, wb)
         ctx.rlk = K.gen_relin_key(ctx.rng, ctx.sk, q, p, n, ctx.device, wb)
         return ctx
 
     @classmethod
-    def from_arrays(cls, params: BfvParams, sk, pk, rlk_key_q, rlk_key_p,
-                    device=None) -> 'BfvContext':
+    def create_empty_context(cls, params, device=None) -> 'FheContext':
+        """A context without keys (the server side before keys arrive)."""
+        return cls(params, device=device)
+
+    @classmethod
+    def from_arrays(cls, params, sk, pk, rlk_key_q, rlk_key_p, device=None) -> 'FheContext':
         """A context holding existing keys given as arrays: ``sk`` the ternary
         secret coefficients (n,), ``pk`` (2, Lq, n), ``rlk_key_q``
         (β, 2, Lq, n) and ``rlk_key_p`` (β, 2, |P|, n), in the reference's
@@ -71,7 +85,7 @@ class BfvContext:
                                                               f'galois key {galois_elt}')
 
     def _tensor(self, a, shape, name):
-        arr = np.asarray(a)
+        arr = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
         if arr.shape != shape:
             raise ValueError(f'{name}: expected shape {shape}, got {arr.shape}')
         return torch.from_numpy(arr.astype(np.int64)).to(self.device)
@@ -109,13 +123,68 @@ class BfvContext:
             i *= 2
         self.gen_rotation_keys_for_rotations(steps, swap_rows=True, level=level)
 
+    def make_public_context(self) -> 'FheContext':
+        """An evaluation-only copy: public and evaluation keys, no secret key.
+        The key containers are copied, so keys added later to either context
+        stay out of the other."""
+        pub = type(self)(self.params, device=self.device)
+        pub.pk, pub.rlk = self.pk, self.rlk
+        pub.glk = GaloisKeys(dict(self.glk.keys))
+        pub.swk = dict(self.swk)
+        return pub
+
+    @property
+    def is_public(self) -> bool:
+        return self.sk is None
+
+    # ---- serialization (byte-compatible with lattisense_tpu) ----
+    def serialize(self) -> bytes:
+        """The context's state without evaluation keys."""
+        from ..utils.serialize import serialize_context
+        return serialize_context(self, advanced=False)
+
+    def serialize_advanced(self) -> bytes:
+        """The context's state with the relinearization, Galois and switching keys."""
+        from ..utils.serialize import serialize_context
+        return serialize_context(self, advanced=True)
+
+    @staticmethod
+    def deserialize(blob: bytes, device=None) -> 'FheContext':
+        from ..utils.serialize import deserialize_context
+        return deserialize_context(blob, device)
+
+    deserialize_advanced = deserialize
+
+    def serialize_ciphertext(self, ct, n_drop_bit_0: int = 0, n_drop_bit_1: int = 0) -> bytes:
+        from ..utils.serialize import serialize_ciphertext
+        return serialize_ciphertext(ct, self.params, n_drop_bit_0, n_drop_bit_1)
+
+    @staticmethod
+    def deserialize_ciphertext(blob: bytes, device=None):
+        from ..utils.serialize import deserialize_ciphertext
+        return deserialize_ciphertext(blob, device)
+
+    def encrypt_symmetric_compressed(self, pt, seed=None):
+        self._require_sk('Context does not have sk and the corresponding encryptor.')
+        return self.engine.encrypt_symmetric_compressed(self.rng, self.sk, pt, seed)
+
+    def compressed_ciphertext_to_ciphertext(self, cct):
+        return self.engine.decompress_ciphertext(cct)
+
     # ---- argument validation (reference-verbatim error strings) ----
+    def _require_sk(self, msg: str):
+        if self.sk is None:
+            raise RuntimeError(msg)
+
+    def _max_message_len(self) -> int:
+        return self.params.n
+
     def _check_message(self, values, level):
         try:
             length = len(values)
         except TypeError:
             length = np.asarray(values).size
-        if length == 0 or length > self.params.n:
+        if length == 0 or length > self._max_message_len():
             raise RuntimeError('Invalid message length.')
         if level is not None and not 0 <= level <= self.params.max_level:
             raise RuntimeError('Invalid level.')
@@ -127,34 +196,47 @@ class BfvContext:
             raise RuntimeError('x0 and x1 have different levels.')
 
     # ---- encode / encrypt / decrypt ----
-    def encode(self, values, level=None):
+    def encode(self, values, level=None, **kw):
         level = self.params.max_level if level is None else level
         self._check_message(values, level)
-        return self.engine.encode(values, level)
+        return self.engine.encode(values, level, **kw)
 
-    def encode_ringt(self, values):
+    def encode_ringt(self, values, **kw):
         self._check_message(values, None)
-        return self.engine.encode_ringt(values)
+        return self.engine.encode_ringt(values, **kw)
 
-    def encode_mul(self, values, level=None):
+    def encode_mul(self, values, level=None, **kw):
         level = self.params.max_level if level is None else level
         self._check_message(values, level)
-        return self.engine.encode_mul(values, level)
+        return self.engine.encode_mul(values, level, **kw)
 
     def encrypt(self, pt):
         return self.engine.encrypt_asymmetric(self.rng, self.pk, pt)
 
+    def encrypt_symmetric(self, pt):
+        self._require_sk('Context does not have sk and the corresponding encryptor.')
+        return self.engine.encrypt_symmetric(self.rng, self.sk, pt)
+
     def decrypt(self, ct):
-        if self.sk is None:
-            raise RuntimeError('Context does not have sk and decryptor.')
+        self._require_sk('Context does not have sk and decryptor.')
         return self.engine.decrypt(self.sk, ct)
 
     def decrypt_decode(self, ct):
-        if self.sk is None:
-            raise RuntimeError('Context does not have sk and decryptor.')
+        self._require_sk('Context does not have sk and decryptor.')
         return self.engine.decrypt_decode(self.sk, ct)
 
     # ---- evaluation ----
+    def add(self, a, b):
+        self._check_same_level(a, b)
+        return self.engine.add(a, b)
+
+    def sub(self, a, b):
+        self._check_same_level(a, b)
+        return self.engine.sub(a, b)
+
+    def neg(self, a):
+        return self.engine.neg(a)
+
     def mult(self, a, b):
         self._check_same_level(a, b)
         return self.engine.mult(a, b)
@@ -166,6 +248,13 @@ class BfvContext:
 
     def mult_relin(self, a, b):
         return self.relinearize(self.mult(a, b))
+
+    def rescale(self, ct, *a, **kw):
+        return self.engine.rescale(ct, *a, **kw)
+
+    def get_coeff(self, ct, poly_idx: int, limb: int, coeff_idx: int) -> int:
+        """One raw RNS coefficient (reference BfvCiphertext::get_coeff)."""
+        return int(ct.data[poly_idx, limb, coeff_idx])
 
     # ---- rotations ----
     def _glk_for(self, elt: int):
@@ -201,3 +290,79 @@ class BfvContext:
             elt = galois_elt_col(s, self.params.n)
             out[s] = self.engine.apply_galois_decomposed(dct, elt, self._glk_for(elt))
         return out
+
+
+class BfvContext(FheContext):
+    """BFV keys + engine on one device (reference: fhe_lib_v2.h BfvContext)."""
+
+    engine_cls = BfvEngine
+
+    def mult_scalar(self, ct, scalar: int):
+        return self.engine.mult_scalar(ct, scalar)
+
+    def encode_coeffs(self, coeffs, level=None):
+        level = self.params.max_level if level is None else level
+        return self.engine.encode_coeffs(coeffs, level)
+
+    def encode_coeffs_ringt(self, coeffs):
+        return self.engine.encode_coeffs_ringt(coeffs)
+
+    def encode_coeffs_mul(self, coeffs, level=None):
+        level = self.params.max_level if level is None else level
+        return self.engine.encode_coeffs_mul(coeffs, level)
+
+    def decrypt_coeffs(self, ct):
+        self._require_sk('Context does not have sk and decryptor.')
+        return self.engine.decrypt_coeffs(self.sk, ct)
+
+    def noise_budget(self, ct) -> float:
+        """Remaining invariant-noise budget of ``ct`` in bits (SEAL semantics:
+        decryption is reliable while positive); needs the secret key."""
+        if self.sk is None:
+            raise RuntimeError('noise_budget requires the secret key')
+        return self.engine.noise_budget(self.sk, ct)
+
+
+class CkksContext(FheContext):
+    """CKKS keys + engine on one device (reference: fhe_lib_v2.h CkksContext).
+
+    ``conjugate``, ``drop_level``, ``set_log_slots`` and ``mult_scalar`` are
+    the JAX package's ``CkksBtpContext`` methods that need no bootstrapping;
+    the polynomial activations and bootstrapping wait for ROADMAP item 6."""
+
+    engine_cls = CkksEngine
+
+    def _max_message_len(self) -> int:
+        return self.params.slots
+
+    def conjugate(self, ct):
+        return self.rotate_rows(ct)
+
+    def drop_level(self, ct, levels: int = 1):
+        return self.engine.drop_level(ct, levels)
+
+    def set_log_slots(self, log_slots: int):
+        self.params.set_log_slots(log_slots)
+
+    def mult_scalar(self, ct, scalar: float):
+        return self.engine.mult_scalar(ct, scalar)
+
+    def poly_eval_relu_function(self, ct, degree: int = 15, bound: float = 1.0):
+        raise not_ported('poly_eval_relu_function', '6')
+
+    def poly_eval_step_function(self, ct, degree: int = 15, bound: float = 1.0):
+        raise not_ported('poly_eval_step_function', '6')
+
+    def create_bootstrapper(self, config=None):
+        raise not_ported('create_bootstrapper', '6')
+
+    def bootstrap(self, ct):
+        raise not_ported('CKKS bootstrap', '6')
+
+
+def create_context_for_params(params, seed=None, random: bool = True, device=None):
+    """A BFV or CKKS context for ``params``: with keys from ``seed`` when
+    ``random``, else empty."""
+    cls = BfvContext if isinstance(params, BfvParams) else CkksContext
+    return (cls.create_random_context(params, seed, device) if random
+            else cls(params, device=device))

@@ -1,6 +1,6 @@
-"""Compiled-task runtime: ``mega_ag.json`` → the port's BFV engine on one device.
+"""Compiled-task runtime: ``mega_ag.json`` → the port's BFV or CKKS engine on one device.
 
-Port of ``lattisense_tpu/runtime/task.py`` for BFV, after the reference
+Port of ``lattisense_tpu/runtime/task.py``, after the reference
 SDK's ``FheTaskGpu`` (cxx_sdk_v2/cxx_fhe_task.h:132). A task directory holds
 the graph (``mega_ag.json``) and its argument signature
 (``task_signature.json``); ``FheTaskGpu(task_dir).run(context, inputs)``
@@ -20,13 +20,22 @@ compute node is bound to an executor closure over the engine then. Two modes:
   one jitted XLA program per task. The CPU has no CUDA graph, so there the
   fused plan runs eagerly.
 
+CKKS scales are host metadata: each run seeds the input carriers with its
+arguments' scales (the parameter set's scale where an argument has none),
+the engine propagates them through the plan, and the outputs carry the
+scales the plan gave them for that combination of input scales. A captured
+graph cannot see a changed scale, so the input scales select the graph
+along with the shapes and the keys (``check_sig`` fixes each input's level,
+and the shapes carry it).
+
 The kernels are the engine's: the task runtime launches nothing itself, and
-lets every error of a kernel propagate. Not ported here: CKKS tasks,
-bootstrap nodes, ``mode='partitioned'``, ``mesh`` and the ``LATTISENSE_DEV``
-memory monitor; each raises ``NotImplementedError`` naming its ROADMAP item.
+lets every error of a kernel propagate. Not ported here: bootstrap nodes,
+``mode='partitioned'``, ``mesh`` and the ``LATTISENSE_DEV`` memory monitor;
+each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
+import gc
 import json
 import logging
 import os
@@ -34,20 +43,16 @@ import time
 
 import torch
 
-from .. import resolve_device
+from .. import not_ported, resolve_device
 from ..params import params_from_task_json
 from ..schemes.bfv import BfvEngine
+from ..schemes.ckks import CkksEngine
 from ..schemes.types import (Ciphertext, DecomposedCiphertext, KeySwitchKey, Plaintext,
                              PlaintextMul, PlaintextRingt)
 from . import check_sig
 
 _KEY_TYPES = ('rlk', 'glk', 'swk')
 _log = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f'{what} is not ported to lattisense_torch yet '
-                               f'(ROADMAP.md §1 item {item})')
 
 
 class _Node:
@@ -71,21 +76,21 @@ class _Node:
         self.is_compressed = d.get('is_compressed', False)
 
 
-def _wrap_input(node: _Node, data):
-    """Tensor → typed carrier from the data node's static metadata (the BFV
-    carriers have no scale)."""
+def _wrap_input(node: _Node, data, scale: float):
+    """Tensor → typed carrier from the data node's static metadata and the
+    run's scale for it."""
     if node.is_custom:
         return data             # custom payloads pass through untyped
     t = node.type
     if t in ('ct', 'ct3'):
         return Ciphertext(data=data, level=node.level, is_ntt=node.is_ntt,
-                          is_mform=node.is_mform)
+                          is_mform=node.is_mform, scale=scale)
     if t == 'pt':
-        return Plaintext(data=data, level=node.level)
+        return Plaintext(data=data, level=node.level, is_ntt=node.is_ntt, scale=scale)
     if t == 'pt_ringt':
-        return PlaintextRingt(data=data)
+        return PlaintextRingt(data=data, scale=scale)
     if t == 'pt_mul':
-        return PlaintextMul(data=data, level=node.level)
+        return PlaintextMul(data=data, level=node.level, scale=scale)
     raise ValueError(f'cannot wrap input of type {t}')
 
 
@@ -116,7 +121,7 @@ class _Graph:
     """One captured replay of the fused plan: static input buffers, the
     graph, and its static outputs (cloned on every run)."""
 
-    def __init__(self, task, arrays, key_tree):
+    def __init__(self, task, arrays, key_tree, scales):
         dev = task.device
         self.inputs = [a.clone() for a in arrays]
         with torch.cuda.device(dev):
@@ -125,12 +130,23 @@ class _Graph:
             with torch.cuda.stream(side):
                 # first-call work (kernel builds and loads, table caches,
                 # occupancy queries) happens here, outside the capture
-                task._trace(self.inputs, key_tree)
+                task._trace(self.inputs, key_tree, scales)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.outputs = task._trace(self.inputs, key_tree)
+            # a dead reference cycle that holds another task's graph or
+            # tensors, freed by the collector in mid-capture, would free
+            # device memory there and invalidate the capture: collect now,
+            # and not during the capture
+            gc.collect()
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    self.outputs = task._trace(self.inputs, key_tree, scales)
+            finally:
+                if was_enabled:
+                    gc.enable()
         # the key tensors the graph reads in place stay alive with it
         self.keys = key_tree
 
@@ -156,20 +172,18 @@ class FheTaskGpu:
     def __init__(self, task_dir: str, mode: str = 'jit', batch_fuse: bool = True,
                  custom_executors: dict | None = None, device=None, mesh=None):
         if mode == 'partitioned':
-            raise _not_ported("mode='partitioned' (bootstrap segments)", '6')
+            raise not_ported("mode='partitioned' (bootstrap segments)", '6')
         if mode not in ('jit', 'eager'):
             raise ValueError(f"mode must be 'jit' or 'eager', got {mode!r}")
         if mesh is not None:
-            raise _not_ported('a device mesh', '10')
+            raise not_ported('a device mesh', '10')
         with open(os.path.join(task_dir, 'mega_ag.json')) as f:
             self.mag = json.load(f)
         with open(os.path.join(task_dir, 'task_signature.json')) as f:
             self.signature = json.load(f)
         if any(c['type'] == 'bootstrap' for c in self.mag['compute'].values()):
-            raise _not_ported('a bootstrap node', '6')
+            raise not_ported('a bootstrap node', '6')
         self.algo = self.mag['algorithm']
-        if self.algo != 'BFV':
-            raise _not_ported(f'a {self.algo} task', '5')
         self.mode = mode
         self.batch_fuse = batch_fuse
         self.custom_executors = custom_executors or {}
@@ -184,9 +198,10 @@ class FheTaskGpu:
         """(Re)build the engine on ``params``' word, the plan, and drop the
         captured graphs."""
         self.params = params
-        self.engine = BfvEngine(params, self.device)
+        self.engine = (BfvEngine if self.algo == 'BFV' else CkksEngine)(params, self.device)
         self._build_plan()
         self._graphs: dict = {}
+        self._out_scales: dict = {}
 
     # ------------------------------------------------------------------
     # Plan construction (load-time executor binding)
@@ -382,7 +397,12 @@ class FheTaskGpu:
             return run
 
         if op == 'drop_level':
-            raise ValueError('DROP_LEVEL only supported for CKKS scheme')
+            if self.algo == 'BFV':
+                raise ValueError('DROP_LEVEL only supported for CKKS scheme')
+
+            def run(env, keys):
+                env[out_idx] = eng.drop_level(ctv(env), 1)
+            return run
 
         if op in ('rotate_col', 'rotate_row'):
             elt = keynodes[0].galois_element
@@ -392,6 +412,11 @@ class FheTaskGpu:
                 def run(env, keys):
                     env[out_idx] = eng.apply_galois_decomposed(
                         env[cts[0].index], elt, keys['glk'][elt], out_ntt=o_ntt, out_mform=o_mf)
+                return run
+            if self.algo != 'BFV':
+                # CKKS ciphertexts stay in the NTT domain
+                def run(env, keys):
+                    env[out_idx] = eng.apply_galois(ctv(env), elt, keys['glk'][elt])
                 return run
 
             def run(env, keys):
@@ -476,15 +501,18 @@ class FheTaskGpu:
                     key_q=kq, key_p=kp, level=node.level, sp_level=node.sp_level)
         return keys
 
-    def _trace(self, input_arrays, key_tree, progress=None):
-        """Run the plan on input tensors; → the output tensors."""
-        env = {node.index: _wrap_input(node, arr)
-               for node, arr in zip(self._data_input_nodes(), input_arrays)}
+    def _trace(self, input_arrays, key_tree, scales, progress=None):
+        """Run the plan on input tensors at the input ``scales``; → the output
+        tensors. The output scales the plan gave are recorded for this
+        combination of input scales."""
+        env = {node.index: _wrap_input(node, arr, sc)
+               for node, arr, sc in zip(self._data_input_nodes(), input_arrays, scales)}
         keys = self._build_keys(key_tree)
         for i, step in enumerate(self.plan):
             step(env, keys)
             if progress is not None:
                 progress(i + 1)
+        self._out_scales[tuple(scales)] = [getattr(env[o], 'scale', 1.0) for o in self.outputs]
         return [env[o].data for o in self.outputs]
 
     def _context_key_tree(self, context):
@@ -502,19 +530,22 @@ class FheTaskGpu:
         return tree
 
     @staticmethod
-    def _graph_key(arrays, key_tree):
-        """A captured graph reads its keys in place: the key tensors'
-        addresses and shapes, with the inputs' shapes and dtypes, select it."""
+    def _graph_key(arrays, key_tree, scales):
+        """A captured graph reads its keys in place and holds the scales of
+        its capture as constants: the key tensors' addresses and shapes, the
+        inputs' shapes and dtypes and their scales select it. The levels
+        need no place here: ``check_sig`` pins each input's level to the
+        signature's, and the shapes carry it."""
         keys = [key_tree['rlk']] + list(key_tree['glk'].values()) + list(key_tree['swk'].values())
         return (tuple((tuple(a.shape), a.dtype) for a in arrays),
                 tuple((t.data_ptr(), tuple(t.shape)) for pair in keys if pair is not None
-                      for t in pair))
+                      for t in pair), scales)
 
-    def _graph_for(self, arrays, key_tree):
-        gk = self._graph_key(arrays, key_tree)
+    def _graph_for(self, arrays, key_tree, scales):
+        gk = self._graph_key(arrays, key_tree, scales)
         g = self._graphs.get(gk)
         if g is None:
-            g = self._graphs[gk] = _Graph(self, arrays, key_tree)
+            g = self._graphs[gk] = _Graph(self, arrays, key_tree, scales)
         return g
 
     def _replays(self) -> bool:
@@ -550,7 +581,8 @@ class FheTaskGpu:
         check_sig.check_parameter(context, self.mag['parameter'])
 
     def _prepare(self, context, input_values: dict):
-        """Check the arguments and the context; → (input tensors, key tree)."""
+        """Check the arguments and the context; → (input tensors, key tree,
+        input scales)."""
         if self._offline:
             input_values = {**self._offline, **input_values}
         self.check(context, input_values)
@@ -558,10 +590,12 @@ class FheTaskGpu:
         if ctx_dev != self.device:
             raise RuntimeError(f'the context is on {ctx_dev}, the task on {self.device}')
         if os.environ.get('LATTISENSE_DEV', '') not in ('', '0'):
-            raise _not_ported('the LATTISENSE_DEV memory monitor', '8')
-        arrays = [torch.as_tensor(v.data, dtype=torch.int64, device=self.device)
-                  for v in self._flatten_args(input_values)]
-        return arrays, self._context_key_tree(context)
+            raise not_ported('the LATTISENSE_DEV memory monitor', '8')
+        flat = self._flatten_args(input_values)
+        arrays = [torch.as_tensor(v.data, dtype=torch.int64, device=self.device) for v in flat]
+        default = getattr(self.params, 'scale', 1.0)
+        scales = tuple(float(getattr(v, 'scale', default)) for v in flat)
+        return arrays, self._context_key_tree(context), scales
 
     def run(self, context, input_values: dict, progress_cb=None):
         """Validate, execute, return ({output_id: value}, duration_ns).
@@ -572,9 +606,9 @@ class FheTaskGpu:
         use (or in ``compile``) are outside it. ``progress_cb(completed,
         total)`` is called per op, throttled to 100 ms, in eager mode, and
         at 0 and at the end otherwise."""
-        arrays, key_tree = self._prepare(context, input_values)
+        arrays, key_tree, scales = self._prepare(context, input_values)
         total = len(self.plan)
-        graph = self._graph_for(arrays, key_tree) if self._replays() else None
+        graph = self._graph_for(arrays, key_tree, scales) if self._replays() else None
         start = time.perf_counter_ns()
         if self.mode == 'eager' and progress_cb is not None:
             last = [0.0]
@@ -584,21 +618,24 @@ class FheTaskGpu:
                 if done >= total or now - last[0] >= 0.1:   # 100 ms throttle
                     last[0] = now
                     progress_cb(done, total)
-            out_arrays = self._trace(arrays, key_tree, progress=wrapped_cb)
+            out_arrays = self._trace(arrays, key_tree, scales, progress=wrapped_cb)
         else:
             if progress_cb is not None:
                 progress_cb(0, total)
-            out_arrays = graph(arrays) if graph is not None else self._trace(arrays, key_tree)
+            out_arrays = (graph(arrays) if graph is not None
+                          else self._trace(arrays, key_tree, scales))
             if progress_cb is not None:
                 progress_cb(total, total)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         duration_ns = time.perf_counter_ns() - start
 
-        # re-wrap outputs per graph metadata, grouped by signature rows
+        # re-wrap outputs per graph metadata and the scales the plan gave
+        # them for these input scales, grouped by signature rows
         flat_out = []
-        for node, arr in zip((self.data[i] for i in self.outputs), out_arrays):
-            v = _wrap_input(node, arr)
+        for node, arr, sc in zip((self.data[i] for i in self.outputs), out_arrays,
+                                 self._out_scales[scales]):
+            v = _wrap_input(node, arr, sc)
             if isinstance(v, Ciphertext):
                 v.level = arr.shape[-2] - 1   # shape is ground truth
             flat_out.append(v)
@@ -616,9 +653,9 @@ class FheTaskGpu:
     def compile(self, context, input_values: dict):
         """The warm-up and capture of the graph for these arguments, without
         running it (``mode='jit'`` on the card; otherwise only the checks)."""
-        arrays, key_tree = self._prepare(context, input_values)
+        arrays, key_tree, scales = self._prepare(context, input_values)
         if self._replays():
-            self._graph_for(arrays, key_tree)
+            self._graph_for(arrays, key_tree, scales)
 
 
 def _reshape(flat: list, shape: list):

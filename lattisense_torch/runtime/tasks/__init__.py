@@ -1,4 +1,4 @@
-"""Compiled BFV task directories shipped with the port, and their arguments.
+"""Compiled task directories shipped with the port, and their arguments.
 
 Each directory holds a ``mega_ag.json`` and a ``task_signature.json`` made by
 the JAX package's frontend (``python -m tests.test_torch_task`` writes them,
@@ -12,11 +12,21 @@ test regenerates each and compares):
   more of every BFV executor branch of ``FheTaskGpu`` but custom and
   bootstrap (``MIX_OUTPUTS``), with an offline input;
 - ``bfv_ops_mix_u64_n16384_l3``: the same graph on ``BfvParams.create(16384)``
-  at level 3.
+  at level 3;
+- ``ckks_ops_mix_w32_n16384_l10``: on the primes of
+  ``CkksParams.create_tpu_param(16384)`` at level 10, one node or more of
+  every CKKS executor branch but custom and bootstrap (``CKKS_MIX_OUTPUTS``),
+  with an offline input; at scale 2^36 (``CKKS_MIX_W32_SCALE``): at 2^30 the
+  rotations' key-switch noise at n=16384 decodes 1e-2 off, and a pt_ringt's
+  largest scaled coefficient (about 0.015·Δ for the mix's slots) must stay
+  below the 31-bit primes;
+- ``ckks_ops_mix_u64_n16384_l3``: the same graph on ``CkksParams.create(16384)``
+  at level 3, scale 2^34.
 
-``mult_relin_arguments``, ``mix_arguments`` and ``mix_expected`` make a
-task's arguments on a port context and the slots each output decrypts to,
-computed in NumPy.
+``mult_relin_arguments``, ``mix_arguments`` / ``ckks_mix_arguments`` and
+``mix_expected`` / ``ckks_mix_expected`` make a task's arguments on a port
+context and the slots each output decrypts to, computed in NumPy (float64
+for CKKS).
 """
 
 import os
@@ -30,6 +40,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MULT_RELIN = 'bfv_mult_relin_x32_w32_n16384_l7'
 MIX_W32 = 'bfv_ops_mix_w32_n16384_l7'
 MIX_U64 = 'bfv_ops_mix_u64_n16384_l3'
+CKKS_MIX_W32 = 'ckks_ops_mix_w32_n16384_l10'
+CKKS_MIX_U64 = 'ckks_ops_mix_u64_n16384_l3'
+CKKS_MIX_W32_SCALE = 2.0 ** 36
 MULT_RELIN_COUNT = 32
 # the op mix's ciphertext, plaintext (pt), pt_ringt and pt_mul arguments, its
 # compressed pt_ringt of MIX_BLOCKS blocks and its offline pt_mul
@@ -118,3 +131,54 @@ def coefficient_form(engine, ct: Ciphertext) -> Ciphertext:
     if ct.is_ntt:
         return engine.to_inv_ntt(Ciphertext(data=data, level=ct.level, is_ntt=True))
     return Ciphertext(data=data, level=ct.level)
+
+
+# ---- the CKKS op mix ------------------------------------------------------
+CKKS_MIX_CTS = ('x', 'y', 'u0', 'u1', 'u2', 'u3')
+CKKS_MIX_PTS = ('p0', 'p1')
+CKKS_MIX_RINGTS = ('r0', 'r1')
+CKKS_MIX_MULS = ('w0', 'w1')
+CKKS_MIX_OFFLINE = 'v'
+CKKS_MIX_OUTPUTS = ('o_add', 'o_add_pt', 'o_add_r', 'o_dbl', 'o_zero', 'o_sub_pt', 'o_sub_r',
+                    'o_neg', 'o_rs', 'o_sq', 'o_mpt', 'o_mr', 'o_mw', 'o_mv', 'o_drop',
+                    'o_cmp', 'o_cs', 'o_cac', 'o_rc', 'o_rr', 'o_ar', 'o_h')
+
+
+def ckks_mix_messages(slots: int, seed: int) -> dict:
+    """The CKKS op mix's complex slot vectors (real and imaginary parts
+    uniform in [-1/2, 1/2)), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    names = CKKS_MIX_CTS + CKKS_MIX_PTS + CKKS_MIX_RINGTS + CKKS_MIX_MULS + (CKKS_MIX_OFFLINE,)
+    return {k: rng.uniform(-0.5, 0.5, slots) + 1j * rng.uniform(-0.5, 0.5, slots)
+            for k in names}
+
+
+def ckks_mix_arguments(context, level: int, msgs: dict, scale: float) -> tuple[dict, dict]:
+    """(online, offline) arguments of the CKKS op mix at ``level``, every one
+    encoded at ``scale``, on ``context``."""
+    online = {k: context.encrypt(context.encode(msgs[k], level, scale=scale))
+              for k in CKKS_MIX_CTS}
+    online.update({k: context.encode(msgs[k], level, scale=scale) for k in CKKS_MIX_PTS})
+    online.update({k: context.encode_ringt(msgs[k], scale=scale) for k in CKKS_MIX_RINGTS})
+    online.update({k: context.encode_mul(msgs[k], level, scale=scale) for k in CKKS_MIX_MULS})
+    return online, {CKKS_MIX_OFFLINE: context.encode_mul(msgs[CKKS_MIX_OFFLINE], level,
+                                                         scale=scale)}
+
+
+def ckks_mix_expected(msgs: dict) -> dict:
+    """The slots each CKKS op-mix output decodes to, in float64 (lists for
+    list outputs): column rotations roll the slot vector, the row rotation
+    conjugates it."""
+    m = msgs
+    x, y, u = m['x'], m['y'], [m[f'u{i}'] for i in range(4)]
+    p, r, w = (m['p0'], m['p1']), (m['r0'], m['r1']), (m['w0'], m['w1'])
+    s = x + y
+    return {
+        'o_add': s, 'o_add_pt': [x + p[0], y + p[1]], 'o_add_r': y + r[1], 'o_dbl': 2 * x,
+        'o_zero': 0 * x, 'o_sub_pt': x - p[0], 'o_sub_r': [x - r[0], y - r[1]], 'o_neg': -s,
+        'o_rs': s * (x - y), 'o_sq': x * x, 'o_mpt': [x * p[0], y * p[1]],
+        'o_mr': [x * r[0], y * r[1]], 'o_mw': [x * w[0], y * w[1]], 'o_mv': (x - y) * m['v'],
+        'o_drop': x, 'o_cmp': u[0] * p[0] + u[1] * p[1] + u[2] * r[0] + u[3] * r[1],
+        'o_cs': u[0] * p[0] + u[1] * p[1], 'o_cac': u[2] * r[0] + u[3] * r[1] + x * p[0],
+        'o_rc': np.roll(s, -3), 'o_rr': [np.conj(x), np.conj(y)], 'o_ar': np.roll(x, -2),
+        'o_h': [np.roll(y, -1), np.roll(y, -5)]}

@@ -219,6 +219,31 @@ class BfvEngine:
         c0 = _u.addmod(_u.negmod(_u.addmod(as_, e, ring.q), ring.q), pt.data, ring.q)
         return Ciphertext(data=torch.stack([c0, ntt_mod.intt(a_ntt, ring)]), level=level)
 
+    def encrypt_symmetric_compressed(self, rng, sk, pt: Plaintext, seed: int | None = None):
+        """Seed-expanded symmetric encryption (after the reference's
+        fhe_lib_v2.h:561): c1 = INTT(expand_uniform(seed)) is not stored."""
+        from ..utils.serialize import CompressedCiphertext, expand_uniform
+        level = pt.level
+        ring = self.ring(level)
+        q_mods = self.q[:level + 1]
+        if seed is None:
+            seed = (rng.seed_128() if hasattr(rng, 'seed_128')
+                    else int(rng.integers(0, 1 << 62)))
+        a_ntt = self._tensor(expand_uniform(seed, q_mods, self.n))
+        s_ntt = sk.ntt_form(q_mods, self.n, self.device, self.word_bits)
+        as_ = ntt_mod.intt(ring.word.mulmod(a_ntt, s_ntt, ring.q, ring.pinv, ring.r2), ring)
+        e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
+        c0 = _u.addmod(_u.negmod(_u.addmod(as_, e, ring.q), ring.q), pt.data, ring.q)
+        return CompressedCiphertext(c0=c0, seed=seed, level=level, is_ntt=False)
+
+    def decompress_ciphertext(self, cct) -> Ciphertext:
+        """(c0, seed) → the full ciphertext (compressed_ciphertext_to_ciphertext)."""
+        from ..utils.serialize import expand_uniform
+        ring = self.ring(cct.level)
+        a_ntt = self._tensor(expand_uniform(cct.seed, self.q[:cct.level + 1], self.n))
+        c0 = torch.as_tensor(cct.c0, dtype=torch.int64, device=self.device)
+        return Ciphertext(data=torch.stack([c0, ntt_mod.intt(a_ntt, ring)]), level=cct.level)
+
     def _decrypt_phase(self, sk, ct: Ciphertext):
         """Σ_k c_k·s^k CRT-reconstructed to big ints: (X mod Q, Q)."""
         level = ct.level

@@ -1,12 +1,17 @@
-"""BFV slot batching (host side).
+"""Slot encoding (host side): BFV slot batching and the CKKS canonical embedding.
 
-Port of the BFV half of ``lattisense_tpu/schemes/encoding.py``: messages are
+Port of ``lattisense_tpu/schemes/encoding.py``. BFV messages are
 vectors over Z_t laid out as a 2×(n/2) matrix; slot (r, c) is the evaluation
 of the plaintext polynomial at ζ^((2n-1)^r · 5^c mod 2n). The slot → NTT
 position permutation is derived from the NTT tables themselves (discrete log
 of the transform of x), so it holds for the port's bit-reversal convention.
 The transforms over Z_t run on the CPU with the plain NTT (t < 2^31 is a
 32-bit-word prime; the values do not depend on the word).
+
+CKKS slots are the evaluations of the real plaintext polynomial at ζ^(5^c)
+(ζ = e^{iπ/n}), computed with NumPy's FFT in float64 exactly as the
+reference computes them; encoding rounds the scaled coefficients to Python
+integers (exact at any scale).
 """
 
 import functools
@@ -76,3 +81,61 @@ def bfv_decode_slots(poly_mod_t: np.ndarray, t: int, n: int) -> np.ndarray:
     perm = _bfv_slot_perm(t, n)
     poly = torch.from_numpy(np.asarray(poly_mod_t, dtype=np.int64).reshape(1, n).copy())
     return ntt_mod.ntt(poly, _ring_t(t, n))[0].numpy()[perm]
+
+
+# ---------------------------------------------------------------------------
+# CKKS canonical embedding (host float64)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _ckks_tables(n: int):
+    half = n // 2
+    j = np.arange(n)
+    twist = np.exp(1j * np.pi * j / n)              # ζ^j, ζ = e^{iπ/n}
+    # slot c ↔ evaluation at ζ^(5^c); exponent 2k+1 ↔ FFT bin k
+    e = np.empty(half, dtype=np.int64)
+    cur = 1
+    for c in range(half):
+        e[c] = cur
+        cur = cur * 5 % (2 * n)
+    k_pos = (e - 1) // 2
+    k_neg = (2 * n - e - 1) // 2
+    return twist, k_pos, k_neg
+
+
+def ckks_embed_inv(values: np.ndarray, n: int) -> np.ndarray:
+    """Complex slot vector (n/2, replicated if sparse) → real coeffs (n,) float."""
+    twist, k_pos, k_neg = _ckks_tables(n)
+    evals = np.zeros(n, dtype=np.complex128)
+    v = np.asarray(values, dtype=np.complex128)
+    evals[k_pos] = v
+    evals[k_neg] = np.conj(v)
+    # evals[k] = m(ζ^{2k+1}) = Σ_j (m_j ζ^j) e^{2πi jk / n} = n·ifft(twisted)
+    tw = np.fft.fft(evals) / n
+    return np.real(tw * np.conj(twist))
+
+
+def ckks_embed(coeffs: np.ndarray, n: int) -> np.ndarray:
+    """Real coeffs (n,) → complex slot vector (n/2,)."""
+    twist, k_pos, k_neg = _ckks_tables(n)
+    evals = n * np.fft.ifft(np.asarray(coeffs, dtype=np.float64) * twist)
+    return evals[k_pos]
+
+
+def ckks_encode_values(values, n: int, slots: int, scale: float) -> np.ndarray:
+    """Complex/real message (≤ slots entries) → scaled integer coeffs (n,) as
+    a Python-int array (exact, may exceed 64 bits for large scales)."""
+    half = n // 2
+    v = np.zeros(slots, dtype=np.complex128)
+    vals = np.asarray(values, dtype=np.complex128)
+    v[:len(vals)] = vals
+    dense = np.tile(v, half // slots)
+    coeffs = ckks_embed_inv(dense, n) * scale
+    return np.array([int(round(c)) for c in coeffs], dtype=object)
+
+
+def ckks_decode_values(coeffs_signed, n: int, slots: int, scale: float) -> np.ndarray:
+    """Signed integer coeffs (n,) → complex message (slots,)."""
+    c = np.array([float(x) for x in coeffs_signed], dtype=np.float64) / scale
+    dense = ckks_embed(c, n)
+    return dense[:slots]

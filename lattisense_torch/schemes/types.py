@@ -1,8 +1,14 @@
 """FHE data carriers: plain dataclasses holding int64 tensors.
 
-Ports of the BFV carriers of ``lattisense_tpu/schemes/types.py``, without
-the JAX pytree registration and without the CKKS scale. A ciphertext's
-``data`` may carry leading batch dimensions: (B, degree+1, L, n).
+Ports of the carriers of ``lattisense_tpu/schemes/types.py``, without the
+JAX pytree registration. A ciphertext's ``data`` may carry leading batch
+dimensions: (B, degree+1, L, n). ``scale`` is the CKKS scale (host
+metadata; BFV leaves it at 1.0).
+
+- Plaintext      : BFV Δ·m over Q_ℓ, coefficient domain; CKKS Δ·m, NTT domain.
+- PlaintextRingt : one component (BFV m mod t; CKKS small signed scaled
+                   integer coefficients), lifted to the chain at op time.
+- PlaintextMul   : NTT + Montgomery form over Q_ℓ, the cheapest ct·pt multiply.
 """
 
 from dataclasses import dataclass, field
@@ -11,19 +17,23 @@ from typing import Any
 
 @dataclass
 class Plaintext:
-    data: Any                 # (L, n): Δ·m over Q_ℓ, coefficient domain
+    data: Any                 # (L, n): Δ·m over Q_ℓ
     level: int
+    is_ntt: bool = False
+    scale: float = 1.0        # CKKS only
 
 
 @dataclass
 class PlaintextRingt:
-    data: Any                 # (n,): m mod t
+    data: Any                 # (n,): BFV m mod t; CKKS signed int64 coefficients
+    scale: float = 1.0        # CKKS only
 
 
 @dataclass
 class PlaintextMul:
     data: Any                 # (L, n): NTT + Montgomery form of m over Q_ℓ
     level: int
+    scale: float = 1.0        # CKKS only
 
 
 @dataclass
@@ -32,6 +42,7 @@ class Ciphertext:
     level: int
     is_ntt: bool = False
     is_mform: bool = False
+    scale: float = 1.0        # CKKS only
 
     @property
     def degree(self) -> int:
@@ -43,11 +54,12 @@ class DecomposedCiphertext:
     """A ciphertext whose c1 is already digit-decomposed, mod-upped and in the
     NTT domain, for hoisted rotations: the expensive half of every key switch
     is paid once and shared by all rotations of this ciphertext."""
-    c0: Any                   # (..., L, n), coefficient domain
+    c0: Any                   # (..., L, n), in the source ciphertext's domain
     digits: Any               # (..., β, L+|P|, n), NTT domain over Q_ℓ ∪ P
     level: int
     is_ntt: bool = False      # domain of c0
     is_mform: bool = False
+    scale: float = 1.0
 
     degree = 1
 

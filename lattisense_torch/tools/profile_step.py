@@ -1,7 +1,8 @@
-"""Where the time of one batched BFV step goes, on one CUDA card.
+"""Where the time of one batched BFV or CKKS step goes, on one CUDA card.
 
-    python -m lattisense_torch.tools.profile_step [--chain w32|u64]
-        [--op mult_relin|rotate] [--n 16384] [--batch 32] [--level L] [--steps 5]
+    python -m lattisense_torch.tools.profile_step [--scheme bfv|ckks]
+        [--chain w32|u64] [--op mult_relin|mult_relin_rescale|rotate] [--n 16384]
+        [--batch 32] [--level L] [--steps 5]
 
 Builds a context (seed 7) on the chosen chain at ring degree n — ``w32``,
 the 31-bit profile ``BfvParams.create_tpu_param(n)`` (default level 7 at
@@ -22,7 +23,15 @@ chosen operation:
   decomposition and mod-up (B6), forward NTT (B5), inner product (B7),
   inverse NTT (B5), ``RoundDivP``'s conversion and modular arithmetic (B6)
   and its float64 overflow estimate — and the final add; ``rotate``: the
-  automorphism, the same key-switch stages, the final add;
+  automorphism, the same key-switch stages, the final add.
+  With ``--scheme ckks`` the chains are ``CkksParams.create(n)`` (u64,
+  default level 3) and, at the 32-bit word, the primes of
+  ``CkksParams.create_tpu_param(n)`` at scale 2^60 (default level 10, two
+  rescales a multiplication); ``mult_relin_rescale``: the NTT-domain tensor
+  product, the INTT of c2 (B1 / B5), the key switch with NTT output (B3,
+  or the u64 stages above and the output NTT), the final add, and each
+  rescale's INTT, divide-and-round and NTT; ``rotate``: the NTT-domain
+  automorphism, the INTT of c1, the key switch, the final add;
 - ``profile``: a ``torch.profiler`` trace of a few steps: device busy time
   per step (sum of kernel times), wall time per step, the device's idle
   share, and the kernels that take the most device time.
@@ -41,11 +50,14 @@ from ..ops.behz_cuda import behz_finish32, behz_prep32
 from ..ops.ksw64_cuda import ksw_inner64
 from ..ops.ksw_cuda import ksw_switch32
 from ..ops.ntt64_cuda import ntt64_fwd, ntt64_inv
-from ..params import BfvParams
-from ..parallel.batch import bfv_mult_relin, key_tree, make_batched_step, make_rotate_step
-from ..runtime import BfvContext
+from ..core import ntt as ntt_mod
+from ..params import BfvParams, CkksParams
+from ..parallel.batch import (bfv_mult_relin, ckks_composite_params, ckks_mult_relin_rescale,
+                              ckks_mult_relin_rescale2, key_tree, make_batched_step,
+                              make_rotate_step)
+from ..runtime import BfvContext, CkksContext
 from ..schemes.bfv import tensor_product
-from ..schemes.galois import apply_automorphism_coeff, galois_elt_col
+from ..schemes.galois import apply_automorphism_coeff, apply_automorphism_ntt, galois_elt_col
 
 
 def _timer():
@@ -162,30 +174,120 @@ def phases_rotate64(engine, a, keys, level, elt):
     return _elapsed(marks), out
 
 
+def _ckks_switch_marks(engine, c1_ntt, ksk, level, marks, what):
+    """The INTT of an NTT-domain component and its key switch with NTT
+    output, in stages; returns (e0, e1) in the NTT domain."""
+    ring = engine.ring(level)
+    x = ntt_mod.intt(c1_ntt.contiguous(), ring)
+    marks.append((f'{what}: INTT ({"B5" if engine.word_bits == 64 else "B1"})', _timer()))
+    if engine.word_bits == 32:
+        e0, e1 = ksw_switch32(x, ksk, engine.switcher, level, output_ntt=True)
+        marks.append((f'{what}: ksw_switch32 with output NTT (B3, B1)', _timer()))
+        return e0, e1
+    e0, e1 = _switch64_marks(engine, x, ksk, level, marks)
+    e = ntt64_fwd(torch.stack([e0, e1], dim=-3), ring)
+    marks.append((f'{what}: output NTT (B5)', _timer()))
+    return e[..., 0, :, :], e[..., 1, :, :]
+
+
+def phases_ckks_mult(engine, a, b, keys, level, rescales):
+    """CUDA-event milliseconds of each stage of one CKKS mult + relinearize
+    and ``rescales`` rescales."""
+    ring = engine.ring(level)
+    w = ring.word
+    marks = [('start', _timer())]
+    f = torch.cat([w.to_mont(a[..., :2, :, :], ring.q, ring.pinv, ring.r2), b[..., :2, :, :]],
+                  dim=-3)
+    ct3 = tensor_product(f, ring)
+    marks.append(('tensor product', _timer()))
+    e0, e1 = _ckks_switch_marks(engine, ct3[..., 2, :, :], keys['rlk'], level, marks, 'relin')
+    out = torch.stack([_u.addmod(ct3[..., 0, :, :], e0, ring.q),
+                       _u.addmod(ct3[..., 1, :, :], e1, ring.q)], dim=-3)
+    marks.append(('final add', _timer()))
+    word = 'B5' if engine.word_bits == 64 else 'B1'
+    for k in range(rescales):
+        lv = level - k
+        coeff = ntt_mod.intt(out, engine.ring(lv))
+        marks.append((f'rescale {k + 1}: INTT ({word})', _timer()))
+        dropped = engine.rescaler(lv)(coeff)
+        marks.append((f'rescale {k + 1}: divide and round', _timer()))
+        out = ntt_mod.ntt(dropped, engine.ring(lv - 1))
+        marks.append((f'rescale {k + 1}: NTT ({word})', _timer()))
+    return _elapsed(marks), out
+
+
+def phases_ckks_rotate(engine, a, keys, level, elt):
+    """CUDA-event milliseconds of each stage of one CKKS apply_galois."""
+    ring = engine.ring(level)
+    marks = [('start', _timer())]
+    c0 = apply_automorphism_ntt(a[..., 0, :, :], engine.n, elt)
+    c1 = apply_automorphism_ntt(a[..., 1, :, :], engine.n, elt)
+    marks.append(('automorphism (NTT domain)', _timer()))
+    e0, e1 = _ckks_switch_marks(engine, c1, keys['glk'][elt], level, marks, 'switch')
+    out = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
+    marks.append(('final add', _timer()))
+    return _elapsed(marks), out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--scheme', choices=('bfv', 'ckks'), default='bfv')
     ap.add_argument('--chain', choices=('w32', 'u64'), default='w32')
-    ap.add_argument('--op', choices=('mult_relin', 'rotate'), default='mult_relin')
+    ap.add_argument('--op', choices=('mult_relin', 'mult_relin_rescale', 'rotate'),
+                    default=None, help='default mult_relin (BFV), mult_relin_rescale (CKKS)')
     ap.add_argument('--n', type=int, default=16384, help='ring degree: 16384 or 32768')
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--level', type=int, default=None,
-                    help='default at n=16384 7 on the w32 chain, 3 on the u64 chain; '
-                         'else the chain\'s top level')
+                    help='default at n=16384 7 on the w32 chain, 3 on the u64 chain (CKKS: '
+                         '10 and 3); else the chain\'s top level')
     ap.add_argument('--steps', type=int, default=5)
     args = ap.parse_args()
     u64 = args.chain == 'u64'
+    ckks = args.scheme == 'ckks'
+    if args.op is None:
+        args.op = 'mult_relin_rescale' if ckks else 'mult_relin'
+    if (args.op == 'mult_relin_rescale') != ckks and args.op != 'rotate':
+        ap.error(f'--op {args.op} is not a {args.scheme} operation')
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    params = BfvParams.create(args.n) if u64 else BfvParams.create_tpu_param(args.n)
+    if ckks:
+        params = CkksParams.create(args.n) if u64 else ckks_composite_params(args.n)
+        top = (3 if u64 else 10) if args.n == 16384 else params.max_level
+        ctx = CkksContext.create_random_context(params, seed=7)
+    else:
+        params = BfvParams.create(args.n) if u64 else BfvParams.create_tpu_param(args.n)
+        top = (3 if u64 else 7) if args.n == 16384 else params.max_level
+        ctx = BfvContext.create_random_context(params, seed=7)
     if args.level is None:
-        args.level = (3 if u64 else 7) if args.n == 16384 else params.max_level
-    ctx = BfvContext.create_random_context(params, seed=7)
+        args.level = top
     rng = np.random.default_rng(7)
-    cts = [ctx.encrypt(ctx.encode(m, args.level))
-           for m in rng.integers(0, params.t, (2 * args.batch, params.n))]
+    msgs = (rng.uniform(-1, 1, (2 * args.batch, params.slots)) if ckks
+            else rng.integers(0, params.t, (2 * args.batch, params.n)))
+    cts = [ctx.encrypt(ctx.encode(m, args.level)) for m in msgs]
     a = torch.stack([c.data for c in cts[:args.batch]])
     b = torch.stack([c.data for c in cts[args.batch:]])
-    if args.op == 'rotate':
+    if ckks:
+        rescales = 1 if u64 else 2
+        elt = galois_elt_col(1, params.n)
+        if args.op == 'rotate':
+            ctx.gen_galois_keys_for_elements([elt])
+            keys = key_tree(ctx, galois_elts=[elt])
+            inputs = (a, keys)
+            step = make_batched_step(ctx.engine, make_rotate_step(elt), args.level, n_inputs=1,
+                                     is_ntt=True)
+
+            def staged():
+                return phases_ckks_rotate(ctx.engine, a, keys, args.level, elt)
+        else:
+            keys = key_tree(ctx)
+            inputs = (a, b, keys)
+            step = make_batched_step(
+                ctx.engine, ckks_mult_relin_rescale if u64 else ckks_mult_relin_rescale2,
+                args.level, is_ntt=True)
+
+            def staged():
+                return phases_ckks_mult(ctx.engine, a, b, keys, args.level, rescales)
+    elif args.op == 'rotate':
         elt = galois_elt_col(1, params.n)
         ctx.gen_galois_keys_for_elements([elt])
         keys = key_tree(ctx, galois_elts=[elt])
@@ -217,7 +319,8 @@ def main() -> int:
     stop.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(stop) / args.steps
-    print(json.dumps({'phases': {'gpu': gpu, 'chain': args.chain, 'op': args.op,
+    print(json.dumps({'phases': {'gpu': gpu, 'scheme': args.scheme, 'chain': args.chain,
+                                 'op': args.op,
                                  'n': args.n, 'batch': args.batch,
                                  'level': args.level,
                                  'step_ms': step_ms, 'sum_of_phases_ms': sum(ph.values()),
@@ -235,7 +338,8 @@ def main() -> int:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({'profile': {
-        'gpu': gpu, 'chain': args.chain, 'op': args.op, 'n': args.n, 'steps': args.steps,
+        'gpu': gpu, 'scheme': args.scheme, 'chain': args.chain, 'op': args.op, 'n': args.n,
+        'steps': args.steps,
         'wall_ms_per_step': wall_ms,
         'device_busy_ms_per_step': busy_ms if kernels else None,
         'idle_share': 1 - busy_ms / wall_ms if kernels else None,

@@ -197,7 +197,7 @@ def test_shenoy_and_div_round_last_match_reference(rns_case):
     ref, port = ref_rns.ShenoyConvert(dst, m_sk, src, 32), trns.ShenoyConvert(dst, m_sk, src, CPU)
     assert np.array_equal(A(port(T(xb), T(xsk))), ref(np, xb, xsk).astype(np.uint64))
     x = residues(rng, src, n, (2, 3))
-    rd, pd = ref_rns.DivRoundLast(src, 32), trns.DivRoundLast(src, CPU)
+    rd, pd = ref_rns.DivRoundLast(src, 32), trns.DivRoundLast(src, CPU, 32)
     assert np.array_equal(A(pd(T(x))), rd(np, x).astype(np.uint64))
 
 

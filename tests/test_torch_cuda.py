@@ -7,7 +7,10 @@ kernels built on B1's row loop (B2, B3, B4) at every n they take (B1 and B5
 split above their row kernel's cap: B1 at 2^16, B5 at 2^15 and 2^16), B6
 through each of its instances and its fold, bit for bit; and the
 compiled-task runtime on each committed task directory (card against CPU,
-graph replay against eager, a second key set through the same task).
+graph replay against eager, a second key set through the same task); and
+CKKS: every engine op, the batched step at both words and the rotation, and
+the CKKS task directories (a second set of input scales capturing its own
+graph), card against CPU bit for bit.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -842,8 +845,8 @@ def task_context(params, elts, seed, dev):
 
 def cpu_twin(ctx):
     """A CPU context holding ``ctx``'s keys."""
-    twin = BfvContext.from_arrays(ctx.params, ctx.sk.coeffs, ctx.pk.data.cpu(),
-                                  ctx.rlk.key_q.cpu(), ctx.rlk.key_p.cpu(), device=CPU)
+    twin = type(ctx).from_arrays(ctx.params, ctx.sk.coeffs, ctx.pk.data.cpu(),
+                                 ctx.rlk.key_q.cpu(), ctx.rlk.key_p.cpu(), device=CPU)
     for elt, k in ctx.glk.keys.items():
         twin.add_galois_key_arrays(elt, k.key_q.cpu(), k.key_p.cpu())
     return twin
@@ -937,3 +940,174 @@ def test_task_fixture_card_matches_cpu(cuda, name):
     v0 = back[k0] if isinstance(back[k0], list) else [back[k0]]
     assert np.array_equal(ctx.decrypt_decode(tasks.coefficient_form(ctx.engine, v0[0])),
                           expected[k0][0])
+
+
+# ---------------------------------------------------------------------------
+# CKKS on the card
+# ---------------------------------------------------------------------------
+
+def ckks_chain(word):
+    """(params, level) of a CKKS path: CkksParams.create(16384) at level 3,
+    or the composite 2^60 chain on create_tpu_param(16384)'s primes at 10."""
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.parallel.batch import ckks_composite_params
+    if word == 'u64':
+        return CkksParams.create(16384), 3
+    return ckks_composite_params(16384), 10
+
+
+def ckks_msgs(seed, count, slots):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1, 1, (count, slots)) + 1j * rng.uniform(-1, 1, (count, slots))
+
+
+@pytest.mark.parametrize('word', ['u64', 'w32'])
+def test_ckks_engine_ops_card_match_cpu(cuda, word):
+    """Every CKKS evaluation op at n=1024 on the card (the pt_ringt lift, an
+    encode_const plaintext, a dropped level, the hoisted and plain rotations,
+    the conjugation, a key switch, the scalar product) equals the CPU twin."""
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.runtime import CkksContext
+    from lattisense_torch.schemes.ckks import CkksEngine
+    from lattisense_torch.schemes.galois import galois_elt_row
+    n = 1024
+    if word == 'w32':
+        primes = gen_ntt_primes(n, 31, 7)
+        params = CkksParams.create_custom(n, primes[:5], primes[5:], scale=2.0 ** 30,
+                                          word_bits=32)
+    else:
+        big = gen_ntt_primes(n, 60, 2)
+        params = CkksParams.create_custom(n, [big[0]] + gen_ntt_primes(n, 40, 4), [big[1]],
+                                          scale=2.0 ** 40)
+    ctx = CkksContext.create_random_context(params, seed=14, device=cuda)
+    elts = [galois_elt_col(1, n), galois_elt_row(n)]
+    ctx.gen_galois_keys_for_elements(elts)
+    twin = cpu_twin(ctx)
+    ec, eg = CkksEngine(params, CPU), ctx.engine
+    lv = params.max_level
+    m = ckks_msgs(14, 3, params.slots)
+    a, b = (ctx.encrypt(ctx.encode(v, lv)) for v in m[:2])
+    pts = {'pt': ctx.encode(m[2], lv), 'ringt': ctx.encode_ringt(m[2]),
+           'mul': ctx.encode_mul(m[2], lv), 'const': eg.encode_const(-0.75, lv)}
+
+    def ops(e, keys, a, b, pts):
+        rlk, glk = keys
+        d = e.rns_sp_decomp(a)
+        return ([e.add(a, b), e.sub(a, pts['pt']), e.add(a, pts['ringt']), e.sub(a, pts['const']),
+                 e.neg(a), e.mult(a, pts['pt']), e.mult(a, pts['ringt']), e.mult(a, pts['mul']),
+                 e.rescale(e.relinearize(e.mult(a, b), rlk)), e.drop_level(a, 2),
+                 e.rotate(a, 1, glk[elts[0]]), e.conjugate(a, glk[elts[1]]),
+                 e.apply_galois_decomposed(d, elts[0], glk[elts[0]]), e.key_switch(a, rlk),
+                 e.mult_scalar(a, 0.5)])
+    got = ops(eg, (ctx.rlk, ctx.glk.keys), a, b, pts)
+    want = ops(ec, (twin.rlk, twin.glk.keys), on_cpu(a), on_cpu(b),
+               {k: on_cpu(v) for k, v in pts.items()})
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.data.cpu(), w.data) and (g.level, g.scale) == (w.level, w.scale), k
+    assert np.abs(ctx.decrypt_decode(got[8]) - m[0] * m[1]).max() < 1e-3
+
+
+@pytest.mark.parametrize('word', ['u64', 'w32'])
+def test_ckks_batched_step_card_matches_cpu(cuda, word):
+    """ckks_mult_relin_rescale (u64, level 3) or ckks_mult_relin_rescale2
+    (w32 composite, level 10) and rotate by 1, B=2: the card equals the CPU
+    twin bit for bit, the word's kernels were launched (B5, B6, B7; or B1's
+    own entries and B3), and element 0 decodes within 1e-3."""
+    from lattisense_torch.ops import bconv_cuda, ksw64_cuda, ntt64_cuda
+    from lattisense_torch.parallel.batch import ckks_mult_relin_rescale, ckks_mult_relin_rescale2
+    from lattisense_torch.runtime import CkksContext
+    from lattisense_torch.schemes.ckks import CkksEngine
+    params, level = ckks_chain(word)
+    step_fn = ckks_mult_relin_rescale if word == 'u64' else ckks_mult_relin_rescale2
+    ctx = CkksContext.create_random_context(params, seed=9, device=cuda)
+    elt = galois_elt_col(1, params.n)
+    ctx.gen_galois_keys_for_elements([elt])
+    m = ckks_msgs(9, 4, params.slots)
+    a = torch.stack([ctx.encrypt(ctx.encode(v, level)).data for v in m[:2]])
+    b = torch.stack([ctx.encrypt(ctx.encode(v, level)).data for v in m[2:]])
+    keys = key_tree(ctx, galois_elts=[elt])
+    counts = (ntt_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches, bconv_cuda.launches,
+              ksw64_cuda.launches, behz_cuda.launches)
+    before = [dict(c) for c in counts]
+    out = make_batched_step(ctx.engine, step_fn, level, is_ntt=True)(a, b, keys)
+    rot = make_batched_step(ctx.engine, make_rotate_step(elt), level, n_inputs=1,
+                            is_ntt=True)(a, keys)
+    after = [dict(c) for c in counts]
+    if word == 'u64':
+        risen = [after[2][k] > before[2][k] for k in ('ntt64_fwd', 'ntt64_inv')]
+        risen += [after[3][k] > before[3][k] for k in ('bconv64_convert', 'bconv64_raw')]
+        risen += [after[4]['ksw_inner64'] == before[4]['ksw_inner64'] + 2]
+        assert all(risen) and after[0] == before[0] and after[1] == before[1]
+    else:
+        assert after[0]['ntt32_fwd'] == before[0]['ntt32_fwd'] + 3 + 1
+        assert after[0]['ntt32_inv'] == before[0]['ntt32_inv'] + 3 + 1
+        assert after[1]['ksw_switch32'] == before[1]['ksw_switch32'] + 2
+        assert after[2:] == before[2:]
+    cpu_keys = {'rlk': KeySwitchKey(key_q=ctx.rlk.key_q.cpu(), key_p=ctx.rlk.key_p.cpu()),
+                'glk': {elt: KeySwitchKey(key_q=keys['glk'][elt].key_q.cpu(),
+                                          key_p=keys['glk'][elt].key_p.cpu())}}
+    eng_c = CkksEngine(params, CPU)
+    want = step_fn(eng_c, *[Ciphertext(data=x.cpu(), level=level, is_ntt=True,
+                                       scale=params.scale) for x in (a, b)], cpu_keys)
+    want_rot = make_batched_step(eng_c, make_rotate_step(elt), level, n_inputs=1,
+                                 is_ntt=True)(a.cpu(), cpu_keys)
+    assert torch.equal(out.cpu(), want.data) and torch.equal(rot.cpu(), want_rot)
+    got = ctx.decrypt_decode(Ciphertext(data=out[0], level=want.level, is_ntt=True,
+                                        scale=want.scale))
+    assert np.abs(got - m[0] * m[2]).max() < 1e-3
+    got = ctx.decrypt_decode(Ciphertext(data=rot[1], level=level, is_ntt=True,
+                                        scale=params.scale))
+    assert np.abs(got - np.roll(m[1], -1)).max() < 1e-3
+
+
+@pytest.mark.parametrize('name', ['ckks_ops_mix_w32_n16384_l10', 'ckks_ops_mix_u64_n16384_l3'])
+def test_ckks_task_fixture_card_matches_cpu(cuda, name):
+    """A committed CKKS task on the card: eager equals the port's CPU run
+    bit for bit (data, level, scale), the replay equals eager, every output
+    decodes within 1e-3; a second set of input scales captures a second
+    graph, whose outputs carry the scales of that set, equal eager and
+    decode within 1e-3; the first set's graph still replays right."""
+    import json
+    import os
+    from lattisense_torch.runtime import CkksContext, FheTask, tasks
+    d = tasks.task_dir(name)
+    params, level = ckks_chain('u64' if 'u64' in name else 'w32')
+    with open(os.path.join(d, 'task_signature.json')) as f:
+        elts = [int(e) for e in json.load(f)['key']['glk']]
+    with open(os.path.join(d, 'mega_ag.json')) as f:
+        scale = float(json.load(f)['parameter']['scale'])
+    ctx = CkksContext.create_random_context(params, seed=13, device=cuda)
+    ctx.gen_galois_keys_for_elements(elts)
+    msgs = tasks.ckks_mix_messages(params.slots, 5)
+    expected = tasks.ckks_mix_expected(msgs)
+    eager, jit = FheTask(d, mode='eager'), FheTask(d, mode='jit')
+
+    def run(s):
+        online, offline = tasks.ckks_mix_arguments(ctx, level, msgs, s)
+        for task in (eager, jit):
+            task.preload(ctx, offline)
+        want, _ = eager.run(ctx, online)
+        got, _ = jit.run(ctx, online)
+        assert all(torch.equal(x.data, y.data) and x.scale == y.scale
+                   for x, y in zip(flat_outputs(got), flat_outputs(want)))
+        for k in tasks.CKKS_MIX_OUTPUTS:
+            vals = got[k] if isinstance(got[k], list) else [got[k]]
+            ms = expected[k] if isinstance(expected[k], list) else [expected[k]]
+            for v, m in zip(vals, ms):
+                assert np.abs(ctx.decrypt_decode(v) - m).max() < 1e-3, k
+        return online, offline, want
+
+    online, offline, want = run(scale)
+    twin = cpu_twin(ctx)
+    cpu_task = FheTask(d, mode='eager', device=CPU)
+    cpu_task.preload(twin, {k: on_cpu(v) for k, v in offline.items()})
+    got_cpu, _ = cpu_task.run(twin, {k: on_cpu(v) for k, v in online.items()})
+    assert all(torch.equal(a.data.cpu(), b.data) and (a.level, a.scale) == (b.level, b.scale)
+               for a, b in zip(flat_outputs(want), flat_outputs(got_cpu)))
+    _, _, want2 = run(scale * 1.5)
+    assert len(jit._graphs) == 2
+    assert abs(want2['o_rs'].scale / want['o_rs'].scale - 2.25) < 1e-12
+    jit.preload(ctx, offline)
+    back, _ = jit.run(ctx, online)
+    assert all(torch.equal(a.data, b.data) and a.scale == b.scale
+               for a, b in zip(flat_outputs(back), flat_outputs(want)))

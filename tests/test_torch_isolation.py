@@ -21,7 +21,8 @@ def test_import_pulls_in_no_jax():
             "lattisense_torch.ops.ksw64_cuda, lattisense_torch.tools.profile_step, "
             "lattisense_torch.runtime.task, lattisense_torch.runtime.check_sig, "
             "lattisense_torch.runtime.tasks, lattisense_torch.params, "
-            "lattisense_torch.utils.security, "
+            "lattisense_torch.utils.security, lattisense_torch.schemes.ckks, "
+            "lattisense_torch.utils.precision, lattisense_torch.utils.serialize, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -36,7 +37,8 @@ def test_sources_import_no_jax():
         files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
     assert len(files) > 15
     for new in ('ops/ntt64_cuda.py', 'ops/bconv_cuda.py', 'ops/ksw64_cuda.py', 'runtime/task.py',
-                'runtime/check_sig.py', 'runtime/tasks/__init__.py', 'utils/security.py'):
+                'runtime/check_sig.py', 'runtime/tasks/__init__.py', 'utils/security.py',
+                'schemes/ckks.py', 'utils/precision.py', 'utils/serialize.py'):
         assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:

@@ -6,7 +6,9 @@ device='cpu')``, m in {eager, jit}, must give the same output data as the
 reference's ``FheTaskTpu(dir, mode='eager')`` (NumPy) on the same keys
 (carried across by ``BfvContext.from_arrays`` and ``add_galois_key_arrays``)
 and the same arguments, at both words, over every BFV executor branch (the
-op mix of ``lattisense_torch.runtime.tasks``). Also: the fused plan, the
+op mix of ``lattisense_torch.runtime.tasks``) and every CKKS one (its CKKS op
+mix, whose outputs carry the scales the reference gives them and decode
+within 1e-3 of the float64 slots). Also: the fused plan, the
 ``check_sig`` messages, offline inputs, a custom executor, the refusals, and
 the committed task directories against their regeneration.
 
@@ -25,12 +27,15 @@ import torch
 from lattisense_tpu.core.modring import gen_ntt_primes as ref_primes
 from lattisense_tpu.frontend import custom_task as ct
 from lattisense_tpu.params import BfvParams as RefBfvParams
+from lattisense_tpu.params import CkksParams as RefCkksParams
 from lattisense_tpu.runtime import BfvContext as RefContext
+from lattisense_tpu.runtime import CkksContext as RefCkksContext
 from lattisense_tpu.runtime import FheTaskTpu
 from lattisense_tpu.schemes.types import PlaintextRingt as RefRingt
 
-from lattisense_torch.params import BfvParams
-from lattisense_torch.runtime import BfvContext, FheTask, FheTaskGpu
+from lattisense_torch.params import BfvParams, CkksParams
+from lattisense_torch.runtime import BfvContext, CkksContext, FheTask, FheTaskGpu
+from lattisense_torch.schemes.ckks import CkksEngine
 from lattisense_torch.runtime import tasks as fixtures
 from lattisense_torch.schemes.types import (Ciphertext, Plaintext, PlaintextMul,
                                             PlaintextRingt)
@@ -96,6 +101,43 @@ def build_ops_mix(level: int):
             [ct.Argument(k, o) for k, o in outs.items()], [ct.Argument(v.id, v)])
 
 
+def build_ckks_ops_mix(level: int):
+    """Every CKKS executor branch but custom and bootstrap: add / sub with a
+    ciphertext, a plaintext, a pt_ringt and unary; neg; mult by a
+    ciphertext, itself, a pt, a pt_ringt, a pt_mul and an offline pt_mul;
+    relin; rescale; drop_level; rotate_col (a NAF chain, by its own key,
+    hoisted after rns_sp_decomp) and rotate_row (conjugation); cmp_sum and
+    cmpac_sum. Pairs of like nodes in one wave fuse in the jit plan."""
+    L = level
+    x, y = ct.CkksCiphertextNode('x', L), ct.CkksCiphertextNode('y', L)
+    u = [ct.CkksCiphertextNode(f'u{i}', L) for i in range(4)]
+    p = [ct.CkksPlaintextNode(f'p{i}', L) for i in range(2)]
+    r = [ct.CkksPlaintextRingtNode(f'r{i}') for i in range(2)]
+    w = [ct.CkksPlaintextMulNode(f'w{i}', L) for i in range(2)]
+    v = ct.CkksPlaintextMulNode(fixtures.CKKS_MIX_OFFLINE, L)
+    a = ct.add(x, y)
+    e = ct.sub(x, y)
+    outs = {
+        'o_add': a, 'o_add_pt': [ct.add(x, p[0]), ct.add(y, p[1])], 'o_add_r': ct.add(y, r[1]),
+        'o_dbl': ct.add(x, x), 'o_zero': ct.sub(y, y), 'o_sub_pt': ct.sub(x, p[0]),
+        'o_sub_r': [ct.sub(x, r[0]), ct.sub(y, r[1])], 'o_neg': ct.neg(a),
+        'o_rs': ct.rescale(ct.mult_relin(a, e)), 'o_sq': ct.rescale(ct.mult_relin(x, x)),
+        'o_mpt': [ct.rescale(ct.mult(x, p[0])), ct.rescale(ct.mult(y, p[1]))],
+        'o_mr': [ct.rescale(ct.mult(x, r[0])), ct.rescale(ct.mult(y, r[1]))],
+        'o_mw': [ct.rescale(ct.mult(x, w[0])), ct.rescale(ct.mult(y, w[1]))],
+        'o_mv': ct.rescale(ct.mult(e, v)), 'o_drop': ct.drop_level(x, 2),
+        'o_cmp': ct.ct_pt_mult_accumulate(u, p + r),
+        'o_cs': ct.ct_pt_mult_accumulate_slice(u[:2], p),
+        'o_cac': ct.ct_pt_mult_accumulate_add_ct_slice(u[2:] + [ct.mult(x, p[0])], r),
+        'o_rc': ct.rotate_cols(a, [3])[0], 'o_rr': [ct.rotate_rows(x), ct.rotate_rows(y)],
+        'o_ar': ct.advanced_rotate_cols(x, [2])[0],
+        'o_h': ct.advanced_rotate_cols(y, [1, 5], rot_type='hoisted')}
+    assert tuple(outs) == fixtures.CKKS_MIX_OUTPUTS
+    ins = [x, y] + u + p + r + w
+    return ([ct.Argument(nd.id, nd) for nd in ins],
+            [ct.Argument(k, o) for k, o in outs.items()], [ct.Argument(v.id, v)])
+
+
 def gen_task(fe_param, build, path, *args) -> str:
     ct.set_fhe_param(fe_param)
     ins, outs, offline = build(*args)
@@ -125,17 +167,25 @@ def normalize(task_dir: str):
 
 def committed_fixtures():
     """name → (frontend parameter, build function, its arguments)."""
-    from lattisense_tpu.params import BfvParams as Ref
-    w32 = Ref.create_tpu_param(16384)
-    u64 = Ref.create(16384)
+    w32 = RefBfvParams.create_tpu_param(16384)
+    u64 = RefBfvParams.create(16384)
+    ckks_w32 = RefCkksParams.create_tpu_param(16384)
+    ckks_u64 = RefCkksParams.create(16384)
 
     def fe(params):
         return ct.BfvParam.create_custom_param(n=params.n, q=list(params.q),
                                                p=list(params.p), t=params.t)
+
+    def fe_ckks(params, scale):
+        return ct.CkksParam.create_custom_param(params.n, list(params.q), list(params.p),
+                                                slots=params.slots, scale=scale)
     return {
         fixtures.MULT_RELIN: (fe(w32), build_mult_relin, (7, fixtures.MULT_RELIN_COUNT)),
         fixtures.MIX_W32: (fe(w32), build_ops_mix, (7,)),
         fixtures.MIX_U64: (fe(u64), build_ops_mix, (3,)),
+        fixtures.CKKS_MIX_W32: (fe_ckks(ckks_w32, fixtures.CKKS_MIX_W32_SCALE),
+                                build_ckks_ops_mix, (10,)),
+        fixtures.CKKS_MIX_U64: (fe_ckks(ckks_u64, ckks_u64.scale), build_ckks_ops_mix, (3,)),
     }
 
 
@@ -149,7 +199,8 @@ def write_fixture(name: str, path: str):
             f.write('\n')
 
 
-@pytest.mark.parametrize('name', [fixtures.MULT_RELIN, fixtures.MIX_W32, fixtures.MIX_U64])
+@pytest.mark.parametrize('name', [fixtures.MULT_RELIN, fixtures.MIX_W32, fixtures.MIX_U64,
+                                  fixtures.CKKS_MIX_W32, fixtures.CKKS_MIX_U64])
 def test_committed_fixture_matches_regeneration(name, tmp_path):
     write_fixture(name, str(tmp_path))
     assert normalize(str(tmp_path)) == normalize(fixtures.task_dir(name))
@@ -173,13 +224,14 @@ def to_port(v):
         return [to_port(e) for e in v]
     name = type(v).__name__
     if name == 'Ciphertext':
-        return Ciphertext(data=T(v.data), level=v.level, is_ntt=v.is_ntt, is_mform=v.is_mform)
+        return Ciphertext(data=T(v.data), level=v.level, is_ntt=v.is_ntt, is_mform=v.is_mform,
+                          scale=v.scale)
     if name == 'Plaintext':
-        return Plaintext(data=T(v.data), level=v.level)
+        return Plaintext(data=T(v.data), level=v.level, is_ntt=v.is_ntt, scale=v.scale)
     if name == 'PlaintextRingt':
-        return PlaintextRingt(data=T(v.data))
+        return PlaintextRingt(data=T(v.data), scale=v.scale)
     assert name == 'PlaintextMul', name
-    return PlaintextMul(data=T(v.data), level=v.level)
+    return PlaintextMul(data=T(v.data), level=v.level, scale=v.scale)
 
 
 def chain(word: int):
@@ -230,7 +282,8 @@ def flat(v):
 def same(port_out, ref_out):
     return all(np.array_equal(a.data.numpy().astype(np.uint64),
                               np.asarray(b.data).astype(np.uint64))
-               and (a.level, a.is_ntt, a.is_mform) == (b.level, b.is_ntt, b.is_mform)
+               and (a.level, a.is_ntt, a.is_mform, a.scale) == (b.level, b.is_ntt, b.is_mform,
+                                                                 b.scale)
                for a, b in zip(flat(port_out), flat(ref_out)))
 
 
@@ -252,6 +305,74 @@ def test_op_mix_matches_reference(setup, mode):
         for out, m in zip(flat(got[k]), flat(expected[k])):
             pt = port.decrypt_decode(fixtures.coefficient_form(port.engine, out))
             assert np.array_equal(pt, m), k
+
+
+def ckks_chain(word: int):
+    """(q, p, scale) at n=N: 31-bit primes at the 32-bit word; a 60-bit q0,
+    40-bit primes and a 60-bit special prime at the 64-bit word."""
+    if word == 32:
+        primes = ref_primes(N, 31, 7)
+        return primes[:5], primes[5:], float(1 << 30)
+    big = ref_primes(N, 60, 2)
+    return [big[0]] + ref_primes(N, 40, 4), [big[1]], float(1 << 40)
+
+
+@pytest.fixture(scope='module', params=[32, 64], ids=['w32', 'u64'])
+def ckks_setup(request, tmp_path_factory):
+    """The CKKS op-mix task at n=N, a reference context with its Galois
+    keys and a port context on the CPU with the same keys."""
+    word = request.param
+    q, p, scale = ckks_chain(word)
+    fe = ct.CkksParam.create_custom_param(N, list(q), list(p), scale=scale)
+    mix = gen_task(fe, build_ckks_ops_mix, tmp_path_factory.mktemp(f'ckks{word}'), LEVEL)
+    with open(os.path.join(mix, 'task_signature.json')) as f:
+        elts = [int(e) for e in json.load(f)['key']['glk']]
+    ref = RefCkksContext.create_random_context(
+        RefCkksParams.create_custom(N, q, p, scale=scale, word_bits=word), seed=43)
+    ref.gen_galois_keys_for_elements(elts)
+    port = CkksContext.from_arrays(CkksParams.create_custom(N, q, p, scale=scale, word_bits=word),
+                                   ref.sk.coeffs, ref.pk.data, ref.rlk.key_q, ref.rlk.key_p,
+                                   device='cpu')
+    for elt, k in ref.glk.keys.items():
+        port.add_galois_key_arrays(elt, k.key_q, k.key_p)
+    return {'word': word, 'ref': ref, 'port': port, 'mix': mix, 'scale': scale}
+
+
+@pytest.mark.parametrize('mode', ['eager', 'jit'])
+def test_ckks_op_mix_matches_reference(ckks_setup, mode):
+    """Every output equals the reference's eager NumPy run bit for bit, with
+    its level and scale, and decodes within 1e-3 of its float64 slots."""
+    ref, port, scale = ckks_setup['ref'], ckks_setup['port'], ckks_setup['scale']
+    msgs = fixtures.ckks_mix_messages(N // 2, 5)
+    online, offline = fixtures.ckks_mix_arguments(ref, LEVEL, msgs, scale)
+    want, _ = FheTaskTpu(ckks_setup['mix'], mode='eager').run(ref, {**online, **offline})
+    task = FheTask(ckks_setup['mix'], mode=mode, device='cpu')
+    task.preload(port, {k: to_port(v) for k, v in offline.items()})
+    got, _ = task.run(port, {k: to_port(v) for k, v in online.items()})
+    assert isinstance(task.engine, CkksEngine) and task.engine.word_bits == ckks_setup['word']
+    assert set(got) == set(fixtures.CKKS_MIX_OUTPUTS)
+    assert [k for k in fixtures.CKKS_MIX_OUTPUTS if not same(got[k], want[k])] == []
+    expected = fixtures.ckks_mix_expected(msgs)
+    for k in fixtures.CKKS_MIX_OUTPUTS:
+        for out, m in zip(flat(got[k]), flat(expected[k])):
+            assert np.abs(port.decrypt_decode(out) - m).max() < 1e-3, k
+
+
+def test_ckks_scales_select_their_own_run(ckks_setup):
+    """A second set of input scales gives outputs at the scales the
+    reference gives them, and the first set's outputs are unchanged."""
+    ref, port = ckks_setup['ref'], ckks_setup['port']
+    msgs = fixtures.ckks_mix_messages(N // 2, 6)
+    task = FheTask(ckks_setup['mix'], mode='jit', device='cpu')
+    runs = []
+    for scale in (ckks_setup['scale'], ckks_setup['scale'] / 4):
+        online, offline = fixtures.ckks_mix_arguments(ref, LEVEL, msgs, scale)
+        want, _ = FheTaskTpu(ckks_setup['mix'], mode='eager').run(ref, {**online, **offline})
+        got, _ = task.run(port, {k: to_port(v) for k, v in {**online, **offline}.items()})
+        assert all(same(got[k], want[k]) for k in fixtures.CKKS_MIX_OUTPUTS)
+        runs.append(got['o_rs'].scale)
+    assert runs[0] == 16 * runs[1]
+    assert len(task._out_scales) == 2
 
 
 def test_fused_plan_of_mult_relins(setup):
@@ -416,9 +537,10 @@ def test_custom_executor(setup, mode, tmp_path):
 
 
 def test_refusals(setup, tmp_path, monkeypatch):
-    """CKKS tasks, bootstrap nodes, partitioned mode, a mesh and the memory
-    monitor are refused, each naming its ROADMAP item; so is a context on
-    another device, and drop_level on BFV (as the reference)."""
+    """Bootstrap nodes, partitioned mode, a mesh and the memory monitor are
+    refused, each naming its ROADMAP item; so is a context on another device,
+    and drop_level on BFV (as the reference). A CKKS task loads onto the
+    CKKS engine."""
     d = setup['mult_relin']
     with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 6'):
         FheTask(d, mode='partitioned', device='cpu')
@@ -435,8 +557,7 @@ def test_refusals(setup, tmp_path, monkeypatch):
         x = ct.CkksCiphertextNode('x', 2)
         return [ct.Argument('x', x)], [ct.Argument('z', ct.rescale(ct.mult_relin(x, x)))], []
     ckks = gen_task(fe, build, tmp_path / 'ckks')
-    with pytest.raises(NotImplementedError, match=r'CKKS task .*item 5'):
-        FheTask(ckks, device='cpu')
+    assert isinstance(FheTask(ckks, device='cpu').engine, CkksEngine)
     # a bootstrap node
     btp = tmp_path / 'btp'
     btp.mkdir()
