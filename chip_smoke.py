@@ -51,7 +51,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``ksw32_split_*``) and B4 held against their twins on the card, then
    ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1 entry.
 9. B5 (clusters of 8) and B1 (its split) at n=2^16 (a card-test shape, on
-   no path) against their twins.
+   no path) against their twins; then the n=2^16 repairs, each against its
+   twin: B1-r4 and the perm entries on the same stack (B1's split, the perm
+   entries with their transpose pass), B2 and B4 on a custom 31-bit BFV
+   chain (22 q limbs, around B1's split), and B3's split route at the
+   shapes of ``CkksParams.create_tpu_btp_param()`` (levels 47 and 9, both
+   outputs) and ``create_tpu_param(65536)`` (level 43), batch 2.
 10. Task paths: the compiled-task runtime (``runtime/task.py``) on the task
    directories committed under ``lattisense_torch/runtime/tasks/``.
    ``task_path`` (after 4) runs the 32-``mult_relin`` task on the main
@@ -84,12 +89,36 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    launches, the decoded errors of elements 0 and 31 and
    ``get_precision_stats``' mean log2 precision of element 0.
 
+12. CKKS bootstrapping: the JAX package's three bootstrap runs
+   (``schemes/bootstrap_params.py`` ``reference_run``), one
+   ``CkksBtpContext`` at a time (h=192, seed 77), freed before the next:
+   ``btp_toy_path`` (the toy profile, n=8192, 25 q and 5 p 64-bit limbs:
+   B5's row kernel, B6, B7), ``btp_full_path`` (the same chain at n=2^16:
+   B5's cluster kernel) and ``btp_w32_path`` (``create_tpu_btp_param()``,
+   48 q and 4 p 31-bit limbs, two a level: B1's split and B3's split route).
+   Each line holds the ms a bootstrap (CUDA events, one warm-up, 3 timed),
+   the busy ms and idle share over five bootstraps in one profiler window,
+   each segment's ms, the launches of each kernel a bootstrap, the key
+   set's bytes, keygen seconds, the first bootstrap's seconds and the host
+   encoding of the transforms' diagonals alone (``encode_s``), the top
+   kernels by device time, the peak memory, the output
+   level and the decoded error, which must meet the JAX test's bounds. The
+   kernels the path runs are held against their twins at its key-switch
+   shapes. The toy run also holds four segments (``raise``, ``cts0``,
+   ``evalmod_da``, ``stc2``) bit for bit against the CPU twin from the
+   card's own input, and runs the committed ``ckks_bootstrap_toy_n8192``
+   task eagerly, replayed (one CUDA graph) and partitioned (one graph a
+   segment): each equal to ``ctx.bootstrap``.
+
 Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
 ``u64_32k_path``, ``u64_32k_rotate_path``, ``w32_32k_path``, ``ckks_path``,
 ``ckks_w32_path``, ``ckks_rotate_path``, ``ckks_task_mix_path``,
-``ckks_task_mix64_path``), a ``{"kernels": [...]}`` line (each kernel with
-the CKKS paths that launch it, ``ckks_launches``), the card's name and power
+``ckks_task_mix64_path``, ``btp_toy_path``, ``btp_full_path``,
+``btp_w32_path``), a ``{"kernels": [...]}`` line (each kernel with the CKKS
+and bootstrap paths that launch it, ``ckks_launches``, ``btp_launches``),
+a ``{"phase_s": ...}`` line after each phase (its seconds and the seconds
+since the start), the card's name and power
 limit as nvidia-smi reports them, and as its last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero; without a CUDA
 card, or without the package beside it, it exits 2 and prints no result.
@@ -375,20 +404,32 @@ def outputs_equal(torch, a: dict, b: dict) -> bool:
         == (y.level, y.is_ntt, y.is_mform, y.scale) for x, y in zip(fa, fb))
 
 
-def busy_ms(torch, fn, reps: int = 5) -> float | None:
+def busy_and_top(torch, fn, reps: int = 5, top: int = 0, host_ops: bool = True):
     """Device time a call of ``fn`` (every kernel and copy on the card): the
     self device time of ``reps`` calls in one torch.profiler window over
-    ``reps``, after a warm-up call; None if it traced none."""
+    ``reps``, after a warm-up call, None if it traced none; and the ``top``
+    kernels by device time, [name, ms a call, launches a call]. Without
+    ``host_ops`` the window records the device's activity only: a bootstrap
+    launches ~37 000 kernels and several times as many host ops, whose
+    records cost the window tens of seconds; the device times are the same."""
     fn()
     torch.cuda.synchronize()
-    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        act.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=act) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us else None
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in dev)
+    best = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    return (us / 1e3 / reps if us else None,
+            [[e.key[:80], e.self_device_time_total / 1e3 / reps, e.count / reps] for e in best])
+
+
+def busy_ms(torch, fn, reps: int = 5) -> float | None:
+    return busy_and_top(torch, fn, reps)[0]
 
 
 def idle_share(busy: float | None, wall_ms: float) -> float | None:
@@ -421,7 +462,10 @@ def main() -> int:
     from lattisense_torch.schemes.bfv import BfvEngine
     from lattisense_torch.schemes.ckks import CkksEngine
     from lattisense_torch.schemes.galois import galois_elt_col
+    from lattisense_torch.schemes.keyswitch import KeySwitcher
     from lattisense_torch.schemes.types import Ciphertext, KeySwitchKey
+    from lattisense_torch.tools.profile_step import (bootstrap_context, bootstrap_input,
+                                                     bootstrap_segments, key_bytes)
     from lattisense_torch.utils.precision import get_precision_stats
 
     counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
@@ -436,6 +480,14 @@ def main() -> int:
 
     def read_counts():
         return {k: v for c in counts for k, v in c.items()}
+
+    marks = [time.perf_counter()]
+
+    def phase_done(name):
+        """Print the seconds since the last phase ended, on a line of its own."""
+        marks.append(time.perf_counter())
+        print(json.dumps({'phase_s': {name: marks[-1] - marks[-2],
+                                      'since_start': marks[-1] - marks[0]}}), flush=True)
 
     # ---- 1. set-up --------------------------------------------------------
     t0 = time.perf_counter()
@@ -555,6 +607,8 @@ def main() -> int:
 
     def max_err(pairs):
         return max(int((g.cpu() - w).abs().max()) for g, w in pairs)
+
+    phase_done('setup')
 
     # ---- 2. kernels against their plain twins -----------------------------
     # B1 at the row stacks one batched mult_relin gave it before B2, B3 and
@@ -701,6 +755,8 @@ def main() -> int:
                               replaces_function=fn, path=None,
                               **check_ntt(kname, calls, kernel, plain, ntt_work))
 
+    phase_done('kernels_w32')
+
     # ---- 2b. the 64-bit word's kernels at the u64 path's shapes -----------
     params64 = BfvParams.create(N)
     t1 = time.perf_counter()
@@ -844,6 +900,8 @@ def main() -> int:
         imad_bound_ms=imad_bound_ms([(b7_imad(beta64), got.numel() * beta64)]))
     del d, dg, got, want
     torch.cuda.empty_cache()
+
+    phase_done('kernels_u64')
 
     # ---- 3.-6. the paths --------------------------------------------------
     def run_path(label, c, eng_cpu, level, step_fn, n_inputs, keys, cpu_keys, msgs, expect,
@@ -1067,6 +1125,8 @@ def main() -> int:
 
     del ctx64, rkeys64
     torch.cuda.empty_cache()
+
+    phase_done('paths_n16384')
 
     # ---- 7.-9. n=32768 and n=2^16 -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1311,6 +1371,81 @@ def main() -> int:
             **hold_ntt(kname, [(ring, (37,))], kernel, plain, work, parts))
     torch.cuda.empty_cache()
 
+    phase_done('paths_n32768')
+
+    # 9b. the n = 2^16 repairs, each against its plain twin: B1-r4/perm on
+    # the same (37, 12, n) stack (B1's split; the perm entries add their
+    # transpose pass), B2 and B4 on a custom 31-bit BFV chain (the route
+    # around B1's split), B3's split route at the shapes of
+    # create_tpu_btp_param() (the top level and level 9, both outputs) and
+    # create_tpu_param(65536) (the top level), batch 2 each
+    split_parts = {'columns': 'columns_kernel', 'rows': 'ntt_kernel', 'perm': 'perm_kernel'}
+    for kname, (kernel, plain, line, fn) in perm_twins.items():
+        kernels[f'{kname}_n65536'] = dict(
+            route='cuda', design="B1's split" + (', then or after it the transpose pass '
+                                                 '(perm_kernel)' if 'perm' in kname else ''),
+            source='lattisense_torch/csrc/ntt32.cu + csrc/ntt_columns.cuh',
+            replaces=f'lattisense_tpu/ops/ntt_pallas32.py:{line}', replaces_function=fn,
+            path=None, counted_as=kname,
+            **hold_ntt(kname, [(r32, (37,))], kernel, plain, ntt_work, split_parts))
+    chain16 = gen_ntt_primes(N64K, 31, 24)
+    bz16 = BfvEngine(BfvParams.create_custom(N64K, 65537, chain16[:22], chain16[22:],
+                                             word_bits=32), dev).behz(21)
+    L16, T16 = len(bz16.ring_q.moduli), len(bz16.ring_aux.moduli)
+    x = card_residues(bz16.ring_q.moduli, (4, 4), N64K)
+    kernels['behz_prep32_n65536'] = dict(
+        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt32.cu',
+        design="the extension into int64 aux rows, then B1's split forward with the "
+               'to-Montgomery epilogue over q and over aux',
+        replaces='lattisense_tpu/ops/behz_pallas32.py:55',
+        replaces_function='behz_prep32 (_k1_kernel)', path=None, counted_as='behz_prep32',
+        shapes=[[list(x.shape), L16, T16]],
+        **hold(lambda: list(behz_cuda.behz_prep32(x, bz16)),
+               lambda: list(behz_cuda.behz_prep_plain(x, bz16)),
+               [behz_work(16, L16, T16, N64K)]))
+    dq = card_residues(bz16.ring_q.moduli, (4, 3), N64K)
+    da = card_residues(bz16.ring_aux.moduli, (4, 3), N64K)
+    kernels['behz_finish32_n65536'] = dict(
+        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt32.cu',
+        design="B1's split inverse (from-Montgomery folded into n^-1) over q and over aux, "
+               'then the scale-back from the int64 rows',
+        replaces='lattisense_tpu/ops/behz_pallas32.py:368',
+        replaces_function='behz_finish32 (_k3_kernel)', path=None, counted_as='behz_finish32',
+        shapes=[[list(dq.shape), list(da.shape)]],
+        **hold(lambda: [behz_cuda.behz_finish32(dq, da, bz16)],
+               lambda: [behz_cuda.behz_finish_plain(dq, da, bz16)],
+               [finish_work(12, L16, T16, N64K)]))
+    del x, dq, da, bz16
+    ksw16, ksw16_shapes, ksw16_work = [], [], []
+    for prm, levels in ((CkksParams.create_tpu_btp_param(N64K), (47, 9)),
+                        (CkksParams.create_tpu_param(N64K), (43,))):
+        q16, p16 = tuple(prm.q), tuple(prm.p)
+        sw16 = KeySwitcher(q16, p16, N64K, dev, 32)
+        beta16 = (len(q16) + len(p16) - 1) // len(p16)
+        key16 = KeySwitchKey(key_q=card_residues(q16, (beta16, 2), N64K),
+                             key_p=card_residues(p16, (beta16, 2), N64K))
+        for lv in levels:
+            x16 = card_residues(q16[:lv + 1], (2,), N64K)
+            for out_ntt in ((False, True) if len(levels) > 1 else (False,)):
+                ksw16.append((x16, key16, sw16, lv, out_ntt))
+                ksw16_shapes.append({'x': list(x16.shape), 'level': lv, 'alpha': len(p16),
+                                     'beta': sw16.beta(lv), 'T': lv + 1 + len(p16),
+                                     'output_ntt': out_ntt})
+                ksw16_work.append(ksw_work(2, lv + 1, len(p16), sw16.beta(lv), N64K,
+                                           output_ntt=out_ntt))
+    kernels['ksw_switch32_n65536'] = dict(
+        route='cuda', source='lattisense_torch/csrc/ksw32.cu + csrc/ntt32.cu',
+        design="split route, its NTTs through B1's split",
+        replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
+        replaces_function='ksw_switch32 (_ksw_kernel)', path='btp_w32_path',
+        counted_as='ksw_switch32', shapes=ksw16_shapes,
+        **hold(lambda: [e for c in ksw16 for e in ksw_cuda.ksw_switch32(*c)],
+               lambda: [e for c in ksw16 for e in c[2].switch_plain(c[0], c[1], c[3], c[4])],
+               ksw16_work))
+    del ksw16, key16, x16
+    torch.cuda.empty_cache()
+    phase_done('repairs_n65536')
+
     # ---- 11. CKKS ----------------------------------------------------------
     # two contexts, made once: the u64 chain and the composite 2^60 chain on
     # the 31-bit primes of create_tpu_param(16384) (two primes a level)
@@ -1541,6 +1676,242 @@ def main() -> int:
     del ctx_c64
     torch.cuda.empty_cache()
 
+    phase_done('ckks')
+
+    # ---- 12. CKKS bootstrapping ---------------------------------------------
+    # the JAX package's three bootstrap runs (schemes/bootstrap_params.py
+    # reference_run), one context at a time, freed before the next
+    btp_paths = ['btp_toy_path', 'btp_full_path', 'btp_w32_path']
+
+    def run_bootstrap(label, name, must_launch, must_not_launch, holds, cpu_segments=(),
+                      task=None):
+        """Keygen, a warm-up bootstrap (the host encoding of the transforms'
+        diagonals, timed again alone as ``encode_s``), one bootstrap between
+        a reset and a read of every count,
+        CUDA-event ms a bootstrap (3 timed), the busy ms and idle share over
+        five bootstraps in one profiler window, each segment's ms; the
+        kernels of ``holds(ctx)`` against their twins at the path's shapes;
+        the segments of ``cpu_segments`` on the CPU twin from the card's own
+        input, bit for bit; the task ``task`` eager, replayed and
+        partitioned against ``ctx.bootstrap``. Prints the path's line."""
+        ctx, run, keygen_s = bootstrap_context(name, dev)
+        eng = ctx.engine
+        kbytes = key_bytes(ctx)
+        msg, ct = bootstrap_input(ctx, run)
+        t1 = time.perf_counter()
+        want = ctx.bootstrap(ct)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        # the host encoding of the transforms' diagonals, which the first
+        # bootstrap did: each (level, scale) it encoded, encoded once more
+        btp = eng.bootstrapper
+        t1 = time.perf_counter()
+        for lt in btp.cts + [btp.cts_last_re, btp.cts_last_im] + btp.stc:
+            for _lv, sc in list(lt._plain_cache):
+                for v in lt.raw.values():
+                    eng.encode_mul(v, lt.level, sc)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t1
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        out = ctx.bootstrap(ct)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        missing = [k for k in must_launch if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f'the {label} launched no {missing}')
+        stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
+        if stray:
+            raise AssertionError(f'the {label} launched {stray}')
+        if not torch.equal(out.data, want.data):
+            raise AssertionError(f'{label}: two bootstraps of one input differ')
+        btp_ms = time_ms(torch, lambda: ctx.bootstrap(ct), 3, warmup=0)
+        t1 = time.perf_counter()
+        busy, top = busy_and_top(torch, lambda: ctx.bootstrap(ct), top=12, host_ops=False)
+        profile_s = time.perf_counter() - t1
+        seg_ms, seg_out, kept = bootstrap_segments(ctx, ct, keep=cpu_segments)
+        if not torch.equal(seg_out.data, out.data):
+            raise AssertionError(f'{label}: the segment walk differs from ctx.bootstrap')
+        err = float(np.abs(ctx.decrypt_decode(out).real - msg).max())
+        correct = err < run['max_err'] and out.level >= run['min_level']
+        line = {'profile': name, 'n': ctx.params.n, 'word_bits': ctx.params.word_bits,
+                'q_limbs': len(ctx.params.q), 'p_limbs': len(ctx.params.p),
+                'slots': ctx.params.slots, 'h': run['h'], 'seed': run['seed'],
+                'config': dataclasses.asdict(run['config']), 'in_level': run['level'],
+                'in_scale': run['scale'], 'out_level': out.level, 'out_scale': out.scale,
+                'max_abs_err': err, 'bounds': {'max_abs_err': run['max_err'],
+                                               'min_level': run['min_level']},
+                'correct': correct, 'ms_per_bootstrap': btp_ms, 'busy_ms': busy,
+                'idle_share': idle_share(busy, btp_ms), 'top_kernels': top,
+                'profile_window_s': profile_s, 'segments_ms': seg_ms,
+                'launches_per_bootstrap': launches, 'galois_keys': len(ctx.glk.keys),
+                'key_bytes': kbytes, 'keygen_s': keygen_s, 'encode_s': encode_s,
+                'first_bootstrap_s': first_s,
+                'peak_mem_bytes': peak_mem, 'bootstrap_extra_peak_bytes': peak_mem - base_mem,
+                'gpu': name_gpu, 'power_limit': power}
+        for kname, entry in holds(ctx).items():
+            kernels[kname] = entry
+        if cpu_segments:
+            # the CPU twin: the card context's keys on the CPU
+            twin = type(ctx).from_arrays(ctx.params, ctx.sk.coeffs, ctx.pk.data.cpu(),
+                                         ctx.rlk.key_q.cpu(), ctx.rlk.key_p.cpu(), device='cpu')
+            for e, k in ctx.glk.keys.items():
+                twin.add_galois_key_arrays(e, k.key_q.cpu(), k.key_p.cpu())
+            twin.swk = {k: dataclasses.replace(v, key_q=v.key_q.cpu(), key_p=v.key_p.cpu())
+                        for k, v in ctx.swk.items()}
+            twin.create_bootstrapper(run['config'])
+            segs = dict(twin.engine.bootstrapper.segments(
+                ct.scale, twin.swk.get('swk_dts'), twin.swk.get('swk_std')))
+            t1 = time.perf_counter()
+            twin_equal = {}
+            for sname in cpu_segments:
+                ins, outs = kept[sname]
+                got = segs[sname](tuple(on_cpu(c) for c in ins), twin.rlk, twin.glk.keys)
+                twin_equal[sname] = all(
+                    torch.equal(g.data, o.data.cpu()) and (g.level, g.scale) == (o.level, o.scale)
+                    for g, o in zip(got, outs)) and len(got) == len(outs)
+            line['segments_vs_cpu_twin'] = twin_equal
+            line['cpu_twin_s'] = time.perf_counter() - t1
+            correct = correct and all(twin_equal.values())
+            del twin, segs
+        if task is not None:
+            d = tasks.task_dir(task)
+            with open(os.path.join(d, 'task_signature.json')) as f:
+                ctx.gen_galois_keys_for_elements([int(e) for e in json.load(f)['key']['glk']])
+            runs = {}
+            for mode in ('eager', 'jit', 'partitioned'):
+                t = FheTask(d, mode=mode)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                t.compile(ctx, {'x': ct})
+                if mode == 'eager':
+                    t.run(ctx, {'x': ct})
+                capture_s = time.perf_counter() - t1
+                got, _ = t.run(ctx, {'x': ct})
+                extra = torch.cuda.max_memory_allocated() - before
+                same_out = (torch.equal(got['z'].data, out.data)
+                            and (got['z'].level, got['z'].scale) == (out.level, out.scale))
+                ms = sum(t.run(ctx, {'x': ct})[1] for _ in range(3)) / 3 / 1e6
+                t1 = time.perf_counter()
+                tb = busy_and_top(torch, lambda t=t: t.run(ctx, {'x': ct}), host_ops=False)[0]
+                profile_s = time.perf_counter() - t1
+                runs[mode] = {'equals_ctx_bootstrap': same_out, 'ms_per_run': ms, 'busy_ms': tb,
+                              'idle_share': idle_share(tb, ms), 'warmup_or_capture_s': capture_s,
+                              'extra_peak_bytes': extra, 'profile_window_s': profile_s,
+                              'graphs': len(t._graphs), 'plan_steps': len(t.plan)}
+                correct = correct and same_out
+                del t
+                torch.cuda.empty_cache()
+            line['task'] = {'name': task, **runs}
+        print(json.dumps({label: line}), flush=True)
+        phase_done(label)
+        if not correct:
+            raise AssertionError(f'{label}: max_abs_err {err} (bound {run["max_err"]}), level '
+                                 f'{out.level} (at least {run["min_level"]}), '
+                                 f'{line.get("segments_vs_cpu_twin")}, '
+                                 f'{ {m: r["equals_ctx_bootstrap"] for m, r in line.get("task", {}).items() if m != "name"} }')
+        path_launches[label] = launches
+        del ctx, want, out, seg_out, kept
+        torch.cuda.empty_cache()
+
+    def btp64_holds(suffix, path, cluster_n):
+        """B5, B6 and B7 at a u64 bootstrap's key-switch shapes at the top
+        level: the mod-up of β = 5 digits of 5 limbs to 30 rows, their
+        forward NTT, the inner product, the inverse NTT of the two
+        components, RoundDivP's P → Q conversion; batch 2 (the EvalMod
+        pair)."""
+        def holds(ctx):
+            eng = ctx.engine
+            lv = ctx.params.max_level
+            sw = eng.switcher
+            rq = sw.ring_qp(lv)
+            al, be = sw.alpha, sw.beta(lv)
+            nn = ctx.params.n
+            pre = sw._level_pre(lv)
+            rdp = pre[5].conv
+            ntt_parts = {'cluster': 'cluster_kernel'} if cluster_n else {'rows': 'ntt_kernel'}
+            src = ('lattisense_torch/csrc/ntt_cluster.cuh + csrc/ntt64.cu' if cluster_n
+                   else 'lattisense_torch/csrc/ntt64.cu')
+            out = {}
+            for kname, kernel, plain, work, lead in (
+                    ('ntt64_fwd', ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64, (2, be)),
+                    ('ntt64_inv', ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64, (2, 2))):
+                out[f'{kname}_{suffix}'] = dict(
+                    route='cuda', source=src,
+                    replaces=('lattisense_tpu/ops/ntt_pallas.py:134' if cluster_n else
+                              f'lattisense_tpu/ops/ntt_pallas64f.py:{48 if "fwd" in kname else 98}'),
+                    replaces_function=kname, path=path,
+                    counted_as=kname + ('_cluster' if cluster_n else ''),
+                    **hold_ntt(f'{kname}_{suffix}', [(rq, lead)], kernel, plain, work, ntt_parts))
+            y = rdp.decompose(card_residues(rdp.src, (2, 2), nn))
+            out[f'bconv64_convert_{suffix}'] = dict(
+                route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+                replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+                replaces_function='bconv_convert_fused (_bconv_kernel): RoundDivP P -> Q',
+                path=path, counted_as='bconv64_convert', shapes=[list(y.shape)],
+                instance=bconv_cuda.instance(al, lv + 1, max(rdp.src) - 1),
+                **hold(lambda: [bconv_cuda.bconv64_convert(y, rdp)],
+                       lambda: [bconv_cuda.bconv64_plain(y, rdp.qhat_dst_mont, rdp.dst_q,
+                                                         rdp.dst_pinv)],
+                       [bconv64_work(4, al, lv + 1, nn)]))
+            ym = card_residues(ctx.params.q[:lv + 1], (2,), nn).reshape(2, be, al, nn)
+            out[f'bconv64_raw_{suffix}'] = dict(
+                route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+                replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+                replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
+                path=path, counted_as='bconv64_raw', shapes=[list(ym.shape)],
+                instance=bconv_cuda.instance(al, lv + 1 + al, bconv_cuda.WORD_GUARD),
+                **hold(lambda: [bconv_cuda.bconv64_raw(ym, pre[4], rq.q, rq.pinv)],
+                       lambda: [bconv_cuda.bconv64_plain(ym, pre[4], rq.q, rq.pinv)],
+                       [bconv64_work(2 * be, al, lv + 1 + al, nn)]))
+            dg = card_residues(rq.moduli, (2, be), nn)
+            out[f'ksw_inner64_{suffix}'] = dict(
+                route='cuda', source='lattisense_torch/csrc/ksw64.cu',
+                replaces='lattisense_tpu/ops/ksw_pallas.py:29',
+                replaces_function='ksw_inner_fused (_ksw_kernel)', path=path,
+                counted_as='ksw_inner64', shapes=[list(dg.shape)],
+                **hold(lambda: [ksw64_cuda.ksw_inner64(dg, ctx.rlk, lv, rq)],
+                       lambda: [ksw64_cuda.ksw_inner64_plain(dg, ctx.rlk, lv, rq)],
+                       [ksw64_work(2, be, lv + 1 + al, nn)]))
+            return out
+        return holds
+
+    def btp32_holds(ctx):
+        """B1's split at the w32 bootstrap's key-switch shapes, top level:
+        forward on the (2, 12, 52, n) digits over q ∪ p, inverse on the two
+        components."""
+        lv = ctx.params.max_level
+        rq = ctx.engine.switcher.ring_qp(lv)
+        be = ctx.engine.switcher.beta(lv)
+        parts = {'columns': 'columns_kernel', 'rows': 'ntt_kernel'}
+        return {f'{k}_btp_w32': dict(
+            route='cuda', source='lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt32.cu',
+            replaces=f'lattisense_tpu/ops/ntt_pallas32.py:{line}', replaces_function=fn,
+            path='btp_w32_path', counted_as=f'ksw32_split_{k[6:]}',
+            **hold_ntt(f'{k}_btp_w32', [(rq, lead)], kern, plain, ntt_work, parts))
+            for k, kern, plain, lead, line, fn in (
+                ('ntt32_fwd', ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain, (2, be), 101,
+                 'ntt_fused32 (_fwd_kernel)'),
+                ('ntt32_inv', ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, (2, 2), 173,
+                 'intt_fused32 (_inv_kernel)'))}
+
+    u64_btp = ['bconv64_convert', 'bconv64_raw', 'ksw_inner64']
+    run_bootstrap('btp_toy_path', 'toy', ['ntt64_fwd', 'ntt64_inv'] + u64_btp,
+                  w32_kernels + split_cols, btp64_holds('btp_toy', 'btp_toy_path', False),
+                  cpu_segments=('raise', 'cts0', 'evalmod_da', 'stc2'),
+                  task=tasks.CKKS_BOOTSTRAP_TOY)
+    run_bootstrap('btp_full_path', 'full', ['ntt64_fwd_cluster', 'ntt64_inv_cluster'] + u64_btp,
+                  w32_kernels + ['ntt64_fwd', 'ntt64_inv'],
+                  btp64_holds('btp_full', 'btp_full_path', True))
+    run_bootstrap('btp_w32_path', 'w32',
+                  ['ntt32_fwd', 'ntt32_inv', 'ntt32_fwd_cols', 'ntt32_inv_cols', 'ksw_switch32',
+                   'ksw32_split_fwd', 'ksw32_split_inv'],
+                  u64_kernel_counts + ['behz_prep32', 'behz_finish32'], btp32_holds)
+
     # launches on the path a kernel serves (B1's entries and the n = 2^16
     # holds: on the main path, 0), and on each CKKS path
     for kname, entry in kernels.items():
@@ -1548,6 +1919,8 @@ def main() -> int:
         entry['launches'] = path_launches[entry['path'] or 'main_path'][counted]
         entry['ckks_launches'] = {p: path_launches[p][counted] for p in ckks_paths
                                   if path_launches[p].get(counted)}
+        entry['btp_launches'] = {p: path_launches[p][counted] for p in btp_paths
+                                 if path_launches[p].get(counted)}
         entry['library_ms'] = None
         entry.setdefault('imad_bound_ms', None)
     print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)

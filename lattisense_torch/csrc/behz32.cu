@@ -82,6 +82,18 @@
 //   shen 2Tb: (B/b_k)^-1 mod b_k, its Shoup
 //   conv2 2Tb(L+1): [B/b_k]_{q_i} at [k*(L+1) + i], i = L for m_sk, then Shoups
 //   3       : B^-1 mod m_sk, its Shoup, m_sk >> 1
+//
+// At n = 2^16 a row does not fit B1's row loop. There each half is a short
+// sequence of launches around kernel B1's split (csrc/ntt_columns.cuh and
+// the row kernel on sub-rows of 2^15, called from ops/ntt_cuda.py), in the
+// way B3's split route is built, meeting in device memory as int64 stacks:
+//   B2: the extension kernel above, storing int64 aux rows
+//       (`behz32_extend64_launch`), then B1's forward with the to-Montgomery
+//       epilogue over the q rows (x -> fq) and over the aux rows (-> fa);
+//   B4: B1's inverse with the from-Montgomery folded into n^-1 over dq and
+//       over da, then the scale-back kernel above on the int64 rows, making
+//       y_i = [t X_i (Q/q_i)^-1]_{q_i} itself (`behz32_scale_back64_launch`).
+// The constant blocks are the ones the fused launches read.
 
 #include "row_fusion.cuh"
 
@@ -101,11 +113,12 @@ constexpr uint32_t kMtilde = 1u << 16;
 // B2, step 1: the extension, two coefficients a thread
 // ---------------------------------------------------------------------------
 
-// From x (polys, L, n) int64 to the aux residues ext (polys, T, n) uint32,
-// coefficients j, j + 1 of polynomial blockIdx.x.
-template <int L>
+// From x (polys, L, n) int64 to the aux residues ext (polys, T, n), uint32
+// (the fused B2) or int64 (the route at 2^16), coefficients j, j + 1 of
+// polynomial blockIdx.x.
+template <int L, class Out>
 __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
-    const int64_t* __restrict__ x, uint32_t* __restrict__ ext, int T, int n,
+    const int64_t* __restrict__ x, Out* __restrict__ ext, int T, int n,
     const uint32_t* __restrict__ consts) {
   extern __shared__ uint32_t c[];
   const int total = 6 * L + 5 * T + 2 * L * T + 1;
@@ -146,7 +159,7 @@ __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
   const uint32_t r0 = ((e0 & (kMtilde - 1)) * neg_qinv) & (kMtilde - 1);
   const uint32_t r1 = ((e1 & (kMtilde - 1)) * neg_qinv) & (kMtilde - 1);
 
-  uint32_t* ep = ext + poly * T * n + j;
+  Out* ep = ext + poly * T * n + j;
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
     const uint32_t dt = d[t];
@@ -161,8 +174,11 @@ __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
     const uint32_t rm1 = r1 >= kMtilde / 2 ? dt - (kMtilde - r1) : r1;
     const uint32_t s0 = add_mod(a0, shoup_mul(rm0, qm[t], qms[t], dt), dt);
     const uint32_t s1 = add_mod(a1, shoup_mul(rm1, qm[t], qms[t], dt), dt);
-    *reinterpret_cast<uint2*>(ep + static_cast<size_t>(t) * n) =
-        make_uint2(shoup_mul(s0, mti[t], mtis[t], dt), shoup_mul(s1, mti[t], mtis[t], dt));
+    const uint32_t o0 = shoup_mul(s0, mti[t], mtis[t], dt), o1 = shoup_mul(s1, mti[t], mtis[t], dt);
+    if constexpr (sizeof(Out) == 4)
+      *reinterpret_cast<uint2*>(ep + static_cast<size_t>(t) * n) = make_uint2(o0, o1);
+    else
+      *reinterpret_cast<longlong2*>(ep + static_cast<size_t>(t) * n) = make_longlong2(o0, o1);
   }
 }
 
@@ -436,14 +452,16 @@ __device__ __forceinline__ uint32_t aux_w(const FinishConsts& c, int T, int k, u
 }
 
 // From y (L rows) and X_aux (T rows), 32-bit, to out (L rows) over Q, for
-// coefficient j of polynomial blockIdx.y. Each B row's w_k is folded into
+// coefficient j of polynomial blockIdx.y. With DECOMPOSE the L rows are
+// X_i themselves, int64 (the route at 2^16), and y_i is made here as
+// DecomposeQ makes it. Each B row's w_k is folded into
 // the outputs' and the m_sk channel's sums as soon as it is made, so only y
 // and those sums are arrays, of the compile-time size L, in registers; the
 // m_sk channel gives the overflow alpha of Shenoy-Kumaresan B -> Q, centred
 // to allow slight negatives. Aux row k + 1 is read while row k is worked on.
-template <int L>
+template <int L, class In, bool DECOMPOSE>
 __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
-    const uint32_t* __restrict__ y, const uint32_t* __restrict__ xa, int64_t* __restrict__ out,
+    const In* __restrict__ y, const In* __restrict__ xa, int64_t* __restrict__ out,
     int T, int n, const uint32_t* __restrict__ consts) {
   extern __shared__ uint32_t smem_consts[];
   const int total = scale_back_consts(L, T);
@@ -452,8 +470,8 @@ __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   const size_t poly = blockIdx.y;
-  const uint32_t* yp = y + poly * L * n + j;
-  const uint32_t* ap = xa + poly * T * n + j;
+  const In* yp = y + poly * L * n + j;
+  const In* ap = xa + poly * T * n + j;
   int64_t* op = out + poly * L * n + j;
   const FinishConsts c(smem_consts, L, T);
   const int Tb = T - 1;
@@ -461,14 +479,16 @@ __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
   uint32_t yv[L], acc[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
-    yv[i] = yp[static_cast<size_t>(i) * n];
+    yv[i] = static_cast<uint32_t>(yp[static_cast<size_t>(i) * n]);
+    if constexpr (DECOMPOSE)
+      yv[i] = shoup_mul(shoup_mul(yv[i], c.tq[i], c.tqs[i], c.q[i]), c.qhi[i], c.qhis[i], c.q[i]);
     acc[i] = 0;
   }
-  uint32_t conv_sk = 0, next = ap[0];
+  uint32_t conv_sk = 0, next = static_cast<uint32_t>(ap[0]);
 #pragma unroll 1
   for (int k = 0; k < Tb; ++k) {
     const uint32_t xk = next;
-    next = ap[static_cast<size_t>(k + 1) * n];
+    next = static_cast<uint32_t>(ap[static_cast<size_t>(k + 1) * n]);
     const uint32_t wd = aux_w<L>(c, T, k, xk, yv);
     const uint32_t* cv = c.c2v + k * (L + 1);
     const uint32_t* cs = c.c2s + k * (L + 1);
@@ -484,6 +504,42 @@ __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
     const uint32_t amod = alpha >= c.sc[2] ? qi - (msk - alpha) : alpha;
     op[static_cast<size_t>(i) * n] = sub_mod(acc[i], shoup_mul(amod, c.bq[i], c.bqs[i], qi), qi);
   }
+}
+
+// The extension kernel on its L instance: x -> ext of the word Out.
+template <class Out>
+int extend(const int64_t* x, Out* ext, int polys, int L, int T, int n, const uint32_t* consts,
+           cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(uint32_t)) * (6 * L + 5 * T + 2 * L * T + 1);
+  return fused::by_value<kMaxL>(L, [&](auto size) -> int {
+    constexpr int LL = decltype(size)::value;
+    static int allowed[fused::kMaxDevices] = {};
+    int e = fused::allow_smem(behz32_extend_kernel<LL, Out>, smem, allowed);
+    if (e != 0) return e;
+    const int threads = n / 2 < kThreads ? n / 2 : kThreads;
+    dim3 grid(polys, n / 2 / threads);
+    behz32_extend_kernel<LL, Out><<<grid, threads, smem, st>>>(x, ext, T, n, consts);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The scale-back kernel on its L instance.
+template <class In, bool DECOMPOSE>
+int scale_back(const In* y, const In* xa, int64_t* out, int polys, int L, int T, int n,
+               const uint32_t* consts, cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(uint32_t)) * scale_back_consts(L, T);
+  return fused::by_value<kMaxL>(L, [&](auto size) -> int {
+    constexpr int LL = decltype(size)::value;
+    auto kernel = behz32_scale_back_kernel<LL, In, DECOMPOSE>;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    dim3 grid((n + kThreads - 1) / kThreads, polys);
+    kernel<<<grid, kThreads, smem, st>>>(y, xa, out, T, n, consts);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -517,19 +573,26 @@ extern "C" int behz32_finish_launch(const int64_t* dq, const int64_t* da, int64_
         da, polys * T, T, tw_a, q_a, Store32<LOGN>{xa, u32(post_a), u32(posts_a)}, st);
   });
   if (err != 0) return err;
-  const int n = 1 << logn;
-  const int smem = static_cast<int>(sizeof(uint32_t)) * scale_back_consts(L, T);
-  return fused::by_value<kMaxL>(L, [&](auto size) -> int {
-    constexpr int LL = decltype(size)::value;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(behz32_scale_back_kernel<LL>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    dim3 grid((n + kThreads - 1) / kThreads, polys);
-    behz32_scale_back_kernel<LL><<<grid, kThreads, smem, st>>>(y, xa, out, T, n, consts);
-    return static_cast<int>(cudaGetLastError());
-  });
+  return scale_back<uint32_t, false>(y, xa, out, polys, L, T, 1 << logn, consts, st);
+}
+
+// B4's last step at n = 2^16: xq (polys, L, n) and xa (polys, T, n), the
+// int64 inverse transforms of dq and da (from-Montgomery folded in), into
+// out (polys, L, n) over Q. One launch on `stream`.
+extern "C" int behz32_scale_back64_launch(const int64_t* xq, const int64_t* xa, int64_t* out,
+                                          int polys, int L, int T, int n, const uint32_t* consts,
+                                          void* stream) {
+  if (L < 1 || L > kMaxL || T < 2 || T > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
+  return scale_back<int64_t, true>(xq, xa, out, polys, L, T, n, consts,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// B2's extension at n = 2^16: x (polys, L, n) int64 residues mod q starting
+// on 16 bytes, into the int64 aux rows ext (polys, T, n). One launch.
+extern "C" int behz32_extend64_launch(const int64_t* x, int64_t* ext, int polys, int L, int T,
+                                      int n, const uint32_t* consts, void* stream) {
+  if (L < 1 || L > kMaxL || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return extend(x, ext, polys, L, T, n, consts, static_cast<cudaStream_t>(stream));
 }
 
 // B2 on x: (polys, L, n) int64 residues mod q starting on 16 bytes, into
@@ -544,18 +607,7 @@ extern "C" int behz32_prep_launch(const int64_t* x, uint32_t* ext, int64_t* fq, 
                                   const void* posts, void* stream) {
   if (L < 1 || L > kMaxL || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = 1 << logn;
-  const int smem = static_cast<int>(sizeof(uint32_t)) * (6 * L + 5 * T + 2 * L * T + 1);
-  int err = fused::by_value<kMaxL>(L, [&](auto size) -> int {
-    constexpr int LL = decltype(size)::value;
-    static int allowed[fused::kMaxDevices] = {};
-    int e = fused::allow_smem(behz32_extend_kernel<LL>, smem, allowed);
-    if (e != 0) return e;
-    const int threads = n / 2 < kThreads ? n / 2 : kThreads;
-    dim3 grid(polys, n / 2 / threads);
-    behz32_extend_kernel<LL><<<grid, threads, smem, st>>>(x, ext, T, n, consts);
-    return static_cast<int>(cudaGetLastError());
-  });
+  int err = extend(x, ext, polys, L, T, 1 << logn, consts, st);
   if (err != 0) return err;
   const PrepRows p{x, ext, fq, fa, L, T};
   return ntt::by_logn<kMaxLogn>(logn, [&](auto size) -> int {

@@ -37,10 +37,14 @@
 // component c, row t comes from key_q[d][c][t] for t < L and from
 // key_p[d][c][t - L] otherwise, so no per-level copy is made.
 //
-// n = 2^15, whose three 32-bit rows do not fit a block's shared memory,
-// takes the split route: a mod-up kernel, kernel B1's forward over the
+// n = 2^15 and 2^16, whose three 32-bit rows do not fit a block's shared
+// memory, take the split route: a mod-up kernel, kernel B1's forward over the
 // beta * T digit rows, an inner-product kernel, B1's inverse over the 2 * T
-// rows and the mod-down kernel, meeting in device memory as int64 stacks.
+// rows and the mod-down kernel, meeting in device memory as int64 stacks (at
+// 2^16 B1 runs its own split, csrc/ntt_columns.cuh). The three kernels index
+// a polynomial in size_t: at n = 2^16, T = 52 and beta = 12 one
+// ciphertext's digit stack holds 4.1e7 residues, and a batch of 32 holds
+// 1.3e9, near 2^31.
 // The wrapper (ops/ksw_cuda.py `switch_route`) chooses by shape. Per-thread
 // arrays are indexed by alpha, a template parameter, so they stay in
 // registers.

@@ -33,7 +33,13 @@
 // `intt_fused32_perm`) are the same transform with the forward output stored,
 // or the inverse input loaded, in the transposed tile layout: position
 // b * (n / 128) + a of a perm-layout row holds standard-order element a * 128 + b.
-// Only the row's load or store changes (scattered, off the main path).
+// Only the row's load or store changes (scattered, off the main path). At
+// n = 2^16 the split's row kernel sees sub-rows, not the whole row, so the
+// perm entries run the split as it is and one more pass, `perm_kernel`,
+// transposes each row's (n / 128, 128) tile matrix in shared memory: after
+// the forward, or before the inverse (the layout's inverse is the transpose
+// of the (128, n / 128) matrix). It moves the stack through device memory
+// once more each way.
 
 #include "ntt_passes.cuh"
 #include "ntt_columns.cuh"
@@ -50,7 +56,44 @@ int run(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const void*
       logn, x, y, rows, limbs, tab, q, post, posts, static_cast<cudaStream_t>(stream));
 }
 
+constexpr int kTile = 32;          // perm_kernel: 32 x 32 tiles, 8 rows of threads
+constexpr int kTileRows = 8;
+
+// y = x^T for each of `rows` (R, C) matrices of int64, R and C multiples of
+// kTile: y[c * R + r] = x[r * C + c]. A block moves one tile of every matrix
+// in turn, read and written in rows of 32 consecutive residues.
+__global__ void __launch_bounds__(kTile * kTileRows) perm_kernel(
+    const int64_t* __restrict__ x, int64_t* __restrict__ y, int rows, int R, int C) {
+  __shared__ int64_t tile[kTile][kTile + 1];
+  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+  const size_t plane = static_cast<size_t>(R) * C;
+  for (int m = blockIdx.z; m < rows; m += gridDim.z) {
+    const int64_t* xm = x + m * plane;
+    int64_t* ym = y + m * plane;
+    for (int i = threadIdx.y; i < kTile; i += kTileRows)
+      tile[i][threadIdx.x] = xm[static_cast<size_t>(r0 + i) * C + c0 + threadIdx.x];
+    __syncthreads();
+    for (int i = threadIdx.y; i < kTile; i += kTileRows)
+      ym[static_cast<size_t>(c0 + i) * R + r0 + threadIdx.x] = tile[threadIdx.x][i];
+    __syncthreads();
+  }
+}
+
 }  // namespace
+
+// The perm layout of `rows` rows of n = 2^logn residues, x -> y (not in
+// place): the (n / 128, 128) transpose (inverse == 0, perm_layout) or the
+// (128, n / 128) one (unperm_layout). n >= 4096.
+extern "C" int ntt32_perm_launch(const int64_t* x, int64_t* y, int rows, int logn, int inverse,
+                                 void* stream) {
+  if (logn < 12 || logn > 16 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const int R = inverse ? 128 : (1 << logn) / 128, C = (1 << logn) / R;
+  const dim3 grid(C / kTile, R / kTile, rows < 65535 ? rows : 65535);
+  perm_kernel<<<grid, dim3(kTile, kTileRows), 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, rows, R, C);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Forward transform of `rows` rows; `tab` is the forward pass table
 // (limbs, entries, 2) of uint32 (value, Shoup companion); `post`/`posts` may

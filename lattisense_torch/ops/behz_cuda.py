@@ -34,9 +34,19 @@ store 32-bit rows, and one thread per coefficient finishes the scale-back
 from them: three launches, no int64 intermediate, bound by device-memory
 bytes.
 
-Each wrapper counts one launch per call; neither launches any of B1's
-entries. A CPU tensor runs the plain PyTorch composition below; a CUDA
-tensor launches the kernels or raises.
+At n = 2^16 a row does not fit B1's row loop, and each half becomes a short
+sequence of launches around B1's split, as B3's split route is built: B2 the
+extension into int64 aux rows (one thread per two coefficients, as above),
+then B1's forward with the to-Montgomery epilogue over the q rows and over
+the aux rows; B4 B1's inverse with the from-Montgomery folded into n^-1 over
+dq and over da, then the scale-back, one thread per coefficient, from the
+int64 rows. The constant blocks are the fused launches'. The extra device
+traffic is the int64 rows between the launches.
+
+Each wrapper counts one launch per call. Up to 2^15 neither launches any of
+B1's entries; at 2^16 their B1 launches count under ``ntt_cuda.launches``
+``behz32_split_fwd`` / ``behz32_split_inv``. A CPU tensor runs the plain
+PyTorch composition below; a CUDA tensor launches the kernels or raises.
 """
 
 import ctypes
@@ -58,12 +68,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'behz32_prep_launch': [_P] * 4 + [_I] * 4 + [_P] * 6,
     'behz32_finish_launch': [_P] * 5 + [_I] * 4 + [_P] * 10,
+    'behz32_extend64_launch': [_P] * 2 + [_I] * 4 + [_P] * 2,
+    'behz32_scale_back64_launch': [_P] * 3 + [_I] * 4 + [_P] * 2,
     'behz32_max_limbs': [],
     'behz32_max_aux': [],
 }
-# B1's row loop holds a row of 2^15; B2's and B4's row-local steps cannot take
-# the split that B1 and B5 run above it
-MAX_LOGN = ntt_cuda.ROW_MAX_LOGN
+# B1's row loop holds a row of 2^15: up to there each half is one fused launch
+# sequence on it; above, the route around B1's split, up to B1's maximum
+FUSED_MAX_LOGN = ntt_cuda.ROW_MAX_LOGN
+MAX_LOGN = ntt_cuda.MAX_LOGN
 
 
 def behz_prep_plain(x, bz):
@@ -133,6 +146,10 @@ def behz_prep32(x, bz):
     fa = torch.empty((*lead, T, n), dtype=torch.int64, device=x.device)
     if polys:
         x = x if x.data_ptr() % 16 == 0 else x.clone()    # rows move in 16-byte pieces
+        if n.bit_length() - 1 > FUSED_MAX_LOGN:
+            _prep_split(lib, x, fq, fa, bz, polys)
+            launches['behz_prep32'] += 1
+            return fq, fa
         ext = torch.empty((*lead, T, n), dtype=torch.int32, device=x.device)
         tabs = ntt_cuda._tables(prep_ring(bz))
         with torch.cuda.device(x.device):
@@ -218,6 +235,10 @@ def behz_finish32(dq, da, bz):
         # the row kernels stage rows in 16-byte pieces
         dq = dq if dq.data_ptr() % 16 == 0 else dq.clone()
         da = da if da.data_ptr() % 16 == 0 else da.clone()
+        if n.bit_length() - 1 > FUSED_MAX_LOGN:
+            _finish_split(lib, dq, da, out, bz, polys)
+            launches['behz_finish32'] += 1
+            return out
         y = torch.empty(dq.shape, dtype=torch.int32, device=dq.device)
         xa = torch.empty(da.shape, dtype=torch.int32, device=dq.device)
         tq, ta = ntt_cuda._tables(rq), ntt_cuda._tables(ra)
@@ -232,3 +253,40 @@ def behz_finish32(dq, da, bz):
             raise RuntimeError(f'behz32 finish launch failed: cudaError_t {err}')
         launches['behz_finish32'] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the route at n = 2^16, around B1's split
+# ---------------------------------------------------------------------------
+
+def _prep_split(lib, x, fq, fa, bz, polys: int):
+    """B2 above the row loop's cap: the extension into int64 aux rows, then
+    B1's forward with the to-Montgomery epilogue over q (x → fq) and over aux
+    (→ fa)."""
+    rq, ra = bz.ring_q, bz.ring_aux
+    ext = torch.empty(fa.shape, dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.behz32_extend64_launch(x.data_ptr(), ext.data_ptr(), polys, len(rq.moduli),
+                                         len(ra.moduli), rq.n, _consts(bz).data_ptr(),
+                                         torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'behz32 extension launch failed: cudaError_t {err}')
+    ntt_cuda.launch(x, fq, rq, inverse=False, to_mont=True, name='behz32_split_fwd')
+    ntt_cuda.launch(ext, fa, ra, inverse=False, to_mont=True, name='behz32_split_fwd')
+
+
+def _finish_split(lib, dq, da, out, bz, polys: int):
+    """B4 above the row loop's cap: B1's inverse with the from-Montgomery
+    folded into n^-1 over dq and over da, then the scale-back from the int64
+    rows."""
+    rq, ra = bz.ring_q, bz.ring_aux
+    xq, xa = torch.empty_like(dq), torch.empty_like(da)
+    ntt_cuda.launch(dq, xq, rq, inverse=True, from_mont=True, name='behz32_split_inv')
+    ntt_cuda.launch(da, xa, ra, inverse=True, from_mont=True, name='behz32_split_inv')
+    with torch.cuda.device(dq.device):
+        err = lib.behz32_scale_back64_launch(xq.data_ptr(), xa.data_ptr(), out.data_ptr(), polys,
+                                             len(rq.moduli), len(ra.moduli), rq.n,
+                                             _finish_consts(bz).data_ptr(),
+                                             torch.cuda.current_stream(dq.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'behz32 scale-back launch failed: cudaError_t {err}')

@@ -23,9 +23,12 @@ B1 forward over the result.
 ``ksw_switch32`` counts one launch per call, for the whole sequence (the
 split route's B1 launches show under ``ntt_cuda.launches``
 ``ksw32_split_fwd``/``ksw32_split_inv``, the output NTT's under
-``ntt32_fwd``). Both routes stop at n = 2^15: the split route runs B1's row
-kernel unsplit. A CUDA tensor launches the kernels or raises; a CPU tensor
-runs the plain twin.
+``ntt32_fwd``). The split route takes n up to 2^16: its transforms go
+through ``ntt_cuda.launch``, which runs B1's split above 2^15, and its three
+per-coefficient kernels index polynomials in 64 bits (at n = 2^16 with 52
+limbs and 12 digits a ciphertext's digit stack alone holds 4·10^7
+residues). A CUDA tensor launches the kernels or raises; a CPU tensor runs
+the plain twin.
 """
 
 import ctypes
@@ -55,7 +58,7 @@ _SIGNATURES = {
 }
 _MAX_GRID_YZ = 65535
 FUSED_MAX_LOGN = 14    # three 32-bit rows of 2^15 (384 KB) do not fit a block
-MAX_LOGN = ntt_cuda.ROW_MAX_LOGN   # the split route runs B1's row kernel, unsplit
+MAX_LOGN = ntt_cuda.MAX_LOGN       # the split route's NTTs take B1's split above 2^15
 
 
 def switch_route(n: int) -> str:

@@ -34,7 +34,10 @@ the TPU compiler with no meaning here, so they launch B1 itself.
 ``intt_fused32_perm``: B1 with its output stored (forward) or its input
 loaded (inverse) in the transposed tile layout of ``perm_layout``, where
 position b·(n/128)+a holds standard-order element a·128+b. Each counts its
-launches under its own name. They take n up to 2^15.
+launches under its own name. At n = 2^16 each runs B1's split; the perm
+entries add one transpose pass (``ntt32_perm_launch``) after the forward or
+before the inverse, since the split's row kernel holds sub-rows and not the
+row whose layout it would store.
 
 The split. A row of 2^16 32-bit words does not fit a block's shared memory.
 Such a transform runs in two launches (``csrc/ntt_columns.cuh``): the
@@ -57,10 +60,12 @@ from ..core import u64 as _u
 from . import cuda_build
 
 #: launches of each entry since the last reset, counted in ``launch``: the
-#: split's columns kernel under ``*_cols``, B3's split route under ``ksw32_split_*``
+#: split's columns kernel under ``*_cols``, B3's split route under ``ksw32_split_*``,
+#: B2's and B4's at 2^16 under ``behz32_split_*``
 launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_cols': 0, 'ntt32_inv_cols': 0,
             'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0, 'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0,
-            'ksw32_split_fwd': 0, 'ksw32_split_inv': 0}
+            'ksw32_split_fwd': 0, 'ksw32_split_inv': 0, 'behz32_split_fwd': 0,
+            'behz32_split_inv': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +76,7 @@ _SIGNATURES = {
     'ntt32_fwd_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt32_inv_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt32_cols_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    'ntt32_perm_launch': [_P, _P, _I, _I, _I, _P],
 }
 ROW_MAX_LOGN = 15      # the row kernel: 1024 threads of 32 residues; exchange 2^15 · 4 B = 128 KB
 MAX_LOGN = 16          # the split: one columns stage, then rows of 2^15
@@ -370,7 +376,7 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     transform is linear, so INTT(x·2^-32) = 2^-32·INTT(x), and the kernel's
     per-limb epilogue multiplies by n^-1·2^-32 instead of n^-1. ``perm``
     stores the forward output, or loads the inverse input, in the perm
-    layout."""
+    layout (at 2^16 through a transpose pass beside the split)."""
     _u.require_word(ring, 32, 'B1 (ntt32)')
     if not (x.is_cuda and y.is_cuda and x.is_contiguous() and y.is_contiguous()):
         raise ValueError('B1 takes contiguous CUDA tensors')
@@ -381,8 +387,8 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     logn = ring.n.bit_length() - 1
     if not 1 <= logn <= MAX_LOGN:
         raise ValueError(f'B1 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
-    if perm and not LANES <= ring.n <= 1 << ROW_MAX_LOGN:
-        raise ValueError(f'the perm layout needs 128 <= n <= 2^{ROW_MAX_LOGN}, got n={ring.n}')
+    if perm and ring.n < LANES:
+        raise ValueError(f'the perm layout needs n >= {LANES}, got n={ring.n}')
     rows = x.numel() // ring.n
     if rows == 0:
         return
@@ -398,12 +404,34 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     what = f'ntt32 {"inverse" if inverse else "forward"}'
     k = split_depth(logn, ROW_MAX_LOGN)
     if k:
-        run_split(fn, lib.ntt32_cols_launch, x, y, ring, k, inverse, tabs, post, posts, what)
+        row_fn = lib.ntt32_inv_launch if inverse else lib.ntt32_fwd_launch
+        src, dst = x, y
+        if perm:
+            mid = torch.empty_like(x)
+            if inverse:
+                _perm_pass(lib, x, mid, rows, logn, True)
+                src = mid
+            else:
+                dst = mid
+        run_split(row_fn, lib.ntt32_cols_launch, src, dst, ring, k, inverse, tabs, post, posts,
+                  what)
+        if perm and not inverse:
+            _perm_pass(lib, mid, y, rows, logn, False)
         launches['ntt32_inv_cols' if inverse else 'ntt32_fwd_cols'] += 1
     else:
         run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
                     tabs['q'], post, posts, what)
     launches[name or ('ntt32_inv' if inverse else 'ntt32_fwd')] += 1
+
+
+def _perm_pass(lib, x, y, rows: int, logn: int, inverse: bool):
+    """``perm_layout`` (or, ``inverse``, ``unperm_layout``) of the rows of
+    x into y, on the current stream: ntt32.cu ``perm_kernel``."""
+    with torch.cuda.device(x.device):
+        err = lib.ntt32_perm_launch(x.data_ptr(), y.data_ptr(), rows, logn, int(inverse),
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'ntt32 perm pass launch failed: cudaError_t {err}')
 
 
 def run_aligned(fn, x, y, rows, limbs, logn, tab, q, post, posts, what: str):
@@ -503,8 +531,6 @@ def _entry(x, ring, inverse: bool, perm: bool, name: str):
         return perm_layout(out) if perm else out
     if not x.is_contiguous():
         raise ValueError(f'{name} takes a contiguous tensor')
-    if ring.n > 1 << ROW_MAX_LOGN:
-        raise ValueError(f'{name} supports n <= 2^{ROW_MAX_LOGN} on the card, got n={ring.n}')
     y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     launch(x, y, ring, inverse=inverse, perm=perm, name=name)
     return y

@@ -16,7 +16,7 @@ client/server protocols.
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..params import BfvParams
 from ..schemes import keys as K
 from ..schemes.bfv import BfvEngine
@@ -328,7 +328,8 @@ class CkksContext(FheContext):
 
     ``conjugate``, ``drop_level``, ``set_log_slots`` and ``mult_scalar`` are
     the JAX package's ``CkksBtpContext`` methods that need no bootstrapping;
-    the polynomial activations and bootstrapping wait for ROADMAP item 6."""
+    the polynomial activations and ``create_bootstrapper`` / ``bootstrap``
+    are the reference's ``CkksContext`` methods."""
 
     engine_cls = CkksEngine
 
@@ -348,16 +349,61 @@ class CkksContext(FheContext):
         return self.engine.mult_scalar(ct, scalar)
 
     def poly_eval_relu_function(self, ct, degree: int = 15, bound: float = 1.0):
-        raise not_ported('poly_eval_relu_function', '6')
+        """Polynomial ReLU activation (reference poly_eval_relu_function,
+        fhe_lib_v2.h:1101)."""
+        from ..schemes.poly_eval import poly_eval_relu
+        return poly_eval_relu(self.engine, ct, self.rlk, degree, bound)
 
     def poly_eval_step_function(self, ct, degree: int = 15, bound: float = 1.0):
-        raise not_ported('poly_eval_step_function', '6')
+        """Polynomial step activation (reference poly_eval_step_function)."""
+        from ..schemes.poly_eval import poly_eval_step
+        return poly_eval_step(self.engine, ct, self.rlk, degree, bound)
 
     def create_bootstrapper(self, config=None):
-        raise not_ported('create_bootstrapper', '6')
+        """Build the bootstrap precompute and its Galois keys (reference
+        CkksBtpContext::create_bootstrapper, fhe_lib_v2.h:1216)."""
+        from ..schemes.bootstrap import CkksBootstrapper
+        btp = CkksBootstrapper(self.engine, config)
+        self.gen_galois_keys_for_elements(btp.galois_elements())
+        self.engine.bootstrapper = btp
+        return btp
 
     def bootstrap(self, ct):
-        raise not_ported('CKKS bootstrap', '6')
+        btp = self.engine.bootstrapper
+        if btp is None:
+            raise RuntimeError('call create_bootstrapper() first')
+        return btp(ct, self.rlk, self.glk.keys, swk_dts=self.swk.get('swk_dts'),
+                   swk_std=self.swk.get('swk_std'))
+
+
+class CkksBtpContext(CkksContext):
+    """A CKKS context with bootstrapping made at creation (reference
+    CkksBtpContext, fhe_lib_v2.h:1173-1217). Two secrets: the dense
+    evaluation secret and a sparse bootstrapping secret of weight h (the
+    reference's parameter sets use H192), bridged by the switching keys
+    ``swk['swk_dts']`` (dense to sparse) and ``swk['swk_std']`` (sparse to
+    dense). One seed gives the JAX package's keys, both secrets included."""
+
+    @classmethod
+    def create_random_context(cls, params, seed=None, h: int = 192, btp_config=None,
+                              device=None) -> 'CkksBtpContext':
+        ctx = cls(params, seed, device)
+        q, p, n, wb = tuple(params.q), tuple(params.p), params.n, params.word_bits
+        dev = ctx.device
+        ctx.sk = K.SecretKey(K.sample_ternary(ctx.rng, n))
+        ctx.pk = K.gen_public_key(ctx.rng, ctx.sk, q, n, dev, wb)
+        ctx.rlk = K.gen_relin_key(ctx.rng, ctx.sk, q, p, n, dev, wb)
+        ctx.sk_sparse = K.SecretKey(K.sample_ternary(ctx.rng, n, h=min(h, n // 4)))
+        # swk_dts re-keys dense to sparse (it encrypts s_dense under s_sparse),
+        # swk_std sparse to dense
+        ctx.swk['swk_dts'] = K.gen_keyswitch_key(
+            ctx.rng, ctx.sk_sparse, lambda mods: ctx.sk.ntt_form(tuple(mods), n, dev, wb),
+            q, p, n, dev, wb)
+        ctx.swk['swk_std'] = K.gen_keyswitch_key(
+            ctx.rng, ctx.sk, lambda mods: ctx.sk_sparse.ntt_form(tuple(mods), n, dev, wb),
+            q, p, n, dev, wb)
+        ctx.create_bootstrapper(btp_config)
+        return ctx
 
 
 def create_context_for_params(params, seed=None, random: bool = True, device=None):

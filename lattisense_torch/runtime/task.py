@@ -28,10 +28,22 @@ graph cannot see a changed scale, so the input scales select the graph
 along with the shapes and the keys (``check_sig`` fixes each input's level,
 and the shapes carry it).
 
+- ``mode='partitioned'`` cuts the fused plan at custom and bootstrap nodes
+  (the reference's partitioning at custom-op barriers): each span of
+  ordinary steps, and each segment of a bootstrap node
+  (``CkksBootstrapper.segments``), is captured on the card as a CUDA graph of
+  its own and replayed; custom executors run eagerly between them. On the
+  CPU every segment runs eagerly. Eager, jit and partitioned runs of one
+  task give the same outputs bit for bit.
+
+A bootstrap node runs the context's bootstrapper (``CkksBtpContext``) at the
+parameter set's scale and hands its output back at the input's scale, as the
+reference's executor does.
+
 The kernels are the engine's: the task runtime launches nothing itself, and
-lets every error of a kernel propagate. Not ported here: bootstrap nodes,
-``mode='partitioned'``, ``mesh`` and the ``LATTISENSE_DEV`` memory monitor;
-each raises ``NotImplementedError`` naming its ROADMAP item.
+lets every error of a kernel propagate. Not ported here: ``mesh`` and the
+``LATTISENSE_DEV`` memory monitor; each raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 import dataclasses
@@ -117,20 +129,53 @@ def _member(v, k: int):
     return dataclasses.replace(v, **{f: getattr(v, f)[k] for f in _tensor_fields(v)})
 
 
-class _Graph:
-    """One captured replay of the fused plan: static input buffers, the
-    graph, and its static outputs (cloned on every run)."""
+def _value_meta(v):
+    """The metadata a captured segment holds for one value: ``_meta`` of a
+    carrier, the shape and dtype of a bare tensor (a custom payload)."""
+    if isinstance(v, torch.Tensor):
+        return (tuple(v.shape), v.dtype)
+    return _meta(v)
 
-    def __init__(self, task, arrays, key_tree, scales):
-        dev = task.device
+
+def _flatten(vals):
+    """Values (carriers or bare tensors) → (their tensors, a function that
+    rebuilds values of the same metadata from such tensors)."""
+    tensors, spans = [], []
+    for v in vals:
+        fields = None if isinstance(v, torch.Tensor) else _tensor_fields(v)
+        spans.append((v, fields))
+        tensors += [v] if fields is None else [getattr(v, f) for f in fields]
+
+    def rebuild(ts):
+        out, k = [], 0
+        for v, fields in spans:
+            if fields is None:
+                out.append(ts[k])
+                k += 1
+            else:
+                out.append(dataclasses.replace(v, **dict(zip(fields, ts[k:k + len(fields)]))))
+                k += len(fields)
+        return out
+    return tensors, rebuild
+
+
+class _Graph:
+    """One captured replay of ``fn`` (input tensors → output tensors, the
+    fused plan or one segment of it): static input buffers, the graph, and
+    its static outputs (cloned on every run). ``fn`` runs once more before
+    the capture, on a side stream, for its first-call work; ``keep`` (the key
+    tensors the graph reads in place) stays alive with it."""
+
+    def __init__(self, fn, arrays, dev, keep):
         self.inputs = [a.clone() for a in arrays]
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 # first-call work (kernel builds and loads, table caches,
-                # occupancy queries) happens here, outside the capture
-                task._trace(self.inputs, key_tree, scales)
+                # occupancy queries, encoded constants) happens here,
+                # outside the capture
+                fn(self.inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             # a dead reference cycle that holds another task's graph or
@@ -143,12 +188,11 @@ class _Graph:
             try:
                 self.graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(self.graph):
-                    self.outputs = task._trace(self.inputs, key_tree, scales)
+                    self.outputs = fn(self.inputs)
             finally:
                 if was_enabled:
                     gc.enable()
-        # the key tensors the graph reads in place stay alive with it
-        self.keys = key_tree
+        self.keep = keep
 
     def __call__(self, arrays):
         for buf, a in zip(self.inputs, arrays):
@@ -171,18 +215,14 @@ class FheTaskGpu:
 
     def __init__(self, task_dir: str, mode: str = 'jit', batch_fuse: bool = True,
                  custom_executors: dict | None = None, device=None, mesh=None):
-        if mode == 'partitioned':
-            raise not_ported("mode='partitioned' (bootstrap segments)", '6')
-        if mode not in ('jit', 'eager'):
-            raise ValueError(f"mode must be 'jit' or 'eager', got {mode!r}")
+        if mode not in ('jit', 'eager', 'partitioned'):
+            raise ValueError(f"mode must be 'jit', 'eager' or 'partitioned', got {mode!r}")
         if mesh is not None:
             raise not_ported('a device mesh', '10')
         with open(os.path.join(task_dir, 'mega_ag.json')) as f:
             self.mag = json.load(f)
         with open(os.path.join(task_dir, 'task_signature.json')) as f:
             self.signature = json.load(f)
-        if any(c['type'] == 'bootstrap' for c in self.mag['compute'].values()):
-            raise not_ported('a bootstrap node', '6')
         self.algo = self.mag['algorithm']
         self.mode = mode
         self.batch_fuse = batch_fuse
@@ -226,10 +266,12 @@ class FheTaskGpu:
                 for o in computes[idx]['outputs']:
                     available.add(o)
             layers.append(wave)
-        if self.batch_fuse and self.mode == 'jit':
+        self.plan_meta = []
+        if self.batch_fuse and self.mode in ('jit', 'partitioned'):
             self.plan = self._build_batched_plan(layers)
         else:
             self.plan = [self._bind_executor(c) for c in order]
+            self.plan_meta = [self._step_meta([c]) for c in order]
 
     # Iso-op batching: structurally identical nodes of one topo wave (the
     # reference's benchmark graphs carry many parallel mult_relins) become
@@ -253,11 +295,25 @@ class FheTaskGpu:
             for c in wave:
                 groups.setdefault(self._compute_sig(c), []).append(c)
             for members in groups.values():
-                if len(members) == 1 or members[0].get('is_custom'):
+                if (len(members) == 1 or members[0].get('is_custom')
+                        or members[0]['type'] == 'bootstrap'):
                     plan += [self._bind_executor(c) for c in members]
+                    self.plan_meta += [self._step_meta([c]) for c in members]
                 else:
                     plan.append(self._bind_group_executor(members))
+                    self.plan_meta.append(self._step_meta(members))
         return plan
+
+    @staticmethod
+    def _step_meta(members):
+        """What a plan step reads and writes, and whether it is a custom or a
+        bootstrap node (the partitioned mode's barriers)."""
+        ins, outs = set(), set()
+        for c in members:
+            ins.update(c['inputs'])
+            outs.update(c['outputs'])
+        return {'inputs': ins, 'outputs': outs, 'custom': bool(members[0].get('is_custom')),
+                'op': members[0]['type']}
 
     def _bind_group_executor(self, members):
         """One step for a fused group: ``torch.stack`` of each input position
@@ -450,6 +506,17 @@ class FheTaskGpu:
                 env[out_idx] = total
             return run
 
+        if op == 'bootstrap':
+            # at the parameter set's scale, the output handed back at the
+            # input's (mega_ag_executors_cpu.cpp:460-463)
+            def run(env, keys):
+                ct = env[cts[0].index]
+                out = eng.bootstrap(Ciphertext(data=ct.data, level=ct.level, is_ntt=ct.is_ntt,
+                                               scale=self.params.scale), keys)
+                out.scale = ct.scale
+                env[out_idx] = out
+            return run
+
         if op in ('to_ntt', 'to_inv_ntt', 'to_mf', 'to_mul', 'rns_sp_decomp'):
             meth = getattr(eng, op)
 
@@ -501,19 +568,123 @@ class FheTaskGpu:
                     key_q=kq, key_p=kp, level=node.level, sp_level=node.sp_level)
         return keys
 
+    def _seed_env(self, input_arrays, scales) -> dict:
+        return {node.index: _wrap_input(node, arr, sc)
+                for node, arr, sc in zip(self._data_input_nodes(), input_arrays, scales)}
+
+    def _finish(self, env, scales):
+        """The output tensors of a run; the output scales the plan gave are
+        recorded for this combination of input ``scales``."""
+        self._out_scales[tuple(scales)] = [getattr(env[o], 'scale', 1.0) for o in self.outputs]
+        return [env[o].data for o in self.outputs]
+
     def _trace(self, input_arrays, key_tree, scales, progress=None):
         """Run the plan on input tensors at the input ``scales``; → the output
-        tensors. The output scales the plan gave are recorded for this
-        combination of input scales."""
-        env = {node.index: _wrap_input(node, arr, sc)
-               for node, arr, sc in zip(self._data_input_nodes(), input_arrays, scales)}
+        tensors."""
+        env = self._seed_env(input_arrays, scales)
         keys = self._build_keys(key_tree)
         for i, step in enumerate(self.plan):
             step(env, keys)
             if progress is not None:
                 progress(i + 1)
-        self._out_scales[tuple(scales)] = [getattr(env[o], 'scale', 1.0) for o in self.outputs]
-        return [env[o].data for o in self.outputs]
+        return self._finish(env, scales)
+
+    # ------------------------------------------------------------------
+    # Partitioned execution: the plan cut at custom and bootstrap steps
+    # (the reference's partitioning at custom-op barriers,
+    # frontend/custom_task.py:2039-2184); a bootstrap node runs segment by
+    # segment (CkksBootstrapper.segments). On the card each span and each
+    # bootstrap segment is a CUDA graph of its own.
+    # ------------------------------------------------------------------
+    def _segments(self):
+        """[(kind, plan step indices)], kind 'span', 'custom' or 'btp'."""
+        segs, cur = [], []
+        for i, meta in enumerate(self.plan_meta):
+            if meta['custom'] or meta['op'] == 'bootstrap':
+                if cur:
+                    segs.append(('span', cur))
+                    cur = []
+                segs.append(('custom' if meta['custom'] else 'btp', [i]))
+            else:
+                cur.append(i)
+        if cur:
+            segs.append(('span', cur))
+        return segs
+
+    def _run_partitioned(self, input_arrays, key_tree, scales, progress=None):
+        env = self._seed_env(input_arrays, scales)
+        keys = self._build_keys(key_tree)
+        done = 0
+        for si, (kind, idxs) in enumerate(self._segments()):
+            meta = self.plan_meta[idxs[0]]
+            if kind == 'custom':
+                self.plan[idxs[0]](env, keys)
+            elif kind == 'btp':
+                self._run_btp_segments(si, env, keys, key_tree, meta)
+            else:
+                steps = [self.plan[k] for k in idxs]
+                in_ids = sorted({i for k in idxs for i in self.plan_meta[k]['inputs']
+                                 if i in env})
+                out_ids = sorted({o for k in idxs for o in self.plan_meta[k]['outputs']})
+
+                def body(sub, steps=steps, out_ids=out_ids):
+                    e = dict(sub)
+                    for step in steps:
+                        step(e, keys)
+                    return {o: e[o] for o in out_ids}
+                env.update(self._segment_call(('span', si, tuple(scales)),
+                                              {i: env[i] for i in in_ids}, body, key_tree))
+            done += len(idxs)
+            if progress is not None:
+                progress(done)
+        return self._finish(env, scales)
+
+    def _run_btp_segments(self, si, env, keys, key_tree, meta):
+        """One bootstrap node, segment by segment, as the eager executor
+        runs it (at the parameter set's scale, handed back at the input's)."""
+        bs = self.engine.bootstrapper
+        if bs is None:
+            raise RuntimeError('engine has no bootstrapper; use CkksBtpContext')
+        ct = next(env[i] for i in meta['inputs'] if i in env)
+        out_id = next(iter(meta['outputs']))
+        caller = self.params.scale
+        cts = (bs.prepare(Ciphertext(data=ct.data, level=ct.level, is_ntt=ct.is_ntt,
+                                     scale=caller)),)
+        swk = keys['swk']
+        for k, (_name, fn) in enumerate(bs.segments(caller, swk.get('swk_dts'),
+                                                    swk.get('swk_std'))):
+            def body(sub, fn=fn):
+                return dict(enumerate(fn(tuple(sub[j] for j in range(len(sub))), keys['rlk'],
+                                         keys['glk'])))
+            out = self._segment_call(('btp', si, k), dict(enumerate(cts)), body, key_tree)
+            cts = tuple(out[j] for j in range(len(out)))
+        out, = cts
+        out.scale = ct.scale
+        env[out_id] = out
+
+    def _segment_call(self, tag, values: dict, body, key_tree) -> dict:
+        """``body(values)`` → {id: value}: eagerly on the CPU; on the card
+        through a CUDA graph captured once per (``tag``, the values'
+        metadata and shapes, the key tensors), whose outputs are re-wrapped
+        with the metadata of its capture run."""
+        if self.device.type != 'cuda':
+            return body(values)
+        ids = sorted(values)
+        tensors, rebuild = _flatten([values[i] for i in ids])
+        gk = (tag, tuple(_value_meta(values[i]) for i in ids),
+              self._graph_key([], key_tree, ())[1])
+        g = self._graphs.get(gk)
+        if g is None:
+            made = {}
+
+            def fn(ins):
+                out = body(dict(zip(ids, rebuild(ins))))
+                made['ids'] = sorted(out)
+                flat, made['rebuild'] = _flatten([out[i] for i in made['ids']])
+                return flat
+            g = self._graphs[gk] = _Graph(fn, tensors, self.device, key_tree)
+            g.out_ids, g.rebuild = made['ids'], made['rebuild']
+        return dict(zip(g.out_ids, g.rebuild(g(tensors))))
 
     def _context_key_tree(self, context):
         tree = {'rlk': None, 'glk': {}, 'swk': {}}
@@ -545,7 +716,8 @@ class FheTaskGpu:
         gk = self._graph_key(arrays, key_tree, scales)
         g = self._graphs.get(gk)
         if g is None:
-            g = self._graphs[gk] = _Graph(self, arrays, key_tree, scales)
+            g = self._graphs[gk] = _Graph(
+                lambda ins: self._trace(ins, key_tree, scales), arrays, self.device, key_tree)
         return g
 
     def _replays(self) -> bool:
@@ -591,6 +763,10 @@ class FheTaskGpu:
             raise RuntimeError(f'the context is on {ctx_dev}, the task on {self.device}')
         if os.environ.get('LATTISENSE_DEV', '') not in ('', '0'):
             raise not_ported('the LATTISENSE_DEV memory monitor', '8')
+        # the bootstrap precompute lives on the caller's context engine
+        btp = getattr(context.engine, 'bootstrapper', None)
+        if btp is not None:
+            self.engine.bootstrapper = btp
         flat = self._flatten_args(input_values)
         arrays = [torch.as_tensor(v.data, dtype=torch.int64, device=self.device) for v in flat]
         default = getattr(self.params, 'scale', 1.0)
@@ -602,10 +778,12 @@ class FheTaskGpu:
 
         The ns return mirrors FheTaskCpu::run (cxx_fhe_task_cpu.cpp:104):
         it covers execution only, and on the card the clock stops after
-        ``torch.cuda.synchronize``. A graph's warm-up and capture on first
-        use (or in ``compile``) are outside it. ``progress_cb(completed,
-        total)`` is called per op, throttled to 100 ms, in eager mode, and
-        at 0 and at the end otherwise."""
+        ``torch.cuda.synchronize``. In ``mode='jit'`` a graph's warm-up and
+        capture on first use (or in ``compile``) are outside it; in
+        ``mode='partitioned'`` the segments' graphs are captured in the first
+        run (or in ``compile``). ``progress_cb(completed, total)`` is called
+        per op, throttled to 100 ms, in eager mode, per segment in
+        partitioned mode, and at 0 and at the end in jit mode."""
         arrays, key_tree, scales = self._prepare(context, input_values)
         total = len(self.plan)
         graph = self._graph_for(arrays, key_tree, scales) if self._replays() else None
@@ -619,6 +797,10 @@ class FheTaskGpu:
                     last[0] = now
                     progress_cb(done, total)
             out_arrays = self._trace(arrays, key_tree, scales, progress=wrapped_cb)
+        elif self.mode == 'partitioned':
+            out_arrays = self._run_partitioned(
+                arrays, key_tree, scales,
+                progress=None if progress_cb is None else (lambda done: progress_cb(done, total)))
         else:
             if progress_cb is not None:
                 progress_cb(0, total)
@@ -651,11 +833,15 @@ class FheTaskGpu:
         return outputs, duration_ns
 
     def compile(self, context, input_values: dict):
-        """The warm-up and capture of the graph for these arguments, without
-        running it (``mode='jit'`` on the card; otherwise only the checks)."""
+        """The warm-up and capture of the graphs for these arguments: on the
+        card, the fused plan's graph without running it (``mode='jit'``), or
+        one partitioned run, which captures every segment's graph
+        (``mode='partitioned'``); otherwise only the checks."""
         arrays, key_tree, scales = self._prepare(context, input_values)
         if self._replays():
             self._graph_for(arrays, key_tree, scales)
+        elif self.mode == 'partitioned' and self.device.type == 'cuda':
+            self._run_partitioned(arrays, key_tree, scales)
 
 
 def _reshape(flat: list, shape: list):

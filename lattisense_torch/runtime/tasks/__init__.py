@@ -21,7 +21,16 @@ test regenerates each and compares):
   largest scaled coefficient (about 0.015·Δ for the mix's slots) must stay
   below the 31-bit primes;
 - ``ckks_ops_mix_u64_n16384_l3``: the same graph on ``CkksParams.create(16384)``
-  at level 3, scale 2^34.
+  at level 3, scale 2^34;
+- ``ckks_bootstrap_toy_n8192``: one bootstrap node, ``x`` at level 0 → ``z``,
+  on the reference's toy bootstrap profile (``schemes/bootstrap_params.py``
+  ``toy_profile()``: n = 8192, 25 q and 5 p primes, scale 2^40); its
+  signature lists the Galois keys the frontend predicts and the switching
+  keys ``swk_dts`` / ``swk_std``, so it runs on a ``CkksBtpContext``;
+- ``ckks_bootstrap_u64_n256`` and ``ckks_bootstrap_w32_n256``: one bootstrap
+  node at level 0 (u64) or 1 (w32) on the n = 256 chains of the JAX
+  package's bootstrap tests (``bootstrap_n256``), for the card tests, which
+  have no frontend.
 
 ``mult_relin_arguments``, ``mix_arguments`` / ``ckks_mix_arguments`` and
 ``mix_expected`` / ``ckks_mix_expected`` make a task's arguments on a port
@@ -42,6 +51,8 @@ MIX_W32 = 'bfv_ops_mix_w32_n16384_l7'
 MIX_U64 = 'bfv_ops_mix_u64_n16384_l3'
 CKKS_MIX_W32 = 'ckks_ops_mix_w32_n16384_l10'
 CKKS_MIX_U64 = 'ckks_ops_mix_u64_n16384_l3'
+CKKS_BOOTSTRAP_TOY = 'ckks_bootstrap_toy_n8192'
+BOOTSTRAP_N256 = {64: 'ckks_bootstrap_u64_n256', 32: 'ckks_bootstrap_w32_n256'}
 CKKS_MIX_W32_SCALE = 2.0 ** 36
 MULT_RELIN_COUNT = 32
 # the op mix's ciphertext, plaintext (pt), pt_ringt and pt_mul arguments, its
@@ -182,3 +193,22 @@ def ckks_mix_expected(msgs: dict) -> dict:
         'o_cs': u[0] * p[0] + u[1] * p[1], 'o_cac': u[2] * r[0] + u[3] * r[1] + x * p[0],
         'o_rc': np.roll(s, -3), 'o_rr': [np.conj(x), np.conj(y)], 'o_ar': np.roll(x, -2),
         'o_h': [np.roll(y, -1), np.roll(y, -5)]}
+
+
+def bootstrap_n256(word_bits: int) -> dict:
+    """The n = 256 bootstrap chain of the JAX package's tests
+    (tests/test_bootstrap.py) at either word: the primes, the scale, the
+    bootstrapping configuration's fields, the context's seed and secret
+    weight, and the input level (the chain's base level)."""
+    from ...core.modring import gen_ntt_primes
+    n = 256
+    cfg = dict(cts_depth=3, stc_depth=3, k=16, sine_deg=30, double_angle=3)
+    if word_bits == 64:
+        q0 = gen_ntt_primes(n, 61, 1)
+        q = q0 + gen_ntt_primes(n, 60, 22)
+        p = gen_ntt_primes(n, 61, 3, exclude=tuple(q0))[1:]
+        return dict(n=n, q=q, p=p, scale=float(1 << 45), cfg=cfg, seed=71, h=32, level=0)
+    q = gen_ntt_primes(n, 31, 46)
+    p = gen_ntt_primes(n, 31, 3, exclude=tuple(q))
+    return dict(n=n, q=q, p=p, scale=float(1 << 30), seed=7, h=32, level=1,
+                cfg=dict(cfg, message_ratio=8.0, arcsine=True))

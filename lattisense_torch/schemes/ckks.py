@@ -21,7 +21,7 @@ leading batch dimensions.
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..core import ntt as ntt_mod
 from ..core import u64 as _u
 from ..core.modring import get_rns_ring
@@ -47,6 +47,8 @@ class CkksEngine:
         self.word_bits = params.word_bits
         self.switcher = KeySwitcher(self.q, self.p, self.n, self.device, self.word_bits)
         self._rescaler: dict[int, DivRoundLast] = {}
+        self._const_cols: dict = {}
+        self.bootstrapper = None
 
     def ring(self, level: int):
         return get_rns_ring(self.q[:level + 1], self.n, self.device, self.word_bits)
@@ -61,8 +63,9 @@ class CkksEngine:
 
     # ---- encode / decode (host) ----
     def _residues(self, coeffs, level: int) -> np.ndarray:
-        """Python-int coefficients (n,) → (L, n) int64 residues over Q_ℓ."""
-        return np.stack([(coeffs % qi).astype(np.int64) for qi in self.q[:level + 1]])
+        """Integer coefficients (n,), int64 or Python ints → (L, n) int64
+        residues over Q_ℓ."""
+        return np.stack([np.mod(coeffs, qi).astype(np.int64) for qi in self.q[:level + 1]])
 
     def encode(self, values, level: int, scale: float | None = None) -> Plaintext:
         scale = scale or self.params.scale
@@ -78,7 +81,14 @@ class CkksEngine:
         kernel takes it."""
         scale = scale or self.params.scale
         c0 = int(round(float(value) * scale))
-        col = self._tensor(np.array([[c0 % qi] for qi in self.q[:level + 1]], dtype=np.int64))
+        # the column is made once and kept on the device for the engine's
+        # life, so a run that a CUDA graph captures copies nothing from the
+        # host here, and the graph's replays read it in place: it is never
+        # evicted
+        col = self._const_cols.get((c0, level))
+        if col is None:
+            col = self._const_cols[(c0, level)] = self._tensor(
+                np.array([[c0 % qi] for qi in self.q[:level + 1]], dtype=np.int64))
         return Plaintext(data=col.expand(level + 1, self.n).contiguous(), level=level,
                          is_ntt=True, scale=scale)
 
@@ -297,7 +307,14 @@ class CkksEngine:
         return self._switch_back(ct.data[..., 0, :, :], ct.data[..., 1, :, :], ksk, ct.level, ct)
 
     def bootstrap(self, ct: Ciphertext, keys) -> Ciphertext:
-        raise not_ported('CKKS bootstrap', '6')
+        """The task runtime's bootstrap node: the context's bootstrapper with
+        ``keys`` {'rlk', 'glk', 'swk'}."""
+        btp = self.bootstrapper
+        if btp is None:
+            raise RuntimeError('engine has no bootstrapper; use CkksBtpContext')
+        swk = keys.get('swk', {})
+        return btp(ct, keys['rlk'], keys['glk'], swk_dts=swk.get('swk_dts'),
+                   swk_std=swk.get('swk_std'))
 
     def rns_sp_decomp(self, ct: Ciphertext) -> DecomposedCiphertext:
         """Hoisted-rotation precompute: c1's digit decomposition, mod-up and

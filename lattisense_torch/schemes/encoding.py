@@ -123,14 +123,18 @@ def ckks_embed(coeffs: np.ndarray, n: int) -> np.ndarray:
 
 
 def ckks_encode_values(values, n: int, slots: int, scale: float) -> np.ndarray:
-    """Complex/real message (≤ slots entries) → scaled integer coeffs (n,) as
-    a Python-int array (exact, may exceed 64 bits for large scales)."""
+    """Complex/real message (≤ slots entries) → scaled integer coeffs (n,),
+    each the float rounded half to even as Python's ``round``: int64 when
+    every coefficient lies below 2^62 in magnitude (``np.rint`` gives the same
+    integers there), else exact Python ints (large scales)."""
     half = n // 2
     v = np.zeros(slots, dtype=np.complex128)
     vals = np.asarray(values, dtype=np.complex128)
     v[:len(vals)] = vals
     dense = np.tile(v, half // slots)
     coeffs = ckks_embed_inv(dense, n) * scale
+    if np.all(np.abs(coeffs) < 2.0 ** 62):
+        return np.rint(coeffs).astype(np.int64)
     return np.array([int(round(c)) for c in coeffs], dtype=object)
 
 

@@ -37,9 +37,16 @@ def lift_signed(coeffs, moduli) -> np.ndarray:
     return out
 
 
-def sample_ternary(rng, n: int) -> np.ndarray:
-    """Uniform ternary secret."""
-    return rng.integers(-1, 2, size=n, dtype=np.int64)
+def sample_ternary(rng, n: int, h: int | None = None) -> np.ndarray:
+    """Uniform ternary secret; with ``h`` the sparse secret of Hamming weight
+    h (the bootstrapping contexts' second secret), drawn as the reference
+    draws it: h distinct positions, then their signs."""
+    if h is None:
+        return rng.integers(-1, 2, size=n, dtype=np.int64)
+    coeffs = np.zeros(n, dtype=np.int64)
+    idx = rng.choice(n, size=h, replace=False)
+    coeffs[idx] = rng.choice(np.array([-1, 1], dtype=np.int64), size=h)
+    return coeffs
 
 
 def sample_gaussian(rng, n: int, sigma: float = SIGMA) -> np.ndarray:

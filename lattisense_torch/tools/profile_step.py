@@ -3,6 +3,8 @@
     python -m lattisense_torch.tools.profile_step [--scheme bfv|ckks]
         [--chain w32|u64] [--op mult_relin|mult_relin_rescale|rotate] [--n 16384]
         [--batch 32] [--level L] [--steps 5]
+    python -m lattisense_torch.tools.profile_step --scheme ckks --op bootstrap
+        [--profile toy|full|w32] [--steps 5]
 
 Builds a context (seed 7) on the chosen chain at ring degree n — ``w32``,
 the 31-bit profile ``BfvParams.create_tpu_param(n)`` (default level 7 at
@@ -35,11 +37,22 @@ chosen operation:
 - ``profile``: a ``torch.profiler`` trace of a few steps: device busy time
   per step (sum of kernel times), wall time per step, the device's idle
   share, and the kernels that take the most device time.
+
+``--op bootstrap`` builds the ``CkksBtpContext`` of one of the JAX package's
+bootstrap runs (``schemes/bootstrap_params.py`` ``reference_run``: the toy
+profile at n=8192, the full one at n=2^16, or the 31-bit
+``create_tpu_btp_param()``), bootstraps its message once (the host encoding
+of the transforms' diagonals happens there), and prints ``phases`` (the
+CUDA-event ms of each segment of ``CkksBootstrapper.segments`` beside a
+whole bootstrap's, the key set's bytes, keygen seconds, the output level and
+decoded error) and ``profile`` (busy and wall ms a bootstrap, idle share and
+the top kernels by device time).
 """
 
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -55,8 +68,9 @@ from ..params import BfvParams, CkksParams
 from ..parallel.batch import (bfv_mult_relin, ckks_composite_params, ckks_mult_relin_rescale,
                               ckks_mult_relin_rescale2, key_tree, make_batched_step,
                               make_rotate_step)
-from ..runtime import BfvContext, CkksContext
+from ..runtime import BfvContext, CkksBtpContext, CkksContext
 from ..schemes.bfv import tensor_product
+from ..schemes.bootstrap_params import reference_run
 from ..schemes.galois import apply_automorphism_coeff, apply_automorphism_ntt, galois_elt_col
 
 
@@ -229,12 +243,108 @@ def phases_ckks_rotate(engine, a, keys, level, elt):
     return _elapsed(marks), out
 
 
+# ---------------------------------------------------------------------------
+# CKKS bootstrapping (--op bootstrap)
+# ---------------------------------------------------------------------------
+
+def bootstrap_context(name: str, device=None):
+    """A ``CkksBtpContext`` of the JAX package's bootstrap run ``name``
+    (``schemes/bootstrap_params.py`` ``reference_run``: toy, full or w32) on
+    ``device``; → (context, the run's fields, keygen seconds)."""
+    run = reference_run(name)
+    t0 = time.perf_counter()
+    ctx = CkksBtpContext.create_random_context(run['params'], seed=run['seed'], h=run['h'],
+                                               btp_config=run['config'], device=device)
+    return ctx, run, time.perf_counter() - t0
+
+
+def bootstrap_input(ctx, run):
+    """The run's message (uniform(-1, 1) slots from its message seed) and its
+    encryption at the run's input level and scale."""
+    msg = np.random.default_rng(run['msg_seed']).uniform(-1, 1, ctx.params.slots)
+    return msg, ctx.encrypt(ctx.engine.encode(msg, run['level'], run['scale']))
+
+
+def key_bytes(ctx) -> int:
+    """Bytes of the context's public, relinearization, Galois and switching
+    keys on its device."""
+    keys = [ctx.rlk] + list(ctx.glk.keys.values()) + list(ctx.swk.values())
+    return (ctx.pk.data.numel() * 8
+            + sum((k.key_q.numel() + k.key_p.numel()) * 8 for k in keys))
+
+
+def bootstrap_segments(ctx, ct, keep=()):
+    """``ctx.bootstrap(ct)`` segment by segment (``CkksBootstrapper.segments``),
+    each between two CUDA events on the card; → ({segment: ms}, the output,
+    {segment: (its input, its output)} for the names in ``keep``)."""
+    btp = ctx.engine.bootstrapper
+    cts, marks, kept = (btp.prepare(ct),), [], {}
+    timed = ctx.engine.device.type == 'cuda'
+    for name, fn in btp.segments(ct.scale, ctx.swk.get('swk_dts'), ctx.swk.get('swk_std')):
+        start = _timer() if timed else None
+        out = fn(cts, ctx.rlk, ctx.glk.keys)
+        marks.append((name, start, _timer() if timed else None))
+        if name in keep:
+            kept[name] = (cts, out)
+        cts = out
+    if timed:
+        torch.cuda.synchronize()
+    ms = {name: a.elapsed_time(b) if timed else None for name, a, b in marks}
+    return ms, cts[0], kept
+
+
+def profile_bootstrap(name: str, steps: int, gpu: str):
+    """The ``phases`` (CUDA-event ms of each segment beside the whole
+    bootstrap's) and ``profile`` (device time by kernel) lines of one
+    bootstrap run."""
+    ctx, run, keygen_s = bootstrap_context(name)
+    msg, ct = bootstrap_input(ctx, run)
+    want = ctx.bootstrap(ct)                          # warm-up: encodings, tables
+    ms, out, _ = bootstrap_segments(ctx, ct)
+    if not torch.equal(out.data, want.data):
+        raise AssertionError('the segment walk differs from ctx.bootstrap')
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        ctx.bootstrap(ct)
+    stop.record()
+    torch.cuda.synchronize()
+    btp_ms = start.elapsed_time(stop) / steps
+    err = float(np.abs(ctx.decrypt_decode(out).real - msg).max())
+    print(json.dumps({'phases': {
+        'gpu': gpu, 'op': 'bootstrap', 'profile': name, 'n': ctx.params.n,
+        'word_bits': ctx.params.word_bits, 'bootstrap_ms': btp_ms,
+        'sum_of_segments_ms': sum(ms.values()), 'segments_ms': ms, 'out_level': out.level,
+        'max_abs_err': err, 'keygen_s': keygen_s, 'key_bytes': key_bytes(ctx)}}), flush=True)
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        start.record()
+        for _ in range(steps):
+            ctx.bootstrap(ct)
+        stop.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(stop) / steps
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
+    print(json.dumps({'profile': {
+        'gpu': gpu, 'op': 'bootstrap', 'profile': name, 'steps': steps,
+        'wall_ms_per_bootstrap': wall_ms,
+        'device_busy_ms_per_bootstrap': busy if kernels else None,
+        'idle_share': 1 - busy / wall_ms if kernels else None,
+        'kernel_launches_per_bootstrap': sum(e.count for e in kernels) / steps,
+        'top': [[e.key[:80], e.self_device_time_total / 1e3 / steps, e.count // steps]
+                for e in top]}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--scheme', choices=('bfv', 'ckks'), default='bfv')
     ap.add_argument('--chain', choices=('w32', 'u64'), default='w32')
-    ap.add_argument('--op', choices=('mult_relin', 'mult_relin_rescale', 'rotate'),
+    ap.add_argument('--op', choices=('mult_relin', 'mult_relin_rescale', 'rotate', 'bootstrap'),
                     default=None, help='default mult_relin (BFV), mult_relin_rescale (CKKS)')
+    ap.add_argument('--profile', choices=('toy', 'full', 'w32'), default='toy',
+                    help='--op bootstrap: the reference run (schemes/bootstrap_params.py)')
     ap.add_argument('--n', type=int, default=16384, help='ring degree: 16384 or 32768')
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--level', type=int, default=None,
@@ -246,10 +356,15 @@ def main() -> int:
     ckks = args.scheme == 'ckks'
     if args.op is None:
         args.op = 'mult_relin_rescale' if ckks else 'mult_relin'
-    if (args.op == 'mult_relin_rescale') != ckks and args.op != 'rotate':
+    if (args.op == 'mult_relin_rescale') != ckks and args.op not in ('rotate', 'bootstrap'):
         ap.error(f'--op {args.op} is not a {args.scheme} operation')
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.op == 'bootstrap':
+        if not ckks:
+            ap.error('--op bootstrap is a ckks operation')
+        profile_bootstrap(args.profile, args.steps, gpu)
+        return 0
     if ckks:
         params = CkksParams.create(args.n) if u64 else ckks_composite_params(args.n)
         top = (3 if u64 else 10) if args.n == 16384 else params.max_level

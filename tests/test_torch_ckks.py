@@ -11,7 +11,9 @@ exactly. Chains: the n=64 chains of ``tests/test_ckks_golden.py`` (u64) and
 and ``CkksParams.create(4096)``; then one n=16384 batched step per word:
 ``ckks_mult_relin_rescale`` at ``create(16384)`` level 3 and
 ``ckks_mult_relin_rescale2`` on the composite 2^60 chain of 31-bit primes at
-level 10.
+level 10; and the rotation's noise on ``create_tpu_param(65536)``'s chain at
+n=1024, equal to the reference's and peaked where the all-ones polynomial's
+embedding peaks.
 """
 
 import numpy as np
@@ -209,16 +211,18 @@ def test_eval_op_matches_reference(pair, op):
 
 
 def test_errors_match_reference(pair):
-    """Scale and level mismatches raise as in the reference; bootstrapping
-    names its ROADMAP item."""
+    """Scale and level mismatches raise as in the reference; so does a
+    bootstrap on an engine without a bootstrapper."""
     ref, port, level = pair['ref'], pair['port'], pair['level']
     a = to_port(pair['cts'][0])
     with pytest.raises(ValueError, match='scale mismatch'):
         port.engine.add(a, port.encode(pair['msgs'][2], level, scale=port.params.scale * 2))
     with pytest.raises(ValueError, match='level mismatch in sub'):
         port.engine.sub(a, port.engine.drop_level(a))
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 6'):
-        port.engine.bootstrap(a, {})
+    for call in (lambda: port.engine.bootstrap(a, {}),
+                 lambda: ref.engine.bootstrap(np, pair['cts'][0], {})):
+        with pytest.raises(RuntimeError, match='engine has no bootstrapper; use CkksBtpContext'):
+            call()
 
 
 # ---------------------------------------------------------------------------
@@ -257,3 +261,41 @@ def test_batched_step_n16384_matches_reference(word):
     got = port.decrypt_decode(Ciphertext(data=out[0], level=want.level, is_ntt=True,
                                          scale=want.scale))
     assert np.abs(got - msgs[0] * msgs[1]).max() < 1e-3
+
+
+def test_rotation_noise_of_the_n65536_w32_chain_matches_reference():
+    """The rotation's noise on the 31-bit chain of
+    ``create_tpu_param(65536)`` (44 q, 7 p primes; at n = 1024, where its
+    primes are NTT-friendly too) at the profile's scale 2^30. Same seed,
+    same keys: the port's rotation equals the reference's bit for bit, so
+    the decoded error is the reference's own. That error is concentrated on
+    the few slots where the embedding of the all-ones polynomial
+    Σ_k X^k peaks (2n/π on slot 0, falling off as 1/angle): after the fast
+    mod-up each key-switch digit lies in [0, α·Q_j), and its mean, about
+    α·Q_j/2 in every coefficient, multiplies the key's error e_j by
+    Σ_k X^k. That term grows as n^1.5 against n for the rest of the noise,
+    which is why ``create_tpu_param(65536)`` decodes a rotation at 2^30
+    about 0.2 off on its first slots (the card test at 2^16), and a fresh
+    encryption shows no such peak."""
+    from lattisense_torch.schemes.encoding import ckks_decode_values
+    n = 1024
+    big = CkksParams.create_tpu_param(1 << 16)
+    assert (len(big.q), len(big.p), big.scale) == (44, 7, 2.0 ** 30)
+    args = (n, list(big.q), list(big.p), n // 2, big.scale)
+    ref = RefContext.create_random_context(RefParams.create_custom(*args, word_bits=32), seed=13)
+    port = CkksContext.create_random_context(CkksParams.create_custom(*args, word_bits=32),
+                                             seed=13, device='cpu')
+    ref.gen_rotation_keys_for_rotations([1])
+    port.gen_rotation_keys_for_rotations([1])
+    m = np.random.default_rng(13).uniform(-1, 1, n // 2)
+    ct = ref.encrypt(ref.encode(m, big.max_level))
+    rot, want = port.rotate_cols(to_port(ct), 1), ref.rotate_cols(ct, 1)
+    assert same(rot, want)
+    err = np.abs(port.decrypt_decode(rot) - np.roll(m, -1))
+    fresh = np.abs(port.decrypt_decode(to_port(ct)) - m)
+    ones = np.abs(ckks_decode_values(np.ones(n, dtype=np.int64), n, n // 2, 1.0))
+    assert abs(ones[0] - 2 * n / np.pi) < 1e-3 * ones[0]
+    peaks = set(np.argsort(ones)[::-1][:3])
+    assert set(np.argsort(err)[::-1][:2]) <= peaks
+    assert err.max() > 20 * np.median(err)
+    assert fresh.max() < 10 * np.median(fresh)

@@ -6,8 +6,8 @@ context methods new to the port (empty and public contexts, ``add`` /
 ``sub`` / ``neg`` / ``rescale``, symmetric encryption, the coefficient
 encodes, ``decrypt_coeffs``, ``noise_budget``, ``get_coeff``, the CKKS
 conjugation, level drop and scalar product) give the reference's results
-bit for bit; the message checks give its strings; bootstrapping and the
-polynomial activations name their ROADMAP item.
+bit for bit; the message checks give its strings; bootstrapping without a
+bootstrapper raises its error, and the polynomial activations equal its.
 """
 
 import numpy as np
@@ -189,7 +189,8 @@ def test_encrypt_symmetric_matches_reference(pair):
 
 def test_message_checks_and_refusals(pair):
     """The reference's strings for a message too long, a bad level and
-    operands of two levels; the CKKS bootstrapping entries name item 6."""
+    operands of two levels; the CKKS bootstrapping and activation entries
+    behave as the reference's."""
     scheme, ref, port = pair
     too_long = np.zeros(port._max_message_len() + 1)
     assert port._max_message_len() == (N if scheme == 'bfv' else port.params.slots)
@@ -203,11 +204,17 @@ def test_message_checks_and_refusals(pair):
     with pytest.raises(RuntimeError, match='x0 and x1 have different levels.'):
         port.add(a, b)
     if scheme == 'ckks':
-        for call in (lambda: port.bootstrap(a), lambda: port.create_bootstrapper(),
-                     lambda: port.poly_eval_relu_function(a),
-                     lambda: port.poly_eval_step_function(a)):
-            with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 6'):
-                call()
+        # bootstrapping without a bootstrapper raises the reference's error;
+        # the polynomial activations (at degree 1, which fits the chain's
+        # levels) equal the reference's bit for bit
+        ra = ref.encrypt(ref.encode(message(scheme, port, 6), port.params.max_level))
+        for ctx, x in ((ref, ra), (port, port_ct(ra))):
+            with pytest.raises(RuntimeError, match=r'call create_bootstrapper\(\) first'):
+                ctx.bootstrap(x)
+        assert same(port.poly_eval_relu_function(port_ct(ra), degree=1),
+                    ref.poly_eval_relu_function(ra, degree=1))
+        assert same(port.poly_eval_step_function(port_ct(ra), degree=1),
+                    ref.poly_eval_step_function(ra, degree=1))
         port.set_log_slots(3)
         assert port.params.slots == 8
         port.set_log_slots(5)

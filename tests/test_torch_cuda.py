@@ -10,7 +10,10 @@ compiled-task runtime on each committed task directory (card against CPU,
 graph replay against eager, a second key set through the same task); and
 CKKS: every engine op, the batched step at both words and the rotation, and
 the CKKS task directories (a second set of input scales capturing its own
-graph), card against CPU bit for bit.
+graph), card against CPU bit for bit; the n=2^16 repairs (B1-r4/perm, B2,
+B3, B4 against their twins, a CKKS relinearization and rotation on
+``create_tpu_param(65536)``) and the n=256 bootstrap at both words in every
+task mode.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -151,8 +154,10 @@ def test_b2_every_level_of_the_headline_chain(cuda):
 
 def test_b2_limb_maxima_and_refusals(cuda):
     """L = 32, the extension's largest instance, with the aux basis of that
-    chain; the refusal of L = 33, of n = 2^16, of a non-contiguous stack and
-    of an int32 one, each before any launch."""
+    chain; the refusal of L = 33, of a non-contiguous stack and of an int32
+    one, each before any launch; n = 2^16 (the route around B1's split, whose
+    B1 launches count under ``behz32_split_fwd``) against the twin, and the
+    refusal of n = 2^17."""
     n = 1024
     chain = gen_ntt_primes(n, 31, 34)
     params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]], word_bits=32)
@@ -167,13 +172,53 @@ def test_b2_limb_maxima_and_refusals(cuda):
         behz_cuda.behz_prep32(wide[:, :31], eng.behz(30))
     with pytest.raises(TypeError):
         behz_cuda.behz_prep32(x[:, :31].to(torch.int32), eng.behz(30))
-    big = 1 << 16
-    chain16 = gen_ntt_primes(big, 31, 3)
-    bz16 = BfvEngine(BfvParams.create_custom(big, 65537, chain16[:2], chain16[2:], word_bits=32),
+    big = 1 << 17
+    chain17 = gen_ntt_primes(big, 31, 3)
+    bz17 = BfvEngine(BfvParams.create_custom(big, 65537, chain17[:2], chain17[2:], word_bits=32),
                      cuda).behz(1)
     with pytest.raises(ValueError):
-        behz_cuda.behz_prep32(card_residues(bz16.ring_q, (1,), 1), bz16)
+        behz_cuda.behz_prep32(card_residues(bz17.ring_q, (1,), 1), bz17)
     assert {**ntt_cuda.launches, **behz_cuda.launches} == before
+    chain16 = gen_ntt_primes(1 << 16, 31, 3)
+    b2_b4_split_match_plain(cuda, BfvParams.create_custom(1 << 16, 65537, chain16[:2], chain16[2:],
+                                                          word_bits=32), (1,), ((1,),))
+
+
+def b2_b4_split_match_plain(cuda, params, levels, leads):
+    """B2 and B4 at n = 2^16 against their twins on the card, a misaligned
+    view too: one count a call each, and B1's split launched under
+    ``behz32_split_fwd`` / ``behz32_split_inv`` (twice a call: q and aux)."""
+    eng = BfvEngine(params, cuda)
+    for level in levels:
+        bz = eng.behz(level)
+        for lead in leads:
+            x = card_residues(bz.ring_q, lead, 5 * level + len(lead))
+            dq = card_residues(bz.ring_q, lead, 5 * level + len(lead) + 1)
+            da = card_residues(bz.ring_aux, lead, 5 * level + len(lead) + 2)
+            want_p = behz_cuda.behz_prep_plain(x, bz)
+            want_f = behz_cuda.behz_finish_plain(dq, da, bz)
+            before = {**ntt_cuda.launches, **behz_cuda.launches}
+            fq, fa = behz_cuda.behz_prep32(x, bz)
+            out = behz_cuda.behz_finish32(dq, da, bz)
+            assert torch.equal(fq, want_p[0]) and torch.equal(fa, want_p[1]), (level, lead)
+            assert torch.equal(out, want_f), (level, lead)
+            for k in ('behz_prep32', 'behz_finish32'):
+                assert behz_cuda.launches[k] == before[k] + 1
+            for k in ('behz32_split_fwd', 'behz32_split_inv'):
+                assert ntt_cuda.launches[k] == before[k] + 2
+            fq, fa = behz_cuda.behz_prep32(misaligned(x), bz)
+            assert torch.equal(fq, want_p[0]) and torch.equal(fa, want_p[1]), level
+            assert torch.equal(behz_cuda.behz_finish32(misaligned(dq), misaligned(da), bz),
+                               want_f), level
+
+
+def test_b2_b4_n65536_match_plain(cuda):
+    """A custom 31-bit BFV chain at n = 2^16 (as ``BfvParams.create_custom``
+    builds one): L = 6 and L = 1, batch 1 and an odd batch."""
+    n = 1 << 16
+    chain = gen_ntt_primes(n, 31, 8)
+    params = BfvParams.create_custom(n, 65537, list(chain[:6]), list(chain[6:]), word_bits=32)
+    b2_b4_split_match_plain(cuda, params, (5, 0), ((1,), (3,)))
 
 
 def test_batched_mult_relin_card_matches_cpu(cuda):
@@ -421,7 +466,7 @@ def test_batched_rotate_card_matches_cpu(cuda):
 # B1-r4 and the perm-layout entries
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize('n', [256, 16384])
+@pytest.mark.parametrize('n', [256, 16384, 65536])
 def test_b1_r4_and_perm_entries_match_plain(cuda, n):
     chain = tuple(gen_ntt_primes(n, 31, 4))
     ring_c, ring_g = get_rns_ring(chain, n, CPU), get_rns_ring(chain, n, cuda)
@@ -643,9 +688,10 @@ def test_batched_u64_card_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 def test_split_refusals(cuda):
-    """B1 and B5 refuse 2^17, and B1's r4 / perm entries 2^16 (they stay at
-    the row kernel's sizes); B2, B3 and B4 refuse 2^16, whose row loops do
-    not split. Each before any launch."""
+    """B1 and B5 refuse 2^17, before any launch. At 2^16 B1's r4 / perm
+    entries (B1's split, the perm entries with their transpose pass), B4 and
+    B3's split route run and equal their twins; B3's fused route refuses
+    2^16."""
     from lattisense_torch.ops import ntt64_cuda
     counts = (ntt_cuda.launches, ntt64_cuda.launches, behz_cuda.launches, ksw_cuda.launches)
     before = [dict(c) for c in counts]
@@ -662,24 +708,112 @@ def test_split_refusals(cuda):
     chain = gen_ntt_primes(n, 31, 5)
     r16 = get_rns_ring(chain[:2], n, cuda)
     x = card_residues(r16, (1,), 3)
-    for fn in (ntt_cuda.ntt32_fwd_r4, ntt_cuda.ntt32_inv_r4, ntt_cuda.ntt32_fwd_perm,
-               ntt_cuda.ntt32_inv_perm):
-        with pytest.raises(ValueError):
-            fn(x, r16)
-    params = BfvParams.create_custom(n, 65537, chain[:3], chain[3:], word_bits=32)
-    bz = BfvEngine(params, cuda).behz(2)
-    with pytest.raises(ValueError):
-        behz_cuda.behz_finish32(card_residues(bz.ring_q, (1,), 4), card_residues(bz.ring_aux,
-                                                                                 (1,), 5), bz)
     sw = KeySwitcher(tuple(chain[:3]), tuple(chain[3:]), n, cuda)
     key = card_key(random_key(6, tuple(chain[:3]), tuple(chain[3:]), n), cuda)
     xq = card_residues(get_rns_ring(chain[:3], n, cuda), (1,), 7)
-    for route in ('fused', 'split'):
-        with pytest.raises(ValueError):
-            ksw_cuda._switch(xq, key, sw, 2, False, route)
     with pytest.raises(ValueError):
-        ksw_cuda.ksw_switch32(xq, key, sw, 2)
+        ksw_cuda._switch(xq, key, sw, 2, False, 'fused')
     assert [dict(c) for c in counts] == before
+    f = ntt_cuda.ntt_plain(x, r16)
+    for fn, arg, want in ((ntt_cuda.ntt32_fwd_r4, x, f), (ntt_cuda.ntt32_inv_r4, f, x),
+                          (ntt_cuda.ntt32_fwd_perm, x, ntt_cuda.perm_layout(f)),
+                          (ntt_cuda.ntt32_inv_perm, ntt_cuda.perm_layout(f), x)):
+        assert torch.equal(fn(arg, r16), want), fn.__name__
+        assert ntt_cuda.launches[fn.__name__] == before[0][fn.__name__] + 1
+    params = BfvParams.create_custom(n, 65537, chain[:3], chain[3:], word_bits=32)
+    b2_b4_split_match_plain(cuda, params, (2,), ((1,),))
+    assert ksw_cuda.switch_route(n) == 'split'
+    for output_ntt in (False, True):
+        got = ksw_cuda.ksw_switch32(xq, key, sw, 2, output_ntt)
+        want = sw.switch_plain(xq, key, 2, output_ntt)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), output_ntt
+
+
+def b3_at_n65536(cuda, params, levels, batch):
+    """B3's split route at n = 2^16 on ``params``' chain against
+    ``switch_plain`` on the card, at each level, both outputs, with a random
+    key of the chain's shape."""
+    q, p, n = tuple(params.q), tuple(params.p), params.n
+    sw = KeySwitcher(q, p, n, cuda, 32)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    beta = (len(q) + len(p) - 1) // len(p)
+
+    def rnd(moduli, lead):
+        m = torch.tensor(moduli, dtype=torch.int64, device=cuda).reshape(-1, 1)
+        return torch.randint(0, 1 << 62, (*lead, len(moduli), n), generator=gen, device=cuda) % m
+    key = KeySwitchKey(key_q=rnd(q, (beta, 2)), key_p=rnd(p, (beta, 2)))
+    for level in levels:
+        x = rnd(q[:level + 1], (batch,))
+        for output_ntt in (False, True):
+            before = dict(ntt_cuda.launches)
+            got = ksw_cuda.ksw_switch32(x, key, sw, level, output_ntt)
+            want = sw.switch_plain(x, key, level, output_ntt)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                (level, output_ntt)
+            assert ntt_cuda.launches['ksw32_split_fwd'] == before['ksw32_split_fwd'] + 1
+            assert ntt_cuda.launches['ntt32_fwd_cols'] > before['ntt32_fwd_cols']
+
+
+@pytest.mark.parametrize('profile', ['tpu_btp', 'tpu_65536'])
+def test_b3_n65536_matches_plain(cuda, profile):
+    """B3 at n = 2^16 on the 31-bit profiles that need it: the bootstrap
+    chain of ``CkksParams.create_tpu_btp_param()`` (48 q, 4 p: alpha 4, beta
+    up to 12, T up to 52) at its top level and a low one, and
+    ``create_tpu_param(65536)`` (44 q, 7 p) at its top level; batch 2."""
+    from lattisense_torch.params import CkksParams
+    if profile == 'tpu_btp':
+        params = CkksParams.create_tpu_btp_param(1 << 16)
+        b3_at_n65536(cuda, params, (len(params.q) - 1, 3), 2)
+    else:
+        params = CkksParams.create_tpu_param(1 << 16)
+        b3_at_n65536(cuda, params, (len(params.q) - 1,), 2)
+
+
+def test_ckks_n65536_w32_card_matches_cpu(cuda):
+    """A CKKS relinearization and a rotation on a CUDA context of
+    ``CkksParams.create_tpu_param(65536)`` (44 q, 7 p 31-bit primes), at the
+    top level, against the same ops on a CPU context holding the same keys,
+    bit for bit, at the profile's scale 2^30 and at 2^40. At 2^30 the
+    rotation's error peaks on the slots where the all-ones polynomial's
+    embedding peaks: the key switch's mod-up digits have a mean of about
+    alpha*Q_j/2 a coefficient, which multiplies each key error by
+    sum_k X^k (held against the reference at n = 1024 in
+    ``tests/test_torch_ckks.py``), so the bound there is 1e-2 plus that
+    embedding over its peak; at 2^40 every slot is within 1e-2."""
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.runtime import CkksContext
+    from lattisense_torch.schemes.encoding import ckks_decode_values
+    params = CkksParams.create_tpu_param(1 << 16)
+    assert params.scale == 2.0 ** 30
+    ctx = CkksContext.create_random_context(params, seed=13, device=cuda)
+    elt = galois_elt_col(1, params.n)
+    ctx.gen_galois_keys_for_elements([elt])
+    twin = CkksContext.from_arrays(params, ctx.sk.coeffs, ctx.pk.data.cpu(), ctx.rlk.key_q.cpu(),
+                                   ctx.rlk.key_p.cpu(), device=CPU)
+    twin.add_galois_key_arrays(elt, ctx.glk.keys[elt].key_q.cpu(), ctx.glk.keys[elt].key_p.cpu())
+    rng = np.random.default_rng(13)
+    ma, mb = rng.uniform(-1, 1, (2, params.slots))
+    level = params.max_level
+    ones = np.abs(ckks_decode_values(np.ones(params.n, dtype=np.int64), params.n, params.slots,
+                                     1.0))
+    for scale in (params.scale, 2.0 ** 40):
+        a, b = (ctx.encrypt(ctx.encode(m, level, scale=scale)) for m in (ma, mb))
+        relin = ctx.relinearize(ctx.mult(a, b))
+        rot = ctx.rotate_cols(a, 1)
+        ac, bc = (Ciphertext(data=v.data.cpu(), level=level, is_ntt=True, scale=v.scale)
+                  for v in (a, b))
+        assert torch.equal(relin.data.cpu(), twin.relinearize(twin.mult(ac, bc)).data)
+        assert torch.equal(rot.data.cpu(), twin.rotate_cols(ac, 1).data)
+        assert np.abs(ctx.decrypt_decode(ctx.rescale(relin)) - ma * mb).max() < 1e-2
+        err = np.abs(ctx.decrypt_decode(rot) - np.roll(ma, -1))
+        top = np.argsort(err)[::-1][:3]
+        print(f'scale 2^{np.log2(scale):.0f}: rotation error on slots {top.tolist()}: '
+              f'{err[top].tolist()}, median {np.median(err)}')
+        if scale == params.scale:
+            assert np.all(err < 1e-2 + ones / ones[0]), err.max()
+            assert ones[top[0]] >= np.sort(ones)[-3]
+        else:
+            assert err.max() < 1e-2
 
 
 def test_batched_u64_32k_card_matches_cpu(cuda):
@@ -1111,3 +1245,91 @@ def test_ckks_task_fixture_card_matches_cpu(cuda, name):
     back, _ = jit.run(ctx, online)
     assert all(torch.equal(a.data, b.data) and a.scale == b.scale
                for a, b in zip(flat_outputs(back), flat_outputs(want)))
+
+
+# ---------------------------------------------------------------------------
+# CKKS bootstrapping at n=256, card against CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('word', [64, 32])
+def test_bootstrap_n256_card_matches_cpu(cuda, word):
+    """The n=256 bootstrap chains of the JAX package's tests
+    (``tasks.bootstrap_n256``): a ``CkksBtpContext`` on the card and one on
+    the CPU from one seed (the same keys); ``ctx.bootstrap`` and the
+    committed one-node task in eager, jit (one CUDA graph) and partitioned
+    (one CUDA graph a segment) modes on the card, each run twice (capture,
+    replay), equal the CPU bootstrap bit for bit, with its level and scale;
+    the card's launch counts show B1 and B3 (w32) or B5, B6 and B7 (u64)."""
+    import dataclasses
+
+    from lattisense_torch.ops import bconv_cuda, ksw64_cuda, ntt64_cuda
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.runtime import CkksBtpContext, FheTask, tasks
+    from lattisense_torch.schemes.bootstrap import BootstrapConfig
+    b = tasks.bootstrap_n256(word)
+    params = CkksParams.create_custom(b['n'], b['q'], b['p'], scale=b['scale'], word_bits=word)
+    ctxs = [CkksBtpContext.create_random_context(params, seed=b['seed'], h=b['h'],
+                                                 btp_config=BootstrapConfig(**b['cfg']),
+                                                 device=dev) for dev in (cuda, CPU)]
+    card, twin = ctxs
+    msg = np.random.default_rng(9).uniform(-1, 1, params.slots)
+    x = twin.encrypt(twin.encode(msg, b['level']))
+    want = twin.bootstrap(x)
+    xc = dataclasses.replace(x, data=x.data.to(cuda))
+    counts = (ntt_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches, bconv_cuda.launches,
+              ksw64_cuda.launches)
+    before = {k: v for c in counts for k, v in c.items()}
+    got = card.bootstrap(xc)
+    after = {k: v for c in counts for k, v in c.items()}
+    rose = {k for k in after if after[k] > before[k]}
+    assert rose >= ({'ntt32_fwd', 'ntt32_inv', 'ksw_switch32'} if word == 32 else
+                    {'ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'})
+
+    def same(v):
+        return torch.equal(v.data.cpu(), want.data) and (v.level, v.scale) == (want.level,
+                                                                               want.scale)
+    assert same(got)
+    d = tasks.task_dir(tasks.BOOTSTRAP_N256[word])
+    for mode in ('eager', 'jit', 'partitioned'):
+        task = FheTask(d, mode=mode, device=cuda)
+        for _ in range(2):
+            out, _ = task.run(card, {'x': xc})
+            assert same(out['z']), mode
+        if mode != 'eager':
+            assert task._graphs, mode
+
+
+def test_bootstrap_graphs_replay_after_constant_churn(cuda):
+    """Captured bootstraps (the n=256 u64 task, jit: one CUDA graph;
+    partitioned: one a segment) replay bit for bit after the engine has
+    encoded 5 000 more constants and the caching allocator's small blocks
+    have been handed out again and overwritten: every constant column a
+    graph reads in place stays alive with the engine."""
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.runtime import CkksBtpContext, FheTask, tasks
+    from lattisense_torch.schemes.bootstrap import BootstrapConfig
+    b = tasks.bootstrap_n256(64)
+    params = CkksParams.create_custom(b['n'], b['q'], b['p'], scale=b['scale'], word_bits=64)
+    card = CkksBtpContext.create_random_context(params, seed=b['seed'], h=b['h'],
+                                                btp_config=BootstrapConfig(**b['cfg']),
+                                                device=cuda)
+    x = card.encrypt(card.encode(np.random.default_rng(9).uniform(-1, 1, params.slots),
+                                 b['level']))
+    want = card.bootstrap(x)
+    d = tasks.task_dir(tasks.BOOTSTRAP_N256[64])
+    runs = {mode: FheTask(d, mode=mode, device=cuda) for mode in ('jit', 'partitioned')}
+
+    def same(v):
+        return torch.equal(v.data, want.data) and (v.level, v.scale) == (want.level, want.scale)
+    for mode, task in runs.items():
+        out, _ = task.run(card, {'x': x})
+        assert same(out['z']) and task._graphs, mode
+    eng = card.engine
+    for i in range(5000):
+        eng.encode_const(1.0 + i / 4096, i % (params.max_level + 1))
+    assert len(eng._const_cols) > 5000
+    junk = [torch.full((64,), -1, dtype=torch.int64, device=cuda) for _ in range(20000)]
+    for mode, task in runs.items():
+        out, _ = task.run(card, {'x': x})
+        assert same(out['z']), mode
+    del junk

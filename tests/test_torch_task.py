@@ -44,6 +44,18 @@ N = 256
 T_MOD = 65537
 LEVEL = 3
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_intraop_thread():
+    """The n=256 bootstraps are tens of thousands of small tensor ops; with
+    one intra-op thread each, parallel test workers do not oversubscribe the
+    cores (under six workers with a thread per core each, a bootstrap ran
+    60 times slower than alone)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 # ---------------------------------------------------------------------------
 # the task graphs (the committed directories are these at full width)
 # ---------------------------------------------------------------------------
@@ -138,6 +150,12 @@ def build_ckks_ops_mix(level: int):
             [ct.Argument(k, o) for k, o in outs.items()], [ct.Argument(v.id, v)])
 
 
+def build_bootstrap(level: int):
+    """One bootstrap node: ``x`` at ``level`` → ``z``."""
+    x = ct.CkksCiphertextNode('x', level)
+    return [ct.Argument('x', x)], [ct.Argument('z', ct.bootstrap(x, 'z'))], []
+
+
 def gen_task(fe_param, build, path, *args) -> str:
     ct.set_fhe_param(fe_param)
     ins, outs, offline = build(*args)
@@ -186,13 +204,40 @@ def committed_fixtures():
         fixtures.CKKS_MIX_W32: (fe_ckks(ckks_w32, fixtures.CKKS_MIX_W32_SCALE),
                                 build_ckks_ops_mix, (10,)),
         fixtures.CKKS_MIX_U64: (fe_ckks(ckks_u64, ckks_u64.scale), build_ckks_ops_mix, (3,)),
+        fixtures.CKKS_BOOTSTRAP_TOY: (ct.CkksBtpParam.create_toy_param(), build_bootstrap, (0,)),
+        **{fixtures.BOOTSTRAP_N256[w]: (fe_btp256(w), build_bootstrap, (0,)) for w in (64, 32)},
     }
+
+
+def fe_btp256(word_bits: int):
+    """The frontend parameter of the n=256 bootstrap chain of the word."""
+    b = fixtures.bootstrap_n256(word_bits)
+    cfg = b['cfg']
+    return ct.CkksBtpParam.create_custom_param(
+        n=b['n'], q=b['q'], p=b['p'], slots=b['n'] // 2, scale=b['scale'],
+        cts_depth=cfg['cts_depth'], stc_depth=cfg['stc_depth'], eval_mod_k=cfg['k'],
+        sine_deg=cfg['sine_deg'], double_angle=cfg['double_angle'], btp_output_level=3)
+
+
+def lift_input_level(mag: dict, sig: dict, level: int):
+    """Move a bootstrap task's input ``x`` from level 0 to ``level``: the
+    frontend takes a bootstrap input at level 0 only, and on the 32-bit word
+    the base level is 1 (two limbs a level), where ``CkksBootstrapper``
+    starts."""
+    for node in mag['data'].values():
+        if node['id'] == 'x':
+            node['level'] = level
+    for row in sig['online']:
+        if row['id'] == 'x':
+            row['level'] = level
 
 
 def write_fixture(name: str, path: str):
     fe, build, args = committed_fixtures()[name]
     gen_task(fe, build, path, *args)
     mag, sig = normalize(path)
+    if name == fixtures.BOOTSTRAP_N256[32]:
+        lift_input_level(mag, sig, fixtures.bootstrap_n256(32)['level'])
     for fname, obj in (('mega_ag.json', mag), ('task_signature.json', sig)):
         with open(os.path.join(path, fname), 'w', encoding='utf-8') as f:
             json.dump(obj, f, indent=1)
@@ -200,7 +245,8 @@ def write_fixture(name: str, path: str):
 
 
 @pytest.mark.parametrize('name', [fixtures.MULT_RELIN, fixtures.MIX_W32, fixtures.MIX_U64,
-                                  fixtures.CKKS_MIX_W32, fixtures.CKKS_MIX_U64])
+                                  fixtures.CKKS_MIX_W32, fixtures.CKKS_MIX_U64,
+                                  fixtures.CKKS_BOOTSTRAP_TOY, *fixtures.BOOTSTRAP_N256.values()])
 def test_committed_fixture_matches_regeneration(name, tmp_path):
     write_fixture(name, str(tmp_path))
     assert normalize(str(tmp_path)) == normalize(fixtures.task_dir(name))
@@ -439,6 +485,76 @@ def test_progress_callback(setup):
 
 
 # ---------------------------------------------------------------------------
+# a bootstrap node, n=256 u64 (the fixture of tests/test_bootstrap.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def btp_setup(tmp_path_factory):
+    """Reference and port bootstrapping contexts of one seed on the n=256
+    u64 chain (``tasks.bootstrap_n256``), the committed one-node bootstrap
+    task of that chain, and a task made by the frontend with a custom node
+    (``negate``) feeding a bootstrap node."""
+    from lattisense_tpu.runtime import CkksBtpContext as RefBtpContext
+    from lattisense_tpu.schemes.bootstrap import BootstrapConfig as RefConfig
+    from lattisense_torch.runtime import CkksBtpContext
+    from lattisense_torch.schemes.bootstrap import BootstrapConfig
+    b = fixtures.bootstrap_n256(64)
+    ref = RefBtpContext.create_random_context(
+        RefCkksParams.create_custom(N, b['q'], b['p'], scale=b['scale']), seed=b['seed'],
+        h=b['h'], btp_config=RefConfig(**b['cfg']))
+    port = CkksBtpContext.create_random_context(
+        CkksParams.create_custom(N, b['q'], b['p'], scale=b['scale']), seed=b['seed'], h=b['h'],
+        btp_config=BootstrapConfig(**b['cfg']), device='cpu')
+
+    def build_custom():
+        x = ct.CkksCiphertextNode('x', 0)
+        y = ct.CkksCiphertextNode('y', 0)
+        ct.custom_compute([x], y, type='negate', attributes={})
+        return [ct.Argument('x', x)], [ct.Argument('z', ct.bootstrap(y, 'z'))], []
+    custom = gen_task(fe_btp256(64), build_custom, tmp_path_factory.mktemp('btp_custom'))
+    return {'ref': ref, 'port': port, 'single': fixtures.task_dir(fixtures.BOOTSTRAP_N256[64]),
+            'custom': custom}
+
+
+def test_bootstrap_node_modes_match_reference(btp_setup):
+    """Eager, jit and partitioned runs of the bootstrap task equal each
+    other and the reference's ``FheTaskTpu(dir, mode='eager')`` bit for bit,
+    with the input's scale restored on the output; the partitioned run has
+    one segment, the bootstrap node."""
+    ref, port = btp_setup['ref'], btp_setup['port']
+    msg = np.random.default_rng(5).uniform(-1, 1, N // 2)
+    x = ref.encrypt(ref.encode(msg, 0))
+    want, _ = FheTaskTpu(btp_setup['single'], mode='eager').run(ref, {'x': x})
+    outs = {}
+    for mode in ('eager', 'jit', 'partitioned'):
+        task = FheTask(btp_setup['single'], mode=mode, device='cpu')
+        outs[mode], _ = task.run(port, {'x': to_port(x)})
+        assert same(outs[mode]['z'], want['z']), mode
+    assert [k for k, _ in task._segments()] == ['btp']
+    assert outs['eager']['z'].scale == x.scale
+    assert np.abs(port.decrypt_decode(outs['eager']['z']).real - msg).max() < 5e-3
+
+
+def test_partitioned_custom_executor_before_bootstrap(btp_setup):
+    """A custom executor (on the host, between segments) feeding a bootstrap
+    node: partitioned equals eager and the reference bit for bit, and decodes
+    to the negated message."""
+    ref, port = btp_setup['ref'], btp_setup['port']
+    msg = np.random.default_rng(6).uniform(-1, 1, N // 2)
+    x = ref.encrypt(ref.encode(msg, 0))
+    want, _ = FheTaskTpu(btp_setup['custom'], mode='eager', custom_executors={
+        'negate': lambda xp, eng, ins, attrs: eng.neg(xp, ins[0])}).run(ref, {'x': x})
+    outs = {}
+    for mode in ('eager', 'partitioned'):
+        task = FheTask(btp_setup['custom'], mode=mode, device='cpu',
+                       custom_executors={'negate': lambda eng, ins, attrs: eng.neg(ins[0])})
+        outs[mode], _ = task.run(port, {'x': to_port(x)})
+        assert same(outs[mode]['z'], want['z']), mode
+    assert [k for k, _ in task._segments()] == ['custom', 'btp']
+    assert np.abs(port.decrypt_decode(outs['partitioned']['z']).real + msg).max() < 5e-3
+
+
+# ---------------------------------------------------------------------------
 # argument checks, offline inputs, custom executors, refusals
 # ---------------------------------------------------------------------------
 
@@ -537,13 +653,20 @@ def test_custom_executor(setup, mode, tmp_path):
 
 
 def test_refusals(setup, tmp_path, monkeypatch):
-    """Bootstrap nodes, partitioned mode, a mesh and the memory monitor are
-    refused, each naming its ROADMAP item; so is a context on another device,
-    and drop_level on BFV (as the reference). A CKKS task loads onto the
-    CKKS engine."""
+    """A mesh and the memory monitor are refused, each naming its ROADMAP
+    item; so is a context on another device, and drop_level on BFV (as the
+    reference). Partitioned mode runs the fused plan cut at its barriers
+    (here none: one span), equal to eager; a CKKS task loads onto the CKKS
+    engine, and a bootstrap node binds."""
     d = setup['mult_relin']
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 6'):
-        FheTask(d, mode='partitioned', device='cpu')
+    port = setup['port']
+    args = {f'{v}{k}': port.encrypt(port.encode(np.arange(N) % T_MOD, LEVEL))
+            for k in range(8) for v in 'xy'}
+    part = FheTask(d, mode='partitioned', device='cpu')
+    assert part._segments() == [('span', [0, 1])]
+    got, _ = part.run(port, args)
+    want, _ = FheTask(d, mode='eager', device='cpu').run(port, args)
+    assert all(torch.equal(got[f'z{k}'].data, want[f'z{k}'].data) for k in range(8))
     with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 10'):
         FheTask(d, device='cpu', mesh=object())
     with pytest.raises(ValueError, match='mode must be'):
@@ -569,8 +692,8 @@ def test_refusals(setup, tmp_path, monkeypatch):
     with open(os.path.join(ckks, 'task_signature.json')) as f, \
             open(btp / 'task_signature.json', 'w') as g:
         g.write(f.read())
-    with pytest.raises(NotImplementedError, match=r'bootstrap node .*item 6'):
-        FheTask(str(btp), device='cpu')
+    btp_task = FheTask(str(btp), mode='partitioned', device='cpu')
+    assert [k for k, _ in btp_task._segments()] == ['btp', 'span']
     # drop_level on BFV is the reference's ValueError
     bfv_drop = tmp_path / 'drop'
     bfv_drop.mkdir()
@@ -585,10 +708,7 @@ def test_refusals(setup, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match='DROP_LEVEL only supported for CKKS scheme'):
         FheTask(str(bfv_drop), mode='eager', device='cpu')
     # the memory monitor, and a context on another device
-    port = setup['port']
     task = FheTask(d, mode='eager', device='cpu')
-    args = {f'{v}{k}': port.encrypt(port.encode(np.arange(N) % T_MOD, LEVEL))
-            for k in range(8) for v in 'xy'}
     monkeypatch.setenv('LATTISENSE_DEV', '1')
     with pytest.raises(NotImplementedError, match=r'memory monitor .*item 8'):
         task.run(port, args)
