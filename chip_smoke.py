@@ -97,7 +97,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    B5's cluster kernel) and ``btp_w32_path`` (``create_tpu_btp_param()``,
    48 q and 4 p 31-bit limbs, two a level: B1's split and B3's split route).
    Each line holds the ms a bootstrap (CUDA events, one warm-up, 3 timed),
-   the busy ms and idle share over five bootstraps in one profiler window,
+   the busy ms and idle share over two bootstraps in one profiler window,
    each segment's ms, the launches of each kernel a bootstrap, the key
    set's bytes, keygen seconds, the first bootstrap's seconds and the host
    encoding of the transforms' diagonals alone (``encode_s``), the top
@@ -110,13 +110,45 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    task eagerly, replayed (one CUDA graph) and partitioned (one graph a
    segment): each equal to ``ctx.bootstrap``.
 
+13. Threshold BFV (``schemes/multiparty.py``): three parties (seeds 100 +
+   i, smudging σ 2^30) build the public, relinearization (two rounds) and
+   Galois (rotate_col by 1) keys on the card, each share through
+   ``serialize`` / ``deserialize``, and the same protocol on a CPU copy of
+   the same seeds must give the same keys bit for bit. The keys go on an
+   empty context; 32 pairs encrypted under the collective key run the
+   batched ``mult_relin`` and ``rotate_col`` (element 0 equal to the CPU
+   plain path), elements 0 and 31 of both outputs are threshold-decrypted
+   by E2S, and element 0 goes back by S2E and through a refresh with and
+   without a permutation, each decrypting right under the joint secret.
+   ``mpc_path`` on the main path's configuration (B1 in the key generation;
+   B2, B3, B4 in the step), ``mpc64_path`` on ``BfvParams.create(16384)``
+   level 3 (B5, B6, B7; no 32-bit kernel). B1 and B5 are held against their
+   twins at the protocols' shapes (Q∪P and Q_ℓ).
+14. ``foreign_path``: ``ForeignTask`` (the 32-bit word, one CUDA graph) over
+   C structs of ``abi.py`` only: the 32-``mult_relin`` task on
+   ``mpc_path``'s ciphertexts and collective rlk, equal to its batched step
+   bit for bit, and the mult-rotate task on ``task_mix_path``'s context
+   (its Galois keys as one CGaloisKey), equal to ``FheTask``, each with
+   ``mf_nbits`` 0 and 64; the ms a run, import and export apart.
+15. ``capi_path``: the C ABI shim (``lattisense_torch/csrc/plugin/``) and the
+   repository's client ``csrc/plugin_client.cpp``, built with g++; the
+   client runs the mult-rotate task on fixture files of ``mpc_path``'s
+   element 0 and collective keys in a process of its own on the card,
+   passes its signature-error checks, and its output equals the in-process
+   ``ForeignTask`` on the same values bit for bit and decrypts right.
+16. ``dev_monitor``: a replay of the 32-``mult_relin`` task under
+   ``LATTISENSE_DEV=1`` writes ``mem_usage_gpu_0.csv`` with the card's
+   bytes in use, and returns ``mpc_path``'s step.
+
 Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
 ``u64_32k_path``, ``u64_32k_rotate_path``, ``w32_32k_path``, ``ckks_path``,
 ``ckks_w32_path``, ``ckks_rotate_path``, ``ckks_task_mix_path``,
 ``ckks_task_mix64_path``, ``btp_toy_path``, ``btp_full_path``,
-``btp_w32_path``), a ``{"kernels": [...]}`` line (each kernel with the CKKS
-and bootstrap paths that launch it, ``ckks_launches``, ``btp_launches``),
+``btp_w32_path``, ``mpc_path``, ``mpc64_path``, ``foreign_path``,
+``capi_path``, ``dev_monitor``), a ``{"kernels": [...]}`` line (each kernel
+with the CKKS, bootstrap and threshold paths that launch it,
+``ckks_launches``, ``btp_launches``, ``mpc_launches``),
 a ``{"phase_s": ...}`` line after each phase (its seconds and the seconds
 since the start), the card's name and power
 limit as nvidia-smi reports them, and as its last line ``{"ok": true,
@@ -131,6 +163,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -148,10 +181,15 @@ LEVEL_U32K = 11        # create(32768): all 12 q limbs
 LEVEL_W32K = 21        # create_tpu_param(32768): all 22 q limbs
 ITERS_32K = 5          # the n=32768 steps and the plain twins at the large shapes
 TASK_ITERS = 5         # timed runs of a task, eager and replayed
+BTP_PROFILE_REPS = 2   # bootstraps in a profiler window: each takes 0.1-1.3 s of the
+                       # card, and a window's host cost (15-50 s at five) grows with its events
 N64K = 1 << 16
 LEVEL_C64 = 3          # CkksParams.create(16384): 4 of the 10 q limbs
 LEVEL_C32 = 10         # the composite chain: all 11 q limbs, two rescales a step
 CKKS_TOL = 1e-3        # decoded error bound (the reference's tests/test_word32.py)
+PARTIES = 3            # the threshold paths' parties, seeds 100 + i
+SIGMA_SMUDGING = 2.0 ** 30
+MPC64_ITERS = 1        # timed steps of mpc64_path
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
 # and the float32 rate outside the tensor cores, the table's only 32-bit
@@ -436,6 +474,41 @@ def idle_share(busy: float | None, wall_ms: float) -> float | None:
     return None if busy is None else 1 - busy / wall_ms
 
 
+class TimedRng:
+    """A party's generator that adds the host seconds of each draw to
+    ``spent``: a protocol round's sampling, apart from its device work."""
+
+    def __init__(self, rng):
+        self.rng, self.spent = rng, 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(self.rng, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.spent += time.perf_counter() - t0
+        return timed
+
+
+def event_ms(torch, fn):
+    """(fn(), the ms between CUDA events around it, its host work included)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def read_csv(path: str) -> tuple[list[str], list[list[str]]]:
+    with open(path) as f:
+        header = f.readline().strip().split(',')
+        return header, [line.strip().split(',') for line in f if line.strip()]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -450,9 +523,10 @@ def main() -> int:
     if os.path.dirname(os.path.dirname(os.path.abspath(lattisense_torch.__file__))) != HERE:
         return fail('lattisense_torch was imported from outside this checkout')
 
+    from lattisense_torch import abi
     from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
     from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
-                                      ntt64_cuda, ntt_cuda)
+                                      ntt64_cuda, ntt_cuda, plugin_build)
     from lattisense_torch.params import BfvParams, CkksParams
     from lattisense_torch.parallel.batch import (bfv_mult_relin, ckks_composite_params,
                                                  ckks_mult_relin_rescale,
@@ -461,9 +535,13 @@ def main() -> int:
     from lattisense_torch.runtime import BfvContext, CkksContext, FheTask, tasks
     from lattisense_torch.schemes.bfv import BfvEngine
     from lattisense_torch.schemes.ckks import CkksEngine
+    from lattisense_torch.plugin import ForeignTask, ForeignVectorArgument
+    from lattisense_torch.plugin import fixture as pfx
+    from lattisense_torch.schemes import multiparty as mp
     from lattisense_torch.schemes.galois import galois_elt_col
+    from lattisense_torch.schemes.keys import SecretKey
     from lattisense_torch.schemes.keyswitch import KeySwitcher
-    from lattisense_torch.schemes.types import Ciphertext, KeySwitchKey
+    from lattisense_torch.schemes.types import Ciphertext, GaloisKeys, KeySwitchKey
     from lattisense_torch.tools.profile_step import (bootstrap_context, bootstrap_input,
                                                      bootstrap_segments, key_bytes)
     from lattisense_torch.utils.precision import get_precision_stats
@@ -1689,7 +1767,7 @@ def main() -> int:
         diagonals, timed again alone as ``encode_s``), one bootstrap between
         a reset and a read of every count,
         CUDA-event ms a bootstrap (3 timed), the busy ms and idle share over
-        five bootstraps in one profiler window, each segment's ms; the
+        two bootstraps in one profiler window, each segment's ms; the
         kernels of ``holds(ctx)`` against their twins at the path's shapes;
         the segments of ``cpu_segments`` on the CPU twin from the card's own
         input, bit for bit; the task ``task`` eager, replayed and
@@ -1729,7 +1807,8 @@ def main() -> int:
             raise AssertionError(f'{label}: two bootstraps of one input differ')
         btp_ms = time_ms(torch, lambda: ctx.bootstrap(ct), 3, warmup=0)
         t1 = time.perf_counter()
-        busy, top = busy_and_top(torch, lambda: ctx.bootstrap(ct), top=12, host_ops=False)
+        busy, top = busy_and_top(torch, lambda: ctx.bootstrap(ct), BTP_PROFILE_REPS, top=12,
+                                 host_ops=False)
         profile_s = time.perf_counter() - t1
         seg_ms, seg_out, kept = bootstrap_segments(ctx, ct, keep=cpu_segments)
         if not torch.equal(seg_out.data, out.data):
@@ -1797,7 +1876,8 @@ def main() -> int:
                             and (got['z'].level, got['z'].scale) == (out.level, out.scale))
                 ms = sum(t.run(ctx, {'x': ct})[1] for _ in range(3)) / 3 / 1e6
                 t1 = time.perf_counter()
-                tb = busy_and_top(torch, lambda t=t: t.run(ctx, {'x': ct}), host_ops=False)[0]
+                tb = busy_and_top(torch, lambda t=t: t.run(ctx, {'x': ct}), BTP_PROFILE_REPS,
+                                  host_ops=False)[0]
                 profile_s = time.perf_counter() - t1
                 runs[mode] = {'equals_ctx_bootstrap': same_out, 'ms_per_run': ms, 'busy_ms': tb,
                               'idle_share': idle_share(tb, ms), 'warmup_or_capture_s': capture_s,
@@ -1912,14 +1992,390 @@ def main() -> int:
                    'ksw32_split_fwd', 'ksw32_split_inv'],
                   u64_kernel_counts + ['behz_prep32', 'behz_finish32'], btp32_holds)
 
+    # ---- 13. threshold BFV: collective keys, the batched path on them -----
+    def require(what, launches, must_launch, must_not_launch):
+        missing = [k for k in must_launch if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f'{what} launched no {missing}')
+        stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
+        if stray:
+            raise AssertionError(f'{what} launched {stray}')
+
+    def mpc_holds(label, params, level, word, kernel_names, fwd, inv, plain_fwd, plain_inv,
+                  work, source, lines):
+        """The share NTTs' kernel on the card against its twin at the
+        protocols' shapes: forward over Q∪P (the keys) and Q_ℓ (E2S, S2E),
+        inverse over Q_ℓ."""
+        qp, ql = tuple(params.q) + tuple(params.p), tuple(params.q[:level + 1])
+        for name, moduli in ((f'qp_{label}', qp), (f'ql_{label}', ql)):
+            rings[name] = (get_rns_ring(moduli, N, dev, word), get_rns_ring(moduli, N, 'cpu', word))
+        out = {}
+        for kname, kern, plain, calls, line in (
+                (kernel_names[0], fwd, plain_fwd, [(f'qp_{label}', ()), (f'ql_{label}', ())],
+                 lines[0]),
+                (kernel_names[1], inv, plain_inv, [(f'ql_{label}', ())], lines[1])):
+            out[f'{kname}_{label}'] = dict(
+                route='cuda', source=source, replaces=line[0], replaces_function=line[1],
+                path=label, counted_as=kname,
+                **check_ntt(f'{kname}_{label}', calls, kern, plain,
+                            lambda r, lb, n, k=kname: work(r, lb, n, k.endswith('inv'))))
+        return out
+
+    def run_mpc(label, params, level, ntt_kernels, step_kernels, must_not_launch, iters):
+        """Three parties (seeds 100 + i) build the public, relinearization and
+        Galois (rotate_col by 1) keys on the card, every share through
+        serialize / deserialize, and the same protocol on a CPU copy must
+        give the same keys bit for bit. Then the batched mult_relin and
+        rotate_col on those keys (element 0 against the CPU plain path),
+        threshold decryption of elements 0 and 31 of both outputs by E2S, S2E
+        back, refresh and refresh-and-permute of element 0, each decrypting
+        right under the joint secret Σ s_i. The counts are read after the key
+        generation (the forward NTT of ``ntt_kernels`` must rise), after the
+        step and after the threshold decryptions (both of ``ntt_kernels``).
+        Prints the path's line."""
+        n, t = params.n, params.t
+        elt = galois_elt_col(1, n)
+
+        def collective(device, rounds=None):
+            """(parties, pk, rlk, glk); with ``rounds``, each party's share of
+            each round timed (CUDA events, the host's sampling apart)."""
+            parties = [mp.DBfvParty(params, seed=100 + i, sigma_smudging=SIGMA_SMUDGING,
+                                    device=device) for i in range(PARTIES)]
+
+            def exchange(name, cls, gen):
+                shares = []
+                for p in parties:
+                    if rounds is None:
+                        shares.append(gen(p))
+                        continue
+                    p.rng = TimedRng(p.rng)
+                    share, ms = event_ms(torch, lambda p=p: gen(p))
+                    t1 = time.perf_counter()
+                    blob = share.serialize()
+                    shares.append(cls.deserialize(blob, device=device))
+                    r = rounds.setdefault(name, {'ms': [], 'sampling_ms': [], 'wire_ms': [],
+                                                 'share_bytes': len(blob)})
+                    r['ms'].append(ms)
+                    r['sampling_ms'].append(p.rng.spent * 1e3)
+                    r['wire_ms'].append((time.perf_counter() - t1) * 1e3)
+                    p.rng = p.rng.rng
+                return shares
+
+            ckg = mp.CkgProtocol(params, 7, device=device)
+            pk = ckg.aggregate(exchange('ckg', mp.PublicKeyShare, ckg.gen_share))
+            rkg = mp.RkgProtocol(params, 11, device=device)
+            agg1 = rkg.aggregate_round1(exchange('rkg1', mp.RelinKeyShareRound1,
+                                                 rkg.gen_share_round1))
+            rlk = rkg.aggregate_round2(exchange('rkg2', mp.RelinKeyShareRound2,
+                                                lambda p: rkg.gen_share_round2(p, agg1)), agg1)
+            rtg = mp.RtgProtocol(params, elt, 13, device=device)
+            glk = rtg.aggregate(exchange('rtg', mp.GaloisKeyShare, rtg.gen_share))
+            return parties, pk, rlk, glk
+
+        rounds = {}
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        parties, pk, rlk, glk = collective(dev, rounds)
+        torch.cuda.synchronize()
+        keys_s = time.perf_counter() - t1
+        key_launches = read_counts()
+        require(f'the {label} key generation', key_launches, ntt_kernels[:1], must_not_launch)
+        t1 = time.perf_counter()
+        _, pk_c, rlk_c, glk_c = collective('cpu')
+        cpu_keys_s = time.perf_counter() - t1
+        if not (torch.equal(pk.data.cpu(), pk_c.data) and all(
+                torch.equal(g.key_q.cpu(), c.key_q) and torch.equal(g.key_p.cpu(), c.key_p)
+                for g, c in ((rlk, rlk_c), (glk, glk_c)))):
+            raise AssertionError(f'{label}: the collective keys differ from the CPU copy')
+
+        ctx = BfvContext.create_empty_context(params, device=dev)
+        ctx.pk, ctx.rlk, ctx.glk = pk, rlk, GaloisKeys({elt: glk})
+        eng, eng_c = ctx.engine, BfvEngine(params, 'cpu')
+        msgs = rng.integers(0, t, (2 * BATCH, n))
+        t1 = time.perf_counter()
+        cts = [ctx.encrypt(ctx.encode(m, level)) for m in msgs]
+        encrypt_s = time.perf_counter() - t1
+        a = torch.stack([c.data for c in cts[:BATCH]])
+        b = torch.stack([c.data for c in cts[BATCH:]])
+        keys = key_tree(ctx, galois_elts=[elt])
+        mult = make_batched_step(eng, bfv_mult_relin, level)
+        rot = make_batched_step(eng, make_rotate_step(elt), level, n_inputs=1)
+        mult(a, b, keys)
+        rot(a, keys)                                        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out_m, out_r = mult(a, b, keys), rot(a, keys)
+        torch.cuda.synchronize()
+        step_launches = read_counts()
+        require(f'the {label} step', step_launches, step_kernels, must_not_launch)
+        mult_ms = time_ms(torch, lambda: mult(a, b, keys), iters)
+        rot_ms = time_ms(torch, lambda: rot(a, keys), iters)
+        busy = busy_ms(torch, lambda: mult(a, b, keys))
+        cpu_keys = {'rlk': rlk_c, 'glk': {elt: glk_c}}
+        x0, y0 = (Ciphertext(data=v[:1].cpu(), level=level) for v in (a, b))
+        bit_exact = (torch.equal(bfv_mult_relin(eng_c, x0, y0, cpu_keys).data[0], out_m[0].cpu())
+                     and torch.equal(make_rotate_step(elt)(eng_c, x0, cpu_keys).data[0],
+                                     out_r[0].cpu()))
+
+        e2s = mp.E2sProtocol(eng, level)
+
+        def e2s_decrypt(ct):
+            """→ (residual + Σ masks mod t, the masks, the residual)."""
+            out = [e2s.gen_share(p, ct) for p in parties]
+            residual = e2s.aggregate(ct, [mp.DecryptionShare.deserialize(s.serialize(), device=dev)
+                                          for s, _ in out])
+            total = residual.astype(np.int64)
+            for _, mk in out:
+                total = (total + mk.astype(np.int64)) % t
+            return total, [mk for _, mk in out], residual
+
+        want = [msgs[i] * msgs[BATCH + i] % t for i in range(BATCH)]
+        checks, e2s_ms, first = {}, [], None
+        torch.cuda.synchronize()
+        reset_counts()
+        for i in (0, BATCH - 1):
+            for kind, out, expect in (('mult', out_m, want[i]),
+                                      ('rotate', out_r, rolled(msgs[i]))):
+                res, ms = event_ms(torch,
+                                   lambda: e2s_decrypt(Ciphertext(data=out[i], level=level)))
+                e2s_ms.append(ms)
+                checks[f'e2s_{kind}_{i}'] = bool(np.array_equal(res[0], expect))
+                first = first or res
+        joint = SecretKey(sum(p.sk.coeffs for p in parties))
+        s2e = mp.S2eProtocol(eng, level, 17)
+        ct_s2e, s2e_ms = event_ms(torch, lambda: s2e.aggregate(
+            [mp.EncryptionShare.deserialize(s2e.gen_share(p, mk).serialize(), device=dev)
+             for p, mk in zip(parties, first[1])], first[2]))
+        checks['s2e'] = bool(np.array_equal(eng.decrypt_decode(joint, ct_s2e), want[0]))
+        ct0 = Ciphertext(data=out_m[0], level=level)
+        refresh_ms = {}
+        for name, perm in (('refresh', None), ('refresh_permute', np.roll(np.arange(n), 5))):
+            proto = mp.RefreshProtocol(eng, level, 19, permutation=perm)
+            fresh, refresh_ms[name] = event_ms(torch, lambda: proto.finalize(
+                ct0, [mp.RefreshShare.deserialize(proto.gen_share(p, ct0).serialize(), device=dev)
+                      for p in parties]))
+            checks[name] = bool(np.array_equal(eng.decrypt_decode(joint, fresh),
+                                               want[0] if perm is None else want[0][perm]))
+        torch.cuda.synchronize()
+        decrypt_launches = read_counts()
+        require(f'the {label} threshold decryption', decrypt_launches, ntt_kernels,
+                must_not_launch)
+        correct = all(checks.values())
+        print(json.dumps({label: {
+            'n': n, 'level': level, 'batch': BATCH, 'word_bits': params.word_bits,
+            'parties': PARTIES, 'sigma_smudging': SIGMA_SMUDGING, 'galois_elt': elt,
+            'rounds': {k: {'ms_per_party': v['ms'], 'sampling_ms_per_party': v['sampling_ms'],
+                           'wire_ms_per_party': v['wire_ms'], 'share_bytes': v['share_bytes']}
+                       for k, v in rounds.items()},
+            'keys_s': keys_s, 'cpu_copy_keys_s': cpu_keys_s, 'keys_equal_cpu_copy': True,
+            'encrypt_s': encrypt_s, 'mult_relin_ms_per_step': mult_ms,
+            'mult_relin_ops_per_s': BATCH * 1e3 / mult_ms, 'rotate_ms_per_step': rot_ms,
+            'busy_ms': busy, 'idle_share': idle_share(busy, mult_ms),
+            'e2s_ms': e2s_ms, 's2e_ms': s2e_ms, 'refresh_ms': refresh_ms,
+            'checks': checks, 'correct': correct, 'bit_exact_vs_plain': bit_exact,
+            'launches_keys': key_launches, 'launches_step': step_launches,
+            'launches_decrypt': decrypt_launches, 'gpu': name_gpu, 'power_limit': power}}),
+              flush=True)
+        if not (correct and bit_exact):
+            raise AssertionError(f'{label} correct={correct} {checks} '
+                                 f'bit_exact_vs_plain={bit_exact}')
+        return {'ctx': ctx, 'a': a, 'b': b, 'out': out_m, 'glk': glk, 'elt': elt, 'msgs': msgs,
+                'joint': joint,
+                'launches': {k: sum(c.get(k, 0) for c in (key_launches, step_launches,
+                                                          decrypt_launches))
+                             for k in set(key_launches) | set(step_launches)}}
+
+    mpc_paths = ['mpc_path', 'mpc64_path']
+    kernels.update(mpc_holds(
+        'mpc_path', params, LEVEL, 32, ('ntt32_fwd', 'ntt32_inv'), ntt_cuda.ntt32_fwd,
+        ntt_cuda.ntt32_inv, ntt_cuda.ntt_plain, ntt_cuda.intt_plain,
+        lambda r, lb, n, inv: ntt_work(r, lb, n), 'lattisense_torch/csrc/ntt32.cu',
+        [('lattisense_tpu/ops/ntt_pallas32.py:101', 'ntt_fused32 (_fwd_kernel)'),
+         ('lattisense_tpu/ops/ntt_pallas32.py:173', 'intt_fused32 (_inv_kernel)')]))
+    mpc = run_mpc('mpc_path', params, LEVEL, ['ntt32_fwd', 'ntt32_inv'],
+                  ['behz_prep32', 'ksw_switch32', 'behz_finish32'], u64_kernel_counts + split_cols,
+                  MAIN_ITERS)
+    path_launches['mpc_path'] = mpc['launches']
+    torch.cuda.empty_cache()
+    holds64 = mpc_holds(
+        'mpc64_path', params64, LEVEL64, 64, ('ntt64_fwd', 'ntt64_inv'), ntt64_cuda.ntt64_fwd,
+        ntt64_cuda.ntt64_inv, ntt64_cuda.ntt64_plain, ntt64_cuda.intt64_plain, ntt64_work,
+        'lattisense_torch/csrc/ntt64.cu',
+        [('lattisense_tpu/ops/ntt_pallas64f.py:48', 'ntt_fused64 (_fwd_kernel)'),
+         ('lattisense_tpu/ops/ntt_pallas64f.py:98', 'intt_fused64 (_inv_kernel)')])
+    for kname, entry in holds64.items():
+        entry['imad_bound_ms'] = imad_bound_ms(
+            [(b5_imad(logn, 'inv' in kname), butterflies(entry['shapes'], N))])
+    kernels.update(holds64)
+    path_launches['mpc64_path'] = run_mpc(
+        'mpc64_path', params64, LEVEL64, ['ntt64_fwd', 'ntt64_inv'],
+        ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
+        w32_kernels + split_cols, MPC64_ITERS)['launches']
+    torch.cuda.empty_cache()
+    phase_done('mpc')
+
+    # ---- 14. the foreign-library boundary ---------------------------------
+    def foreign_args(task, structs):
+        """{id: C struct} as the task's ForeignVectorArguments, in signature order."""
+        return [ForeignVectorArgument(r['id'], structs[r['id']])
+                for r in task.signature['online'] if r['phase'] == 'in']
+
+    def foreign_runs(task, rlk, glk, args, mf_nbits):
+        """One run that captures the task's graph, then TASK_ITERS timed
+        runs; → (the outputs, ms per run: the runtime's ``duration_ns``, the
+        task's run, import and export)."""
+        task.run(rlk=rlk, glk=glk, args=args, mf_nbits=mf_nbits)
+        ns, parts = [], []
+        for _ in range(TASK_ITERS):
+            out, t_ns = task.run(rlk=rlk, glk=glk, args=args, mf_nbits=mf_nbits)
+            ns.append(t_ns)
+            parts.append(task.timing)
+        return out, {'task_ms': sum(ns) / len(ns) / 1e6,
+                     **{f'{k[:-2]}_ms': sum(p[k] for p in parts) / len(parts) * 1e3
+                        for k in ('import_s', 'run_s', 'export_s')}}
+
+    def imported(exp):
+        return abi.import_ciphertext(exp.struct, device='cpu').data
+
+    ctx_m = mpc['ctx']
+    qp32 = get_rns_ring(tuple(params.q) + tuple(params.p), N, dev, 32)
+    ft = ForeignTask(tasks.task_dir(tasks.MULT_RELIN), mode='jit', device=dev, word_bits=32)
+    t1 = time.perf_counter()
+    held = {f'{v}{k}': abi.export_ciphertext(Ciphertext(data=d[k], level=LEVEL))
+            for v, d in (('x', mpc['a']), ('y', mpc['b'])) for k in range(BATCH)}
+    export_inputs_s = time.perf_counter() - t1
+    structs = {k: e.struct for k, e in held.items()}
+    foreign = {}
+    for mf in (0, 64):
+        rlk_e = abi.export_keyswitch_key(ctx_m.rlk, mf, qp32)
+        out, timing = foreign_runs(ft, rlk_e.struct, None, foreign_args(ft, structs), mf)
+        foreign[f'mult_relin_mf{mf}'] = {**timing, 'equal_to_mpc_path_step': all(
+            torch.equal(imported(out[f'z{k}']), mpc['out'][k].cpu()) for k in range(BATCH))}
+    graphs = len(ft.task._graphs)
+    # the mult-rotate task on task_mix_path's context (seed SEED, its Galois
+    # keys and the rotation's) and its x, y
+    with open(os.path.join(tasks.task_dir(tasks.MIX_W32), 'task_signature.json')) as f:
+        mix_elts = {int(e) for e in json.load(f)['key']['glk']}
+    cm = BfvContext.create_random_context(params, seed=SEED, device=dev)
+    cm.gen_galois_keys_for_elements(sorted(mix_elts | {mpc['elt']}))
+    mix_msgs = tasks.mix_messages(params.t, N, SEED)
+    xm, ym = (cm.encrypt(cm.encode(mix_msgs[k], LEVEL)) for k in ('x', 'y'))
+    want_w, _ = FheTask(tasks.task_dir(tasks.MULT_ROTATE), mode='eager', device=dev).run(
+        cm, {'x': xm, 'y': ym})
+    ft2 = ForeignTask(tasks.task_dir(tasks.MULT_ROTATE), mode='jit', device=dev, word_bits=32)
+    held2 = {'x': abi.export_ciphertext(xm), 'y': abi.export_ciphertext(ym)}
+    for mf in (0, 64):
+        rlk_e = abi.export_keyswitch_key(cm.rlk, mf, qp32)
+        glk_e = abi.export_galois_keys(cm.glk.keys, mf, qp32)
+        out, timing = foreign_runs(ft2, rlk_e.struct, glk_e.struct,
+                                   foreign_args(ft2, {k: e.struct for k, e in held2.items()}), mf)
+        w = imported(out['w'])
+        got = cm.decrypt_decode(Ciphertext(data=w.to(dev), level=LEVEL))
+        foreign[f'mult_rotate_mf{mf}'] = {
+            **timing, 'galois_keys': len(cm.glk.keys),
+            'equal_to_fhe_task': torch.equal(w, want_w['w'].data.cpu()),
+            'correct': bool(np.array_equal(got, rolled(mix_msgs['x'] * mix_msgs['y'] % params.t)))}
+    ok = graphs == 1 and all(v.get('equal_to_mpc_path_step', True) and
+                             v.get('equal_to_fhe_task', True) and v.get('correct', True)
+                             for v in foreign.values())
+    print(json.dumps({'foreign_path': {
+        'tasks': [tasks.MULT_RELIN, tasks.MULT_ROTATE], 'word_bits': 32, 'runs': foreign,
+        'graphs_captured_mult_relin': graphs, 'export_inputs_s': export_inputs_s,
+        'correct': ok, 'gpu': name_gpu, 'power_limit': power}}), flush=True)
+    if not ok:
+        raise AssertionError(f'foreign_path: {foreign}, graphs {graphs}')
+    del cm, ft2, held2
+    phase_done('foreign')
+
+    # ---- 15. the C ABI shim driven by the reference client -----------------
+    t1 = time.perf_counter()
+    _, client = plugin_build.build()
+    shim_build_s = time.perf_counter() - t1
+    x0, y0 = (Ciphertext(data=d[0], level=LEVEL) for d in (mpc['a'], mpc['b']))
+    glk_m = {mpc['elt']: mpc['glk']}
+    with tempfile.TemporaryDirectory() as fix:
+        pfx.write_ct(os.path.join(fix, 'x.ct'), x0)
+        pfx.write_ct(os.path.join(fix, 'y.ct'), y0)
+        pfx.write_ct(os.path.join(fix, 'x_badlevel.ct'),
+                     ctx_m.encrypt(ctx_m.encode(mpc['msgs'][0], LEVEL - 1)))
+        pfx.write_ksk(os.path.join(fix, 'rlk.key'), ctx_m.rlk, qp32)
+        pfx.write_glk(os.path.join(fix, 'glk.key'), glk_m, qp32)
+        out_path = os.path.join(fix, 'w.ct')
+        t1 = time.perf_counter()
+        proc = subprocess.run([client, tasks.task_dir(tasks.MULT_ROTATE), fix, out_path],
+                              capture_output=True, text=True, env=plugin_build.client_env(),
+                              timeout=600)
+        client_s = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f'capi_path: the client exited {proc.returncode}\n'
+                                 f'{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}')
+        lines = [ln for ln in ('negative wrong-level: OK', 'negative swapped-id: OK', 'CLIENT OK')
+                 if ln in proc.stdout]
+        w_client = pfx.read_ct(out_path, device=dev)
+    # the same structs through the in-process ForeignTask on the shim's word
+    ft3 = ForeignTask(tasks.task_dir(tasks.MULT_ROTATE), mode='jit', device=dev)
+    held3 = {'x': abi.export_ciphertext(x0), 'y': abi.export_ciphertext(y0)}
+    rlk_e = abi.export_keyswitch_key(ctx_m.rlk, 0, qp32)
+    glk_e = abi.export_galois_keys(glk_m, 0, qp32)
+    out, _ = ft3.run(rlk=rlk_e.struct, glk=glk_e.struct, mf_nbits=0,
+                     args=foreign_args(ft3, {k: e.struct for k, e in held3.items()}))
+    equal = torch.equal(imported(out['w']), w_client.data.cpu())
+    correct = bool(np.array_equal(
+        ctx_m.engine.decrypt_decode(mpc['joint'], w_client),
+        rolled(mpc['msgs'][0] * mpc['msgs'][BATCH] % params.t)))
+    print(json.dumps({'capi_path': {
+        'task': tasks.MULT_ROTATE, 'python_h': plugin_build.python_header(),
+        'shim_build_s': shim_build_s, 'client_s': client_s, 'client_lines': lines,
+        'equal_to_foreign_task': equal, 'correct': correct, 'word_bits': ft3.params.word_bits,
+        'gpu': name_gpu, 'power_limit': power}}), flush=True)
+    if not (equal and correct and len(lines) == 3):
+        raise AssertionError(f'capi_path equal={equal} correct={correct} lines={lines}')
+    del ft3, held3
+    phase_done('capi')
+
+    # ---- 16. the LATTISENSE_DEV memory monitor on a task run ---------------
+    dev_task = FheTask(tasks.task_dir(tasks.MULT_RELIN), mode='jit', device=dev)
+    online = tasks.mult_relin_arguments(
+        [Ciphertext(data=mpc['a'][k], level=LEVEL) for k in range(BATCH)],
+        [Ciphertext(data=mpc['b'][k], level=LEVEL) for k in range(BATCH)])
+    dev_task.compile(ctx_m, online)                     # the capture, outside the monitor
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as mon_dir:
+        os.chdir(mon_dir)
+        os.environ['LATTISENSE_DEV'] = '1'
+        try:
+            out, run_ns = dev_task.run(ctx_m, online)
+        finally:
+            del os.environ['LATTISENSE_DEV']
+            os.chdir(cwd)
+        header, rows = read_csv(os.path.join(mon_dir, 'mem_usage_gpu_0.csv'))
+    col = header.index('device_bytes_in_use') if 'device_bytes_in_use' in header else None
+    device_bytes = [int(r[col]) for r in rows] if col is not None else []
+    equal = all(torch.equal(out[f'z{k}'].data, mpc['out'][k]) for k in range(BATCH))
+    ok = bool(device_bytes) and min(device_bytes) > 0 and len(rows) >= 2 and equal
+    print(json.dumps({'dev_monitor': {
+        'task': tasks.MULT_RELIN, 'header': header, 'rows': len(rows),
+        'device_bytes_in_use': [min(device_bytes), max(device_bytes)] if device_bytes else None,
+        'run_ms': run_ns / 1e6, 'equal_to_mpc_path_step': equal, 'correct': ok,
+        'gpu': name_gpu, 'power_limit': power}}), flush=True)
+    if not ok:
+        raise AssertionError(f'dev_monitor: rows {len(rows)}, header {header}, equal {equal}')
+    del mpc, ctx_m, ft, dev_task, online, out
+    torch.cuda.empty_cache()
+    phase_done('dev_monitor')
+
     # launches on the path a kernel serves (B1's entries and the n = 2^16
-    # holds: on the main path, 0), and on each CKKS path
+    # holds: on the main path, 0), and on each CKKS,
+    # bootstrap and threshold path
     for kname, entry in kernels.items():
         counted = entry.pop('counted_as', kname)
         entry['launches'] = path_launches[entry['path'] or 'main_path'][counted]
         entry['ckks_launches'] = {p: path_launches[p][counted] for p in ckks_paths
                                   if path_launches[p].get(counted)}
         entry['btp_launches'] = {p: path_launches[p][counted] for p in btp_paths
+                                 if path_launches[p].get(counted)}
+        entry['mpc_launches'] = {p: path_launches[p][counted] for p in mpc_paths
                                  if path_launches[p].get(counted)}
         entry['library_ms'] = None
         entry.setdefault('imad_bound_ms', None)

@@ -1,5 +1,6 @@
-"""LattiSense on PyTorch and CUDA: the BFV and CKKS engines, CKKS bootstrapping
-and the compiled-task runtime, ported from ``lattisense_tpu``.
+"""LattiSense on PyTorch and CUDA: the BFV and CKKS engines, CKKS bootstrapping,
+threshold BFV, the compiled-task runtime and its foreign-library boundary (the
+raw-RNS C ABI), ported from ``lattisense_tpu``.
 
 The JAX package stays the reference; this package computes the same values
 bit for bit. Residues travel as ``torch.int64`` tensors holding values in

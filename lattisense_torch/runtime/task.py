@@ -41,9 +41,15 @@ parameter set's scale and hands its output back at the input's scale, as the
 reference's executor does.
 
 The kernels are the engine's: the task runtime launches nothing itself, and
-lets every error of a kernel propagate. Not ported here: ``mesh`` and the
-``LATTISENSE_DEV`` memory monitor; each raises ``NotImplementedError``
-naming its ROADMAP item.
+lets every error of a kernel propagate. Not ported here: ``mesh``, which
+raises ``NotImplementedError`` naming its ROADMAP item.
+
+Under ``LATTISENSE_DEV`` (not empty, not ``0``) each run samples the host's
+memory, and on the card the device's, every 100 ms into
+``mem_usage_gpu_<i>.csv`` in the working directory
+(``utils/observability.py`` ``MemoryMonitor``, as the reference's
+``LATTISENSE_DEV`` monitor). The monitor starts after the checks and after
+any graph capture of ``mode='jit'``, and stops when the run ends.
 """
 
 import dataclasses
@@ -61,6 +67,7 @@ from ..schemes.bfv import BfvEngine
 from ..schemes.ckks import CkksEngine
 from ..schemes.types import (Ciphertext, DecomposedCiphertext, KeySwitchKey, Plaintext,
                              PlaintextMul, PlaintextRingt)
+from ..utils.observability import MemoryMonitor, dev_mode_enabled
 from . import check_sig
 
 _KEY_TYPES = ('rlk', 'glk', 'swk')
@@ -761,8 +768,6 @@ class FheTaskGpu:
         ctx_dev = torch.device(getattr(context, 'device', 'cpu'))
         if ctx_dev != self.device:
             raise RuntimeError(f'the context is on {ctx_dev}, the task on {self.device}')
-        if os.environ.get('LATTISENSE_DEV', '') not in ('', '0'):
-            raise not_ported('the LATTISENSE_DEV memory monitor', '8')
         # the bootstrap precompute lives on the caller's context engine
         btp = getattr(context.engine, 'bootstrapper', None)
         if btp is not None:
@@ -787,6 +792,40 @@ class FheTaskGpu:
         arrays, key_tree, scales = self._prepare(context, input_values)
         total = len(self.plan)
         graph = self._graph_for(arrays, key_tree, scales) if self._replays() else None
+        monitor = None
+        if dev_mode_enabled():
+            monitor = MemoryMonitor(100, with_device=self.device.type == 'cuda')
+            monitor.start(MemoryMonitor.next_csv_path('mem_usage_gpu'))
+        try:
+            out_arrays, duration_ns = self._execute(arrays, key_tree, scales, graph, total,
+                                                    progress_cb)
+        finally:
+            if monitor is not None:
+                monitor.stop()
+
+        # re-wrap outputs per graph metadata and the scales the plan gave
+        # them for these input scales, grouped by signature rows
+        flat_out = []
+        for node, arr, sc in zip((self.data[i] for i in self.outputs), out_arrays,
+                                 self._out_scales[scales]):
+            v = _wrap_input(node, arr, sc)
+            if isinstance(v, Ciphertext):
+                v.level = arr.shape[-2] - 1   # shape is ground truth
+            flat_out.append(v)
+        outputs = {}
+        pos = 0
+        for row in (r for r in self.signature['online'] if r['phase'] == 'out'):
+            cnt = 1
+            for s in row['size']:
+                cnt *= s
+            vals = flat_out[pos:pos + cnt]
+            pos += cnt
+            outputs[row['id']] = vals[0] if row['size'] == [1] else _reshape(vals, row['size'])
+        return outputs, duration_ns
+
+    def _execute(self, arrays, key_tree, scales, graph, total, progress_cb):
+        """One run of the plan (eager, partitioned, or the graph's replay);
+        → (output tensors, ns until the card has finished)."""
         start = time.perf_counter_ns()
         if self.mode == 'eager' and progress_cb is not None:
             last = [0.0]
@@ -810,27 +849,7 @@ class FheTaskGpu:
                 progress_cb(total, total)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        duration_ns = time.perf_counter_ns() - start
-
-        # re-wrap outputs per graph metadata and the scales the plan gave
-        # them for these input scales, grouped by signature rows
-        flat_out = []
-        for node, arr, sc in zip((self.data[i] for i in self.outputs), out_arrays,
-                                 self._out_scales[scales]):
-            v = _wrap_input(node, arr, sc)
-            if isinstance(v, Ciphertext):
-                v.level = arr.shape[-2] - 1   # shape is ground truth
-            flat_out.append(v)
-        outputs = {}
-        pos = 0
-        for row in (r for r in self.signature['online'] if r['phase'] == 'out'):
-            cnt = 1
-            for s in row['size']:
-                cnt *= s
-            vals = flat_out[pos:pos + cnt]
-            pos += cnt
-            outputs[row['id']] = vals[0] if row['size'] == [1] else _reshape(vals, row['size'])
-        return outputs, duration_ns
+        return out_arrays, time.perf_counter_ns() - start
 
     def compile(self, context, input_values: dict):
         """The warm-up and capture of the graphs for these arguments: on the

@@ -8,6 +8,9 @@ test regenerates each and compares):
 - ``bfv_mult_relin_x32_w32_n16384_l7``: 32 independent ``mult_relin``s,
   ``x{k}``, ``y{k}`` → ``z{k}``, on the primes and t of
   ``BfvParams.create_tpu_param(16384)`` at level 7;
+- ``bfv_mult_rotate_w32_n16384_l7``: on the same chain and level, the
+  plug-in tests' graph ``x``, ``y`` → ``w`` = rotate_cols(mult_relin(x, y),
+  1), the arguments the C ABI client (``csrc/plugin_client.cpp``) passes;
 - ``bfv_ops_mix_w32_n16384_l7``: on the same chain and level, one node or
   more of every BFV executor branch of ``FheTaskGpu`` but custom and
   bootstrap (``MIX_OUTPUTS``), with an offline input;
@@ -47,6 +50,7 @@ from ...schemes.types import Ciphertext, PlaintextRingt
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MULT_RELIN = 'bfv_mult_relin_x32_w32_n16384_l7'
+MULT_ROTATE = 'bfv_mult_rotate_w32_n16384_l7'
 MIX_W32 = 'bfv_ops_mix_w32_n16384_l7'
 MIX_U64 = 'bfv_ops_mix_u64_n16384_l3'
 CKKS_MIX_W32 = 'ckks_ops_mix_w32_n16384_l10'

@@ -13,10 +13,14 @@ the CKKS task directories (a second set of input scales capturing its own
 graph), card against CPU bit for bit; the n=2^16 repairs (B1-r4/perm, B2,
 B3, B4 against their twins, a CKKS relinearization and rotation on
 ``create_tpu_param(65536)``) and the n=256 bootstrap at both words in every
-task mode.
+task mode; threshold BFV at n=16384 on both words (every share, collective
+key and E2S / S2E / refresh output, card against CPU), ``ForeignTask`` on the
+card against the CPU, and the memory monitor's device column.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -24,13 +28,14 @@ import torch
 
 from lattisense_torch.core import u64 as tu
 from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
-from lattisense_torch.ops import behz_cuda, ksw_cuda, ntt_cuda
+from lattisense_torch.ops import behz_cuda, ksw_cuda, ntt64_cuda, ntt_cuda
 from lattisense_torch.params import BfvParams
 from lattisense_torch.parallel.batch import (bfv_mult_relin, key_tree, make_batched_step,
                                              make_rotate_step)
 from lattisense_torch.runtime import BfvContext
 from lattisense_torch.schemes.bfv import BfvEngine
 from lattisense_torch.schemes.galois import galois_elt_col
+from lattisense_torch.schemes.keys import SecretKey
 from lattisense_torch.schemes.keyswitch import KeySwitcher
 from lattisense_torch.schemes.types import Ciphertext, KeySwitchKey
 
@@ -1333,3 +1338,118 @@ def test_bootstrap_graphs_replay_after_constant_churn(cuda):
         out, _ = task.run(card, {'x': x})
         assert same(out['z']), mode
     del junk
+
+
+# ---------------------------------------------------------------------------
+# threshold BFV, the foreign-library boundary and the memory monitor
+# ---------------------------------------------------------------------------
+
+def _mpc_run(params, level, device):
+    """Every protocol of three parties (seeds 100 + i) on ``device``, the
+    shares in order: CKG, RKG's two rounds, RTG (rotate_col by 1), then E2S,
+    S2E and refresh with a permutation on an encryption under the collective
+    key at ``level``."""
+    from lattisense_torch.runtime import BfvContext as Ctx
+    from lattisense_torch.schemes import multiparty as mp
+    n = params.n
+    parties = [mp.DBfvParty(params, seed=100 + i, device=device) for i in range(3)]
+    shares = []
+
+    def each(gen):
+        out = [gen(p) for p in parties]
+        shares.extend(s[0] if isinstance(s, tuple) else s for s in out)
+        return out
+    ckg = mp.CkgProtocol(params, 7, device=device)
+    pk = ckg.aggregate(each(ckg.gen_share))
+    rkg = mp.RkgProtocol(params, 11, device=device)
+    agg1 = rkg.aggregate_round1(each(rkg.gen_share_round1))
+    rlk = rkg.aggregate_round2(each(lambda p: rkg.gen_share_round2(p, agg1)), agg1)
+    rtg = mp.RtgProtocol(params, galois_elt_col(1, n), 13, device=device)
+    glk = rtg.aggregate(each(rtg.gen_share))
+    ctx = Ctx.create_empty_context(params, device=device)
+    ctx.pk = pk
+    m = np.random.default_rng(3).integers(0, params.t, n)
+    ct = ctx.engine.encrypt_asymmetric(np.random.default_rng(4), pk, ctx.encode(m, level))
+    e2s = mp.E2sProtocol(ctx.engine, level)
+    out = each(lambda p: e2s.gen_share(p, ct))
+    residual = e2s.aggregate(ct, [s for s, _ in out])
+    s2e = mp.S2eProtocol(ctx.engine, level, 17)
+    ct2 = s2e.aggregate([s2e.gen_share(p, mk) for p, (_, mk) in zip(parties, out)], residual)
+    perm = np.roll(np.arange(n), 5)
+    ref = mp.RefreshProtocol(ctx.engine, level, 19, permutation=perm)
+    fresh = ref.finalize(ct, each(lambda p: ref.gen_share(p, ct)))
+    joint = SecretKey(sum(p.sk.coeffs for p in parties))
+    assert np.array_equal(ctx.engine.decrypt_decode(joint, ct2), m)
+    assert np.array_equal(ctx.engine.decrypt_decode(joint, fresh), m[perm])
+    return [pk.data, rlk.key_q, rlk.key_p, glk.key_q, glk.key_p, ct2.data, fresh.data] + [
+        s.data for s in shares]
+
+
+@pytest.mark.parametrize('word', [32, 64], ids=['w32', 'u64'])
+def test_multiparty_n16384_card_matches_cpu(cuda, word):
+    """Every share, collective key and E2S / S2E / refresh output of the
+    protocols at n=16384 (create_tpu_param L7, create L3) on the card equals
+    the CPU run of the same seeds bit for bit."""
+    params = BfvParams.create_tpu_param(16384) if word == 32 else BfvParams.create(16384)
+    level = 7 if word == 32 else 3
+    counts = ntt_cuda.launches if word == 32 else ntt64_cuda.launches
+    fwd = 'ntt32_fwd' if word == 32 else 'ntt64_fwd'
+    before = counts[fwd]
+    card = _mpc_run(params, level, cuda)
+    assert counts[fwd] > before
+    for g, c in zip(card, _mpc_run(params, level, CPU)):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize('mf_nbits', [0, 64])
+def test_foreign_task_card_matches_cpu(cuda, mf_nbits):
+    """ForeignTask on the card (one CUDA graph) against the CPU on the same C
+    structs: the committed mult-rotate task at n=16384, both words."""
+    from lattisense_torch import abi
+    from lattisense_torch.plugin import ForeignTask, ForeignVectorArgument
+    from lattisense_torch.runtime import tasks
+    params = BfvParams.create_tpu_param(16384)
+    ctx = BfvContext.create_random_context(params, seed=21, device=CPU)
+    ctx.gen_rotation_keys_for_rotations([1])
+    ring = get_rns_ring(tuple(params.q) + tuple(params.p), params.n, CPU, 32)
+    m = np.random.default_rng(5).integers(0, params.t, (2, params.n))
+    xs, ys = (abi.export_ciphertext(ctx.encrypt(ctx.encode(v, 7))) for v in m)
+    rlk = abi.export_keyswitch_key(ctx.rlk, mf_nbits, ring)
+    glk = abi.export_galois_keys(ctx.glk.keys, mf_nbits, ring)
+    d = tasks.task_dir(tasks.MULT_ROTATE)
+    for word in (32, 64):
+        if word == 64 and mf_nbits:
+            continue                     # stored 32-bit Montgomery keys are not 64-bit ones
+        outs = []
+        for dev, mode in ((cuda, 'jit'), (CPU, 'eager')):
+            task = ForeignTask(d, mode=mode, device=dev, word_bits=word)
+            for _ in range(2 if dev.type == 'cuda' else 1):    # the second run replays
+                out, _ = task.run(rlk=rlk.struct, glk=glk.struct, mf_nbits=mf_nbits,
+                                  args=[ForeignVectorArgument('x', xs.struct),
+                                        ForeignVectorArgument('y', ys.struct)])
+            outs.append(abi.import_ciphertext(out['w'].struct, device=CPU).data)
+        assert torch.equal(outs[0], outs[1]), word
+        prod = m[0] * m[1] % params.t
+        assert np.array_equal(ctx.decrypt_decode(Ciphertext(data=outs[0], level=7)),
+                              np.roll(prod.reshape(2, -1), -1, axis=1).reshape(-1))
+
+
+def test_memory_monitor_with_device(cuda, tmp_path):
+    """The monitor's device column follows the card's tensors."""
+    from lattisense_torch.utils import observability as obs
+    mon = obs.MemoryMonitor(20, with_device=True)
+    path = str(tmp_path / 'mem.csv')
+    mon.start(path)
+    x = torch.empty(1 << 28, dtype=torch.uint8, device=cuda)
+    time.sleep(0.1)
+    mon.stop()
+    with open(path) as f:
+        header = f.readline().strip().split(',')
+        rows = [line.strip().split(',') for line in f if line.strip()]
+    assert header[-1] == 'device_bytes_in_use' and len(rows) >= 3
+    assert int(rows[-1][-1]) >= 1 << 28
+    stats = obs.device_memory_stats()
+    assert f'cuda:{cuda.index}' in stats
+    s = stats[f'cuda:{cuda.index}']
+    assert 1 << 28 <= s['bytes_in_use'] <= s['bytes_limit']
+    del x

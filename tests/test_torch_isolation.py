@@ -23,6 +23,9 @@ def test_import_pulls_in_no_jax():
             "lattisense_torch.runtime.tasks, lattisense_torch.params, "
             "lattisense_torch.utils.security, lattisense_torch.schemes.ckks, "
             "lattisense_torch.utils.precision, lattisense_torch.utils.serialize, "
+            "lattisense_torch.schemes.multiparty, lattisense_torch.abi, lattisense_torch.plugin, "
+            "lattisense_torch.plugin.capi, lattisense_torch.plugin.fixture, "
+            "lattisense_torch.utils.observability, lattisense_torch.ops.plugin_build, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -38,7 +41,10 @@ def test_sources_import_no_jax():
     assert len(files) > 15
     for new in ('ops/ntt64_cuda.py', 'ops/bconv_cuda.py', 'ops/ksw64_cuda.py', 'runtime/task.py',
                 'runtime/check_sig.py', 'runtime/tasks/__init__.py', 'utils/security.py',
-                'schemes/ckks.py', 'utils/precision.py', 'utils/serialize.py'):
+                'schemes/ckks.py', 'utils/precision.py', 'utils/serialize.py',
+                'schemes/multiparty.py', 'abi.py', 'plugin/__init__.py', 'plugin/foreign_task.py',
+                'plugin/capi.py', 'plugin/fixture.py', 'utils/observability.py',
+                'ops/plugin_build.py'):
         assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:
@@ -46,6 +52,12 @@ def test_sources_import_no_jax():
             if _IMPORT.search(f.read()):
                 offenders.append(os.path.relpath(path, ROOT))
     assert offenders == []
+    # the C ABI shim's embedded interpreter imports the port's capi only
+    shim_dir = os.path.join(PORT, 'csrc', 'plugin')
+    for name in os.listdir(shim_dir):
+        with open(os.path.join(shim_dir, name), encoding='utf-8') as f:
+            text = f.read()
+        assert 'lattisense_tpu' not in text and 'jax' not in text.lower(), name
 
 
 def test_parameter_table_is_a_byte_identical_copy():
@@ -55,7 +67,7 @@ def test_parameter_table_is_a_byte_identical_copy():
         assert f.read() == ref
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(monkeypatch):
     from lattisense_torch import resolve_device
     from lattisense_torch.core.modring import gen_ntt_primes
     from lattisense_torch.params import BfvParams
@@ -66,9 +78,18 @@ def test_entry_points_default_to_cuda():
         return
     chain = gen_ntt_primes(64, 31, 3)
     params = BfvParams.create_custom(64, 257, chain[:2], chain[2:], word_bits=32)
+    from lattisense_torch.plugin import ForeignTask, capi
+    from lattisense_torch.runtime import tasks
+    from lattisense_torch.schemes import multiparty as mp
+    monkeypatch.delenv('LATTISENSE_PLUGIN_PLATFORM', raising=False)
     for entry in (lambda: BfvContext.create_random_context(params, seed=1),
                   lambda: BfvContext(params),
-                  lambda: BfvEngine(params)):
+                  lambda: BfvEngine(params),
+                  lambda: mp.DBfvParty(params, seed=1),
+                  lambda: mp.CkgProtocol(params, 7),
+                  lambda: mp.RkgProtocol(params, 7),
+                  lambda: ForeignTask(tasks.task_dir(tasks.MULT_ROTATE)),
+                  lambda: capi.create_task(tasks.task_dir(tasks.MULT_ROTATE))):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             entry()
     assert BfvEngine(params, 'cpu').device == torch.device('cpu')

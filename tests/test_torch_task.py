@@ -72,6 +72,15 @@ def build_mult_relin(level: int, count: int):
             [ct.Argument(f'z{k}', o) for k, o in enumerate(outs)], [])
 
 
+def build_mult_rotate(level: int):
+    """The plug-in tests' graph (``tests/test_plugin.py``): w = rotate_cols(
+    mult_relin(x, y), 1), the arguments the C ABI client passes."""
+    x = ct.BfvCiphertextNode('x', level)
+    y = ct.BfvCiphertextNode('y', level)
+    w = ct.rotate_cols(ct.mult_relin(x, y, 'z'), 1, 'w')
+    return [ct.Argument('x', x), ct.Argument('y', y)], [ct.Argument('w', w)], []
+
+
 def build_ops_mix(level: int):
     """Every BFV executor branch but custom and bootstrap: add / sub with a
     ciphertext, a plaintext, a pt_ringt and unary; neg; mult by a
@@ -200,6 +209,7 @@ def committed_fixtures():
     return {
         fixtures.MULT_RELIN: (fe(w32), build_mult_relin, (7, fixtures.MULT_RELIN_COUNT)),
         fixtures.MIX_W32: (fe(w32), build_ops_mix, (7,)),
+        fixtures.MULT_ROTATE: (fe(w32), build_mult_rotate, (7,)),
         fixtures.MIX_U64: (fe(u64), build_ops_mix, (3,)),
         fixtures.CKKS_MIX_W32: (fe_ckks(ckks_w32, fixtures.CKKS_MIX_W32_SCALE),
                                 build_ckks_ops_mix, (10,)),
@@ -244,7 +254,8 @@ def write_fixture(name: str, path: str):
             f.write('\n')
 
 
-@pytest.mark.parametrize('name', [fixtures.MULT_RELIN, fixtures.MIX_W32, fixtures.MIX_U64,
+@pytest.mark.parametrize('name', [fixtures.MULT_RELIN, fixtures.MULT_ROTATE, fixtures.MIX_W32,
+                                  fixtures.MIX_U64,
                                   fixtures.CKKS_MIX_W32, fixtures.CKKS_MIX_U64,
                                   fixtures.CKKS_BOOTSTRAP_TOY, *fixtures.BOOTSTRAP_N256.values()])
 def test_committed_fixture_matches_regeneration(name, tmp_path):
@@ -653,9 +664,9 @@ def test_custom_executor(setup, mode, tmp_path):
 
 
 def test_refusals(setup, tmp_path, monkeypatch):
-    """A mesh and the memory monitor are refused, each naming its ROADMAP
-    item; so is a context on another device, and drop_level on BFV (as the
-    reference). Partitioned mode runs the fused plan cut at its barriers
+    """A mesh is refused, naming its ROADMAP item; so is a context on
+    another device, and drop_level on BFV (as the reference); under
+    LATTISENSE_DEV the memory monitor writes its CSV. Partitioned mode runs the fused plan cut at its barriers
     (here none: one span), equal to eager; a CKKS task loads onto the CKKS
     engine, and a bootstrap node binds."""
     d = setup['mult_relin']
@@ -707,12 +718,18 @@ def test_refusals(setup, tmp_path, monkeypatch):
         g.write(f.read())
     with pytest.raises(ValueError, match='DROP_LEVEL only supported for CKKS scheme'):
         FheTask(str(bfv_drop), mode='eager', device='cpu')
-    # the memory monitor, and a context on another device
+    # the memory monitor writes its CSV and changes no output; a context
+    # on another device
     task = FheTask(d, mode='eager', device='cpu')
+    plain, _ = task.run(port, args)
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv('LATTISENSE_DEV', '1')
-    with pytest.raises(NotImplementedError, match=r'memory monitor .*item 8'):
-        task.run(port, args)
+    monitored, _ = task.run(port, args)
     monkeypatch.delenv('LATTISENSE_DEV')
+    assert all(torch.equal(monitored[k].data, v.data) for k, v in plain.items())
+    with open(tmp_path / 'mem_usage_gpu_0.csv') as f:
+        assert f.readline().strip() == 'time_s,vmrss_kb,vmhwm_kb,anon_huge_kb'
+        assert len(f.readlines()) >= 2
     task.device = torch.device('meta')
     with pytest.raises(RuntimeError, match='the context is on cpu, the task on meta'):
         task.run(port, args)
