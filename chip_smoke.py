@@ -139,6 +139,32 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 16. ``dev_monitor``: a replay of the 32-``mult_relin`` task under
    ``LATTISENSE_DEV=1`` writes ``mem_usage_gpu_0.csv`` with the card's
    bytes in use, and returns ``mpc_path``'s step.
+17. ``mxu_path`` (run right after 5, on its context): the four-step NTT as
+   matrix products (``ops/ntt_mxu.py``) at ``u64_path``'s shapes, forward
+   and inverse over q, aux and q∪p, bit for bit against B5 on both routes
+   (bf16 ``bmm`` with float32 sums; int8 ``_int_mm``), each route's ms
+   beside B5's, its multiply-adds and its bound at the dense int8 and bf16
+   tensor-core peaks; then ``u64_path``'s batched ``mult_relin`` with
+   ``ntt_mxu.ENABLED`` set: equal to ``u64_path``'s output bit for bit,
+   decrypting to a·b mod t, B6 and B7 launched and B5 not at all, with its
+   ms a step, idle share and multiply-adds a step.
+18. The mesh paths (after 6), over ``parallel/`` and ``parallel/launch.py``:
+   a world of 2 ranks sharing the card over gloo (NCCL refuses two ranks on
+   one device), each rank loading the main path's keys and inputs (saved
+   by this script with ``tools/mesh_paths.py``: a load is cheaper than
+   keygen from the seed) and running, at the main path's width:
+   ``mesh_op_path`` (``make_batched_step(mesh=(op=2))``), ``limb_tp_path``
+   (``make_limb_tp_mult_relin`` over (op=1, limb=2)) at w32 L7 and u64 L3
+   (``limb_tp_path_u64``), ``limb_tp_rotate_path``, ``coeff_ksw_path``
+   (``CoeffShardedRelin`` over coeff=2 on ``mult(a, b)``) and
+   ``mesh_task_path`` (the 32-``mult_relin`` task with ``mesh=(op=2)``,
+   eager, and replayed as CUDA graphs cut at each collective); then a world
+   of 1 rank over NCCL runs ``limb_tp_path`` (``limb_tp_path_nccl``), its
+   one-rank collectives issued to NCCL. Each gathered output equals its
+   single-card path bit for bit on every rank. Each line holds the ms a
+   step (CUDA events on each rank, between barriers), the calls and bytes
+   of each collective in a step, the bytes staged through the host, the
+   backend and each rank's launches.
 
 Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
@@ -146,8 +172,8 @@ Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``ckks_w32_path``, ``ckks_rotate_path``, ``ckks_task_mix_path``,
 ``ckks_task_mix64_path``, ``btp_toy_path``, ``btp_full_path``,
 ``btp_w32_path``, ``mpc_path``, ``mpc64_path``, ``foreign_path``,
-``capi_path``, ``dev_monitor``), a ``{"kernels": [...]}`` line (each kernel
-with the CKKS, bootstrap and threshold paths that launch it,
+``capi_path``, ``dev_monitor``, ``mxu_path`` and the mesh paths), a
+``{"kernels": [...]}`` line (each kernel with the CKKS, bootstrap and threshold paths that launch it,
 ``ckks_launches``, ``btp_launches``, ``mpc_launches``),
 a ``{"phase_s": ...}`` line after each phase (its seconds and the seconds
 since the start), the card's name and power
@@ -161,6 +187,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -190,6 +217,8 @@ CKKS_TOL = 1e-3        # decoded error bound (the reference's tests/test_word32.
 PARTIES = 3            # the threshold paths' parties, seeds 100 + i
 SIGMA_SMUDGING = 2.0 ** 30
 MPC64_ITERS = 1        # timed steps of mpc64_path
+MXU_ITERS = 3          # timed calls of the MXU route and of mxu_path's step
+MESH_ITERS = 2         # timed steps of each mesh path
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
 # and the float32 rate outside the tensor cores, the table's only 32-bit
@@ -197,6 +226,9 @@ MPC64_ITERS = 1        # timed steps of mpc64_path
 # operations bound below is a lower bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# the dense tensor-core peaks (the same data sheet), the MXU route's bound
+PEAK_INT8_OPS_S = 1979e12
+PEAK_BF16_OPS_S = 989e12
 # 32-bit integer operations per step, counted from csrc/: a Shoup product is
 # 6 (umulhi, two mul, sub, compare, select), a modular add or sub 3, a
 # Montgomery product 8 (wide mul as two, mul, umulhi, two adds, compare,
@@ -526,7 +558,9 @@ def main() -> int:
     from lattisense_torch import abi
     from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
     from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
-                                      ntt64_cuda, ntt_cuda, plugin_build)
+                                      ntt64_cuda, ntt_cuda, ntt_mxu, plugin_build)
+    from lattisense_torch.parallel.launch import World
+    from lattisense_torch.tools import mesh_paths
     from lattisense_torch.params import BfvParams, CkksParams
     from lattisense_torch.parallel.batch import (bfv_mult_relin, ckks_composite_params,
                                                  ckks_mult_relin_rescale,
@@ -547,7 +581,7 @@ def main() -> int:
     from lattisense_torch.utils.precision import get_precision_stats
 
     counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
-              bconv_cuda.launches, ksw64_cuda.launches)
+              bconv_cuda.launches, ksw64_cuda.launches, ntt_mxu.launches)
     w32_kernels = [k for c in counts[:3] for k in c]
     u64_kernel_counts = [k for c in counts[3:] for k in c]
 
@@ -1146,11 +1180,20 @@ def main() -> int:
         half = len(m) // 2
         return np.concatenate([np.roll(m[:half], -1), np.roll(m[half:], -1)])
 
-    run_path('rotate_path', ctx, eng_c, LEVEL, make_rotate_step(elt), 1, rkeys,
-             {'glk': {elt: cpu_key(rkeys['glk'][elt])}}, msgs[:BATCH],
-             lambda i: rolled(msgs[i]), ['ksw_switch32'], no_b1,
-             {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
-              'galois_keygen_s': galois_keygen_s})
+    rot = run_path('rotate_path', ctx, eng_c, LEVEL, make_rotate_step(elt), 1, rkeys,
+                   {'glk': {elt: cpu_key(rkeys['glk'][elt])}}, msgs[:BATCH],
+                   lambda i: rolled(msgs[i]), ['ksw_switch32'], no_b1,
+                   {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
+                    'galois_keygen_s': galois_keygen_s})
+    # what the mesh paths' ranks load (18.): the context's keys and each
+    # path's inputs and single-card output
+    mesh_dir = tempfile.mkdtemp(prefix='lattisense_mesh_')
+    mesh_paths.save(mesh_dir, 'ctx32', mesh_paths.save_context(ctx, [elt]))
+    mesh_paths.save(mesh_dir, 'main', {'a': main['args'][0].cpu(), 'b': main['args'][1].cpu(),
+                                       'out': main['out'].cpu()})
+    mesh_paths.save(mesh_dir, 'rotate', {'a': rot['args'][0].cpu(), 'out': rot['out'].cpu()})
+    single_ms = {'main_path': main['ms_per_step'], 'rotate_path': rot['ms_per_step']}
+    del rot
 
     # 10. the 32-mult_relin task on the main path's context and ciphertexts
     a_data, b_data = main['args']
@@ -1181,12 +1224,103 @@ def main() -> int:
 
     u64_kernels = [k for k, v in kernels.items() if v['path'] == 'u64_path']
     msgs64 = rng.integers(0, params64.t, (2 * BATCH, N))
-    path_launches['u64_path'] = run_path(
+    u64 = run_path(
         'u64_path', ctx64, eng64_c, LEVEL64, bfv_mult_relin, 2, key_tree(ctx64),
         {'rlk': rlk64_c}, msgs64, lambda i: (msgs64[i] * msgs64[BATCH + i]) % params64.t,
         u64_kernels, w32_kernels + split_cols,
         {'op': 'mult_relin', 'params': 'BfvParams.create(16384)', 'word_bits': 64,
-         'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})['launches']
+         'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})
+    path_launches['u64_path'] = u64['launches']
+    mesh_paths.save(mesh_dir, 'ctx64', mesh_paths.save_context(ctx64))
+    mesh_paths.save(mesh_dir, 'u64', {'a': u64['args'][0].cpu(), 'b': u64['args'][1].cpu(),
+                                      'out': u64['out'].cpu()})
+    single_ms['u64_path'] = u64['ms_per_step']
+    phase_done('paths_to_u64')
+
+    # ---- 17. the MXU NTT: the four-step NTT as tensor-core matrix products --
+    # each transform of u64_path's shapes against B5 bit for bit, on both
+    # routes (bf16 bmm with float32 sums, int8 _int_mm), beside B5's ms
+    mxu_rows = []
+    for direction, calls, route, b5 in (
+            ('fwd', [('q64', (BATCH, 4)), ('aux64', (BATCH, 4)), ('qp64', (BATCH, beta64))],
+             ntt_mxu.ntt, ntt64_cuda.ntt64_fwd),
+            ('inv', [('q64', (BATCH, 3)), ('aux64', (BATCH, 3)), ('qp64', (BATCH, 2))],
+             ntt_mxu.intt, ntt64_cuda.ntt64_inv)):
+        for rname, lead in calls:
+            rg = rings[rname][0]
+            x = residues(rg.moduli, lead).to(dev)
+            want = b5(x, rg)
+            macs = ntt_mxu.macs(x.numel() // N, N, ntt_mxu.planes_of(rg.moduli))
+            row = {'dir': direction, 'ring': rname, 'shape': list(x.shape), 'macs': macs,
+                   'b5_ms': time_ms(torch, lambda x=x, rg=rg, b5=b5: b5(x, rg), ITERS),
+                   # the least time of the products alone at the dense peaks
+                   'bound_ms_int8': macs * 2 / PEAK_INT8_OPS_S * 1e3,
+                   'bound_ms_bf16': macs * 2 / PEAK_BF16_OPS_S * 1e3}
+            for i8 in (False, True):
+                ntt_mxu.I8DOT = i8
+                try:
+                    got = route(x, rg)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f'mxu_path: {direction} {rname} '
+                                             f'{"int8" if i8 else "bf16"} differs from B5')
+                    row['int8_ms' if i8 else 'bf16_ms'] = time_ms(
+                        torch, lambda x=x, rg=rg, route=route: route(x, rg), MXU_ITERS, 1)
+                finally:
+                    ntt_mxu.I8DOT = False
+            mxu_rows.append(row)
+            del x, want, got
+    torch.cuda.empty_cache()
+
+    # the batched mult_relin with the gate on: B6 and B7 as before, every NTT
+    # as matrix products, no B5
+    macs_step = [0]
+
+    def counting(fn):
+        def run(x, ring):
+            macs_step[0] += ntt_mxu.macs(x.numel() // x.shape[-1], x.shape[-1],
+                                         ntt_mxu.planes_of(ring.moduli))
+            return fn(x, ring)
+        return run
+    mxu_real = ntt_mxu.ntt, ntt_mxu.intt
+    ntt_mxu.ENABLED = True
+    try:
+        step = make_batched_step(ctx64.engine, bfv_mult_relin, LEVEL64)
+        keys64 = key_tree(ctx64)
+        step(*u64['args'], keys64)
+        torch.cuda.synchronize()
+        reset_counts()
+        ntt_mxu.ntt, ntt_mxu.intt = counting(mxu_real[0]), counting(mxu_real[1])
+        try:
+            out = step(*u64['args'], keys64)
+            torch.cuda.synchronize()
+        finally:
+            ntt_mxu.ntt, ntt_mxu.intt = mxu_real
+        launches = read_counts()
+        mxu_ms = time_ms(torch, lambda: step(*u64['args'], keys64), MXU_ITERS, 1)
+        mxu_busy = busy_ms(torch, lambda: step(*u64['args'], keys64), reps=2)
+    finally:
+        ntt_mxu.ENABLED = False
+    equal = torch.equal(out, u64['out'])
+    correct = all(np.array_equal(ctx64.decrypt_decode(Ciphertext(data=out[i], level=LEVEL64)),
+                                 (msgs64[i] * msgs64[BATCH + i]) % params64.t)
+                  for i in range(BATCH))
+    b5_launches = {k: launches.get(k, 0) for k in ntt64_cuda.launches}
+    missing = [k for k in ('bconv64_convert', 'bconv64_raw', 'ksw_inner64', 'mxu_bmm')
+               if not launches.get(k)]
+    print(json.dumps({'mxu_path': {
+        'transforms': mxu_rows, 'op': 'mult_relin', 'params': 'BfvParams.create(16384)',
+        'n': N, 'level': LEVEL64, 'batch': BATCH, 'word_bits': 64, 'correct': correct,
+        'bit_exact_vs_u64_path': equal, 'ms_per_step': mxu_ms,
+        'u64_path_ms_per_step': u64['ms_per_step'], 'busy_ms': mxu_busy,
+        'idle_share': idle_share(mxu_busy, mxu_ms), 'macs_per_step': macs_step[0],
+        'launches_per_step': launches, 'b5_launches': b5_launches,
+        'gpu': name_gpu, 'power_limit': power}}), flush=True)
+    if not (equal and correct) or any(b5_launches.values()) or missing:
+        raise AssertionError(f'mxu_path equal={equal} correct={correct} B5={b5_launches} '
+                             f'missing={missing}')
+    del u64, out, step
+    phase_done('mxu')
 
     t1 = time.perf_counter()
     ctx64.gen_galois_keys_for_elements([elt])
@@ -1205,6 +1339,56 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_done('paths_n16384')
+
+    # ---- 18. the mesh paths: one world of 2 ranks sharing the card over gloo
+    # (NCCL refuses two ranks on one device), each rank loading the main
+    # path's context and inputs saved above; then a world of 1 over NCCL
+    mesh_runs = [
+        ('mesh_op_path', 'mesh_op', 'ctx32', 'main', (2, 1, 1), LEVEL, 'main_path'),
+        ('limb_tp_path', 'limb_tp', 'ctx32', 'main', (1, 2, 1), LEVEL, 'main_path'),
+        ('limb_tp_path_u64', 'limb_tp', 'ctx64', 'u64', (1, 2, 1), LEVEL64, 'u64_path'),
+        ('limb_tp_rotate_path', 'limb_tp_rotate', 'ctx32', 'rotate', (1, 2, 1), LEVEL,
+         'rotate_path'),
+        ('coeff_ksw_path', 'coeff_ksw', 'ctx32', 'main', (1, 1, 2), LEVEL, 'main_path'),
+        ('mesh_task_path', 'task_eager', 'ctx32', 'main', (2, 1, 1), LEVEL, 'main_path'),
+        ('mesh_task_path', 'task_jit', 'ctx32', 'main', (2, 1, 1), LEVEL, 'main_path')]
+
+    def mesh_line(label, path, world, res, level, like):
+        fields = {
+            'path': path, 'world': world, 'backend': res[0]['backend'], 'mesh': res[0]['mesh'],
+            'n': N, 'level': level, 'batch': BATCH,
+            'bit_exact_vs': like, 'bit_exact': all(r['equal'] for r in res),
+            'ms_per_step': res[0]['ms_per_step'],
+            'ms_per_step_ranks': [r['ms_per_step'] for r in res],
+            'single_card_ms_per_step': single_ms.get(like),
+            'collectives_per_step': res[0]['collectives'],
+            'staged_bytes_per_step': res[0]['collectives']['staged_bytes'],
+            'launches_per_rank': [r['launches'] for r in res], 'graphs': res[0]['graphs'],
+            'gpu': name_gpu, 'power_limit': power}
+        print(json.dumps({label: fields}), flush=True)
+        if not fields['bit_exact']:
+            raise AssertionError(f'{label} ({path}) differs from {like}')
+        return fields
+
+    t1 = time.perf_counter()
+    with World(2, backend='gloo', device=dev, timeout_s=600) as world2:
+        world_s = time.perf_counter() - t1
+        for label, path, cname, dname, shape, level, like in mesh_runs:
+            res = world2.run(mesh_paths.rank_path, mesh_dir, path, cname, dname, shape, level,
+                             MESH_ITERS, elt)
+            mesh_line(label, path, 2, res, level, like)
+    t1 = time.perf_counter()
+    with World(1, backend='nccl', device=dev, timeout_s=600) as world1:
+        world1_s = time.perf_counter() - t1
+        res = world1.run(mesh_paths.rank_path, mesh_dir, 'limb_tp', 'ctx32', 'main', (1, 1, 1),
+                         LEVEL, MESH_ITERS)
+        nccl = mesh_line('limb_tp_path_nccl', 'limb_tp', 1, res, LEVEL, 'main_path')
+    print(json.dumps({'mesh_worlds': {'gloo_world_start_s': world_s,
+                                      'nccl_world_start_s': world1_s,
+                                      'nccl_collectives': nccl['collectives_per_step']}}),
+          flush=True)
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    phase_done('mesh')
 
     # ---- 7.-9. n=32768 and n=2^16 -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -1,6 +1,14 @@
 """LattiSense on PyTorch and CUDA: the BFV and CKKS engines, CKKS bootstrapping,
 threshold BFV, the compiled-task runtime and its foreign-library boundary (the
-raw-RNS C ABI), ported from ``lattisense_tpu``.
+raw-RNS C ABI), the four-step NTT as tensor-core matrix products
+(``ops/ntt_mxu.py``) and the device mesh (``parallel/``: the op axis, the
+limb-sharded key switch and its pipelines, the coefficient-sharded NTT and
+key switches, the task runtime's op and limb axes, over ``torch.distributed``
+with one process a rank), ported from ``lattisense_tpu``. Not ported yet
+(``ROADMAP.md`` §1 item 10): ``parallel/sharded_engine.py`` (the engine view
+and the coefficient-sharded bootstrap), the bootstrap segments sharded over
+limb or limb×coefficient, and the task runtime's coefficient axis; each
+raises ``not_ported``.
 
 The JAX package stays the reference; this package computes the same values
 bit for bit. Residues travel as ``torch.int64`` tensors holding values in

@@ -6,23 +6,40 @@ The ring's word picks the kernel: B1 (``ops/ntt_cuda.py``) for the 32-bit
 word, B5 (``ops/ntt64_cuda.py``) for the 64-bit word. A CUDA tensor launches
 the hand-written kernel, a CPU tensor runs its plain PyTorch twin there.
 ``ntt_plain`` / ``intt_plain`` are the twins themselves, on any device.
+
+With ``ops/ntt_mxu.py``'s gate on (``LATTISENSE_MXU_NTT``, ``ntt_mxu.ENABLED``)
+the 64-bit word's transforms at n >= 4096 are its four-step matrix products
+instead, on either device, as ``lattisense_tpu/core/ntt.py`` dispatches; the
+Montgomery entry and exit that B5 folds into its epilogues are then separate
+elementwise products.
 """
 
+from ..ops import ntt_mxu
 from ..ops.ntt64_cuda import ntt64_fwd, ntt64_inv
 from ..ops.ntt_cuda import intt_plain, ntt_plain, ntt32_fwd, ntt32_inv
 
 
-def ntt(x, ring):
-    """Forward NTT. x: int64 (..., L, n) in [0, q). Output bit-reversed."""
+def ntt(x, ring, to_mont: bool = False):
+    """Forward NTT. x: int64 (..., L, n) in [0, q). Output bit-reversed, and
+    with ``to_mont`` multiplied by the word's R (Montgomery form)."""
+    if ntt_mxu.enabled(ring.n, ring.word_bits):
+        y = ntt_mxu.ntt(x, ring)
+        return ring.word.to_mont(y, ring.q, ring.pinv, ring.r2) if to_mont else y
     if ring.word_bits == 64:
-        return ntt64_fwd(x, ring)
-    return ntt32_fwd(x, ring)
+        return ntt64_fwd(x, ring, to_mont)
+    return ntt32_fwd(x, ring, to_mont)
 
 
-def intt(x, ring):
-    """Inverse NTT. Input bit-reversed, output natural, scaled by n^-1."""
+def intt(x, ring, from_mont: bool = False):
+    """Inverse NTT. Input bit-reversed, output natural, scaled by n^-1, and
+    with ``from_mont`` (64-bit word) divided by R."""
+    if ntt_mxu.enabled(ring.n, ring.word_bits):
+        y = ntt_mxu.intt(x, ring)
+        return ring.word.from_mont(y, ring.q, ring.pinv) if from_mont else y
     if ring.word_bits == 64:
-        return ntt64_inv(x, ring)
+        return ntt64_inv(x, ring, from_mont)
+    if from_mont:
+        raise ValueError('B1 has no from-Montgomery epilogue; the 32-bit word strips R in B4')
     return ntt32_inv(x, ring)
 
 

@@ -179,6 +179,29 @@ def shoup_mul64(a, w, w_shoup, p):
     return torch.where(r >= p, r - p, r)
 
 
+_SIGN64 = -(1 << 63)
+
+
+def geu(a, b):
+    """a >= b for the unsigned 64-bit words held in a and b (int64 bit
+    patterns): a sum of several residues below 2^62, which may pass 2^63,
+    compares right where a plain ``>=`` on int64 would not."""
+    return (a ^ _SIGN64) >= (b ^ _SIGN64)
+
+
+def fold_sum(acc, q, terms: int):
+    """A sum of ``terms`` residues mod q (below terms·q, held as an unsigned
+    64-bit word) brought below q: conditional subtractions of q·2^k, k from
+    the top, then of q, as ``lattisense_tpu/parallel/keyswitch_sharded.py``
+    folds the limb axis's psum_scatter; every compare is unsigned."""
+    d = terms
+    while d > 1:
+        d //= 2
+        step = q * d
+        acc = torch.where(geu(acc, step), acc - step, acc)
+    return torch.where(geu(acc, q), acc - q, acc)
+
+
 W32 = SimpleNamespace(mulhi=mulhi, redc=redc, mont_mul=mont_mul, mulmod=mulmod,
                       to_mont=to_mont, from_mont=from_mont, shoup_mul=shoup_mul,
                       modsum=modsum, addmod=addmod, submod=submod, negmod=negmod)

@@ -41,8 +41,23 @@ parameter set's scale and hands its output back at the input's scale, as the
 reference's executor does.
 
 The kernels are the engine's: the task runtime launches nothing itself, and
-lets every error of a kernel propagate. Not ported here: ``mesh``, which
-raises ``NotImplementedError`` naming its ROADMAP item.
+lets every error of a kernel propagate.
+
+``mesh`` (``parallel/mesh.py``, one process a rank, see
+``parallel/launch.py``): the members of an iso-op group are split over the
+``op`` ranks in contiguous blocks (the last block padded with copies of the
+last member), and each group's outputs are all-gathered over ``op``, so that
+every rank holds whole values after each step and ``run`` returns whole
+outputs on every rank, as the JAX task does. With a ``limb`` axis every key
+switch of the engine (relinearizations, rotations, hoisted rotations) goes
+through ``ShardedKeySwitcher`` as in ``make_limb_tp_*``; every other op runs
+on the rank's op shard, replicated over ``limb``. On the card a captured run
+(``mode='jit'``, and each span of ``mode='partitioned'``) is cut at every
+collective: the spans between collectives are CUDA graphs, and the
+collectives run between their replays, one design for gloo and NCCL (gloo's
+collectives cannot be captured). Not ported yet: a ``coeff`` axis and
+bootstrap nodes on a mesh, which raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Under ``LATTISENSE_DEV`` (not empty, not ``0``) each run samples the host's
 memory, and on the card the device's, every 100 ms into
@@ -62,6 +77,9 @@ import time
 import torch
 
 from .. import not_ported, resolve_device
+from ..core import ntt as ntt_mod
+from ..core.modring import get_rns_ring
+from ..parallel.keyswitch_sharded import ShardedKeySwitcher
 from ..params import params_from_task_json
 from ..schemes.bfv import BfvEngine
 from ..schemes.ckks import CkksEngine
@@ -171,9 +189,14 @@ class _Graph:
     fused plan or one segment of it): static input buffers, the graph, and
     its static outputs (cloned on every run). ``fn`` runs once more before
     the capture, on a side stream, for its first-call work; ``keep`` (the key
-    tensors the graph reads in place) stays alive with it."""
+    tensors the graph reads in place) stays alive with it.
 
-    def __init__(self, fn, arrays, dev, keep):
+    With a ``mesh`` the capture is cut at each collective: ``program`` is the
+    graphs of the spans between collectives (one memory pool), and between
+    them the collectives, each from a static input to a static output, which
+    a replay runs eagerly."""
+
+    def __init__(self, fn, arrays, dev, keep, mesh=None):
         self.inputs = [a.clone() for a in arrays]
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
@@ -193,19 +216,116 @@ class _Graph:
             was_enabled = gc.isenabled()
             gc.disable()
             try:
-                self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
-                    self.outputs = fn(self.inputs)
+                if mesh is None:
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        self.outputs = fn(self.inputs)
+                    self.program = [graph]
+                else:
+                    self.outputs = self._capture_spans(fn, mesh, dev)
             finally:
                 if was_enabled:
                     gc.enable()
         self.keep = keep
 
+    def _capture_spans(self, fn, mesh, dev):
+        pool = torch.cuda.graph_pool_handle()
+        program, cur = [], []
+
+        def begin():
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=pool)
+            cur.append(g)
+
+        def end():
+            g = cur.pop()
+            g.capture_end()
+            program.append(g)
+
+        def collective(do, x, out_shape):
+            end()
+            out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+            program.append((do, x, out))
+            begin()
+            return out
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            mesh._recorder = collective
+            begin()
+            try:
+                outputs = fn(self.inputs)
+            finally:
+                mesh._recorder = None
+                end()
+        self.program = program
+        return outputs
+
+    @property
+    def graphs(self) -> int:
+        return sum(isinstance(p, torch.cuda.CUDAGraph) for p in self.program)
+
     def __call__(self, arrays):
         for buf, a in zip(self.inputs, arrays):
             buf.copy_(a)
-        self.graph.replay()
+        for step in self.program:
+            if isinstance(step, torch.cuda.CUDAGraph):
+                step.replay()
+            else:
+                do, x, out = step
+                out.copy_(do(x))
         return [o.clone() for o in self.outputs]
+
+
+class _LimbSwitcher:
+    """An engine's ``KeySwitcher`` whose switches run over the mesh's
+    ``limb`` axis (``ShardedKeySwitcher``, one per level); every other
+    attribute is the wrapped switcher's. A key's digit group is made once and
+    kept with the key it came from, so a captured graph reads it in place."""
+
+    def __init__(self, base, mesh):
+        self.base, self.mesh = base, mesh
+        self._sharded: dict = {}
+        self._keys: dict = {}
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def _at(self, level: int):
+        sk = self._sharded.get(level)
+        if sk is None:
+            sk = self._sharded[level] = ShardedKeySwitcher(self.base, level, self.mesh)
+        return sk
+
+    def _kd(self, ksk, level: int):
+        k = (ksk.key_q.data_ptr(), ksk.key_p.data_ptr(), tuple(ksk.key_q.shape), level)
+        hit = self._keys.get(k)
+        if hit is None:
+            hit = self._keys[k] = (ksk.key_q, ksk.key_p,
+                                   self._at(level).pad_keys(ksk.key_q, ksk.key_p))
+        return hit[2]
+
+    def _out(self, e0, e1, level: int, output_ntt: bool):
+        if not output_ntt:
+            return e0, e1
+        ring = get_rns_ring(self.base.q_moduli[:level + 1], self.base.n, self.base.device,
+                            self.base.word_bits)
+        return ntt_mod.ntt(e0, ring), ntt_mod.ntt(e1, ring)
+
+    def switch(self, x, ksk, level: int, output_ntt: bool = False):
+        return self._out(*self._at(level).traced(x, self._kd(ksk, level)), level, output_ntt)
+
+    def switch_from_digits(self, digits, ksk, level: int, output_ntt: bool = False):
+        sk = self._at(level)
+        e0, e1 = sk.traced_from_digits(sk.pad_digits(digits), self._kd(ksk, level))
+        return self._out(e0, e1, level, output_ntt)
+
+
+def _op_block(v, lo: int, k: int, m: int):
+    """Members lo .. lo+k-1 of a stacked carrier of m members, the ones past
+    the end repeating member m-1."""
+    def take(t):
+        idx = torch.arange(lo, lo + k, device=t.device).clamp_(max=m - 1)
+        return t.index_select(0, idx)
+    return dataclasses.replace(v, **{f: take(getattr(v, f)) for f in _tensor_fields(v)})
 
 
 class FheTaskGpu:
@@ -224,8 +344,8 @@ class FheTaskGpu:
                  custom_executors: dict | None = None, device=None, mesh=None):
         if mode not in ('jit', 'eager', 'partitioned'):
             raise ValueError(f"mode must be 'jit', 'eager' or 'partitioned', got {mode!r}")
-        if mesh is not None:
-            raise not_ported('a device mesh', '10')
+        if mesh is not None and mesh.shape['coeff'] > 1:
+            raise not_ported('a coefficient mesh axis', '10')
         with open(os.path.join(task_dir, 'mega_ag.json')) as f:
             self.mag = json.load(f)
         with open(os.path.join(task_dir, 'task_signature.json')) as f:
@@ -234,7 +354,11 @@ class FheTaskGpu:
         self.mode = mode
         self.batch_fuse = batch_fuse
         self.custom_executors = custom_executors or {}
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh is not None
+                                     else device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f'the task runs on {self.device}, its mesh on {mesh.device}')
         self._offline: dict = {}
         self.data = {int(k): _Node(int(k), v) for k, v in self.mag['data'].items()}
         self.inputs = list(self.mag['inputs'])
@@ -246,6 +370,8 @@ class FheTaskGpu:
         captured graphs."""
         self.params = params
         self.engine = (BfvEngine if self.algo == 'BFV' else CkksEngine)(params, self.device)
+        if self.mesh is not None and self.mesh.shape['limb'] > 1:
+            self.engine.switcher = _LimbSwitcher(self.engine.switcher, self.mesh)
         self._build_plan()
         self._graphs: dict = {}
         self._out_scales: dict = {}
@@ -352,8 +478,18 @@ class FheTaskGpu:
                     step(env, keys)
                 return
             sub = {in_tmpl[k]: _stack(col) for k, col in zip(data_pos, cols)}
+            ops = 1 if self.mesh is None else self.mesh.shape['op']
+            if ops > 1:
+                # this rank's block of members, then every rank's outputs
+                m = len(members)
+                k = -(-m // ops)
+                sub = {i: _op_block(v, self.mesh.index('op') * k, k, m) for i, v in sub.items()}
             run_one(sub, keys)
             out = sub[out_tmpl]
+            if ops > 1:
+                out = dataclasses.replace(out, **{
+                    f: self.mesh.all_gather(getattr(out, f), 'op', 0)[:len(members)]
+                    for f in _tensor_fields(out)})
             for k, o in enumerate(member_outs):
                 env[o] = _member(out, k)
         return run
@@ -514,6 +650,8 @@ class FheTaskGpu:
             return run
 
         if op == 'bootstrap':
+            if self.mesh is not None:
+                raise not_ported('a bootstrap node on a device mesh', '10')
             # at the parameter set's scale, the output handed back at the
             # input's (mega_ag_executors_cpu.cpp:460-463)
             def run(env, keys):
@@ -689,7 +827,7 @@ class FheTaskGpu:
                 made['ids'] = sorted(out)
                 flat, made['rebuild'] = _flatten([out[i] for i in made['ids']])
                 return flat
-            g = self._graphs[gk] = _Graph(fn, tensors, self.device, key_tree)
+            g = self._graphs[gk] = _Graph(fn, tensors, self.device, key_tree, self.mesh)
             g.out_ids, g.rebuild = made['ids'], made['rebuild']
         return dict(zip(g.out_ids, g.rebuild(g(tensors))))
 
@@ -724,7 +862,8 @@ class FheTaskGpu:
         g = self._graphs.get(gk)
         if g is None:
             g = self._graphs[gk] = _Graph(
-                lambda ins: self._trace(ins, key_tree, scales), arrays, self.device, key_tree)
+                lambda ins: self._trace(ins, key_tree, scales), arrays, self.device, key_tree,
+                self.mesh)
         return g
 
     def _replays(self) -> bool:

@@ -31,8 +31,6 @@ from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, DivRoundLast, ExactExtend, ShenoyConvert, _col, _mont
 from ..ops.behz_cuda import behz_finish32, behz_prep32
-from ..ops.ntt64_cuda import ntt64_fwd, ntt64_inv
-from ..ops.ntt_cuda import ntt32_fwd
 from ..params import BfvParams, bfv_aux_basis
 from .encoding import bfv_decode_slots, bfv_encode_slots
 from .galois import (apply_automorphism_coeff, apply_automorphism_ntt, galois_elt_col,
@@ -349,9 +347,10 @@ class BfvEngine:
                 # the reference's composition; B5's to-Montgomery epilogue and
                 # from-Montgomery fold stand for its separate passes
                 ext = bz.extend(polys)                                    # B6 inside
-                fq, fa = ntt64_fwd(polys, ring, to_mont=True), ntt64_fwd(ext, ra, to_mont=True)
-                dq = ntt64_inv(tensor_product(fq, ring), ring, from_mont=True)
-                da = ntt64_inv(tensor_product(fa, ra), ra, from_mont=True)
+                fq = ntt_mod.ntt(polys, ring, to_mont=True)
+                fa = ntt_mod.ntt(ext, ra, to_mont=True)
+                dq = ntt_mod.intt(tensor_product(fq, ring), ring, from_mont=True)
+                da = ntt_mod.intt(tensor_product(fa, ra), ra, from_mont=True)
                 return Ciphertext(data=bz.scale_and_back(dq, da), level=level)   # B6 inside
             # all four polynomials through one extend + NTT pass (kernel B2)
             fq, fa = behz_prep32(polys, bz)
@@ -493,6 +492,5 @@ class BfvEngine:
         if ct.is_ntt or ct.is_mform:
             raise ValueError('to_mul takes a coefficient-domain, non-Montgomery ciphertext')
         ring = self.ring(ct.level)
-        fwd = ntt64_fwd if self.word_bits == 64 else ntt32_fwd
-        return Ciphertext(data=fwd(ct.data.contiguous(), ring, to_mont=True),
+        return Ciphertext(data=ntt_mod.ntt(ct.data.contiguous(), ring, to_mont=True),
                           level=ct.level, is_ntt=True, is_mform=True)

@@ -15,7 +15,11 @@ B3, B4 against their twins, a CKKS relinearization and rotation on
 ``create_tpu_param(65536)``) and the n=256 bootstrap at both words in every
 task mode; threshold BFV at n=16384 on both words (every share, collective
 key and E2S / S2E / refresh output, card against CPU), ``ForeignTask`` on the
-card against the CPU, and the memory monitor's device column.
+card against the CPU, and the memory monitor's device column; the MXU NTT on
+both routes against B5 and with its gate on in a batched step, and worlds of
+2 ranks sharing the card over gloo (the limb-TP pipeline, the op-sharded
+step, the task replayed as graphs cut at each collective) against the
+single-card step.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -1453,3 +1457,85 @@ def test_memory_monitor_with_device(cuda, tmp_path):
     s = stats[f'cuda:{cuda.index}']
     assert 1 << 28 <= s['bytes_in_use'] <= s['bytes_limit']
     del x
+
+
+# ---------------------------------------------------------------------------
+# the MXU NTT (ops/ntt_mxu.py) against B5, and a mesh world on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('route', ['bf16', 'int8'])
+@pytest.mark.parametrize('chain,n', [('create16384', 16384), ('create16384', 4096),
+                                     ('create4096', 4096)])
+def test_mxu_ntt_matches_b5(cuda, monkeypatch, chain, n, route):
+    """Both routes of the four-step NTT as matrix products equal B5 bit for
+    bit, forward and inverse, on the 54-57-bit primes of create(16384) and
+    the 39/40-bit ones of create(4096) (six digit planes, two chunks), and
+    issue their products on the card (bmm, or one _int_mm a limb)."""
+    from lattisense_torch.ops import ntt_mxu
+    params = BfvParams.create(int(chain[6:]))
+    ring = get_rns_ring(params.q, n, cuda, 64)
+    x = card_residues(ring, (8,), 3)
+    monkeypatch.setattr(ntt_mxu, 'I8DOT', route == 'int8')
+    for k in ntt_mxu.launches:
+        ntt_mxu.launches[k] = 0
+    y = ntt_mxu.ntt(x, ring)
+    assert torch.equal(y, ntt64_cuda.ntt64_fwd(x, ring))
+    assert torch.equal(ntt_mxu.intt(y, ring), ntt64_cuda.ntt64_inv(y, ring))
+    want = {'bf16': {'mxu_bmm': 4, 'mxu_int_mm': 0},
+            'int8': {'mxu_bmm': 0, 'mxu_int_mm': 4 * len(params.q)}}[route]
+    assert ntt_mxu.launches == want
+
+
+def test_mxu_gate_mult_relin_card_matches_b5(cuda, monkeypatch):
+    """The batched u64 mult_relin at create(16384) level 3 with the gate on
+    equals the gate off bit for bit, and launches no B5."""
+    from lattisense_torch.ops import ntt_mxu
+    ctx = BfvContext.create_random_context(BfvParams.create(16384), seed=7, device=cuda)
+    rng = np.random.default_rng(2)
+    cts = [ctx.encrypt(ctx.encode(rng.integers(0, 65537, 16384), 3)) for _ in range(4)]
+    a, b = torch.stack([c.data for c in cts[:2]]), torch.stack([c.data for c in cts[2:]])
+    step = make_batched_step(ctx.engine, bfv_mult_relin, 3)
+    want = step(a, b, key_tree(ctx))
+    monkeypatch.setattr(ntt_mxu, 'ENABLED', True)
+    for k in ntt64_cuda.launches:
+        ntt64_cuda.launches[k] = 0
+    got = step(a, b, key_tree(ctx))
+    assert torch.equal(got, want)
+    assert not any(ntt64_cuda.launches.values())
+
+
+@pytest.mark.parametrize('path', ['limb_tp', 'mesh_op', 'task_jit'])
+def test_mesh_world_on_the_card(cuda, tmp_path, path):
+    """A world of 2 ranks sharing the card over gloo (its collectives staged
+    through the host and counted) runs make_limb_tp_mult_relin over
+    (op=1, limb=2), the op-sharded step, and the committed 32-mult_relin task
+    replayed as CUDA graphs cut at each collective, over (op=2): each equal to
+    the single-card step bit for bit on every rank."""
+    from lattisense_torch.parallel.launch import World
+    from lattisense_torch.runtime import tasks
+    from lattisense_torch.tools import mesh_paths
+    ctx = _mesh_ctx(cuda)
+    rng = np.random.default_rng(3)
+    cts = [ctx.encrypt(ctx.encode(rng.integers(0, 65537, 16384), 7)) for _ in range(64)]
+    a, b = torch.stack([c.data for c in cts[:32]]), torch.stack([c.data for c in cts[32:]])
+    out = make_batched_step(ctx.engine, bfv_mult_relin, 7)(a, b, key_tree(ctx))
+    mesh_paths.save(str(tmp_path), 'ctx', mesh_paths.save_context(ctx))
+    mesh_paths.save(str(tmp_path), 'main', {'a': a.cpu(), 'b': b.cpu(), 'out': out.cpu()})
+    shape = (1, 2, 1) if path == 'limb_tp' else (2, 1, 1)
+    with World(2, backend='gloo', device=cuda, timeout_s=600) as w:
+        res = w.run(mesh_paths.rank_path, str(tmp_path), path, 'ctx', 'main', shape, 7, 1,
+                    None, None, tasks.task_dir(tasks.MULT_RELIN))
+    assert all(r['equal'] for r in res)
+    assert all(r['backend'] == 'gloo' and r['collectives']['staged_bytes'] > 0 for r in res)
+    if path == 'task_jit':
+        assert all(r['graphs'] >= 2 for r in res)
+
+
+_MESH_CTX = {}
+
+
+def _mesh_ctx(cuda):
+    if cuda not in _MESH_CTX:
+        _MESH_CTX[cuda] = BfvContext.create_random_context(BfvParams.create_tpu_param(16384),
+                                                           seed=7, device=cuda)
+    return _MESH_CTX[cuda]

@@ -26,6 +26,9 @@ def test_import_pulls_in_no_jax():
             "lattisense_torch.schemes.multiparty, lattisense_torch.abi, lattisense_torch.plugin, "
             "lattisense_torch.plugin.capi, lattisense_torch.plugin.fixture, "
             "lattisense_torch.utils.observability, lattisense_torch.ops.plugin_build, "
+            "lattisense_torch.ops.ntt_mxu, lattisense_torch.parallel.mesh, "
+            "lattisense_torch.parallel.launch, lattisense_torch.parallel.keyswitch_sharded, "
+            "lattisense_torch.parallel.coeff_sharded, tests.torch_mesh_ranks, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -35,7 +38,7 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_no_jax():
-    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    files = [os.path.join(ROOT, 'chip_smoke.py'), os.path.join(ROOT, 'tests', 'torch_mesh_ranks.py')]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
     assert len(files) > 15
@@ -44,7 +47,8 @@ def test_sources_import_no_jax():
                 'schemes/ckks.py', 'utils/precision.py', 'utils/serialize.py',
                 'schemes/multiparty.py', 'abi.py', 'plugin/__init__.py', 'plugin/foreign_task.py',
                 'plugin/capi.py', 'plugin/fixture.py', 'utils/observability.py',
-                'ops/plugin_build.py'):
+                'ops/plugin_build.py', 'ops/ntt_mxu.py', 'parallel/mesh.py', 'parallel/launch.py',
+                'parallel/keyswitch_sharded.py', 'parallel/coeff_sharded.py'):
         assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:
@@ -82,7 +86,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from lattisense_torch.runtime import tasks
     from lattisense_torch.schemes import multiparty as mp
     monkeypatch.delenv('LATTISENSE_PLUGIN_PLATFORM', raising=False)
-    for entry in (lambda: BfvContext.create_random_context(params, seed=1),
+    from lattisense_torch.parallel.launch import run_ranks
+    from lattisense_torch.parallel.mesh import make_mesh
+    for entry in (lambda: make_mesh(op=1), lambda: run_ranks(1, print),
+                  lambda: BfvContext.create_random_context(params, seed=1),
                   lambda: BfvContext(params),
                   lambda: BfvEngine(params),
                   lambda: mp.DBfvParty(params, seed=1),

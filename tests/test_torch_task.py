@@ -19,6 +19,7 @@ committed directories under ``lattisense_torch/runtime/tasks/``.
 import json
 import os
 import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -664,7 +665,7 @@ def test_custom_executor(setup, mode, tmp_path):
 
 
 def test_refusals(setup, tmp_path, monkeypatch):
-    """A mesh is refused, naming its ROADMAP item; so is a context on
+    """A coefficient mesh axis is refused, naming its ROADMAP item; so is a context on
     another device, and drop_level on BFV (as the reference); under
     LATTISENSE_DEV the memory monitor writes its CSV. Partitioned mode runs the fused plan cut at its barriers
     (here none: one span), equal to eager; a CKKS task loads onto the CKKS
@@ -679,7 +680,7 @@ def test_refusals(setup, tmp_path, monkeypatch):
     want, _ = FheTask(d, mode='eager', device='cpu').run(port, args)
     assert all(torch.equal(got[f'z{k}'].data, want[f'z{k}'].data) for k in range(8))
     with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 10'):
-        FheTask(d, device='cpu', mesh=object())
+        FheTask(d, device='cpu', mesh=SimpleNamespace(shape={'op': 1, 'limb': 1, 'coeff': 2}))
     with pytest.raises(ValueError, match='mode must be'):
         FheTask(d, mode='fast', device='cpu')
     # a CKKS task from the frontend
