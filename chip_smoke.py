@@ -165,6 +165,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    step (CUDA events on each rank, between barriers), the calls and bytes
    of each collective in a step, the bytes staged through the host, the
    backend and each rank's launches.
+19. The sharded views (after 12), in worlds of ranks sharing the card over
+   gloo, each rank loading what 18. saved (or, for the toy bootstrap, making
+   the profile's context from its seed): ``coeff_engine_path``, the
+   coefficient-sharded engine view (``parallel/sharded_engine.py``) over
+   coeff=2 running the BFV ``mult_relin`` at ``main_path``'s shapes on its
+   unfused route (no B2, B3 or B4 on a shard) and the CKKS
+   ``mult_relin_rescale`` at ``ckks_path``'s; ``coeff_btp_path``
+   (``CoeffShardedBootstrap`` over coeff=2), ``limb_btp_path``
+   (``LimbShardedBootstrap`` over limb=2) and, in a world of 4,
+   ``limb_coeff_btp_path`` (limb=2 × coeff=2), each refreshing
+   ``btp_toy_path``'s input; ``mesh_task_coeff_path``, the 32-``mult_relin``
+   task with ``mesh=(op=1, limb=1, coeff=2)`` eager and replayed, and the
+   toy bootstrap task on coeff=2, partitioned. Each output equals its
+   single-card path's bit for bit on every rank; each line holds the ms a
+   step or a bootstrap (one warm-up, then 2 or 1 timed), the collectives'
+   calls and bytes, the bytes staged through the host and each rank's
+   launches. Then ``frontend_path``: the port's frontend
+   (``lattisense_torch/frontend/``, no JAX here) compiles the 32-``mult_relin``
+   graph and the toy bootstrap graph, each equal to its committed task
+   directory after the id mapping (``tasks.normalize``), and the first runs
+   on the card, replayed, equal to ``main_path``.
 
 Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
@@ -172,7 +193,8 @@ Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``ckks_w32_path``, ``ckks_rotate_path``, ``ckks_task_mix_path``,
 ``ckks_task_mix64_path``, ``btp_toy_path``, ``btp_full_path``,
 ``btp_w32_path``, ``mpc_path``, ``mpc64_path``, ``foreign_path``,
-``capi_path``, ``dev_monitor``, ``mxu_path`` and the mesh paths), a
+``capi_path``, ``dev_monitor``, ``mxu_path``, the mesh paths, the sharded
+views' paths and ``frontend_path``), a
 ``{"kernels": [...]}`` line (each kernel with the CKKS, bootstrap and threshold paths that launch it,
 ``ckks_launches``, ``btp_launches``, ``mpc_launches``),
 a ``{"phase_s": ...}`` line after each phase (its seconds and the seconds
@@ -200,7 +222,8 @@ LEVEL = 7
 LEVEL64 = 3            # the u64 chain's benchmark level (4 limbs, logQ 223)
 BATCH = 32
 WARMUP = 3
-ITERS = 20
+ITERS = 10             # timed calls of each kernel and its twin: every phase shares
+                       # the script's 1 200 s limit
 MAIN_ITERS = 10
 SEED = 7
 N32K = 32768
@@ -208,7 +231,7 @@ LEVEL_U32K = 11        # create(32768): all 12 q limbs
 LEVEL_W32K = 21        # create_tpu_param(32768): all 22 q limbs
 ITERS_32K = 5          # the n=32768 steps and the plain twins at the large shapes
 TASK_ITERS = 5         # timed runs of a task, eager and replayed
-BTP_PROFILE_REPS = 2   # bootstraps in a profiler window: each takes 0.1-1.3 s of the
+BTP_PROFILE_REPS = 1   # bootstraps in a profiler window: each takes 0.1-1.3 s of the
                        # card, and a window's host cost (15-50 s at five) grows with its events
 N64K = 1 << 16
 LEVEL_C64 = 3          # CkksParams.create(16384): 4 of the 10 q limbs
@@ -218,7 +241,8 @@ PARTIES = 3            # the threshold paths' parties, seeds 100 + i
 SIGMA_SMUDGING = 2.0 ** 30
 MPC64_ITERS = 1        # timed steps of mpc64_path
 MXU_ITERS = 3          # timed calls of the MXU route and of mxu_path's step
-MESH_ITERS = 2         # timed steps of each mesh path
+MESH_ITERS = 2         # timed steps of each mesh path, the counted one first
+VIEW_ITERS = 1         # timed steps or bootstraps of each sharded view's path: the counted one
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
 # and the float32 rate outside the tensor cores, the table's only 32-bit
@@ -589,6 +613,14 @@ def main() -> int:
         for c in counts:
             for k in c:
                 c[k] = 0
+
+    def require(what, launches, must_launch, must_not_launch):
+        missing = [k for k in must_launch if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f'{what} launched no {missing}')
+        stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
+        if stray:
+            raise AssertionError(f'{what} launched {stray}')
 
     def read_counts():
         return {k: v for c in counts for k, v in c.items()}
@@ -1353,10 +1385,11 @@ def main() -> int:
         ('mesh_task_path', 'task_eager', 'ctx32', 'main', (2, 1, 1), LEVEL, 'main_path'),
         ('mesh_task_path', 'task_jit', 'ctx32', 'main', (2, 1, 1), LEVEL, 'main_path')]
 
-    def mesh_line(label, path, world, res, level, like):
+    def mesh_line(label, path, world, res, level, like, n=N, batch=BATCH, extra=None):
         fields = {
+            **(extra or {}),
             'path': path, 'world': world, 'backend': res[0]['backend'], 'mesh': res[0]['mesh'],
-            'n': N, 'level': level, 'batch': BATCH,
+            'n': n, 'level': level, 'batch': batch,
             'bit_exact_vs': like, 'bit_exact': all(r['equal'] for r in res),
             'ms_per_step': res[0]['ms_per_step'],
             'ms_per_step_ranks': [r['ms_per_step'] for r in res],
@@ -1387,7 +1420,6 @@ def main() -> int:
                                       'nccl_world_start_s': world1_s,
                                       'nccl_collectives': nccl['collectives_per_step']}}),
           flush=True)
-    shutil.rmtree(mesh_dir, ignore_errors=True)
     phase_done('mesh')
 
     # ---- 7.-9. n=32768 and n=2^16 -----------------------------------------
@@ -1842,14 +1874,22 @@ def main() -> int:
     c32_kernels = ['ntt32_fwd', 'ntt32_inv', 'ksw_switch32']
     no_c32 = ([k for k in w32_kernels if k not in c32_kernels] + u64_kernel_counts + split_cols)
     msgs_c = complex_slots(2 * BATCH, params_c64.slots)
-    path_launches['ckks_path'] = run_path(
+    ckks_res = run_path(
         'ckks_path', ctx_c64, CkksEngine(params_c64, 'cpu'), LEVEL_C64, ckks_mult_relin_rescale,
         2, key_tree(ctx_c64), {'rlk': cpu_key(ctx_c64.rlk)}, msgs_c, None, c64_kernels,
         w32_kernels + split_cols,
         {'op': 'mult_relin_rescale', 'params': 'CkksParams.create(16384)', 'word_bits': 64,
          'scale': params_c64.scale, 'alpha': alpha_c64, 'beta': beta_c64,
          'keygen_s': keygen_c64_s},
-        judge=ckks_judge(ctx_c64, lambda i, m=msgs_c: m[i] * m[BATCH + i]))['launches']
+        judge=ckks_judge(ctx_c64, lambda i, m=msgs_c: m[i] * m[BATCH + i]))
+    path_launches['ckks_path'] = ckks_res['launches']
+    # what the coefficient view's CKKS run (19.) loads
+    mesh_paths.save(mesh_dir, 'ctxc64', mesh_paths.save_context(ctx_c64))
+    mesh_paths.save(mesh_dir, 'ckks', {'a': ckks_res['args'][0].cpu(),
+                                       'b': ckks_res['args'][1].cpu(),
+                                       'out': ckks_res['out'].cpu(), 'scale': params_c64.scale})
+    single_ms['ckks_path'] = ckks_res['ms_per_step']
+    del ckks_res
     msgs_c = complex_slots(2 * BATCH, params_c32.slots)
     path_launches['ckks_w32_path'] = run_path(
         'ckks_w32_path', ctx_c32, CkksEngine(params_c32, 'cpu'), LEVEL_C32,
@@ -1944,9 +1984,10 @@ def main() -> int:
     # the JAX package's three bootstrap runs (schemes/bootstrap_params.py
     # reference_run), one context at a time, freed before the next
     btp_paths = ['btp_toy_path', 'btp_full_path', 'btp_w32_path']
+    path_ms = {}
 
     def run_bootstrap(label, name, must_launch, must_not_launch, holds, cpu_segments=(),
-                      task=None):
+                      task=None, save_as=None):
         """Keygen, a warm-up bootstrap (the host encoding of the transforms'
         diagonals, timed again alone as ``encode_s``), one bootstrap between
         a reset and a read of every count,
@@ -1955,7 +1996,8 @@ def main() -> int:
         kernels of ``holds(ctx)`` against their twins at the path's shapes;
         the segments of ``cpu_segments`` on the CPU twin from the card's own
         input, bit for bit; the task ``task`` eager, replayed and
-        partitioned against ``ctx.bootstrap``. Prints the path's line."""
+        partitioned against ``ctx.bootstrap``; with ``save_as``, the input
+        and output for the sharded views (19.). Prints the path's line."""
         ctx, run, keygen_s = bootstrap_context(name, dev)
         eng = ctx.engine
         kbytes = key_bytes(ctx)
@@ -1989,6 +2031,9 @@ def main() -> int:
             raise AssertionError(f'the {label} launched {stray}')
         if not torch.equal(out.data, want.data):
             raise AssertionError(f'{label}: two bootstraps of one input differ')
+        if save_as:
+            mesh_paths.save(mesh_dir, save_as, {'a': ct.data.cpu(), 'level': ct.level,
+                                                'scale': ct.scale, 'out': out.data.cpu()})
         btp_ms = time_ms(torch, lambda: ctx.bootstrap(ct), 3, warmup=0)
         t1 = time.perf_counter()
         busy, top = busy_and_top(torch, lambda: ctx.bootstrap(ct), BTP_PROFILE_REPS, top=12,
@@ -2079,6 +2124,7 @@ def main() -> int:
                                  f'{line.get("segments_vs_cpu_twin")}, '
                                  f'{ {m: r["equals_ctx_bootstrap"] for m, r in line.get("task", {}).items() if m != "name"} }')
         path_launches[label] = launches
+        path_ms[label] = btp_ms
         del ctx, want, out, seg_out, kept
         torch.cuda.empty_cache()
 
@@ -2167,7 +2213,8 @@ def main() -> int:
     run_bootstrap('btp_toy_path', 'toy', ['ntt64_fwd', 'ntt64_inv'] + u64_btp,
                   w32_kernels + split_cols, btp64_holds('btp_toy', 'btp_toy_path', False),
                   cpu_segments=('raise', 'cts0', 'evalmod_da', 'stc2'),
-                  task=tasks.CKKS_BOOTSTRAP_TOY)
+                  task=tasks.CKKS_BOOTSTRAP_TOY, save_as='btp_toy')
+    single_ms['btp_toy_path'] = path_ms['btp_toy_path']
     run_bootstrap('btp_full_path', 'full', ['ntt64_fwd_cluster', 'ntt64_inv_cluster'] + u64_btp,
                   w32_kernels + ['ntt64_fwd', 'ntt64_inv'],
                   btp64_holds('btp_full', 'btp_full_path', True))
@@ -2176,15 +2223,117 @@ def main() -> int:
                    'ksw32_split_fwd', 'ksw32_split_inv'],
                   u64_kernel_counts + ['behz_prep32', 'behz_finish32'], btp32_holds)
 
-    # ---- 13. threshold BFV: collective keys, the batched path on them -----
-    def require(what, launches, must_launch, must_not_launch):
-        missing = [k for k in must_launch if launches.get(k, 0) == 0]
-        if missing:
-            raise AssertionError(f'{what} launched no {missing}')
-        stray = {k: launches[k] for k in must_not_launch if launches.get(k, 0)}
-        if stray:
-            raise AssertionError(f'{what} launched {stray}')
+    # ---- 19. the sharded views: worlds of ranks sharing the card over gloo,
+    # each loading what 18. saved (the toy bootstrap's context from its seed)
+    N_TOY = 8192
+    # what each rank must and must not launch: B1 on its degree-C ring and
+    # none of the fused B2/B3/B4, which hold a full-length NTT (32-bit
+    # views); B5, B6 and B7 (64-bit views)
+    w32_view = (['ntt32_fwd', 'ntt32_inv'],
+                ['behz_prep32', 'ksw_switch32', 'behz_finish32', 'ksw32_split_fwd',
+                 'ksw32_split_inv', 'behz32_split_fwd', 'behz32_split_inv']
+                + split_cols + u64_kernel_counts)
+    u64_view = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
+                w32_kernels + split_cols)
+    view_runs = [
+        ('coeff_engine_path', 'coeff_engine', 'ctx32', 'main', (1, 1, 2), LEVEL, 'main_path',
+         {'scheme': 'BFV', 'op': 'mult_relin', 'word_bits': 32}, w32_view),
+        ('coeff_engine_path', 'coeff_engine', 'ctxc64', 'ckks', (1, 1, 2), LEVEL_C64,
+         'ckks_path', {'scheme': 'CKKS', 'op': 'mult_relin_rescale', 'word_bits': 64},
+         u64_view),
+        ('mesh_task_coeff_path', 'task_eager', 'ctx32', 'main', (1, 1, 2), LEVEL, 'main_path',
+         {'task': tasks.MULT_RELIN}, w32_view),
+        ('mesh_task_coeff_path', 'task_jit', 'ctx32', 'main', (1, 1, 2), LEVEL, 'main_path',
+         {'task': tasks.MULT_RELIN}, w32_view),
+        ('coeff_btp_path', 'coeff_btp', 'btp:toy', 'btp_toy', (1, 1, 2), 0, 'btp_toy_path',
+         {'profile': 'toy'}, u64_view),
+        ('limb_btp_path', 'limb_btp', 'btp:toy', 'btp_toy', (1, 2, 1), 0, 'btp_toy_path',
+         {'profile': 'toy'}, u64_view),
+        ('mesh_task_coeff_path', 'btp_task', 'btp:toy', 'btp_toy', (1, 1, 2), 0,
+         'btp_toy_path', {'task': tasks.CKKS_BOOTSTRAP_TOY}, u64_view)]
 
+    def view_line(label, path, world, res, level, like, extra, must):
+        """Print the line and hold every rank's launches to ``must`` (must,
+        must not): those of the counted step, or of a captured task's
+        capture, since its replays launch nothing through a wrapper."""
+        toy = like == 'btp_toy_path'
+        captured = res[0]['graphs'] is not None
+        if captured:
+            extra = {**extra, 'capture_launches_per_rank': [r['warmup_launches'] for r in res]}
+        mesh_line(label, path, world, res, level, like, n=N_TOY if toy else N,
+                  batch=1 if toy else BATCH,
+                  extra={**extra, 'ms_per': 'bootstrap' if toy else 'step'})
+        for rank, r in enumerate(res):
+            require(f'{label} ({path}) rank {rank}' + (' in its capture' if captured else ''),
+                    r['warmup_launches'] if captured else r['launches'], *must)
+
+    t1 = time.perf_counter()
+    with World(2, backend='gloo', device=dev, timeout_s=900) as world2:
+        world_s = time.perf_counter() - t1
+        for label, path, cname, dname, shape, level, like, extra, must in view_runs:
+            res = world2.run(mesh_paths.rank_path, mesh_dir, path, cname, dname, shape, level,
+                             VIEW_ITERS)
+            view_line(label, path, 2, res, level, like, extra, must)
+    t1 = time.perf_counter()
+    with World(4, backend='gloo', device=dev, timeout_s=900) as world4:
+        world4_s = time.perf_counter() - t1
+        res = world4.run(mesh_paths.rank_path, mesh_dir, 'limb_btp', 'btp:toy', 'btp_toy',
+                         (1, 2, 2), 0, VIEW_ITERS)
+        view_line('limb_coeff_btp_path', 'limb_btp', 4, res, 0, 'btp_toy_path',
+                  {'profile': 'toy'}, u64_view)
+    print(json.dumps({'view_worlds': {'gloo_world2_start_s': world_s,
+                                      'gloo_world4_start_s': world4_s}}), flush=True)
+
+    # frontend_path: the port's frontend compiles two committed graphs
+    from lattisense_torch.frontend import custom_task as fe
+    t1 = time.perf_counter()
+    fe_dir = tempfile.mkdtemp(prefix='lattisense_frontend_')
+    p32 = BfvParams.create_tpu_param(N)
+    fe.set_fhe_param(fe.BfvParam.create_custom_param(n=N, q=list(p32.q), p=list(p32.p),
+                                                     t=p32.t))
+    ins, outs = [], []
+    for k in range(tasks.MULT_RELIN_COUNT):        # tests/test_torch_task.py build_mult_relin
+        x, y = fe.BfvCiphertextNode(f'x{k}', LEVEL), fe.BfvCiphertextNode(f'y{k}', LEVEL)
+        outs.append(fe.Argument(f'z{k}', fe.mult_relin(x, y, f'z{k}')))
+        ins += [fe.Argument(x.id, x), fe.Argument(y.id, y)]
+    fe.process_custom_task(input_args=ins, output_args=outs,
+                           output_instruction_path=os.path.join(fe_dir, 'mult_relin'))
+    fe.set_fhe_param(fe.CkksBtpParam.create_toy_param())
+    x = fe.CkksCiphertextNode('x', 0)
+    fe.process_custom_task(input_args=[fe.Argument('x', x)],
+                           output_args=[fe.Argument('z', fe.bootstrap(x, 'z'))],
+                           output_instruction_path=os.path.join(fe_dir, 'btp_toy'))
+    compile_s = time.perf_counter() - t1
+    same_dirs = {name: tasks.normalize(os.path.join(fe_dir, sub))
+                 == tasks.normalize(tasks.task_dir(name))
+                 for name, sub in ((tasks.MULT_RELIN, 'mult_relin'),
+                                   (tasks.CKKS_BOOTSTRAP_TOY, 'btp_toy'))}
+    ctx32 = mesh_paths.load(mesh_dir, 'ctx32', dev)
+    main_io = mesh_paths.load(mesh_dir, 'main', dev)
+    ft = FheTask(os.path.join(fe_dir, 'mult_relin'), mode='jit')
+    online = tasks.mult_relin_arguments(
+        [Ciphertext(data=main_io['a'][k], level=LEVEL) for k in range(BATCH)],
+        [Ciphertext(data=main_io['b'][k], level=LEVEL) for k in range(BATCH)])
+    ft.run(ctx32, online)
+    got, _ = ft.run(ctx32, online)
+    fe_ms = sum(ft.run(ctx32, online)[1] for _ in range(TASK_ITERS)) / TASK_ITERS / 1e6
+    fe_equal = all(torch.equal(got[f'z{k}'].data, main_io['out'][k]) for k in range(BATCH))
+    print(json.dumps({'frontend_path': {
+        'graphs': list(same_dirs), 'equals_committed_after_id_mapping': same_dirs,
+        'compile_s': compile_s, 'run_task': tasks.MULT_RELIN, 'mode': 'jit',
+        'bit_exact_vs': 'main_path', 'bit_exact': fe_equal, 'ms_per_run': fe_ms,
+        'main_path_ms_per_step': single_ms['main_path'], 'gpu': name_gpu,
+        'power_limit': power}}), flush=True)
+    if not (all(same_dirs.values()) and fe_equal):
+        raise AssertionError(f'frontend_path: {same_dirs}, bit_exact={fe_equal}')
+    del ft, online, got, ctx32, main_io
+    mesh_paths._loaded.clear()
+    shutil.rmtree(fe_dir, ignore_errors=True)
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done('views')
+
+    # ---- 13. threshold BFV: collective keys, the batched path on them -----
     def mpc_holds(label, params, level, word, kernel_names, fwd, inv, plain_fwd, plain_inv,
                   work, source, lines):
         """The share NTTs' kernel on the card against its twin at the

@@ -1,14 +1,13 @@
 """LattiSense on PyTorch and CUDA: the BFV and CKKS engines, CKKS bootstrapping,
 threshold BFV, the compiled-task runtime and its foreign-library boundary (the
-raw-RNS C ABI), the four-step NTT as tensor-core matrix products
-(``ops/ntt_mxu.py``) and the device mesh (``parallel/``: the op axis, the
-limb-sharded key switch and its pipelines, the coefficient-sharded NTT and
-key switches, the task runtime's op and limb axes, over ``torch.distributed``
-with one process a rank), ported from ``lattisense_tpu``. Not ported yet
-(``ROADMAP.md`` §1 item 10): ``parallel/sharded_engine.py`` (the engine view
-and the coefficient-sharded bootstrap), the bootstrap segments sharded over
-limb or limb×coefficient, and the task runtime's coefficient axis; each
-raises ``not_ported``.
+raw-RNS C ABI), the frontend that compiles its task graphs (``frontend/``),
+the four-step NTT as tensor-core matrix products (``ops/ntt_mxu.py``) and the
+device mesh (``parallel/``: the op axis, the limb-sharded key switch and its
+pipelines, the coefficient-sharded NTT and key switches, the sharded engine
+views and bootstraps over the coefficient and limb axes, the task runtime on
+every axis, over ``torch.distributed`` with one process a rank), ported from
+``lattisense_tpu``. Not ported yet (``ROADMAP.md`` §1 item 12): the models and
+the example runners.
 
 The JAX package stays the reference; this package computes the same values
 bit for bit. Residues travel as ``torch.int64`` tensors holding values in
@@ -48,9 +47,3 @@ def resolve_device(device=None) -> torch.device:
             dev = torch.device('cuda', torch.cuda.current_device())
     return dev
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error raised by a part of the reference the port does not have
-    yet, naming its item in ``ROADMAP.md`` §1."""
-    return NotImplementedError(f'{what} is not ported to lattisense_torch yet '
-                               f'(ROADMAP.md §1 item {item})')

@@ -43,6 +43,8 @@ rank and return whole results (gathered over ``coeff``); the ``*_body``
 methods work on this rank's local shards.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -52,6 +54,51 @@ from ..core.modring import bit_reverse_indices, get_rns_ring
 from ..core.rns import _shoup
 from ..schemes.galois import coeff_automorphism_maps
 from .keyswitch_sharded import ShardedKeySwitcher
+
+
+def _powers(start: int, step: int, count: int, q: int) -> list:
+    """start·step^k mod q for k < count."""
+    out = []
+    for _ in range(count):
+        out.append(start)
+        start = start * step % q
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _dist_rows(q: int, psi: int, psiC: int, n: int, D: int, d: int, word_bits: int) -> dict:
+    """One modulus's rows of rank d's ``DistNtt`` tables: {name: (values,
+    Shoup companions)} as int64 arrays, made once a (modulus, rank, degree)
+    and shared by every ``DistNtt`` that holds the modulus (a key switch at
+    each level of a bootstrap builds one over its Q_ℓ ∪ P)."""
+    R, C = D, n // D
+    chunk = C // D
+    logR = R.bit_length() - 1
+    kr_mine = int(bit_reverse_indices(logR)[d]) if logR else 0
+    psi_inv = pow(psi, -1, q)
+    om = psi * psi % q
+    om_inv = pow(om, -1, q)
+    psiC_inv = pow(psiC, -1, q)
+    R_inv = pow(R, -1, q)
+    omC, omC_inv = pow(om, C, q), pow(om_inv, C, q)
+    vals = {
+        # this rank's ψ^j, ψ^-j for j in [d·C, (d+1)·C)
+        'pre': _powers(pow(psi, d * C, q), psi, C, q),
+        'post': _powers(pow(psi_inv, d * C, q), psi_inv, C, q),
+        'WR': [[pow(omC, kr * jr, q) for jr in range(R)] for kr in range(R)],
+        # R^-1 folded into the inverse product, (jr, kr) layout
+        'WRi': [[pow(omC_inv, kr * jr, q) * R_inv % q for kr in range(R)] for jr in range(R)],
+        # twf: ω^{jc·kr}·ψ_C^{-jc} for this rank's columns jc
+        'twf': [_powers(pow(om, d * chunk * kr, q) * pow(psiC_inv, d * chunk, q) % q,
+                        pow(om, kr, q) * psiC_inv % q, chunk, q) for kr in range(R)],
+        # twi: ω^{-jc·kr}·ψ_C^{jc} for the row kr = brv(d) this rank holds
+        'twi': _powers(1, pow(om_inv, kr_mine, q) * psiC % q, C, q),
+    }
+
+    def arr(v, f=int):
+        return np.vectorize(lambda x: _u.to_s64(f(int(x))), otypes=[np.int64])(
+            np.asarray(v, dtype=object))
+    return {k: (arr(v), arr(v, lambda x: _shoup(x, q, word_bits))) for k, v in vals.items()}
 
 
 class DistNtt:
@@ -76,46 +123,12 @@ class DistNtt:
         logR = R.bit_length() - 1
         brvR = [int(v) for v in bit_reverse_indices(logR)]
         self._brvR = torch.tensor(brvR, dtype=torch.int64, device=dev)
-        chunk, kr_mine = C // D, brvR[d]
-        rows = {k: [] for k in ('pre', 'post', 'WR', 'WRi', 'twf', 'twi')}
-        for l, q in enumerate(self.moduli):
-            psi = self.ring_n.rings[l].psi
-            psi_inv = pow(psi, -1, q)
-            om = psi * psi % q
-            om_inv = pow(om, -1, q)
-            psiC = ring_C.rings[l].psi
-            psiC_inv = pow(psiC, -1, q)
-            R_inv = pow(R, -1, q)
-            # this rank's ψ^j, ψ^-j for j in [d·C, (d+1)·C)
-            pj, pij = pow(psi, d * C, q), pow(psi_inv, d * C, q)
-            pre, post = [], []
-            for _ in range(C):
-                pre.append(pj)
-                post.append(pij)
-                pj, pij = pj * psi % q, pij * psi_inv % q
-            omC, omC_inv = pow(om, C, q), pow(om_inv, C, q)
-            WR = [[pow(omC, kr * jr, q) for jr in range(R)] for kr in range(R)]
-            # R^-1 folded into the inverse product, (jr, kr) layout
-            WRi = [[pow(omC_inv, kr * jr, q) * R_inv % q for kr in range(R)] for jr in range(R)]
-            # twf: ω^{jc·kr}·ψ_C^{-jc} for this rank's columns jc
-            twf = [[pow(om, jc * kr, q) * pow(psiC_inv, jc, q) % q
-                    for jc in range(d * chunk, (d + 1) * chunk)] for kr in range(R)]
-            # twi: ω^{-jc·kr}·ψ_C^{jc} for the row kr = brv(d) this rank holds
-            twi = [pow(om_inv, jc * kr_mine, q) * pow(psiC, jc, q) % q for jc in range(C)]
-            for k, v in (('pre', pre), ('post', post), ('WR', WR), ('WRi', WRi), ('twf', twf),
-                         ('twi', twi)):
-                rows[k].append(np.array(v, dtype=object))
+        rows = [_dist_rows(q, self.ring_n.rings[l].psi, ring_C.rings[l].psi, n, D, d, word_bits)
+                for l, q in enumerate(self.moduli)]
 
         def table(key):
-            vals = np.stack(rows[key])
-            sh = np.stack([np.vectorize(lambda v, q=q: _shoup(int(v), q, word_bits),
-                                        otypes=[object])(r)
-                           for r, q in zip(rows[key], self.moduli)])
-
-            def t(a):
-                flat = [_u.to_s64(int(v)) for v in a.reshape(-1)]
-                return torch.tensor(flat, dtype=torch.int64, device=dev).reshape(a.shape)
-            return t(vals), t(sh)
+            return (torch.from_numpy(np.stack([r[key][0] for r in rows])).to(dev),
+                    torch.from_numpy(np.stack([r[key][1] for r in rows])).to(dev))
         self.pre, self.pre_sh = table('pre')          # (L, C)
         self.post, self.post_sh = table('post')       # (L, C)
         self.WR, self.WR_sh = table('WR')             # (L, kr, jr)

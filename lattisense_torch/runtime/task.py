@@ -48,16 +48,26 @@ lets every error of a kernel propagate.
 ``op`` ranks in contiguous blocks (the last block padded with copies of the
 last member), and each group's outputs are all-gathered over ``op``, so that
 every rank holds whole values after each step and ``run`` returns whole
-outputs on every rank, as the JAX task does. With a ``limb`` axis every key
-switch of the engine (relinearizations, rotations, hoisted rotations) goes
-through ``ShardedKeySwitcher`` as in ``make_limb_tp_*``; every other op runs
-on the rank's op shard, replicated over ``limb``. On the card a captured run
-(``mode='jit'``, and each span of ``mode='partitioned'``) is cut at every
-collective: the spans between collectives are CUDA graphs, and the
-collectives run between their replays, one design for gloo and NCCL (gloo's
-collectives cannot be captured). Not ported yet: a ``coeff`` axis and
-bootstrap nodes on a mesh, which raise ``NotImplementedError`` naming their
-ROADMAP item.
+outputs on every rank, as the JAX task does. With a ``limb`` or a ``coeff``
+axis the task's engine is the sharded view of ``parallel/sharded_engine.py``
+(``make_sharded_engine``, every limb on every rank): its key switches
+(relinearizations, rotations, hoisted rotations) split their digits over
+``limb`` (``ShardedKeySwitcher``), and over ``coeff`` a run cuts its input
+ciphertexts to the rank's coefficients, every step computes on coefficient
+shards (each fused group's members over ``op``, their key switches' digits
+over ``limb``, the polynomials over ``coeff``, as the JAX task's ``_place``
+constrains them; plaintext operands are cut at op entry), and the outputs
+are all-gathered over ``coeff`` at the end; custom executors then receive
+the view, ciphertext shards and whole plaintexts. A bootstrap node on a mesh runs the
+context's bootstrapper on a view of the same axes: over ``coeff`` on the
+coefficient view, over ``limb`` on the limb view (``parallel/limb_engine.py``,
+the input's limbs taken on entry and gathered on exit), over both on the limb
+× coefficient view; over ``op`` alone every rank runs the whole bootstrap, as
+the JAX task runs the node unplaced. On the card a captured run
+(``mode='jit'``, and each span and bootstrap segment of
+``mode='partitioned'``) is cut at every collective: the spans between
+collectives are CUDA graphs, and the collectives run between their replays,
+one design for gloo and NCCL (gloo's collectives cannot be captured).
 
 Under ``LATTISENSE_DEV`` (not empty, not ``0``) each run samples the host's
 memory, and on the card the device's, every 100 ms into
@@ -76,10 +86,9 @@ import time
 
 import torch
 
-from .. import not_ported, resolve_device
-from ..core import ntt as ntt_mod
-from ..core.modring import get_rns_ring
-from ..parallel.keyswitch_sharded import ShardedKeySwitcher
+from .. import resolve_device
+from ..parallel.limb_engine import make_limb_sharded_engine
+from ..parallel.sharded_engine import make_sharded_bootstrapper, make_sharded_engine
 from ..params import params_from_task_json
 from ..schemes.bfv import BfvEngine
 from ..schemes.ckks import CkksEngine
@@ -129,6 +138,10 @@ def _wrap_input(node: _Node, data, scale: float):
     if t == 'pt_mul':
         return PlaintextMul(data=data, level=node.level, scale=scale)
     raise ValueError(f'cannot wrap input of type {t}')
+
+
+def _same(ct):
+    return ct
 
 
 def _tensor_fields(v) -> tuple[str, ...]:
@@ -275,50 +288,6 @@ class _Graph:
         return [o.clone() for o in self.outputs]
 
 
-class _LimbSwitcher:
-    """An engine's ``KeySwitcher`` whose switches run over the mesh's
-    ``limb`` axis (``ShardedKeySwitcher``, one per level); every other
-    attribute is the wrapped switcher's. A key's digit group is made once and
-    kept with the key it came from, so a captured graph reads it in place."""
-
-    def __init__(self, base, mesh):
-        self.base, self.mesh = base, mesh
-        self._sharded: dict = {}
-        self._keys: dict = {}
-
-    def __getattr__(self, name):
-        return getattr(self.base, name)
-
-    def _at(self, level: int):
-        sk = self._sharded.get(level)
-        if sk is None:
-            sk = self._sharded[level] = ShardedKeySwitcher(self.base, level, self.mesh)
-        return sk
-
-    def _kd(self, ksk, level: int):
-        k = (ksk.key_q.data_ptr(), ksk.key_p.data_ptr(), tuple(ksk.key_q.shape), level)
-        hit = self._keys.get(k)
-        if hit is None:
-            hit = self._keys[k] = (ksk.key_q, ksk.key_p,
-                                   self._at(level).pad_keys(ksk.key_q, ksk.key_p))
-        return hit[2]
-
-    def _out(self, e0, e1, level: int, output_ntt: bool):
-        if not output_ntt:
-            return e0, e1
-        ring = get_rns_ring(self.base.q_moduli[:level + 1], self.base.n, self.base.device,
-                            self.base.word_bits)
-        return ntt_mod.ntt(e0, ring), ntt_mod.ntt(e1, ring)
-
-    def switch(self, x, ksk, level: int, output_ntt: bool = False):
-        return self._out(*self._at(level).traced(x, self._kd(ksk, level)), level, output_ntt)
-
-    def switch_from_digits(self, digits, ksk, level: int, output_ntt: bool = False):
-        sk = self._at(level)
-        e0, e1 = sk.traced_from_digits(sk.pad_digits(digits), self._kd(ksk, level))
-        return self._out(e0, e1, level, output_ntt)
-
-
 def _op_block(v, lo: int, k: int, m: int):
     """Members lo .. lo+k-1 of a stacked carrier of m members, the ones past
     the end repeating member m-1."""
@@ -344,8 +313,6 @@ class FheTaskGpu:
                  custom_executors: dict | None = None, device=None, mesh=None):
         if mode not in ('jit', 'eager', 'partitioned'):
             raise ValueError(f"mode must be 'jit', 'eager' or 'partitioned', got {mode!r}")
-        if mesh is not None and mesh.shape['coeff'] > 1:
-            raise not_ported('a coefficient mesh axis', '10')
         with open(os.path.join(task_dir, 'mega_ag.json')) as f:
             self.mag = json.load(f)
         with open(os.path.join(task_dir, 'task_signature.json')) as f:
@@ -370,8 +337,11 @@ class FheTaskGpu:
         captured graphs."""
         self.params = params
         self.engine = (BfvEngine if self.algo == 'BFV' else CkksEngine)(params, self.device)
-        if self.mesh is not None and self.mesh.shape['limb'] > 1:
-            self.engine.switcher = _LimbSwitcher(self.engine.switcher, self.mesh)
+        self._coeff = self.mesh is not None and self.mesh.shape['coeff'] > 1
+        if self._coeff or (self.mesh is not None and self.mesh.shape['limb'] > 1):
+            self.engine = make_sharded_engine(self.engine, self.mesh)
+        self._btp = None
+        self._sharded_btp: dict = {}
         self._build_plan()
         self._graphs: dict = {}
         self._out_scales: dict = {}
@@ -650,14 +620,16 @@ class FheTaskGpu:
             return run
 
         if op == 'bootstrap':
-            if self.mesh is not None:
-                raise not_ported('a bootstrap node on a device mesh', '10')
             # at the parameter set's scale, the output handed back at the
             # input's (mega_ag_executors_cpu.cpp:460-463)
             def run(env, keys):
                 ct = env[cts[0].index]
-                out = eng.bootstrap(Ciphertext(data=ct.data, level=ct.level, is_ntt=ct.is_ntt,
-                                               scale=self.params.scale), keys)
+                bs, enter, leave = self._bootstrapper()
+                swk = keys['swk']
+                out = leave(bs(enter(Ciphertext(data=ct.data, level=ct.level, is_ntt=ct.is_ntt,
+                                                scale=self.params.scale)),
+                               keys['rlk'], keys['glk'], swk_dts=swk.get('swk_dts'),
+                               swk_std=swk.get('swk_std')))
                 out.scale = ct.scale
                 env[out_idx] = out
             return run
@@ -714,14 +686,54 @@ class FheTaskGpu:
         return keys
 
     def _seed_env(self, input_arrays, scales) -> dict:
-        return {node.index: _wrap_input(node, arr, sc)
-                for node, arr, sc in zip(self._data_input_nodes(), input_arrays, scales)}
+        """The inputs as carriers; on a coefficient mesh, this rank's
+        coefficients of each."""
+        env = {node.index: _wrap_input(node, arr, sc)
+               for node, arr, sc in zip(self._data_input_nodes(), input_arrays, scales)}
+        if self._coeff:
+            for i, v in env.items():
+                if isinstance(v, Ciphertext):
+                    env[i] = dataclasses.replace(v, data=self.engine._sh_local(v.data))
+        return env
 
     def _finish(self, env, scales):
-        """The output tensors of a run; the output scales the plan gave are
-        recorded for this combination of input ``scales``."""
+        """The output tensors of a run (all-gathered over ``coeff`` on a
+        coefficient mesh); the output scales the plan gave are recorded for
+        this combination of input ``scales``."""
         self._out_scales[tuple(scales)] = [getattr(env[o], 'scale', 1.0) for o in self.outputs]
-        return [env[o].data for o in self.outputs]
+        out = [env[o].data for o in self.outputs]
+        if self._coeff:
+            out = [self.mesh.all_gather(t, 'coeff', t.dim() - 1) for t in out]
+        return out
+
+    def _bootstrapper(self):
+        """(bootstrapper, enter, leave) for a bootstrap node: the context's
+        bootstrapper, on a view of the mesh's limb and coefficient axes when
+        it has them; ``enter`` takes a ciphertext's limbs of this rank,
+        ``leave`` gathers them (identities without a limb axis)."""
+        btp = self._btp
+        if btp is None:
+            raise RuntimeError('engine has no bootstrapper; use CkksBtpContext')
+        mesh = self.mesh
+        if mesh is None or (mesh.shape['limb'] == 1 and not self._coeff):
+            return btp, _same, _same
+        hit = self._sharded_btp.get(id(btp))
+        if hit is None or hit[0] is not btp:
+            if mesh.shape['limb'] > 1:
+                base = getattr(self.engine, '_sh_base', self.engine)
+                view = make_limb_sharded_engine(base, mesh)
+                rows = view._sh_rows
+
+                def enter(ct):
+                    return dataclasses.replace(ct, data=rows.take(ct.data, ct.level + 1))
+
+                def leave(ct):
+                    return dataclasses.replace(ct, data=rows.gather(ct.data, ct.level + 1))
+            else:
+                view, enter, leave = self.engine, _same, _same
+            hit = self._sharded_btp[id(btp)] = (btp, make_sharded_bootstrapper(btp, view),
+                                                enter, leave)
+        return hit[1:]
 
     def _trace(self, input_arrays, key_tree, scales, progress=None):
         """Run the plan on input tensors at the input ``scales``; → the output
@@ -787,14 +799,12 @@ class FheTaskGpu:
     def _run_btp_segments(self, si, env, keys, key_tree, meta):
         """One bootstrap node, segment by segment, as the eager executor
         runs it (at the parameter set's scale, handed back at the input's)."""
-        bs = self.engine.bootstrapper
-        if bs is None:
-            raise RuntimeError('engine has no bootstrapper; use CkksBtpContext')
+        bs, enter, leave = self._bootstrapper()
         ct = next(env[i] for i in meta['inputs'] if i in env)
         out_id = next(iter(meta['outputs']))
         caller = self.params.scale
-        cts = (bs.prepare(Ciphertext(data=ct.data, level=ct.level, is_ntt=ct.is_ntt,
-                                     scale=caller)),)
+        cts = (bs.prepare(enter(Ciphertext(data=ct.data, level=ct.level, is_ntt=ct.is_ntt,
+                                           scale=caller))),)
         swk = keys['swk']
         for k, (_name, fn) in enumerate(bs.segments(caller, swk.get('swk_dts'),
                                                     swk.get('swk_std'))):
@@ -803,7 +813,7 @@ class FheTaskGpu:
                                          keys['glk'])))
             out = self._segment_call(('btp', si, k), dict(enumerate(cts)), body, key_tree)
             cts = tuple(out[j] for j in range(len(out)))
-        out, = cts
+        out = leave(cts[0])
         out.scale = ct.scale
         env[out_id] = out
 
@@ -910,7 +920,7 @@ class FheTaskGpu:
         # the bootstrap precompute lives on the caller's context engine
         btp = getattr(context.engine, 'bootstrapper', None)
         if btp is not None:
-            self.engine.bootstrapper = btp
+            self._btp = btp
         flat = self._flatten_args(input_values)
         arrays = [torch.as_tensor(v.data, dtype=torch.int64, device=self.device) for v in flat]
         default = getattr(self.params, 'scale', 1.0)

@@ -1,9 +1,9 @@
 """Compiled task directories shipped with the port, and their arguments.
 
 Each directory holds a ``mega_ag.json`` and a ``task_signature.json`` made by
-the JAX package's frontend (``python -m tests.test_torch_task`` writes them,
-with the frontend's random node ids mapped to ids in topological order; a
-test regenerates each and compares):
+the port's frontend (``lattisense_torch/frontend/``; ``python -m
+tests.test_torch_task`` writes them, with the frontend's random node ids
+mapped to ids in topological order; a test regenerates each and compares):
 
 - ``bfv_mult_relin_x32_w32_n16384_l7``: 32 independent ``mult_relin``s,
   ``x{k}``, ``y{k}`` → ``z{k}``, on the primes and t of
@@ -32,8 +32,7 @@ test regenerates each and compares):
   keys ``swk_dts`` / ``swk_std``, so it runs on a ``CkksBtpContext``;
 - ``ckks_bootstrap_u64_n256`` and ``ckks_bootstrap_w32_n256``: one bootstrap
   node at level 0 (u64) or 1 (w32) on the n = 256 chains of the JAX
-  package's bootstrap tests (``bootstrap_n256``), for the card tests, which
-  have no frontend.
+  package's bootstrap tests (``bootstrap_n256``), for the card tests.
 
 ``mult_relin_arguments``, ``mix_arguments`` / ``ckks_mix_arguments`` and
 ``mix_expected`` / ``ckks_mix_expected`` make a task's arguments on a port
@@ -41,7 +40,9 @@ context and the slots each output decrypts to, computed in NumPy (float64
 for CKKS).
 """
 
+import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -74,6 +75,26 @@ MIX_OUTPUTS = ('o_add', 'o_add_pt', 'o_dbl', 'o_zero', 'o_sub_r', 'o_neg', 'o_rs
 
 def task_dir(name: str) -> str:
     return os.path.join(HERE, name)
+
+
+_RANDOM_ID = re.compile(r'^[a-z]{12}$')
+
+
+def normalize(path: str):
+    """(mega_ag, signature) of the task directory ``path`` with the
+    frontend's random node ids (12 lowercase letters, ``custom_task.py``
+    ``random_id``) mapped to ids in topological order: data node i → 'd{i}',
+    compute node i → 'op{i}' (the frontend numbers nodes as it creates them,
+    after their inputs). The committed directories hold this form."""
+    with open(os.path.join(path, 'mega_ag.json')) as f:
+        mag = json.load(f)
+    with open(os.path.join(path, 'task_signature.json')) as f:
+        sig = json.load(f)
+    for kind, prefix in (('data', 'd'), ('compute', 'op')):
+        for idx, node in mag[kind].items():
+            if kind == 'compute' or _RANDOM_ID.match(node['id']):
+                node['id'] = f'{prefix}{idx}'
+    return mag, sig
 
 
 def mult_relin_arguments(a_cts, b_cts) -> dict:

@@ -343,9 +343,13 @@ class BfvEngine:
             bz = self.behz(level)
             ra = bz.ring_aux
             polys = torch.cat([a.data[..., :2, :, :], b.data[..., :2, :, :]], dim=-3)
-            if self.word_bits == 64:
+            if self.word_bits == 64 or getattr(ring, 'dist', None) is not None:
                 # the reference's composition; B5's to-Montgomery epilogue and
-                # from-Montgomery fold stand for its separate passes
+                # from-Montgomery fold stand for its separate passes. A
+                # sharded ring view (parallel/sharded_engine.py) takes it on
+                # either word: a coefficient shard is not a ring row, and B2
+                # and B4 hold full-length NTTs; at the 32-bit word its
+                # from-Montgomery product strips the R that B4 strips
                 ext = bz.extend(polys)                                    # B6 inside
                 fq = ntt_mod.ntt(polys, ring, to_mont=True)
                 fa = ntt_mod.ntt(ext, ra, to_mont=True)
@@ -411,6 +415,15 @@ class BfvEngine:
             'with Q); use CKKS drop_level or a full BFV modulus switch')
 
     # ---- rotations ----
+    def _auto_coeff(self, x, galois_elt: int, q):
+        """σ_g on coefficient-domain polynomials (a sharded view overrides
+        it)."""
+        return apply_automorphism_coeff(x, q, self.n, galois_elt)
+
+    def _auto_ntt(self, x, galois_elt: int):
+        """σ_g on NTT-domain polynomials (a sharded view overrides it)."""
+        return apply_automorphism_ntt(x, self.n, galois_elt)
+
     def apply_galois(self, ct: Ciphertext, galois_elt: int, glk, out_ntt: bool | None = None,
                      out_mform: bool | None = None) -> Ciphertext:
         """σ_g then key switch back to s, on any ciphertext form: NTT or
@@ -425,8 +438,8 @@ class BfvEngine:
             data = ring.word.from_mont(data, ring.q, ring.pinv)
         if ct.is_ntt:
             data = ntt_mod.intt(data.contiguous(), ring)
-        c0 = apply_automorphism_coeff(data[..., 0, :, :], ring.q, self.n, galois_elt)
-        c1 = apply_automorphism_coeff(data[..., 1, :, :], ring.q, self.n, galois_elt)
+        c0 = self._auto_coeff(data[..., 0, :, :], galois_elt, ring.q)
+        c1 = self._auto_coeff(data[..., 1, :, :], galois_elt, ring.q)
         e0, e1 = self.switcher.switch(c1, glk, level)
         out = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
         if out_ntt:
@@ -449,8 +462,8 @@ class BfvEngine:
         it permutes the precomputed NTT-domain digits directly."""
         level = dct.level
         ring = self.ring(level)
-        c0 = apply_automorphism_coeff(dct.c0, ring.q, self.n, galois_elt)
-        digits = apply_automorphism_ntt(dct.digits, self.n, galois_elt)
+        c0 = self._auto_coeff(dct.c0, galois_elt, ring.q)
+        digits = self._auto_ntt(dct.digits, galois_elt)
         e0, e1 = self.switcher.switch_from_digits(digits, glk, level, output_ntt=out_ntt)
         if out_ntt:
             c0 = ntt_mod.ntt(c0, ring)

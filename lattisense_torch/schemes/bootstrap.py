@@ -35,7 +35,6 @@ import torch
 
 from ..core import ntt as ntt_mod
 from ..core import u64 as _u
-from ..core.rns import _col, _mont
 from .bootstrap_params import find_best_bsgs_split
 from .galois import galois_elt_col, galois_elt_row
 from .linear_transform import EncodedLinearTransform
@@ -149,10 +148,9 @@ class CkksBootstrapper:
         self.cts_last_re.out_scale_target = self.em_entry_scale
         self.cts_last_im.out_scale_target = self.em_entry_scale
 
-        # ModRaise's device constants, made once (a captured CUDA graph reads
-        # them in place)
-        ring_l = engine.ring(L)
-        self._q0_mod = torch.remainder(torch.full_like(ring_l.q, self.q0_int), ring_l.q)
+        # ModRaise's device constants, made once a ring (a captured CUDA graph
+        # reads them in place)
+        self._q0_mod: dict = {}
         self._scale_up: dict = {}
         self._complex_pt: dict = {}
 
@@ -196,6 +194,7 @@ class CkksBootstrapper:
         ring_b = eng.ring(self.step - 1)
         ring_l = eng.ring(p.max_level)
         coeffs = ntt_mod.intt(ct.data.contiguous(), ring_b)     # (..., 2, step, n) mod q_j
+        coeffs = eng.whole_limbs(coeffs, self.step - 1)
         Q0 = self.q0_int
         if self.step == 1:
             v = coeffs[..., 0, :]
@@ -211,8 +210,12 @@ class CkksBootstrapper:
                 term = _u.mulmod64(coeffs[..., j, :], cj, Q0, pinv, r2)
                 v = term if v is None else _u.addmod(v, term, Q0)
         qs = ring_l.q                                  # (L+1, 1)
+        key = (ring_l.moduli, qs.device)
+        q0_mod = self._q0_mod.get(key)
+        if q0_mod is None:
+            q0_mod = self._q0_mod[key] = torch.remainder(torch.full_like(qs, Q0), qs)
         vm = torch.remainder(v.unsqueeze(-2), qs)
-        neg = torch.remainder(vm + qs - self._q0_mod, qs)
+        neg = torch.remainder(vm + qs - q0_mod, qs)
         lifted = torch.where((v > Q0 // 2).unsqueeze(-2), neg, vm)
         data = ntt_mod.ntt(lifted.contiguous(), ring_l)
         return Ciphertext(data=data, level=p.max_level, is_ntt=True, scale=ct.scale)
@@ -290,9 +293,7 @@ class CkksBootstrapper:
                 ring_b = eng.ring(self.step - 1)
                 cm = self._scale_up.get(c_int)
                 if cm is None:
-                    cm = self._scale_up[c_int] = _col(
-                        [_mont(c_int % qi, qi, eng.word_bits) for qi in eng.q[:self.step]],
-                        eng.device)
+                    cm = self._scale_up[c_int] = eng.mont_col(c_int, self.step - 1)
                 ct = Ciphertext(data=ring_b.word.mont_mul(ct.data, cm, ring_b.q, ring_b.pinv),
                                 level=self.step - 1, is_ntt=ct.is_ntt, scale=ct.scale * c_int)
             ct.scale = self.scale_eff

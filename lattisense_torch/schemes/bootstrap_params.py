@@ -229,18 +229,22 @@ class BtpProfile:
         self.max_level = len(self.q) - 1
 
     def rotations_for_bootstrapping(self) -> list[int]:
-        """The slot rotations a bootstrap at this profile needs (the
-        frontend's prediction): the SubSum steps, then CoeffsToSlots' and
-        SlotsToCoeffs' BSGS rotations."""
-        log_n = int(math.log2(self.n))
-        log_slots = int(math.log2(self.slots))
-        for pp in (self.cts_params, self.stc_params):
-            pp.log_n = log_n
-            pp.log_slots = log_slots
-        rots = [1 << i for i in range(log_slots, log_n - 1)]
-        rots += self.cts_params.rotations()
-        rots += self.stc_params.rotations()
-        return list(set(rots))
+        return bootstrap_rotations(self.n, self.slots, self.cts_params, self.stc_params)
+
+
+def bootstrap_rotations(n: int, slots: int, cts_params, stc_params) -> list[int]:
+    """The slot rotations a bootstrap needs (the frontend's prediction,
+    ``frontend/custom_task.py`` ``CkksBtpParam.rotations_for_bootstrapping``):
+    the SubSum steps, then CoeffsToSlots' and SlotsToCoeffs' BSGS rotations."""
+    log_n = int(math.log2(n))
+    log_slots = int(math.log2(slots))
+    for pp in (cts_params, stc_params):
+        pp.log_n = log_n
+        pp.log_slots = log_slots
+    rots = [1 << i for i in range(log_slots, log_n - 1)]
+    rots += cts_params.rotations()
+    rots += stc_params.rotations()
+    return list(set(rots))
 
 
 def _profile(n: int) -> BtpProfile:

@@ -61,6 +61,17 @@ class CkksEngine:
     def _tensor(self, arr):
         return as_tensor(arr, self.device)
 
+    def mont_col(self, value: int, level: int):
+        """[value·R]_{q_i} over the limbs of ``level``: an (L, 1) column on the
+        device (a limb-sharded view holds its own limbs' rows)."""
+        return _col([_mont(value % qi, qi, self.word_bits) for qi in self.q[:level + 1]],
+                    self.device)
+
+    def whole_limbs(self, x, level: int):
+        """x (..., L, n) with every limb of ``level`` on this device: x itself
+        here; a limb-sharded view gathers its ranks' limbs."""
+        return x
+
     # ---- encode / decode (host) ----
     def _residues(self, coeffs, level: int) -> np.ndarray:
         """Integer coefficients (n,), int64 or Python ints → (L, n) int64
@@ -296,9 +307,13 @@ class CkksEngine:
                                       output_ntt=True)
         return self._ct(torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3), like)
 
+    def _auto_ntt(self, x, galois_elt: int):
+        """σ_g on NTT-domain polynomials (a sharded view overrides it)."""
+        return apply_automorphism_ntt(x, self.n, galois_elt)
+
     def apply_galois(self, ct: Ciphertext, galois_elt: int, glk) -> Ciphertext:
-        c0 = apply_automorphism_ntt(ct.data[..., 0, :, :], self.n, galois_elt)
-        c1 = apply_automorphism_ntt(ct.data[..., 1, :, :], self.n, galois_elt)
+        c0 = self._auto_ntt(ct.data[..., 0, :, :], galois_elt)
+        c1 = self._auto_ntt(ct.data[..., 1, :, :], galois_elt)
         return self._switch_back(c0, c1, glk, ct.level, ct)
 
     def key_switch(self, ct: Ciphertext, ksk) -> Ciphertext:
@@ -329,8 +344,8 @@ class CkksEngine:
         """Hoisted rotation: σ_g permutes the NTT-domain digits directly."""
         level = dct.level
         ring = self.ring(level)
-        c0 = apply_automorphism_ntt(dct.c0, self.n, galois_elt)
-        digits = apply_automorphism_ntt(dct.digits, self.n, galois_elt)
+        c0 = self._auto_ntt(dct.c0, galois_elt)
+        digits = self._auto_ntt(dct.digits, galois_elt)
         e0, e1 = self.switcher.switch_from_digits(digits, glk, level, output_ntt=True)
         return Ciphertext(data=torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3),
                           level=level, is_ntt=True, scale=dct.scale)
@@ -345,7 +360,6 @@ class CkksEngine:
         """Multiply by a real scalar encoded at the default scale."""
         enc = int(round(scalar * self.params.scale))
         ring = self.ring(ct.level)
-        sm = _col([_mont(enc % qi, qi, self.word_bits) for qi in self.q[:ct.level + 1]],
-                  self.device)
+        sm = self.mont_col(enc, ct.level)
         return self._ct(ring.word.mont_mul(ct.data, sm, ring.q, ring.pinv), ct,
                         scale=ct.scale * self.params.scale)

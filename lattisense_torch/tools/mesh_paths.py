@@ -14,16 +14,29 @@ cost seconds of host sampling. ``rank_path`` then runs one path:
   ``make_limb_tp_rotate`` on the rank's op shard;
 - ``coeff_ksw``: ``CoeffShardedRelin`` on the rank's coefficient shard of the
   product ``mult(a, b)`` (computed once, outside the timing);
-- ``task_eager`` / ``task_jit``: ``FheTask(task, mode, mesh=...)``.
+- ``task_eager`` / ``task_jit``: ``FheTask(task, mode, mesh=...)``;
+- ``coeff_engine``: the coefficient-sharded engine view
+  (``parallel/sharded_engine.py``) on the rank's coefficient shard of the
+  batch: BFV mult + relinearize, or (a CKKS context) mult + relinearize +
+  rescale;
+- ``coeff_btp`` / ``limb_btp``: ``CoeffShardedBootstrap`` /
+  ``LimbShardedBootstrap`` (``parallel/limb_engine.py``) of one ciphertext
+  on the toy bootstrap profile (or the n = 256 chain), whose context each
+  rank makes from its seed (``btp:toy``, ``btp:n256``);
+- ``btp_task``: the committed toy bootstrap task with ``mesh=...``,
+  partitioned.
 
-Each gathers the whole output and compares it bit for bit with the expected
-tensor, after one warm-up step; then it times ``iters`` steps with CUDA
-events between barriers. It returns whether the output was equal, its ms a
+Each runs one warm-up step, then times ``iters`` steps with CUDA events
+between barriers, the first of them the counted step, whose whole output
+it compares bit for bit with the expected tensor. It returns whether the output was equal, its ms a
 step, the launches of every kernel in the counted step, the collectives'
 calls and bytes in that step and the bytes staged through the host, and the
-backend.
+backend; and the launches of the warm-up, which for a captured task
+(``task_jit``, ``btp_task``) are those of its capture, since a replay
+launches nothing through a wrapper.
 """
 
+import json
 import os
 import time
 
@@ -33,9 +46,14 @@ from ..ops import (bconv_cuda, behz_cuda, ksw64_cuda, ksw_cuda, ntt64_cuda, ntt_
                    ntt_mxu)
 from ..parallel import batch as pb
 from ..parallel.coeff_sharded import CoeffShardedRelin
+from ..parallel.limb_engine import LimbShardedBootstrap
 from ..parallel.mesh import ct_batch_spec, make_mesh, shard, unshard
-from ..runtime import BfvContext, FheTask, tasks
+from ..parallel.sharded_engine import CoeffShardedBootstrap, make_coeff_sharded_engine
+from ..params import CkksParams
+from ..runtime import BfvContext, CkksBtpContext, CkksContext, FheTask, tasks
+from ..schemes.bootstrap import BootstrapConfig
 from ..schemes.types import Ciphertext
+from .profile_step import bootstrap_context
 
 COUNTS = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
           bconv_cuda.launches, ksw64_cuda.launches, ntt_mxu.launches)
@@ -45,7 +63,7 @@ _loaded: dict = {}
 
 def save_context(ctx, galois_elts=()) -> dict:
     """A context's parameters and keys as CPU tensors (``torch.save``-able)."""
-    return {'params': ctx.params, 'sk': torch.as_tensor(ctx.sk.coeffs).cpu(),
+    return {'params': ctx.params, 'ckks': isinstance(ctx, CkksContext), 'sk': torch.as_tensor(ctx.sk.coeffs).cpu(),
             'pk': ctx.pk.data.cpu(), 'rlk': (ctx.rlk.key_q.cpu(), ctx.rlk.key_p.cpu()),
             'glk': {e: (ctx.glk.keys[e].key_q.cpu(), ctx.glk.keys[e].key_p.cpu())
                     for e in galois_elts}}
@@ -57,11 +75,28 @@ def save(directory: str, name: str, obj):
 
 def load(directory: str, name: str, device):
     key = (directory, name, str(device))
+    if key not in _loaded and name.startswith('btp:'):
+        # a bootstrapping context from its seed ('btp:toy', the toy profile;
+        # 'btp:n256', the JAX tests' n = 256 u64 chain), with the Galois
+        # keys its committed task's signature lists
+        if name == 'btp:n256':
+            b = tasks.bootstrap_n256(64)
+            ctx = CkksBtpContext.create_random_context(
+                CkksParams.create_custom(b['n'], b['q'], b['p'], scale=b['scale']),
+                seed=b['seed'], h=b['h'], btp_config=BootstrapConfig(**b['cfg']), device=device)
+            task = tasks.BOOTSTRAP_N256[64]
+        else:
+            ctx = bootstrap_context(name[4:], device)[0]
+            task = tasks.CKKS_BOOTSTRAP_TOY
+        with open(os.path.join(tasks.task_dir(task), 'task_signature.json')) as f:
+            ctx.gen_galois_keys_for_elements([int(e) for e in json.load(f)['key']['glk']])
+        _loaded[key] = ctx
     if key not in _loaded:
         obj = torch.load(os.path.join(directory, f'{name}.pt'), weights_only=False)
         if isinstance(obj, dict) and 'params' in obj:
-            ctx = BfvContext.from_arrays(obj['params'], obj['sk'], obj['pk'], *obj['rlk'],
-                                         device=device)
+            cls = CkksContext if obj.get('ckks') else BfvContext
+            ctx = cls.from_arrays(obj['params'], obj['sk'], obj['pk'], *obj['rlk'],
+                                  device=device)
             for e, (kq, kp) in obj['glk'].items():
                 ctx.add_galois_key_arrays(e, kq, kp)
             obj = ctx
@@ -127,6 +162,28 @@ def rank_path(directory: str, path: str, ctx_name: str, data_name: str, shape, l
 
         def fn():
             return mesh.all_gather(relin.body(c3, kd), 'coeff', -1)
+    elif path == 'coeff_engine':
+        view = make_coeff_sharded_engine(eng, mesh)
+        ckks = data.get('scale') is not None
+        ca, cb = (view.shard_ct(Ciphertext(data=x, level=level, is_ntt=ckks,
+                                           scale=data.get('scale') or 1.0)) for x in (a, b))
+
+        def fn():
+            out = view.relinearize(view.mult(ca, cb), ctx.rlk)
+            return view.gather_ct(view.rescale(out) if ckks else out).data
+    elif path in ('coeff_btp', 'limb_btp'):
+        bs = (CoeffShardedBootstrap if path == 'coeff_btp' else LimbShardedBootstrap)(ctx, mesh)
+        x = bs.shard(Ciphertext(data=a, level=data['level'], is_ntt=True, scale=data['scale']))
+
+        def fn():
+            return bs.gather(bs(x)).data
+    elif path == 'btp_task':
+        task = FheTask(task_dir or tasks.task_dir(tasks.CKKS_BOOTSTRAP_TOY), mode='partitioned',
+                       mesh=mesh)
+        x = Ciphertext(data=a, level=data['level'], is_ntt=True, scale=data['scale'])
+
+        def fn():
+            return task.run(ctx, {'x': x})[0]['z'].data
     elif path in ('task_eager', 'task_jit'):
         task = FheTask(task_dir or tasks.task_dir(tasks.MULT_RELIN), mode=path[5:], mesh=mesh)
         online = tasks.mult_relin_arguments(
@@ -143,32 +200,33 @@ def rank_path(directory: str, path: str, ctx_name: str, data_name: str, shape, l
     def sync():
         if cuda:
             torch.cuda.synchronize(dev)
+    _reset()
     fn()                                          # warm-up: tables, caches, graphs
     sync()
+    warmup = _read()
     mesh.barrier()
     _reset()
     mesh.reset_stats()
-    out = fn()
-    sync()
-    launches = _read()
-    stats = {k: dict(v) if isinstance(v, dict) else v for k, v in mesh.stats.items()}
-    equal = bool(torch.equal(out, want))
-    del out
-    mesh.barrier()
     if cuda:
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
     t0 = time.perf_counter()
-    for _ in range(iters):
+    out = fn()                                    # the counted step, the first timed one
+    launches = _read()
+    stats = {k: dict(v) if isinstance(v, dict) else v for k, v in mesh.stats.items()}
+    for _ in range(iters - 1):
         fn()
     if cuda:
         stop.record()
     sync()
     ms = start.elapsed_time(stop) / iters if cuda else (time.perf_counter() - t0) * 1e3 / iters
+    equal = bool(torch.equal(out, want))
+    del out
     mesh.barrier()
     graphs = None
-    if path == 'task_jit':
+    if path in ('task_jit', 'btp_task'):
         graphs = sum(g.graphs for g in task._graphs.values())
     return {'equal': equal, 'ms_per_step': ms,
-            'launches': launches, 'collectives': stats, 'backend': mesh.backend,
+            'launches': launches, 'warmup_launches': warmup, 'collectives': stats,
+            'backend': mesh.backend,
             'mesh': dict(mesh.shape), 'graphs': graphs}

@@ -1539,3 +1539,65 @@ def _mesh_ctx(cuda):
         _MESH_CTX[cuda] = BfvContext.create_random_context(BfvParams.create_tpu_param(16384),
                                                            seed=7, device=cuda)
     return _MESH_CTX[cuda]
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine views (parallel/sharded_engine.py) on the card
+# ---------------------------------------------------------------------------
+
+def test_coeff_engine_view_on_the_card(cuda, tmp_path):
+    """The coefficient-sharded view of a 31-bit BFV engine in a world of 2
+    ranks sharing the card over gloo: mult + relinearize at n = 4096, L3,
+    batch 4, on its unfused route (B1 on the degree-C rings; B2, B3 and B4
+    launched by neither rank), equal bit for bit on every rank to the CPU
+    twin of the same seed."""
+    from lattisense_torch.core.modring import gen_ntt_primes
+    from lattisense_torch.parallel.launch import World
+    from lattisense_torch.tools import mesh_paths
+    n, level = 4096, 3
+    q = gen_ntt_primes(n, 31, 4)
+    p = gen_ntt_primes(n, 31, 2, exclude=tuple(q))
+    params = BfvParams.create_custom(n, 65537, q, p, word_bits=32)
+    card, twin = (BfvContext.create_random_context(params, seed=5, device=d) for d in (cuda, CPU))
+    rng = np.random.default_rng(6)
+    cts = [twin.encrypt(twin.encode(rng.integers(0, 65537, n), level)) for _ in range(8)]
+    a, b = torch.stack([c.data for c in cts[:4]]), torch.stack([c.data for c in cts[4:]])
+    eng = twin.engine
+    want = eng.relinearize(eng.mult(Ciphertext(data=a, level=level),
+                                    Ciphertext(data=b, level=level)), twin.rlk).data
+    mesh_paths.save(str(tmp_path), 'ctx', mesh_paths.save_context(card))
+    mesh_paths.save(str(tmp_path), 'main', {'a': a, 'b': b, 'out': want})
+    with World(2, backend='gloo', device=cuda, timeout_s=600) as w:
+        res = w.run(mesh_paths.rank_path, str(tmp_path), 'coeff_engine', 'ctx', 'main',
+                    (1, 1, 2), level, 1)
+    assert all(r['equal'] for r in res)
+    for r in res:
+        assert r['launches'].get('ntt32_fwd') and r['launches'].get('ntt32_inv')
+        assert not any(r['launches'].get(k) for k in ('behz_prep32', 'ksw_switch32',
+                                                      'behz_finish32'))
+
+
+def test_coeff_sharded_bootstrap_on_the_card(cuda, tmp_path):
+    """``CoeffShardedBootstrap`` of the n = 256 u64 chain in a world of 2
+    ranks sharing the card: equal bit for bit on every rank to the CPU
+    twin's bootstrap of the same input (one seed, the same keys)."""
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.parallel.launch import World
+    from lattisense_torch.runtime import CkksBtpContext, tasks
+    from lattisense_torch.schemes.bootstrap import BootstrapConfig
+    from lattisense_torch.tools import mesh_paths
+    b = tasks.bootstrap_n256(64)
+    params = CkksParams.create_custom(b['n'], b['q'], b['p'], scale=b['scale'])
+    twin = CkksBtpContext.create_random_context(params, seed=b['seed'], h=b['h'],
+                                                btp_config=BootstrapConfig(**b['cfg']),
+                                                device=CPU)
+    x = twin.encrypt(twin.encode(np.random.default_rng(9).uniform(-1, 1, params.slots),
+                                 b['level']))
+    want = twin.bootstrap(x)
+    mesh_paths.save(str(tmp_path), 'btp', {'a': x.data, 'level': x.level, 'scale': x.scale,
+                                           'out': want.data})
+    with World(2, backend='gloo', device=cuda, timeout_s=600) as w:
+        res = w.run(mesh_paths.rank_path, str(tmp_path), 'coeff_btp', 'btp:n256', 'btp',
+                    (1, 1, 2), b['level'], 1)
+    assert all(r['equal'] for r in res)
+    assert all(r['launches'].get('ntt64_fwd') for r in res)

@@ -28,7 +28,9 @@ def test_import_pulls_in_no_jax():
             "lattisense_torch.utils.observability, lattisense_torch.ops.plugin_build, "
             "lattisense_torch.ops.ntt_mxu, lattisense_torch.parallel.mesh, "
             "lattisense_torch.parallel.launch, lattisense_torch.parallel.keyswitch_sharded, "
-            "lattisense_torch.parallel.coeff_sharded, tests.torch_mesh_ranks, "
+            "lattisense_torch.parallel.coeff_sharded, lattisense_torch.parallel.sharded_engine, "
+            "lattisense_torch.parallel.limb_engine, lattisense_torch.frontend.custom_task, "
+            "lattisense_torch.frontend.graph, tests.torch_mesh_ranks, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -48,7 +50,9 @@ def test_sources_import_no_jax():
                 'schemes/multiparty.py', 'abi.py', 'plugin/__init__.py', 'plugin/foreign_task.py',
                 'plugin/capi.py', 'plugin/fixture.py', 'utils/observability.py',
                 'ops/plugin_build.py', 'ops/ntt_mxu.py', 'parallel/mesh.py', 'parallel/launch.py',
-                'parallel/keyswitch_sharded.py', 'parallel/coeff_sharded.py'):
+                'parallel/keyswitch_sharded.py', 'parallel/coeff_sharded.py',
+                'parallel/sharded_engine.py', 'parallel/limb_engine.py', 'frontend/__init__.py',
+                'frontend/graph.py', 'frontend/custom_task.py'):
         assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:

@@ -8,6 +8,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -212,10 +213,12 @@ def test_task_mesh(world, u64, mult_relin_task, shape, mode):
 
 
 def test_task_mesh_coefficient_axis_refused(mult_relin_task):
-    """A coefficient axis is not ported yet and names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 10'):
+    """A coefficient axis the ring cannot split (n not divisible by D²) is
+    refused; one that can is taken (``tests/test_torch_sharded_engine.py``)."""
+    with pytest.raises(ValueError, match=r'not divisible by D\^2=256'):
         FheTask(mult_relin_task, device='cpu',
-                mesh=SimpleNamespace(shape={'op': 1, 'limb': 1, 'coeff': 2}))
+                mesh=SimpleNamespace(shape={'op': 1, 'limb': 1, 'coeff': 16},
+                                     device=torch.device('cpu')))
 
 
 def test_world_reports_a_rank_error():

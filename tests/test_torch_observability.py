@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from lattisense_tpu.frontend import custom_task as ctk
 from lattisense_tpu.utils import observability as robs
 
 from lattisense_torch.core.modring import gen_ntt_primes
+from lattisense_torch.frontend import custom_task as ctk
 from lattisense_torch.params import BfvParams
 from lattisense_torch.runtime import BfvContext, FheTask
 from lattisense_torch.utils import observability as obs

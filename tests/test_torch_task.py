@@ -1,7 +1,8 @@
 """lattisense_torch's compiled-task runtime held bit for bit against lattisense_tpu.
 
-Task directories are made with the JAX package's frontend, as
-``tests/test_runtime.py`` makes them. The port's ``FheTask(dir, mode=m,
+Task directories are made with the port's frontend
+(``lattisense_torch/frontend/``), which writes the JAX package's frontend's
+bytes (``tests/test_torch_frontend.py``). The port's ``FheTask(dir, mode=m,
 device='cpu')``, m in {eager, jit}, must give the same output data as the
 reference's ``FheTaskTpu(dir, mode='eager')`` (NumPy) on the same keys
 (carried across by ``BfvContext.from_arrays`` and ``add_galois_key_arrays``)
@@ -18,7 +19,6 @@ committed directories under ``lattisense_torch/runtime/tasks/``.
 
 import json
 import os
-import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -26,7 +26,6 @@ import pytest
 import torch
 
 from lattisense_tpu.core.modring import gen_ntt_primes as ref_primes
-from lattisense_tpu.frontend import custom_task as ct
 from lattisense_tpu.params import BfvParams as RefBfvParams
 from lattisense_tpu.params import CkksParams as RefCkksParams
 from lattisense_tpu.runtime import BfvContext as RefContext
@@ -34,6 +33,7 @@ from lattisense_tpu.runtime import CkksContext as RefCkksContext
 from lattisense_tpu.runtime import FheTaskTpu
 from lattisense_tpu.schemes.types import PlaintextRingt as RefRingt
 
+from lattisense_torch.frontend import custom_task as ct
 from lattisense_torch.params import BfvParams, CkksParams
 from lattisense_torch.runtime import BfvContext, CkksContext, FheTask, FheTaskGpu
 from lattisense_torch.schemes.ckks import CkksEngine
@@ -174,23 +174,7 @@ def gen_task(fe_param, build, path, *args) -> str:
     return str(path)
 
 
-_RANDOM_ID = re.compile(r'^[a-z]{12}$')
-
-
-def normalize(task_dir: str):
-    """(mega_ag, signature) with the frontend's random node ids (12
-    lowercase letters, custom_task.py random_id) mapped to ids in
-    topological order: data node i → 'd{i}', compute node i → 'op{i}' (the
-    frontend numbers nodes as it creates them, after their inputs)."""
-    with open(os.path.join(task_dir, 'mega_ag.json')) as f:
-        mag = json.load(f)
-    with open(os.path.join(task_dir, 'task_signature.json')) as f:
-        sig = json.load(f)
-    for kind, prefix in (('data', 'd'), ('compute', 'op')):
-        for idx, node in mag[kind].items():
-            if kind == 'compute' or _RANDOM_ID.match(node['id']):
-                node['id'] = f'{prefix}{idx}'
-    return mag, sig
+normalize = fixtures.normalize
 
 
 def committed_fixtures():
@@ -665,7 +649,8 @@ def test_custom_executor(setup, mode, tmp_path):
 
 
 def test_refusals(setup, tmp_path, monkeypatch):
-    """A coefficient mesh axis is refused, naming its ROADMAP item; so is a context on
+    """A coefficient mesh axis the ring cannot split (n not divisible by D²) is
+    refused; so is a context on
     another device, and drop_level on BFV (as the reference); under
     LATTISENSE_DEV the memory monitor writes its CSV. Partitioned mode runs the fused plan cut at its barriers
     (here none: one span), equal to eager; a CKKS task loads onto the CKKS
@@ -679,8 +664,9 @@ def test_refusals(setup, tmp_path, monkeypatch):
     got, _ = part.run(port, args)
     want, _ = FheTask(d, mode='eager', device='cpu').run(port, args)
     assert all(torch.equal(got[f'z{k}'].data, want[f'z{k}'].data) for k in range(8))
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md §1 item 10'):
-        FheTask(d, device='cpu', mesh=SimpleNamespace(shape={'op': 1, 'limb': 1, 'coeff': 2}))
+    with pytest.raises(ValueError, match=r'not divisible by D\^2=1024'):
+        FheTask(d, device='cpu', mesh=SimpleNamespace(shape={'op': 1, 'limb': 1, 'coeff': 32},
+                                                      device=torch.device('cpu')))
     with pytest.raises(ValueError, match='mode must be'):
         FheTask(d, mode='fast', device='cpu')
     # a CKKS task from the frontend

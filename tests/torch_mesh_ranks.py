@@ -146,3 +146,107 @@ def rank_or_raise(bad: int):
     if dist.get_rank() == bad:
         raise ValueError(f'rank {bad} refuses')
     return dist.get_rank()
+
+
+def _ct(data, level, scale=None, is_ntt=None):
+    ntt = scale is not None if is_ntt is None else is_ntt
+    return Ciphertext(data=T(data), level=level, is_ntt=ntt,
+                      scale=1.0 if scale is None else scale)
+
+
+def engine_view(spec, shape, kind, level, datas, elt=None, scale=None):
+    """One op of the coefficient-sharded engine view (``make_coeff_sharded_
+    engine``) on this rank's shards of ``datas``; → the whole output.
+    CKKS kinds: 'mult_relin_rescale', 'rotate', 'hoisted'; BFV kinds:
+    'mult' (ct × ct → ct3), 'relin' (of a ct3), 'rotate' (rotate_cols by
+    ``elt``'s step), 'mult_relin_rotate'."""
+    from lattisense_torch.parallel.sharded_engine import make_coeff_sharded_engine
+    mesh = _mesh(shape)
+    ctx = context(spec)
+    eng = make_coeff_sharded_engine(ctx.engine, mesh)
+    cts = [eng.shard_ct(_ct(d, level, scale)) for d in datas]
+    glk = ctx.glk.keys.get(elt) if elt is not None else None
+    if kind == 'mult_relin_rescale':
+        out = eng.rescale(eng.relinearize(eng.mult(cts[0], cts[1]), ctx.rlk))
+    elif kind == 'rotate':
+        out = eng.apply_galois(cts[0], elt, glk)
+    elif kind == 'hoisted':
+        out = eng.apply_galois_decomposed(eng.rns_sp_decomp(cts[0]), elt, glk)
+    elif kind == 'mult':
+        out = eng.mult(cts[0], cts[1])
+    elif kind == 'relin':
+        out = eng.relinearize(cts[0], ctx.rlk)
+    else:
+        out = eng.apply_galois(eng.relinearize(eng.mult(cts[0], cts[1]), ctx.rlk), elt, glk)
+    return A(eng.gather_ct(out).data)
+
+
+_btp_contexts: dict = {}
+
+
+def btp_context(args):
+    """The port's bootstrapping context of a JAX test's fixture:
+    ``args`` = (n, q, p, scale, word, seed, h, cfg), keys from the seed; made
+    once a process (the cases of one fixture share it)."""
+    from lattisense_torch.runtime import CkksBtpContext
+    from lattisense_torch.schemes.bootstrap import BootstrapConfig
+    key = repr(args)
+    ctx = _btp_contexts.get(key)
+    if ctx is None:
+        n, q, p, scale, word, seed, h, cfg = args
+        params = CkksParams.create_custom(n, q, p, scale=scale, word_bits=word)
+        ctx = _btp_contexts[key] = CkksBtpContext.create_random_context(
+            params, seed=seed, h=h, btp_config=BootstrapConfig(**cfg), device='cpu')
+    return ctx
+
+
+def btp_walk(args, shape, kind, data, level, scale, call=False):
+    """The bootstrap of one base-level ciphertext on the sharded view ('coeff':
+    ``CoeffShardedBootstrap``, 'limb': ``LimbShardedBootstrap``), segment by
+    segment; → [(name, [(whole data, level, scale), ...])] at every
+    boundary, and the bootstrap's output through ``__call__``."""
+    from lattisense_torch.parallel.limb_engine import LimbShardedBootstrap
+    from lattisense_torch.parallel.sharded_engine import CoeffShardedBootstrap
+    mesh = _mesh(shape)
+    ctx = btp_context(args)
+    bs = (CoeffShardedBootstrap(ctx, mesh) if kind == 'coeff'
+          else LimbShardedBootstrap(ctx, mesh))
+    ct = bs.shard(_ct(data, level, scale))
+    cts, out = (ct,), []
+    for name, fn in bs.segments(ct.scale):
+        cts = fn(cts, bs.rlk, bs.glk)
+        out.append((name, [(A(bs.gather(c).data), c.level, c.scale) for c in cts]))
+    if not call:
+        return out, None
+    whole = bs.gather(bs(ct))
+    return out, (A(whole.data), whole.level, whole.scale)
+
+
+def engine_view_refusal(spec, shape):
+    """The error a ``PlaintextRingt`` operand raises on the view."""
+    from lattisense_torch.parallel.sharded_engine import make_coeff_sharded_engine
+    ctx = context(spec)
+    eng = make_coeff_sharded_engine(ctx.engine, _mesh(shape))
+    ct = eng.shard_ct(ctx.encrypt(ctx.encode(np.arange(spec['n']) % 7, 1)))
+    try:
+        eng.add(ct, eng.encode_ringt(np.arange(spec['n']) % 7))
+    except NotImplementedError as e:
+        return str(e)
+    return 'accepted'
+
+
+def btp_task_run(word, shape, modes, data, scale):
+    """The committed n = 256 one-bootstrap task (``tasks.BOOTSTRAP_N256``)
+    with ``mesh=shape`` in each of ``modes`` on the port's context of
+    ``tasks.bootstrap_n256(word)``; → {mode: (whole output, level, scale)}."""
+    from lattisense_torch.runtime import tasks
+    b = tasks.bootstrap_n256(word)
+    ctx = btp_context((b['n'], b['q'], b['p'], b['scale'], word, b['seed'], b['h'], b['cfg']))
+    mesh = _mesh(shape)
+    out = {}
+    for mode in modes:
+        task = FheTask(tasks.task_dir(tasks.BOOTSTRAP_N256[word]), mode=mode, device='cpu',
+                       mesh=mesh)
+        z = task.run(ctx, {'x': _ct(data, b['level'], scale)})[0]['z']
+        out[mode] = (A(z.data), z.level, z.scale)
+    return out
