@@ -186,6 +186,28 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    graph and the toy bootstrap graph, each equal to its committed task
    directory after the id mapping (``tasks.normalize``), and the first runs
    on the card, replayed, equal to ``main_path``.
+20. The model zoo (``lattisense_torch/models/``) at the JAX examples' sizes,
+   one context a chain holding the union of its models' keys (a
+   ``model_contexts`` line): ``model_logistic_path`` (30 features, level 3),
+   ``model_distance_path`` (pack 4, skip slots/8, level 3) and
+   ``model_conv_path`` (32×32 input, 3×3 kernel, pack 4, level 2) on
+   ``CkksParams.create(16384)``; ``model_poly_path`` (degree 7, top level 4)
+   on ``BfvParams.create(16384)``; ``model_matvec_path`` (8192 slots, 32
+   nonzero diagonals, level 2) on ``CkksParams.create(16384)`` and
+   ``model_matvec_w32_path`` on ``create_tpu_param(16384)``, each through
+   ``FheModel.load`` and ``FheTask``: the ms a run eager and replayed, idle
+   shares, the top kernels, each kernel's launches in the counted eager run,
+   the decoded error against the numpy oracle within the JAX tests' bounds,
+   the key bytes. The matvec lines' kernels (B5, B6, B7; B1, B3) are held
+   against their twins at their shapes (batch 1, level 2). Then
+   ``model_toy_paths``: each model on its toy chain at n=1024
+   (``tests/test_models.py``), the card's output data equal to the port's
+   CPU run bit for bit. Then ``examples_path``: every runner of
+   ``lattisense_torch/examples/`` through ``main(['--toy'])`` in this
+   process on the card (``ckks_bootstrap`` also with ``--w32``;
+   ``multichip_sharding`` in a gloo world of 4 ranks sharing the card), each
+   printing OK last, with its seconds, the values it checked and its
+   launches.
 
 Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``task_mix_path``, ``u64_path``, ``u64_rotate_path``, ``task_mix64_path``,
@@ -194,9 +216,10 @@ Prints a line for each path (``main_path``, ``rotate_path``, ``task_path``,
 ``ckks_task_mix64_path``, ``btp_toy_path``, ``btp_full_path``,
 ``btp_w32_path``, ``mpc_path``, ``mpc64_path``, ``foreign_path``,
 ``capi_path``, ``dev_monitor``, ``mxu_path``, the mesh paths, the sharded
-views' paths and ``frontend_path``), a
-``{"kernels": [...]}`` line (each kernel with the CKKS, bootstrap and threshold paths that launch it,
-``ckks_launches``, ``btp_launches``, ``mpc_launches``),
+views' paths, ``frontend_path``, the six ``model_*_path`` lines,
+``model_toy_paths`` and ``examples_path``), a
+``{"kernels": [...]}`` line (each kernel with the CKKS, bootstrap, threshold and model paths
+that launch it, ``ckks_launches``, ``btp_launches``, ``mpc_launches``, ``models_launches``),
 a ``{"phase_s": ...}`` line after each phase (its seconds and the seconds
 since the start), the card's name and power
 limit as nvidia-smi reports them, and as its last line ``{"ok": true,
@@ -243,6 +266,9 @@ MPC64_ITERS = 1        # timed steps of mpc64_path
 MXU_ITERS = 3          # timed calls of the MXU route and of mxu_path's step
 MESH_ITERS = 2         # timed steps of each mesh path, the counted one first
 VIEW_ITERS = 1         # timed steps or bootstraps of each sharded view's path: the counted one
+MODEL_ITERS = 3        # timed runs of each model's task, eager and replayed
+MODEL_REPS = 2         # runs of each model's task in a profiler window
+MODEL_TOY_N = 1024     # the model zoo's toy chains (tests/test_models.py)
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s,
 # and the float32 rate outside the tensor cores, the table's only 32-bit
@@ -563,6 +589,120 @@ def read_csv(path: str) -> tuple[list[str], list[list[str]]]:
     with open(path) as f:
         header = f.readline().strip().split(',')
         return header, [line.strip().split(',') for line in f if line.strip()]
+
+
+def banded_matrix(np, s: int, n1: int, rng):
+    """An s × s matrix with 32 nonzero diagonals, {0..15} ∪ {n1·k, k = 1..16}:
+    15 hoisted baby rotations and 16 giant ones in ``EncryptedMatVec``'s BSGS
+    split (n1 its baby-step count), 31 Galois keys."""
+    A = np.zeros((s, s))
+    k = np.arange(s)
+    for d in list(range(16)) + [n1 * j for j in range(1, 17)]:
+        A[k, (k + d) % s] = rng.uniform(-1, 1, s)
+    return A
+
+
+def model_specs(np, full: bool, slots: int):
+    """The model lines: label → (chain kind, make(models, fe, matrix) →
+    model, pack(model, ctx, rng) → (inputs, oracle), decoded-error bound,
+    sizes). At full width the JAX examples' sizes; at the toy chain
+    (``full`` False) the sizes of ``tests/test_models.py``."""
+    skip = slots // 8
+    n_feat = 30 if full else 13
+    shape, pack_c = ((32, 32), max(1, min(4, slots // 1024))) if full else ((4, 4), 2)
+
+    def logistic(M, fe, A):
+        return M.LogisticRegressionScore(fe, n_features=n_feat, level=3)
+
+    def pack_logistic(m, c, rng):
+        xv, wv = rng.uniform(-1, 1, n_feat), rng.uniform(-1, 1, n_feat)
+        return m.pack_inputs(c, xv, wv, 0.25), xv @ wv + 0.25
+
+    def distance(M, fe, A):
+        return M.PackedEuclideanDistance(fe, pack=4, skip=skip, level=3)
+
+    def pack_distance(m, c, rng):
+        xv, wv = rng.uniform(-1, 1, 4 * skip), rng.uniform(-1, 1, 4 * skip)
+        return m.pack_inputs(c, xv, wv), ((xv - wv).reshape(4, skip) ** 2).sum(axis=0)
+
+    def conv(M, fe, A):
+        return M.PackedConv2d(fe, pack=pack_c, input_shape=shape, kernel_shape=(3, 3), level=2)
+
+    def pack_conv(m, c, rng):
+        img = rng.uniform(-1, 1, pack_c * shape[0] * shape[1])
+        w, bias = rng.uniform(-1, 1, (pack_c, 9)), float(rng.uniform(-1, 1))
+        inputs, xv = m.pack_inputs(c, img, w, bias)
+        return inputs, m.reference_conv(xv, w, bias)
+
+    def poly(M, fe, A):
+        return M.PolynomialEvaluator(fe, degree=7, top_level=4)
+
+    def pack_poly(m, c, rng):
+        xv = rng.integers(0, 50, c.params.n, dtype=np.uint64)
+        coeffs = [int(v) for v in rng.integers(1, 50, 8)]
+        x = xv.astype(object)
+        return (m.pack_inputs(c, xv, coeffs),
+                (sum(a * x ** i for i, a in enumerate(coeffs)) % c.params.t).astype(np.uint64))
+
+    def matvec(M, fe, A):
+        return M.EncryptedMatVec(fe, A, level=2)
+
+    def pack_matvec(m, c, rng):
+        xv = rng.uniform(-1, 1, m.slots)
+        return m.pack_inputs(c, xv), m.matrix @ xv
+    return {
+        'model_logistic_path': ('c', logistic, pack_logistic, 1e-2,
+                                {'features': n_feat, 'level': 3}),
+        'model_distance_path': ('c', distance, pack_distance, 1e-2,
+                                {'pack': 4, 'skip': skip, 'level': 3}),
+        'model_conv_path': ('c', conv, pack_conv, 1e-2,
+                            {'input': list(shape), 'kernel': [3, 3], 'pack': pack_c,
+                             'level': 2}),
+        'model_poly_path': ('b', poly, pack_poly, 0, {'degree': 7, 'top_level': 4}),
+        'model_matvec_path': ('c', matvec, pack_matvec, 5e-3,
+                              {'slots': slots, 'diagonals': 32, 'level': 2}),
+        'model_matvec_w32_path': ('w', matvec, pack_matvec, 5e-2,
+                                  {'slots': slots, 'diagonals': 32, 'level': 2}),
+    }
+
+
+def model_chains(n: int, full: bool):
+    """Chain kind → runtime parameters: at full width ``CkksParams.create``,
+    ``BfvParams.create`` and ``CkksParams.create_tpu_param``; at the toy
+    width the chains of ``tests/test_models.py`` (``_ckks_toy``,
+    ``_bfv_toy``, ``test_encrypted_matvec_w32``)."""
+    from lattisense_torch.core.modring import gen_ntt_primes
+    from lattisense_torch.params import BfvParams, CkksParams
+    if full:
+        return {'c': CkksParams.create(n), 'b': BfvParams.create(n),
+                'w': CkksParams.create_tpu_param(n)}
+    q = gen_ntt_primes(n, 50, 5)
+    p = gen_ntt_primes(n, 51, 1, exclude=tuple(q))
+    w = gen_ntt_primes(n, 31, 10)
+    return {'c': CkksParams.create_custom(n, q, p, scale=float(1 << 40)),
+            'b': BfvParams.create_custom(n, 65537, q, p),
+            'w': CkksParams.create_custom(n, w[:7], w[7:], scale=float(1 << 30), word_bits=32)}
+
+
+def frontend_param(params):
+    """The frontend parameter of a runtime chain."""
+    from lattisense_torch.frontend import custom_task as fe
+    if params.algo == 'BFV':
+        return fe.BfvParam.create_custom_param(n=params.n, q=list(params.q),
+                                               p=list(params.p), t=params.t)
+    return fe.CkksParam.create_custom_param(params.n, list(params.q), list(params.p),
+                                            slots=params.slots, scale=params.scale)
+
+
+def model_key_bytes(c, m) -> tuple[int, int]:
+    """(bytes of the relinearization key and of the Galois keys the model
+    needs, the number of those Galois keys) on context c."""
+    from lattisense_torch.schemes.galois import col_sub_steps, galois_elt_col
+    n = c.params.n
+    elts = ({galois_elt_col(ss, n) for st in m.required_rotations() for ss in col_sub_steps(st, n)}
+            | set(m.required_galois_elements()))
+    keys = [c.rlk] + [c.glk.keys[e] for e in elts]
+    return sum((k.key_q.numel() + k.key_p.numel()) * 8 for k in keys), len(elts)
 
 
 def main() -> int:
@@ -2698,6 +2838,271 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done('dev_monitor')
 
+    # ---- 20. the model zoo and the example runners --------------------------
+    # each model of lattisense_torch.models at the JAX example's size on one
+    # context a chain (the union of the models' keys), eager and replayed;
+    # then on its toy chain at n=1024, card against the CPU twin bit for bit
+    from lattisense_torch import models as zoo
+    u64_model = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
+                 w32_kernels + split_cols)
+    w32_model = (['ntt32_fwd', 'ntt32_inv', 'ksw_switch32'],
+                 ['behz_prep32', 'behz_finish32'] + u64_kernel_counts + split_cols)
+    slots = N // 2
+    n1 = 1 << max(0, math.isqrt(slots).bit_length() - 1)
+    t1 = time.perf_counter()
+    matrix = banded_matrix(np, slots, n1, rng)
+    matrix_s = time.perf_counter() - t1
+    specs = model_specs(np, True, slots)
+    chains = model_chains(N, True)
+    ctxs, keygen_s = {}, {}
+    for kind, params_m in chains.items():
+        t1 = time.perf_counter()
+        ctxs[kind] = (BfvContext if kind == 'b' else CkksContext).create_random_context(
+            params_m, seed=SEED, device=dev)
+        keygen_s[kind] = time.perf_counter() - t1
+    built = {}
+    for label, (kind, make, _, _, _) in specs.items():
+        t1 = time.perf_counter()
+        m = make(zoo, frontend_param(chains[kind]), matrix)
+        m.compile()
+        eager = m.load(ctxs[kind], mode='eager')
+        built[label] = (m, eager, FheTask(m.task_dir, mode='jit', device=dev),
+                        time.perf_counter() - t1)
+    model_paths = list(specs)
+    for label, (kind, _, pack, tol, sizes) in specs.items():
+        c = ctxs[kind]
+        m, eager, jit, load_s = built[label]
+        must = w32_model if kind == 'w' else u64_model
+        inputs, oracle = pack(m, c, rng)
+        eager.run(c, inputs)                      # warm-up: the task engine's tables
+        torch.cuda.synchronize()
+        reset_counts()
+        out_e, _ = eager.run(c, inputs)
+        launches = read_counts()
+        require(f'the eager {label}', launches, *must)
+        t1 = time.perf_counter()
+        jit.compile(c, inputs)
+        compile_s = time.perf_counter() - t1
+        out_j, _ = jit.run(c, inputs)
+        if not outputs_equal(torch, out_j, out_e):
+            raise AssertionError(f'{label}: the graph replay differs from the eager run')
+        ms, busy, top = {}, {}, {}
+        for mode, t in (('eager', eager), ('replay', jit)):
+            ms[mode] = sum(t.run(c, inputs)[1] for _ in range(MODEL_ITERS)) / MODEL_ITERS / 1e6
+            busy[mode], top[mode] = busy_and_top(torch, lambda t=t: t.run(c, inputs),
+                                                 reps=MODEL_REPS, top=5, host_ops=False)
+        got = np.asarray(m.decode_output(c, out_e), dtype=float)
+        err = float(np.abs(got - np.asarray(oracle, dtype=float)).max())
+        key_bytes, n_keys = model_key_bytes(c, m)
+        path_launches[label] = launches
+        line = {
+            'model': type(m).__name__, 'params': {'c': 'CkksParams.create(16384)',
+                                                  'b': 'BfvParams.create(16384)',
+                                                  'w': 'CkksParams.create_tpu_param(16384)'}[kind],
+            'word_bits': c.params.word_bits, 'n': c.params.n, **sizes,
+            'compute_nodes': len(eager.mag['compute']),
+            'plan_steps': {'eager': len(eager.plan), 'jit': len(jit.plan)},
+            'eager_ms_per_run': ms['eager'], 'replay_ms_per_run': ms['replay'],
+            'eager_busy_ms': busy['eager'], 'replay_busy_ms': busy['replay'],
+            'eager_idle_share': idle_share(busy['eager'], ms['eager']),
+            'replay_idle_share': idle_share(busy['replay'], ms['replay']),
+            'top_kernels_eager': top['eager'], 'launches_eager': launches,
+            'max_abs_err': err, 'bound': tol, 'correct': err <= tol,
+            'replay_equals_eager': True, 'galois_keys': n_keys, 'key_bytes': key_bytes,
+            'load_s': load_s, 'compile_s': compile_s, 'gpu': name_gpu, 'power_limit': power}
+        if label.startswith('model_matvec'):
+            line.update(matrix='banded: diagonals {0..15} and {n1*k, k = 1..16}', n1=n1,
+                        matrix_s=matrix_s, dense='left out for time: 190 Galois keys and '
+                        '8 192 plaintexts at 8 192 slots')
+        print(json.dumps({label: line}), flush=True)
+        if err > tol:
+            raise AssertionError(f'{label}: decoded error {err} above {tol}')
+        del inputs, out_e, out_j
+    print(json.dumps({'model_contexts': {
+        kind: {'params': chains[kind].__class__.__name__, 'n': c.params.n,
+               'q_limbs': len(c.params.q), 'p_limbs': len(c.params.p),
+               'word_bits': c.params.word_bits, 'keygen_s': keygen_s[kind],
+               'galois_keys': len(c.glk.keys),
+               'key_bytes': sum((k.key_q.numel() + k.key_p.numel()) * 8
+                                for k in [c.rlk, *c.glk.keys.values()])}
+        for kind, c in ctxs.items()}}), flush=True)
+    # B5, B6, B7 (u64) and B1, B3 (w32) at the matvec lines' shapes, batch 1,
+    # level 2: the hoisted digits over q_2 ∪ P, the switch's outputs over q_2,
+    # the rescale's over q_1; RoundDivP's P → Q conversion, the mod-up, the
+    # inner product; B3 with an NTT-domain output
+    LM = 2
+    for kind, label in (('c', 'model_matvec_path'), ('w', 'model_matvec_w32_path')):
+        c = ctxs[kind]
+        eng, sw = c.engine, c.engine.switcher
+        alpha_m, beta_m = sw.alpha, sw.beta(LM)
+        q2, q1, qp_m = eng.ring(LM), eng.ring(LM - 1), sw.ring_qp(LM)
+        rows = {'rows': 'ntt_kernel'}
+        if kind == 'w':
+            kernels['ntt32_fwd_model'] = dict(
+                route='cuda', source='lattisense_torch/csrc/ntt32.cu',
+                replaces='lattisense_tpu/ops/ntt_pallas32.py:101',
+                replaces_function='ntt_fused32 (_fwd_kernel)', path=label,
+                counted_as='ntt32_fwd',
+                **hold_ntt('ntt32_fwd_model', [(qp_m, (1, beta_m)), (q2, (1, 2)), (q1, (1, 2))],
+                           ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain, ntt_work, rows))
+            kernels['ntt32_inv_model'] = dict(
+                route='cuda', source='lattisense_torch/csrc/ntt32.cu',
+                replaces='lattisense_tpu/ops/ntt_pallas32.py:173',
+                replaces_function='intt_fused32 (_inv_kernel)', path=label,
+                counted_as='ntt32_inv',
+                **hold_ntt('ntt32_inv_model', [(q2, (1,)), (qp_m, (1, 2)), (q2, (1, 2))],
+                           ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, ntt_work, rows))
+            x = card_residues(q2.moduli, (1,), N)
+            kernels['ksw_switch32_model'] = dict(
+                route='cuda', source='lattisense_torch/csrc/ksw32.cu',
+                design=ksw_cuda.switch_route(N), replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
+                replaces_function='ksw_switch32 (_ksw_kernel), output_ntt=True', path=label,
+                counted_as='ksw_switch32',
+                shapes=[{'x': list(x.shape), 'level': LM, 'alpha': alpha_m, 'beta': beta_m,
+                         'T': LM + 1 + alpha_m, 'output_ntt': True}],
+                **hold(lambda: list(ksw_cuda.ksw_switch32(x, c.rlk, sw, LM, True)),
+                       lambda: list(sw.switch_plain(x, c.rlk, LM, True)),
+                       [ksw_work(1, LM + 1, alpha_m, beta_m, N, output_ntt=True)]))
+            del x
+            continue
+        T_m = LM + 1 + alpha_m
+        kernels['ntt64_fwd_model'] = dict(
+            route='cuda', source='lattisense_torch/csrc/ntt64.cu',
+            replaces='lattisense_tpu/ops/ntt_pallas64f.py:48',
+            replaces_function='ntt_fused64 (_fwd_kernel)', path=label, counted_as='ntt64_fwd',
+            **hold_ntt('ntt64_fwd_model', [(qp_m, (1, beta_m)), (q2, (1, 2)), (q1, (1, 2))],
+                       ntt64_cuda.ntt64_fwd, ntt64_cuda.ntt64_plain, fwd64, rows))
+        kernels['ntt64_inv_model'] = dict(
+            route='cuda', source='lattisense_torch/csrc/ntt64.cu',
+            replaces='lattisense_tpu/ops/ntt_pallas64f.py:98',
+            replaces_function='intt_fused64 (_inv_kernel)', path=label, counted_as='ntt64_inv',
+            **hold_ntt('ntt64_inv_model', [(q2, (1,)), (qp_m, (1, 2)), (q2, (1, 2))],
+                       ntt64_cuda.ntt64_inv, ntt64_cuda.intt64_plain, inv64, rows))
+        pre_m = sw._level_pre(LM)
+        rdp_m = pre_m[5].conv
+        y = rdp_m.decompose(card_residues(rdp_m.src, (1, 2), N))
+        inst = bconv_cuda.instance(alpha_m, LM + 1, max(rdp_m.src) - 1)
+        kernels['bconv64_convert_model'] = dict(
+            route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+            replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+            replaces_function='bconv_convert_fused (_bconv_kernel): RoundDivP P -> Q',
+            path=label, counted_as='bconv64_convert', shapes=[list(y.shape)], instance=inst,
+            imad_bound_ms=imad_bound_ms([(b6_imad(alpha_m, LM + 1, inst == 'specific'),
+                                          y.numel() * (LM + 1))]),
+            **hold(lambda: [bconv_cuda.bconv64_convert(y, rdp_m)],
+                   lambda: [bconv_cuda.bconv64_plain(y, rdp_m.qhat_dst_mont, rdp_m.dst_q,
+                                                     rdp_m.dst_pinv)],
+                   [bconv64_work(2, alpha_m, LM + 1, N)]))
+        # the digits of the mod-up, the ragged last one padded with zeros
+        y = torch.nn.functional.pad(card_residues(chains[kind].q[:LM + 1], (1,), N),
+                                    (0, 0, 0, beta_m * alpha_m - LM - 1))
+        y = y.reshape(1, beta_m, alpha_m, N)
+        inst = bconv_cuda.instance(alpha_m, T_m, bconv_cuda.WORD_GUARD)
+        kernels['bconv64_raw_model'] = dict(
+            route='cuda', source='lattisense_torch/csrc/bconv64.cu',
+            replaces='lattisense_tpu/ops/bconv_pallas.py:57',
+            replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
+            path=label, counted_as='bconv64_raw', shapes=[list(y.shape)], instance=inst,
+            imad_bound_ms=imad_bound_ms([(b6_imad(alpha_m, T_m, inst == 'specific'),
+                                          y.numel() * T_m)]),
+            **hold(lambda: [bconv_cuda.bconv64_raw(y, pre_m[4], qp_m.q, qp_m.pinv)],
+                   lambda: [bconv_cuda.bconv64_plain(y, pre_m[4], qp_m.q, qp_m.pinv)],
+                   [bconv64_work(beta_m, alpha_m, T_m, N)]))
+        d = card_residues(qp_m.moduli, (1, beta_m), N)
+        kernels['ksw_inner64_model'] = dict(
+            route='cuda', source='lattisense_torch/csrc/ksw64.cu',
+            replaces='lattisense_tpu/ops/ksw_pallas.py:29',
+            replaces_function='ksw_inner_fused (_ksw_kernel)', path=label,
+            counted_as='ksw_inner64', shapes=[list(d.shape)],
+            imad_bound_ms=imad_bound_ms([(b7_imad(beta_m), 2 * T_m * N * beta_m)]),
+            **hold(lambda: [ksw64_cuda.ksw_inner64(d, c.rlk, LM, qp_m)],
+                   lambda: [ksw64_cuda.ksw_inner64_plain(d, c.rlk, LM, qp_m)],
+                   [ksw64_work(1, beta_m, T_m, N)]))
+        del y, d
+    del built, matrix
+    ctxs.clear()
+    torch.cuda.empty_cache()
+
+    # the same models on their toy chains at n=1024: the card's output data
+    # equals the port's CPU run of the same task bit for bit
+    toy_chains = model_chains(MODEL_TOY_N, False)
+    toy_specs = model_specs(np, False, MODEL_TOY_N // 2)
+    toy_n1 = 1 << max(0, math.isqrt(MODEL_TOY_N // 2).bit_length() - 1)
+    toy_matrix = banded_matrix(np, MODEL_TOY_N // 2, toy_n1, rng)
+    toy_ctx = {kind: (BfvContext if kind == 'b' else CkksContext).create_random_context(
+        p, seed=SEED, device=dev) for kind, p in toy_chains.items()}
+    toy_models = {}
+    for label, (kind, make, _, _, _) in toy_specs.items():
+        m = make(zoo, frontend_param(toy_chains[kind]), toy_matrix)
+        toy_models[label] = (m, m.load(toy_ctx[kind], mode='eager'))
+    twins = {kind: cpu_context(c) for kind, c in toy_ctx.items()}
+
+    def to_cpu(v):
+        return [to_cpu(e) for e in v] if isinstance(v, list) else on_cpu(v)
+    toy_line = {}
+    for label, (kind, _, pack, tol, sizes) in toy_specs.items():
+        m, task = toy_models[label]
+        inputs, oracle = pack(m, toy_ctx[kind], rng)
+        out, _ = task.run(toy_ctx[kind], inputs)
+        t1 = time.perf_counter()
+        want, _ = FheTask(m.task_dir, mode='eager', device='cpu').run(
+            twins[kind], {k: to_cpu(v) for k, v in inputs.items()})
+        cpu_s = time.perf_counter() - t1
+        err = float(np.abs(np.asarray(m.decode_output(toy_ctx[kind], out), dtype=float)
+                           - np.asarray(oracle, dtype=float)).max())
+        toy_line[label] = {'bit_exact_vs_cpu': outputs_equal(torch, out, want),
+                           'max_abs_err': err, 'correct': err <= tol, 'cpu_run_s': cpu_s, **sizes}
+    print(json.dumps({'model_toy_paths': {'n': MODEL_TOY_N, 'lines': toy_line}}), flush=True)
+    bad = [k for k, v in toy_line.items() if not (v['bit_exact_vs_cpu'] and v['correct'])]
+    if bad:
+        raise AssertionError(f'model_toy_paths: {bad}')
+    del toy_models, toy_ctx, twins, toy_matrix
+    torch.cuda.empty_cache()
+    phase_done('models')
+
+    # examples_path: every runner's main(['--toy']) in this process on the
+    # card; each must print OK last, and each but multichip_sharding (whose
+    # ranks are processes of their own) must launch the kernels
+    import contextlib
+    import importlib
+    import io
+    runners = [('bfv_mult', []), ('ckks_mult', []), ('project_template', []),
+               ('ckks_logistic_regression', []), ('ckks_euclidean_distance', []),
+               ('bfv_poly_7', []), ('benchmark_convolution', []),
+               ('ckks_mult_serialization', []), ('ckks_bootstrap', []),
+               ('ckks_bootstrap', ['--w32']), ('benchmark', []), ('multichip_sharding', [])]
+
+    def scalars(d):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out[k] = scalars(v)
+            elif isinstance(v, (bool, int, float, np.floating, np.integer, np.bool_)):
+                out[k] = v.item() if hasattr(v, 'item') else v
+        return out
+    ex_line = {}
+    for name, flags in runners:
+        mod = importlib.import_module(f'lattisense_torch.examples.{name}')
+        buf = io.StringIO()
+        reset_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            vals = mod.main(['--toy'] + flags)
+        secs = time.perf_counter() - t1
+        launched = {k: v for k, v in read_counts().items() if v}
+        printed = buf.getvalue().rstrip().splitlines()
+        ex_line[name + ''.join(f.replace('--', '_') for f in flags)] = {
+            's': secs, 'ok': printed[-1].endswith('OK'), 'last_line': printed[-1][-120:],
+            'values': scalars(vals), 'launches': launched}
+    torch.cuda.empty_cache()
+    bad = [k for k, v in ex_line.items()
+           if not v['ok'] or (k != 'multichip_sharding' and not v['launches'])]
+    print(json.dumps({'examples_path': {'runners': ex_line, 'all_ok': not bad, 'gpu': name_gpu,
+                                        'power_limit': power}}), flush=True)
+    if bad:
+        raise AssertionError(f'examples_path: {bad}')
+    phase_done('examples')
+
     # launches on the path a kernel serves (B1's entries and the n = 2^16
     # holds: on the main path, 0), and on each CKKS,
     # bootstrap and threshold path
@@ -2710,6 +3115,8 @@ def main() -> int:
                                  if path_launches[p].get(counted)}
         entry['mpc_launches'] = {p: path_launches[p][counted] for p in mpc_paths
                                  if path_launches[p].get(counted)}
+        entry['models_launches'] = {p: path_launches[p][counted] for p in model_paths
+                                    if path_launches[p].get(counted)}
         entry['library_ms'] = None
         entry.setdefault('imad_bound_ms', None)
     print(json.dumps({'kernels': [{'name': k, **v} for k, v in kernels.items()]}), flush=True)

@@ -5,9 +5,9 @@ the four-step NTT as tensor-core matrix products (``ops/ntt_mxu.py``) and the
 device mesh (``parallel/``: the op axis, the limb-sharded key switch and its
 pipelines, the coefficient-sharded NTT and key switches, the sharded engine
 views and bootstraps over the coefficient and limb axes, the task runtime on
-every axis, over ``torch.distributed`` with one process a rank), ported from
-``lattisense_tpu``. Not ported yet (``ROADMAP.md`` §1 item 12): the models and
-the example runners.
+every axis, over ``torch.distributed`` with one process a rank), the model
+zoo (``models/``) and the example runners (``examples/``), ported from
+``lattisense_tpu``.
 
 The JAX package stays the reference; this package computes the same values
 bit for bit. Residues travel as ``torch.int64`` tensors holding values in

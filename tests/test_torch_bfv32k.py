@@ -8,6 +8,7 @@ against the reference's NumPy path.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from lattisense_tpu.params import BfvParams as RefBfvParams
@@ -19,6 +20,16 @@ from lattisense_torch.parallel.batch import (bfv_mult_relin, key_tree, make_batc
 from lattisense_torch.runtime import BfvContext
 from lattisense_torch.schemes.galois import galois_elt_col
 from lattisense_torch.schemes.types import Ciphertext
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_intraop_thread():
+    """One torch intra-op thread: the suite's parallel workers, each with a
+    thread per core, would oversubscribe the host (``tests/test_torch_task.py``)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def T(a):

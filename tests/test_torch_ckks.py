@@ -36,6 +36,16 @@ from lattisense_torch.schemes.types import (Ciphertext, Plaintext, PlaintextMul,
 from lattisense_torch.utils.precision import get_precision_stats
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_intraop_thread():
+    """One torch intra-op thread: the suite's parallel workers, each with a
+    thread per core, would oversubscribe the host (``tests/test_torch_task.py``)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def T(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.uint64)).view(np.int64))
 

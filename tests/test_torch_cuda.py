@@ -19,7 +19,8 @@ card against the CPU, and the memory monitor's device column; the MXU NTT on
 both routes against B5 and with its gate on in a batched step, and worlds of
 2 ranks sharing the card over gloo (the limb-TP pipeline, the op-sharded
 step, the task replayed as graphs cut at each collective) against the
-single-card step.
+single-card step; a model of the model zoo at n=1024 (card against CPU, eager
+and replayed) and an example runner at ``--toy`` on the card.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on the card.
 """
@@ -1601,3 +1602,48 @@ def test_coeff_sharded_bootstrap_on_the_card(cuda, tmp_path):
                     (1, 1, 2), b['level'], 1)
     assert all(r['equal'] for r in res)
     assert all(r['launches'].get('ntt64_fwd') for r in res)
+
+
+def test_model_n1024_card_matches_cpu(cuda):
+    """The banded ``EncryptedMatVec`` on the JAX model tests' toy chain at
+    n=1024: ``load`` on a card context and on a CPU context of one seed (the
+    same Galois keys), the card's eager run and its graph replay equal to the
+    CPU run bit for bit, the decoded product within 5e-3 of A·x."""
+    import dataclasses
+
+    from lattisense_torch.frontend import custom_task as fe
+    from lattisense_torch.models import EncryptedMatVec
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.runtime import CkksContext
+    n = 1024
+    q = gen_ntt_primes(n, 50, 5)
+    p = gen_ntt_primes(n, 51, 1, exclude=tuple(q))
+    params = CkksParams.create_custom(n, q, p, scale=float(1 << 40))
+    fparam = fe.CkksParam.create_custom_param(n=n, q=q, p=p, scale=float(1 << 40), slots=n // 2)
+    rng = np.random.default_rng(4)
+    s = n // 2
+    A, k = np.zeros((s, s)), np.arange(s)
+    for d in (0, 1, 5, 40, 300):
+        A[k, (k + d) % s] = rng.uniform(-1, 1, s)
+    m = EncryptedMatVec(fparam, A, level=2)
+    card = CkksContext.create_random_context(params, seed=21, device=cuda)
+    twin = CkksContext.create_random_context(params, seed=21, device=CPU)
+    eager, jit, cpu_task = m.load(card, mode='eager'), m.load(card, mode='jit'), m.load(twin)
+    xv = rng.uniform(-1, 1, s)
+    inputs = m.pack_inputs(card, xv)
+    out, _ = eager.run(card, inputs)
+    replay, _ = jit.run(card, inputs)
+    want, _ = cpu_task.run(twin, {k: dataclasses.replace(v, data=v.data.cpu())
+                                  for k, v in inputs.items()})
+    assert torch.equal(out['y'].data.cpu(), want['y'].data)
+    assert torch.equal(replay['y'].data, out['y'].data)
+    assert np.abs(m.decode_output(card, out) - A @ xv).max() < 5e-3
+
+
+def test_runner_toy_on_the_card(cuda, capsys):
+    """``ckks_logistic_regression``'s ``main(['--toy'])`` runs on the card
+    (``--toy`` keeps it) and meets its oracle."""
+    from lattisense_torch.examples import ckks_logistic_regression as ex
+    got = ex.main(['--toy'])
+    assert abs(got['score'] - got['expected']) < 1e-2
+    assert capsys.readouterr().out.rstrip().endswith('OK')

@@ -30,7 +30,8 @@ def test_import_pulls_in_no_jax():
             "lattisense_torch.parallel.launch, lattisense_torch.parallel.keyswitch_sharded, "
             "lattisense_torch.parallel.coeff_sharded, lattisense_torch.parallel.sharded_engine, "
             "lattisense_torch.parallel.limb_engine, lattisense_torch.frontend.custom_task, "
-            "lattisense_torch.frontend.graph, tests.torch_mesh_ranks, "
+            "lattisense_torch.frontend.graph, lattisense_torch.models, "
+            "lattisense_torch.examples._common, tests.torch_mesh_ranks, "
             "sys; mods = list(sys.modules); "
             "assert 'jax' not in mods, 'jax'; "
             "assert not any(m.startswith('lattisense_tpu') for m in mods), 'lattisense_tpu'")
@@ -52,7 +53,15 @@ def test_sources_import_no_jax():
                 'ops/plugin_build.py', 'ops/ntt_mxu.py', 'parallel/mesh.py', 'parallel/launch.py',
                 'parallel/keyswitch_sharded.py', 'parallel/coeff_sharded.py',
                 'parallel/sharded_engine.py', 'parallel/limb_engine.py', 'frontend/__init__.py',
-                'frontend/graph.py', 'frontend/custom_task.py'):
+                'frontend/graph.py', 'frontend/custom_task.py', 'models/__init__.py',
+                'models/_base.py', 'models/logistic.py', 'models/distance.py',
+                'models/polynomial.py', 'models/convolution.py', 'models/matvec.py',
+                'examples/__init__.py', 'examples/_common.py', 'examples/bfv_mult.py',
+                'examples/ckks_mult.py', 'examples/project_template.py',
+                'examples/ckks_logistic_regression.py', 'examples/ckks_euclidean_distance.py',
+                'examples/bfv_poly_7.py', 'examples/benchmark_convolution.py',
+                'examples/ckks_mult_serialization.py', 'examples/ckks_bootstrap.py',
+                'examples/benchmark.py', 'examples/multichip_sharding.py'):
         assert os.path.join(PORT, new) in files, new
     offenders = []
     for path in files:

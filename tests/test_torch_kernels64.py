@@ -32,6 +32,16 @@ from lattisense_torch.ops import bconv_cuda, ksw64_cuda, ntt64_cuda, ntt_cuda
 from lattisense_torch.schemes.keyswitch import KeySwitcher
 from lattisense_torch.schemes.types import KeySwitchKey
 
+
+@pytest.fixture(scope='module', autouse=True)
+def one_intraop_thread():
+    """One torch intra-op thread: the suite's parallel workers, each with a
+    thread per core, would oversubscribe the host (``tests/test_torch_task.py``)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 CPU = torch.device('cpu')
 
 

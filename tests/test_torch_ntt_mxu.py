@@ -28,6 +28,16 @@ from lattisense_torch.runtime import BfvContext
 from lattisense_torch.schemes.types import Ciphertext
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_intraop_thread():
+    """One torch intra-op thread: the suite's parallel workers, each with a
+    thread per core, would oversubscribe the host (``tests/test_torch_task.py``)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def T(a):
     return torch.from_numpy(np.asarray(a).astype(np.int64))
 
