@@ -6,8 +6,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Set-up: builds the CUDA kernels from ``lattisense_torch/csrc`` (one nvcc
    per source, all started together) and prints the toolchain, the card and
    a summary of each library's ptxas report (the whole report goes to
-   ``build/kernels/ptxas/``), the clusters of B5's cluster kernel that fit
-   the card, and the IMAD-family instructions a butterfly (B5) or a
+   ``build/kernels/ptxas/``), the clusters of B5's and B1's cluster kernels
+   and of B3's cluster route that fit the card, and the IMAD-family instructions a butterfly (B5) or a
    Montgomery product (B6, B7) in the SASS of the built libraries
    (``cuobjdump -sass``), from which each 64-bit kernel's
    ``imad_bound_ms`` is computed.
@@ -37,8 +37,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (``BfvParams.create(16384)``, level 3, batch 32), checked as in 3; the
    counts of B5, B6 and B7 must have risen and the 32-bit kernels' must not.
 6. u64 rotate path: the batched rotate_col by 1 on the u64 context, checked
-   as in 4 and 5. None of the paths at n=16384 may launch B1's columns
-   kernel or B5's cluster kernel.
+   as in 4 and 5. None of the paths at n=16384 may launch B1's or B5's
+   cluster kernel.
 7. BFV at n=32768 on the u64 chain (``BfvParams.create(32768)``, level 11,
    the chain's full width, batch 32): B5 through its cluster kernel (one
    launch a call: clusters of 4 blocks over sub-rows of 2^13), B6 and B7,
@@ -47,16 +47,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    1), checked as in 5 and 6, with the cluster kernel's launches required
    and B5's row kernel's refused.
 8. BFV at n=32768 on the 31-bit profile (``create_tpu_param(32768)``, level
-   21, batch 32): B2, B3 (its split route, whose B1 launches count under
-   ``ksw32_split_*``) and B4 held against their twins on the card, then
+   21, batch 32): B2, B3 (its cluster route: clusters of 4 blocks over
+   sub-rows of 2^13) and B4 held against their twins on the card, then
    ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1 entry.
-9. B5 (clusters of 8) and B1 (its split) at n=2^16 (a card-test shape, on
-   no path) against their twins; then the n=2^16 repairs, each against its
-   twin: B1-r4 and the perm entries on the same stack (B1's split, the perm
-   entries with their transpose pass), B2 and B4 on a custom 31-bit BFV
-   chain (22 q limbs, around B1's split), and B3's split route at the
-   shapes of ``CkksParams.create_tpu_btp_param()`` (levels 47 and 9, both
-   outputs) and ``create_tpu_param(65536)`` (level 43), batch 2.
+9. B5 and B1 at n=2^16 (clusters of 8, a card-test shape, on no path)
+   against their twins; then the n=2^16 repairs, each against its twin:
+   B1-r4 and the perm entries on the same stack (B1's cluster kernel, the
+   perm entries with their transpose pass), B2 and B4 on a custom 31-bit
+   BFV chain (22 q limbs, around B1's cluster kernel), and B3's cluster
+   route at the shapes of ``CkksParams.create_tpu_btp_param()`` (levels 47
+   and 9, both outputs) and ``create_tpu_param(65536)`` (level 43), batch 2.
 10. Task paths: the compiled-task runtime (``runtime/task.py``) on the task
    directories committed under ``lattisense_torch/runtime/tasks/``.
    ``task_path`` (after 4) runs the 32-``mult_relin`` task on the main
@@ -95,7 +95,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``btp_toy_path`` (the toy profile, n=8192, 25 q and 5 p 64-bit limbs:
    B5's row kernel, B6, B7), ``btp_full_path`` (the same chain at n=2^16:
    B5's cluster kernel) and ``btp_w32_path`` (``create_tpu_btp_param()``,
-   48 q and 4 p 31-bit limbs, two a level: B1's split and B3's split route).
+   48 q and 4 p 31-bit limbs, two a level: B1's cluster kernel and B3's
+   cluster route).
    Each line holds the ms a bootstrap (CUDA events, one warm-up, 3 timed),
    the busy ms and idle share over two bootstraps in one profiler window,
    each segment's ms, the launches of each kernel a bootstrap, the key
@@ -437,13 +438,12 @@ def ptxas_summary(log: str, keep) -> dict:
 
 def main_path_instance(lib: str, name: str) -> bool:
     """The template instances the paths run: the NTT-sized kernels at 2^14
-    and 2^15, B1's split columns kernels and B5's cluster kernels, B2's
+    and 2^15, B1's and B5's cluster kernels and B3's cluster route, B2's
     extension and B4's scale-back at L = 8, B6's compile-time (L, T)
     instances (its run-time-T ones are <L, 0>), B7's compile-time beta
     instances."""
     if lib in ('ntt32', 'ntt64', 'ksw32'):
-        return ('Li14E' in name or 'Li15E' in name or 'columns_kernel' in name
-                or 'cluster_kernel' in name)
+        return 'Li14E' in name or 'Li15E' in name or 'cluster_kernel' in name
     if lib == 'behz32':
         return 'Li14E' in name or 'Li8E' in name
     return 'Li0EE' not in name
@@ -791,14 +791,20 @@ def main() -> int:
                                  'blocks_per_sm': mod.blocks_per_sm(logn, d == 'inv')}
                  for word, mod in (('ntt32', ntt_cuda), ('ntt64', ntt64_cuda))
                  for d in ('fwd', 'inv')}
-    # B5's cluster kernel: clusters of 2^k blocks over sub-rows of 2^SUB_LOGN
-    # that the card runs at once (cudaOccupancyMaxActiveClusters)
-    clusters = {f'ntt64_{d}_cluster_n{1 << lg}': {
-        'blocks': 1 << ntt64_cuda.cluster_depth(lg), 'sub_row': 1 << ntt64_cuda.SUB_LOGN,
-        'threads': 1 << (ntt64_cuda.SUB_LOGN - ntt_cuda.schedule(ntt64_cuda.SUB_LOGN)[0]),
-        'dynamic_smem': 8 << ntt64_cuda.SUB_LOGN,
-        'active_clusters': ntt64_cuda.cluster_fit(lg, d == 'inv')}
+    # B5's and B1's cluster kernels and B3's cluster route: clusters of 2^k
+    # blocks over sub-rows of 2^SUB_LOGN that the card runs at once
+    # (cudaOccupancyMaxActiveClusters)
+    def cluster_entry(sub, lg, smem, fit):
+        return {'blocks': 1 << (lg - sub), 'sub_row': 1 << sub,
+                'threads': 1 << (sub - ntt_cuda.schedule(sub)[0]), 'dynamic_smem': smem << sub,
+                'active_clusters': fit}
+    clusters = {f'ntt64_{d}_cluster_n{1 << lg}': cluster_entry(
+        ntt64_cuda.SUB_LOGN, lg, 8, ntt64_cuda.cluster_fit(lg, d == 'inv'))
         for lg in (15, 16) for d in ('fwd', 'inv')}
+    clusters.update({f'ntt32_{d}_cluster_n65536': cluster_entry(
+        ntt_cuda.SUB_LOGN, 16, 4, ntt_cuda.cluster_fit(16, d == 'inv')) for d in ('fwd', 'inv')})
+    clusters.update({f'ksw32_cluster_n{1 << lg}': cluster_entry(
+        ntt_cuda.SUB_LOGN, lg, 12, ksw_cuda.cluster_fit(1 << lg)) for lg in (15, 16)})
     # the integer multiply-add pipe's rate, and the IMAD-family instructions
     # of the 64-bit kernels' instances in the SASS
     clock_mhz = float(subprocess.run(
@@ -829,7 +835,8 @@ def main() -> int:
         inv = 'Lb1E' if inverse else 'Lb0E'
         k = ntt64_cuda.cluster_depth(logn)
         if k:
-            return imad_per(['cluster_kernel', f'ILi{ntt64_cuda.SUB_LOGN}ELi{k}E{inv}'], 8 * logn)
+            return imad_per(['cluster_kernel', f'W64ELi{ntt64_cuda.SUB_LOGN}ELi{k}E{inv}'],
+                            8 * logn)
         return imad_per(['ntt_kernel', f'W64ELi{logn}E{inv}Lb0ENS_8StoreRow'], 8 * logn)
 
     def b6_imad(L, T, specific):
@@ -864,7 +871,7 @@ def main() -> int:
     print(json.dumps({'setup': {'torch': torch.__version__, 'cuda': torch.version.cuda,
                                 'nvcc': cuda_build.nvcc_path(), 'gpu': gpu,
                                 'build_s': round(build_s, 3), 'ptxas': ptxas,
-                                'ntt_occupancy': occupancy, 'ntt64_clusters': clusters,
+                                'ntt_occupancy': occupancy, 'clusters': clusters,
                                 'imad': imad_table, 'fused': fused}}), flush=True)
 
     t1 = time.perf_counter()
@@ -895,11 +902,11 @@ def main() -> int:
     phase_done('setup')
 
     # ---- 2. kernels against their plain twins -----------------------------
-    # B1 at the row stacks one batched mult_relin gave it before B2, B3 and
-    # B4 ran their own NTTs: forward inside B2 (4 polynomials over q and aux)
-    # and B3's split route (β digits over q∪p); inverse inside B4's and B3's
-    # split routes (3 products over q and aux, 2 components over q∪p); on no
-    # path at the main path's shapes, which must launch neither
+    # B1 at the row stacks of one batched mult_relin's NTTs, which B2, B3
+    # and B4 run inside their own kernels: forward over the 4 polynomials
+    # (q and aux) and the β digits over q∪p; inverse over the 3 products (q
+    # and aux) and the 2 components over q∪p; on no path at the main path's
+    # shapes, which must launch neither
     fwd_calls = [('q', (BATCH, 4)), ('aux', (BATCH, 4)), ('qp', (BATCH, beta))]
     inv_calls = [('q', (BATCH, 3)), ('aux', (BATCH, 3)), ('qp', (BATCH, 2))]
 
@@ -1327,12 +1334,12 @@ def main() -> int:
             raise AssertionError(f'{label}: wrong outputs {wrong}, bit_exact_vs_cpu={bit_exact}')
 
     path_launches = {}
-    # no path at n=16384 runs B1's split or B5's cluster kernel; the w32
-    # paths run no B1 entry and B3's fused route
-    split_cols = ['ntt32_fwd_cols', 'ntt32_inv_cols', 'ntt64_fwd_cluster', 'ntt64_inv_cluster']
-    if any(k.startswith('ntt64') and k.endswith('_cols') for k in read_counts()):
-        raise AssertionError('B5 still counts a columns route')
-    no_b1 = ['ntt32_fwd', 'ntt32_inv', 'ksw32_split_fwd', 'ksw32_split_inv'] + split_cols
+    # no path at n=16384 runs B1's or B5's cluster kernel; the w32 paths run
+    # no B1 entry and B3's fused route
+    wide_ntts = ['ntt32_fwd_cluster', 'ntt32_inv_cluster', 'ntt64_fwd_cluster', 'ntt64_inv_cluster']
+    if [k for k in read_counts() if k.endswith('_cols') or k.startswith('ksw32_split')]:
+        raise AssertionError('a kernel still counts a columns or split route')
+    no_b1 = ['ntt32_fwd', 'ntt32_inv'] + wide_ntts
     msgs = rng.integers(0, params.t, (2 * BATCH, N))
     main = run_path(
         'main_path', ctx, eng_c, LEVEL, bfv_mult_relin, 2, key_tree(ctx), {'rlk': rlk_c}, msgs,
@@ -1399,7 +1406,7 @@ def main() -> int:
     u64 = run_path(
         'u64_path', ctx64, eng64_c, LEVEL64, bfv_mult_relin, 2, key_tree(ctx64),
         {'rlk': rlk64_c}, msgs64, lambda i: (msgs64[i] * msgs64[BATCH + i]) % params64.t,
-        u64_kernels, w32_kernels + split_cols,
+        u64_kernels, w32_kernels + wide_ntts,
         {'op': 'mult_relin', 'params': 'BfvParams.create(16384)', 'word_bits': 64,
          'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})
     path_launches['u64_path'] = u64['launches']
@@ -1500,11 +1507,11 @@ def main() -> int:
     rkeys64 = key_tree(ctx64, galois_elts=[elt])
     run_path('u64_rotate_path', ctx64, eng64_c, LEVEL64, make_rotate_step(elt), 1, rkeys64,
              {'glk': {elt: cpu_key(rkeys64['glk'][elt])}}, msgs64[:BATCH],
-             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels + split_cols,
+             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels + wide_ntts,
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
               'params': 'BfvParams.create(16384)', 'word_bits': 64,
               'galois_keygen_s': galois_keygen64_s})
-    run_mix('task_mix64_path', ctx64, LEVEL64, u64_kernels, w32_kernels + split_cols,
+    run_mix('task_mix64_path', ctx64, LEVEL64, u64_kernels, w32_kernels + wide_ntts,
             tasks.MIX_U64)
 
     del ctx64, rkeys64
@@ -1742,8 +1749,8 @@ def main() -> int:
                [behz_work(BATCH * 4, L_w, T_w, N32K)]))
     x = card_residues(params_w.q[:L_w], (BATCH,), N32K)
     kernels['ksw_switch32_32k'] = dict(
-        route='cuda', source='lattisense_torch/csrc/ksw32.cu',
-        design=ksw_cuda.switch_route(N32K),
+        route='cuda', source='lattisense_torch/csrc/ksw32.cu + csrc/ntt_cluster.cuh',
+        design=ksw_cuda.switch_route(N32K), cluster=clusters['ksw32_cluster_n32768'],
         replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
         replaces_function='ksw_switch32 (_ksw_kernel)', path='w32_32k_path',
         counted_as='ksw_switch32',
@@ -1766,8 +1773,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     msgs_w = rng.integers(0, params_w.t, (2 * BATCH, N32K))
-    w32k_kernels = ['ksw32_split_fwd', 'ksw32_split_inv'] + [
-        v['counted_as'] for v in kernels.values() if v['path'] == 'w32_32k_path']
+    w32k_kernels = [v['counted_as'] for v in kernels.values() if v['path'] == 'w32_32k_path']
     path_launches['w32_32k_path'] = run_path(
         'w32_32k_path', ctx_w, eng_w_c, LEVEL_W32K, bfv_mult_relin, 2, key_tree(ctx_w),
         {'rlk': cpu_key(ctx_w.rlk)}, msgs_w, lambda i: (msgs_w[i] * msgs_w[BATCH + i]) % params_w.t,
@@ -1792,13 +1798,10 @@ def main() -> int:
              'ntt_fused32 (_fwd_kernel)', 'ntt_pallas32.py:101'),
             ('ntt32_inv_n65536', r32, ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, ntt_work,
              'intt_fused32 (_inv_kernel)', 'ntt_pallas32.py:173')):
-        if ring is r64:       # B5: the cluster kernel, clusters of 2^(16 - SUB_LOGN)
-            source, counted, parts = ('lattisense_torch/csrc/ntt_cluster.cuh + csrc/ntt64.cu',
-                                      kname.replace('_n65536', '_cluster'), cluster)
-        else:                 # B1: its split, the columns kernel then the row kernel
-            source, counted, parts = ('lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt32.cu',
-                                      kname.replace('_n65536', '_cols'),
-                                      {'columns': 'columns_kernel', 'rows': 'ntt_kernel'})
+        # the cluster kernels, clusters of 2^(16 - SUB_LOGN) blocks
+        source = ('lattisense_torch/csrc/ntt_cluster.cuh + csrc/'
+                  + ('ntt64.cu' if ring is r64 else 'ntt32.cu'))
+        counted, parts = kname.replace('_n65536', '_cluster'), cluster
         kernels[kname] = dict(
             route='cuda', source=source, replaces=f'lattisense_tpu/ops/{line}',
             replaces_function=fn, path=None, counted_as=counted,
@@ -1808,20 +1811,20 @@ def main() -> int:
     phase_done('paths_n32768')
 
     # 9b. the n = 2^16 repairs, each against its plain twin: B1-r4/perm on
-    # the same (37, 12, n) stack (B1's split; the perm entries add their
-    # transpose pass), B2 and B4 on a custom 31-bit BFV chain (the route
-    # around B1's split), B3's split route at the shapes of
+    # the same (37, 12, n) stack (B1's cluster kernel; the perm entries add
+    # their transpose pass), B2 and B4 on a custom 31-bit BFV chain (the
+    # route around B1's cluster kernel), B3's cluster route at the shapes of
     # create_tpu_btp_param() (the top level and level 9, both outputs) and
     # create_tpu_param(65536) (the top level), batch 2 each
-    split_parts = {'columns': 'columns_kernel', 'rows': 'ntt_kernel', 'perm': 'perm_kernel'}
+    wide_parts = {'cluster': 'cluster_kernel', 'perm': 'perm_kernel'}
     for kname, (kernel, plain, line, fn) in perm_twins.items():
         kernels[f'{kname}_n65536'] = dict(
-            route='cuda', design="B1's split" + (', then or after it the transpose pass '
-                                                 '(perm_kernel)' if 'perm' in kname else ''),
-            source='lattisense_torch/csrc/ntt32.cu + csrc/ntt_columns.cuh',
+            route='cuda', design="B1's cluster kernel" + (
+                ', then or after it the transpose pass (perm_kernel)' if 'perm' in kname else ''),
+            source='lattisense_torch/csrc/ntt32.cu + csrc/ntt_cluster.cuh',
             replaces=f'lattisense_tpu/ops/ntt_pallas32.py:{line}', replaces_function=fn,
             path=None, counted_as=kname,
-            **hold_ntt(kname, [(r32, (37,))], kernel, plain, ntt_work, split_parts))
+            **hold_ntt(kname, [(r32, (37,))], kernel, plain, ntt_work, wide_parts))
     chain16 = gen_ntt_primes(N64K, 31, 24)
     bz16 = BfvEngine(BfvParams.create_custom(N64K, 65537, chain16[:22], chain16[22:],
                                              word_bits=32), dev).behz(21)
@@ -1829,7 +1832,7 @@ def main() -> int:
     x = card_residues(bz16.ring_q.moduli, (4, 4), N64K)
     kernels['behz_prep32_n65536'] = dict(
         route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt32.cu',
-        design="the extension into int64 aux rows, then B1's split forward with the "
+        design="the extension into int64 aux rows, then B1's cluster kernel forward with the "
                'to-Montgomery epilogue over q and over aux',
         replaces='lattisense_tpu/ops/behz_pallas32.py:55',
         replaces_function='behz_prep32 (_k1_kernel)', path=None, counted_as='behz_prep32',
@@ -1841,8 +1844,8 @@ def main() -> int:
     da = card_residues(bz16.ring_aux.moduli, (4, 3), N64K)
     kernels['behz_finish32_n65536'] = dict(
         route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt32.cu',
-        design="B1's split inverse (from-Montgomery folded into n^-1) over q and over aux, "
-               'then the scale-back from the int64 rows',
+        design="B1's cluster kernel inverse (from-Montgomery folded into n^-1) over q and "
+               'over aux, then the scale-back from the int64 rows',
         replaces='lattisense_tpu/ops/behz_pallas32.py:368',
         replaces_function='behz_finish32 (_k3_kernel)', path=None, counted_as='behz_finish32',
         shapes=[[list(dq.shape), list(da.shape)]],
@@ -1868,8 +1871,8 @@ def main() -> int:
                 ksw16_work.append(ksw_work(2, lv + 1, len(p16), sw16.beta(lv), N64K,
                                            output_ntt=out_ntt))
     kernels['ksw_switch32_n65536'] = dict(
-        route='cuda', source='lattisense_torch/csrc/ksw32.cu + csrc/ntt32.cu',
-        design="split route, its NTTs through B1's split",
+        route='cuda', source='lattisense_torch/csrc/ksw32.cu + csrc/ntt_cluster.cuh',
+        design=ksw_cuda.switch_route(N64K), cluster=clusters['ksw32_cluster_n65536'],
         replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
         replaces_function='ksw_switch32 (_ksw_kernel)', path='btp_w32_path',
         counted_as='ksw_switch32', shapes=ksw16_shapes,
@@ -2012,12 +2015,12 @@ def main() -> int:
                   'ckks_task_mix64_path']
     c64_kernels = ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64']
     c32_kernels = ['ntt32_fwd', 'ntt32_inv', 'ksw_switch32']
-    no_c32 = ([k for k in w32_kernels if k not in c32_kernels] + u64_kernel_counts + split_cols)
+    no_c32 = ([k for k in w32_kernels if k not in c32_kernels] + u64_kernel_counts + wide_ntts)
     msgs_c = complex_slots(2 * BATCH, params_c64.slots)
     ckks_res = run_path(
         'ckks_path', ctx_c64, CkksEngine(params_c64, 'cpu'), LEVEL_C64, ckks_mult_relin_rescale,
         2, key_tree(ctx_c64), {'rlk': cpu_key(ctx_c64.rlk)}, msgs_c, None, c64_kernels,
-        w32_kernels + split_cols,
+        w32_kernels + wide_ntts,
         {'op': 'mult_relin_rescale', 'params': 'CkksParams.create(16384)', 'word_bits': 64,
          'scale': params_c64.scale, 'alpha': alpha_c64, 'beta': beta_c64,
          'keygen_s': keygen_c64_s},
@@ -2113,7 +2116,7 @@ def main() -> int:
     del ctx_c32
     torch.cuda.empty_cache()
     path_launches['ckks_task_mix64_path'] = run_ckks_mix(
-        'ckks_task_mix64_path', ctx_c64, LEVEL_C64, c64_kernels, w32_kernels + split_cols,
+        'ckks_task_mix64_path', ctx_c64, LEVEL_C64, c64_kernels, w32_kernels + wide_ntts,
         tasks.CKKS_MIX_U64)
     del ctx_c64
     torch.cuda.empty_cache()
@@ -2331,27 +2334,27 @@ def main() -> int:
         return holds
 
     def btp32_holds(ctx):
-        """B1's split at the w32 bootstrap's key-switch shapes, top level:
-        forward on the (2, 12, 52, n) digits over q ∪ p, inverse on the two
-        components."""
+        """B1's cluster kernel at the w32 bootstrap's key-switch shapes, top
+        level, batch 2: the inverse of the (2, 48, n)
+        component switched, the forward of the (2, 2, 48, n) output over
+        Q."""
         lv = ctx.params.max_level
-        rq = ctx.engine.switcher.ring_qp(lv)
-        be = ctx.engine.switcher.beta(lv)
-        parts = {'columns': 'columns_kernel', 'rows': 'ntt_kernel'}
+        rq = get_rns_ring(tuple(ctx.params.q[:lv + 1]), ctx.params.n, dev)
         return {f'{k}_btp_w32': dict(
-            route='cuda', source='lattisense_torch/csrc/ntt_columns.cuh + csrc/ntt32.cu',
+            route='cuda', source='lattisense_torch/csrc/ntt_cluster.cuh + csrc/ntt32.cu',
             replaces=f'lattisense_tpu/ops/ntt_pallas32.py:{line}', replaces_function=fn,
-            path='btp_w32_path', counted_as=f'ksw32_split_{k[6:]}',
-            **hold_ntt(f'{k}_btp_w32', [(rq, lead)], kern, plain, ntt_work, parts))
+            path='btp_w32_path', counted_as=f'{k}_cluster',
+            **hold_ntt(f'{k}_btp_w32', [(rq, lead)], kern, plain, ntt_work,
+                       {'cluster': 'cluster_kernel'}))
             for k, kern, plain, lead, line, fn in (
-                ('ntt32_fwd', ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain, (2, be), 101,
+                ('ntt32_fwd', ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain, (2, 2), 101,
                  'ntt_fused32 (_fwd_kernel)'),
-                ('ntt32_inv', ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, (2, 2), 173,
+                ('ntt32_inv', ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, (2,), 173,
                  'intt_fused32 (_inv_kernel)'))}
 
     u64_btp = ['bconv64_convert', 'bconv64_raw', 'ksw_inner64']
     run_bootstrap('btp_toy_path', 'toy', ['ntt64_fwd', 'ntt64_inv'] + u64_btp,
-                  w32_kernels + split_cols, btp64_holds('btp_toy', 'btp_toy_path', False),
+                  w32_kernels + wide_ntts, btp64_holds('btp_toy', 'btp_toy_path', False),
                   cpu_segments=('raise', 'cts0', 'evalmod_da', 'stc2'),
                   task=tasks.CKKS_BOOTSTRAP_TOY, save_as='btp_toy')
     single_ms['btp_toy_path'] = path_ms['btp_toy_path']
@@ -2359,8 +2362,8 @@ def main() -> int:
                   w32_kernels + ['ntt64_fwd', 'ntt64_inv'],
                   btp64_holds('btp_full', 'btp_full_path', True))
     run_bootstrap('btp_w32_path', 'w32',
-                  ['ntt32_fwd', 'ntt32_inv', 'ntt32_fwd_cols', 'ntt32_inv_cols', 'ksw_switch32',
-                   'ksw32_split_fwd', 'ksw32_split_inv'],
+                  ['ntt32_fwd', 'ntt32_inv', 'ntt32_fwd_cluster', 'ntt32_inv_cluster',
+                   'ksw_switch32'],
                   u64_kernel_counts + ['behz_prep32', 'behz_finish32'], btp32_holds)
 
     # ---- 19. the sharded views: worlds of ranks sharing the card over gloo,
@@ -2370,11 +2373,11 @@ def main() -> int:
     # none of the fused B2/B3/B4, which hold a full-length NTT (32-bit
     # views); B5, B6 and B7 (64-bit views)
     w32_view = (['ntt32_fwd', 'ntt32_inv'],
-                ['behz_prep32', 'ksw_switch32', 'behz_finish32', 'ksw32_split_fwd',
-                 'ksw32_split_inv', 'behz32_split_fwd', 'behz32_split_inv']
-                + split_cols + u64_kernel_counts)
+                ['behz_prep32', 'ksw_switch32', 'behz_finish32', 'behz32_split_fwd',
+                 'behz32_split_inv']
+                + wide_ntts + u64_kernel_counts)
     u64_view = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
-                w32_kernels + split_cols)
+                w32_kernels + wide_ntts)
     view_runs = [
         ('coeff_engine_path', 'coeff_engine', 'ctx32', 'main', (1, 1, 2), LEVEL, 'main_path',
          {'scheme': 'BFV', 'op': 'mult_relin', 'word_bits': 32}, w32_view),
@@ -2667,7 +2670,7 @@ def main() -> int:
         [('lattisense_tpu/ops/ntt_pallas32.py:101', 'ntt_fused32 (_fwd_kernel)'),
          ('lattisense_tpu/ops/ntt_pallas32.py:173', 'intt_fused32 (_inv_kernel)')]))
     mpc = run_mpc('mpc_path', params, LEVEL, ['ntt32_fwd', 'ntt32_inv'],
-                  ['behz_prep32', 'ksw_switch32', 'behz_finish32'], u64_kernel_counts + split_cols,
+                  ['behz_prep32', 'ksw_switch32', 'behz_finish32'], u64_kernel_counts + wide_ntts,
                   MAIN_ITERS)
     path_launches['mpc_path'] = mpc['launches']
     torch.cuda.empty_cache()
@@ -2684,7 +2687,7 @@ def main() -> int:
     path_launches['mpc64_path'] = run_mpc(
         'mpc64_path', params64, LEVEL64, ['ntt64_fwd', 'ntt64_inv'],
         ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
-        w32_kernels + split_cols, MPC64_ITERS)['launches']
+        w32_kernels + wide_ntts, MPC64_ITERS)['launches']
     torch.cuda.empty_cache()
     phase_done('mpc')
 
@@ -2844,9 +2847,9 @@ def main() -> int:
     # then on its toy chain at n=1024, card against the CPU twin bit for bit
     from lattisense_torch import models as zoo
     u64_model = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
-                 w32_kernels + split_cols)
+                 w32_kernels + wide_ntts)
     w32_model = (['ntt32_fwd', 'ntt32_inv', 'ksw_switch32'],
-                 ['behz_prep32', 'behz_finish32'] + u64_kernel_counts + split_cols)
+                 ['behz_prep32', 'behz_finish32'] + u64_kernel_counts + wide_ntts)
     slots = N // 2
     n1 = 1 << max(0, math.isqrt(slots).bit_length() - 1)
     t1 = time.perf_counter()

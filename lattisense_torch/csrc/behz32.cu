@@ -84,15 +84,18 @@
 //   3       : B^-1 mod m_sk, its Shoup, m_sk >> 1
 //
 // At n = 2^16 a row does not fit B1's row loop. There each half is a short
-// sequence of launches around kernel B1's split (csrc/ntt_columns.cuh and
-// the row kernel on sub-rows of 2^15, called from ops/ntt_cuda.py), in the
-// way B3's split route is built, meeting in device memory as int64 stacks:
+// sequence of launches around kernel B1's cluster kernel (csrc/ntt_cluster.cuh,
+// one launch a transform, called from ops/ntt_cuda.py), meeting in device
+// memory as int64 stacks:
 //   B2: the extension kernel above, storing int64 aux rows
 //       (`behz32_extend64_launch`), then B1's forward with the to-Montgomery
 //       epilogue over the q rows (x -> fq) and over the aux rows (-> fa);
 //   B4: B1's inverse with the from-Montgomery folded into n^-1 over dq and
 //       over da, then the scale-back kernel above on the int64 rows, making
 //       y_i = [t X_i (Q/q_i)^-1]_{q_i} itself (`behz32_scale_back64_launch`).
+// What bounds them there: the bytes of those int64 stacks, each crossing
+// device memory once each way a launch (B1's cluster kernel keeps its row
+// on chip between its stages).
 // The constant blocks are the ones the fused launches read.
 
 #include "row_fusion.cuh"
@@ -105,7 +108,7 @@ using fused::sub_mod;
 
 constexpr int kMaxL = 32;
 constexpr int kMaxT = 40;
-constexpr int kMaxLogn = 15;
+constexpr int kMaxLogn = 15;         // the row loops' cap; above, the route at 2^16
 constexpr int kThreads = 256;
 constexpr uint32_t kMtilde = 1u << 16;
 
@@ -547,6 +550,10 @@ int scale_back(const In* y, const In* xa, int64_t* out, int polys, int L, int T,
 extern "C" int behz32_max_limbs() { return kMaxL; }
 
 extern "C" int behz32_max_aux() { return kMaxT; }
+
+// The largest log2 n the fused row loops take (the host routes n above it
+// around B1's cluster kernel).
+extern "C" int behz32_max_logn() { return kMaxLogn; }
 
 // B4 on dq: (polys, L, n) and da: (polys, T, n), NTT + Montgomery int64
 // residues starting on 16 bytes, into out: (polys, L, n) over Q, through

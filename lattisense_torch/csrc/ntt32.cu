@@ -19,12 +19,18 @@
 // runs four register passes of up to four stages joined by conflict-free
 // exchanges through a 64 KB buffer; rows leave in coalesced 8-byte stores,
 // and twiddles are read once per row, in pass order. 192 KB of shared memory
-// hold one block per SM (64 registers a thread at 1024 threads). At
-// n = 2^15 (32 residues a thread) the staging buffer does not fit: rows are
-// read straight from device memory. n = 2^16 takes the split of
-// csrc/ntt_columns.cuh: the columns kernel runs the top stage (forward) or
-// the last one (inverse), this row kernel the rest on the two sub-rows of
-// 2^15, each a limb of its own. Above 2^16 is refused.
+// hold one block per SM (64 registers a thread at 1024 threads).
+//
+// n = 2^15 and 2^16 take the cluster kernel of csrc/ntt_cluster.cuh, as B5
+// does: one launch, a cluster of 2^k blocks (4 at 2^15, 8 at 2^16, 512
+// threads each) holding a row in sub-rows of 2^13 (ntt::kSubLogn), the k
+// stages that span sub-rows traded through distributed shared memory and
+// this row body run on each sub-row as a limb of its own (ops/ntt_cuda.py
+// `split_pass_tables`): the row crosses device memory once each way (at
+// 2^16 a row of 256 KB as 32-bit words does not fit a block), and no thread
+// holds more than 16 residues (a row kernel at 2^15 holds 32 a thread,
+// unstaged, and spills; PERF.md §6 has both times, and those of sub-rows of
+// 2^14, which measured no faster). Above 2^16 is refused.
 //
 // Rows are laid out (rows, n) contiguous; row r uses limb r % limbs of the
 // tables, so any (..., L, n) stack is one launch.
@@ -33,21 +39,20 @@
 // `intt_fused32_perm`) are the same transform with the forward output stored,
 // or the inverse input loaded, in the transposed tile layout: position
 // b * (n / 128) + a of a perm-layout row holds standard-order element a * 128 + b.
-// Only the row's load or store changes (scattered, off the main path). At
-// n = 2^16 the split's row kernel sees sub-rows, not the whole row, so the
-// perm entries run the split as it is and one more pass, `perm_kernel`,
+// Only the row's load or store changes (scattered, off the main path). Above
+// 2^14 the cluster kernel's blocks hold sub-rows, not the whole row, so
+// the perm entries run it as it is and one more pass, `perm_kernel`,
 // transposes each row's (n / 128, 128) tile matrix in shared memory: after
 // the forward, or before the inverse (the layout's inverse is the transpose
 // of the (128, n / 128) matrix). It moves the stack through device memory
 // once more each way.
 
 #include "ntt_passes.cuh"
-#include "ntt_columns.cuh"
+#include "ntt_cluster.cuh"
 
 namespace {
 
-constexpr int kMaxLogn = 15;       // the row kernel: 1024 threads of 32 residues
-constexpr int kMaxSplit = 1;       // columns stages: n up to 2^16
+constexpr int kMaxLogn = 14;       // the row kernel: 1024 threads of 16 residues
 
 template <bool kInverse, bool kPerm>
 int run(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const void* tab,
@@ -134,15 +139,34 @@ extern "C" int ntt32_blocks_per_sm(int logn, int inverse) {
                  : ntt::occupancy<ntt::W32, kMaxLogn, false>(logn);
 }
 
-// The column stage of the split at depth k (n = 2^logn, rows of 2^(logn-k)
-// for the row kernel): forward before the row kernel, inverse after it
-// (inverse != 0). `tab` is the (limbs, 2^k, 2) column table of uint32
-// (value, Shoup companion), `q` the limbs' primes as uint32.
-extern "C" int ntt32_cols_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
-                                 int k, int inverse, const void* tab, const void* q,
-                                 void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  return inverse
-      ? ntt::launch_columns<ntt::W32, kMaxSplit, true>(x, y, rows, limbs, logn, k, tab, q, s)
-      : ntt::launch_columns<ntt::W32, kMaxSplit, false>(x, y, rows, limbs, logn, k, tab, q, s);
+// The transform of `rows` rows of n = 2^logn (15 or 16) in one launch of
+// clusters of 2^(logn - logs) blocks over sub-rows of 2^logs (logs must be
+// ntt::kSubLogn, the host's SUB_LOGN).
+// `tab` is the direction's pass table over the virtual limbs (limbs 2^k,
+// entries, 2) of uint32 (value, Shoup companion), `ctab` the (limbs, 2^k, 2)
+// column table, `q` the limbs' primes; `post` / `posts` per virtual limb
+// (the inverse's n^-1 always).
+extern "C" int ntt32_cluster_launch(const int64_t* x, int64_t* y, int rows, int limbs, int logn,
+                                    int logs, int inverse, const void* tab, const void* ctab,
+                                    const void* q, const void* post, const void* posts,
+                                    void* stream) {
+  return inverse ? ntt::launch_cluster_at<ntt::W32, true>(logn, logs, x, y, rows, limbs, tab,
+                                                          ctab, q, post, posts, stream, nullptr)
+                 : ntt::launch_cluster_at<ntt::W32, false>(logn, logs, x, y, rows, limbs, tab,
+                                                           ctab, q, post, posts, stream, nullptr);
+}
+
+// Clusters of the cluster kernel at n = 2^logn over sub-rows of 2^logs that
+// the current card holds at once (cudaOccupancyMaxActiveClusters), or minus
+// a cudaError_t.
+extern "C" int ntt32_cluster_fit(int logn, int logs, int inverse) {
+  int fit = 0;
+  const int err =
+      inverse ? ntt::launch_cluster_at<ntt::W32, true>(logn, logs, nullptr, nullptr, 0, 1, nullptr,
+                                                     nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                     &fit)
+              : ntt::launch_cluster_at<ntt::W32, false>(logn, logs, nullptr, nullptr, 0, 1, nullptr,
+                                                      nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                      &fit);
+  return err != 0 ? -err : fit;
 }

@@ -43,12 +43,6 @@
 namespace {
 
 constexpr int kMaxLogn = 14;          // the row kernel: a 64-bit row of 2^14 in 128 KB
-constexpr int kMaxLognCluster = 16;   // the cluster kernel: n up to 2^16
-// its sub-rows: at 2^13 (64 KB, 512 threads of up to 128 registers) B5's
-// row body takes a butterfly in about 0.6 of its time at 2^14, where 1024
-// threads hold 64 registers each and spill (PERF.md §6,
-// lattisense_torch/tools/ntt_bench.py)
-constexpr int kSubLogn = 13;
 
 template <bool kInverse>
 int run(const int64_t* x, int64_t* y, int rows, int limbs, int logn, const void* tab,
@@ -85,33 +79,9 @@ extern "C" int ntt64_blocks_per_sm(int logn, int inverse) {
                  : ntt::occupancy<ntt::W64, kMaxLogn, false>(logn);
 }
 
-namespace {
-
-// f(std::integral_constant<int, k>) for the cluster kernel's instances:
-// sub-rows of 2^kSubLogn, k = logn - kSubLogn cross stages, n = 2^15 or 2^16.
-template <class F>
-int by_cluster(int logn, int logs, const F& f) {
-  if (logs != kSubLogn || logn <= kMaxLogn || logn > kMaxLognCluster)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return logn == 15 ? f(std::integral_constant<int, 15 - kSubLogn>{})
-                    : f(std::integral_constant<int, 16 - kSubLogn>{});
-}
-
-template <bool kInverse>
-int cluster(const int64_t* x, int64_t* y, int rows, int limbs, int logn, int logs,
-            const void* tab, const void* ctab, const void* q, const void* post,
-            const void* posts, void* stream, int* fit) {
-  return by_cluster(logn, logs, [&](auto depth) -> int {
-    return ntt::launch_cluster<kSubLogn, decltype(depth)::value, kInverse>(
-        x, y, rows, limbs, tab, ctab, q, post, posts, static_cast<cudaStream_t>(stream), fit);
-  });
-}
-
-}  // namespace
-
 // The transform of `rows` rows of n = 2^logn (15 or 16) in one launch of
 // clusters of 2^(logn - logs) blocks over sub-rows of 2^logs (logs must be
-// kSubLogn, the host's SUB_LOGN). `tab` is the
+// ntt::kSubLogn, the host's SUB_LOGN). `tab` is the
 // direction's pass table over the virtual limbs (limbs 2^k, entries, 2),
 // `ctab` the (limbs, 2^k, 2) column table, `q` the limbs' primes; `post` /
 // `posts` per virtual limb as above (the inverse's n^-1 always).
@@ -119,10 +89,10 @@ extern "C" int ntt64_cluster_launch(const int64_t* x, int64_t* y, int rows, int 
                                     int logs, int inverse, const void* tab, const void* ctab,
                                     const void* q, const void* post, const void* posts,
                                     void* stream) {
-  return inverse ? cluster<true>(x, y, rows, limbs, logn, logs, tab, ctab, q, post, posts,
-                                 stream, nullptr)
-                 : cluster<false>(x, y, rows, limbs, logn, logs, tab, ctab, q, post, posts,
-                                  stream, nullptr);
+  return inverse ? ntt::launch_cluster_at<ntt::W64, true>(logn, logs, x, y, rows, limbs, tab,
+                                                          ctab, q, post, posts, stream, nullptr)
+                 : ntt::launch_cluster_at<ntt::W64, false>(logn, logs, x, y, rows, limbs, tab,
+                                                           ctab, q, post, posts, stream, nullptr);
 }
 
 // Clusters of the cluster kernel at n = 2^logn over sub-rows of 2^logs that
@@ -130,9 +100,12 @@ extern "C" int ntt64_cluster_launch(const int64_t* x, int64_t* y, int rows, int 
 // a cudaError_t.
 extern "C" int ntt64_cluster_fit(int logn, int logs, int inverse) {
   int fit = 0;
-  const int err = inverse ? cluster<true>(nullptr, nullptr, 0, 1, logn, logs, nullptr, nullptr,
-                                          nullptr, nullptr, nullptr, nullptr, &fit)
-                          : cluster<false>(nullptr, nullptr, 0, 1, logn, logs, nullptr, nullptr,
-                                           nullptr, nullptr, nullptr, nullptr, &fit);
+  const int err =
+      inverse ? ntt::launch_cluster_at<ntt::W64, true>(logn, logs, nullptr, nullptr, 0, 1, nullptr,
+                                                     nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                     &fit)
+              : ntt::launch_cluster_at<ntt::W64, false>(logn, logs, nullptr, nullptr, 0, 1, nullptr,
+                                                      nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                      &fit);
   return err != 0 ? -err : fit;
 }

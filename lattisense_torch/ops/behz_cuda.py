@@ -34,18 +34,22 @@ store 32-bit rows, and one thread per coefficient finishes the scale-back
 from them: three launches, no int64 intermediate, bound by device-memory
 bytes.
 
-At n = 2^16 a row does not fit B1's row loop, and each half becomes a short
-sequence of launches around B1's split, as B3's split route is built: B2 the
-extension into int64 aux rows (one thread per two coefficients, as above),
-then B1's forward with the to-Montgomery epilogue over the q rows and over
-the aux rows; B4 B1's inverse with the from-Montgomery folded into n^-1 over
-dq and over da, then the scale-back, one thread per coefficient, from the
-int64 rows. The constant blocks are the fused launches'. The extra device
-traffic is the int64 rows between the launches.
+The row loops hold a row up to 2^15 (``kMaxLogn`` of ``csrc/behz32.cu``,
+which the wrappers read through ``behz32_max_logn``). At n = 2^16 a row does
+not fit them, and each half becomes a short
+sequence of launches around B1's cluster kernel (one launch a transform,
+``ntt_cuda.launch``): B2 the extension into int64 aux rows (one thread per
+two coefficients, as above), then B1's forward with the to-Montgomery
+epilogue over the q rows and over the aux rows; B4 B1's inverse with the
+from-Montgomery folded into n^-1 over dq and over da, then the scale-back,
+one thread per coefficient, from the int64 rows. The constant blocks are the
+fused launches'. The extra device traffic is the int64 rows between the
+launches.
 
 Each wrapper counts one launch per call. Up to 2^15 neither launches any of
 B1's entries; at 2^16 their B1 launches count under ``ntt_cuda.launches``
-``behz32_split_fwd`` / ``behz32_split_inv``. A CPU tensor runs the plain
+``behz32_split_fwd`` / ``behz32_split_inv`` (and the cluster kernel's under
+``ntt32_*_cluster``). A CPU tensor runs the plain
 PyTorch composition below; a CUDA tensor launches the kernels or raises.
 """
 
@@ -72,10 +76,8 @@ _SIGNATURES = {
     'behz32_scale_back64_launch': [_P] * 3 + [_I] * 4 + [_P] * 2,
     'behz32_max_limbs': [],
     'behz32_max_aux': [],
+    'behz32_max_logn': [],
 }
-# B1's row loop holds a row of 2^15: up to there each half is one fused launch
-# sequence on it; above, the route around B1's split, up to B1's maximum
-FUSED_MAX_LOGN = ntt_cuda.ROW_MAX_LOGN
 MAX_LOGN = ntt_cuda.MAX_LOGN
 
 
@@ -146,12 +148,12 @@ def behz_prep32(x, bz):
     fa = torch.empty((*lead, T, n), dtype=torch.int64, device=x.device)
     if polys:
         x = x if x.data_ptr() % 16 == 0 else x.clone()    # rows move in 16-byte pieces
-        if n.bit_length() - 1 > FUSED_MAX_LOGN:
+        if n.bit_length() - 1 > lib.behz32_max_logn():
             _prep_split(lib, x, fq, fa, bz, polys)
             launches['behz_prep32'] += 1
             return fq, fa
         ext = torch.empty((*lead, T, n), dtype=torch.int32, device=x.device)
-        tabs = ntt_cuda._tables(prep_ring(bz))
+        tabs = ntt_cuda.row_tables(prep_ring(bz))
         with torch.cuda.device(x.device):
             err = lib.behz32_prep_launch(
                 x.data_ptr(), ext.data_ptr(), fq.data_ptr(), fa.data_ptr(), polys, L, T,
@@ -235,13 +237,13 @@ def behz_finish32(dq, da, bz):
         # the row kernels stage rows in 16-byte pieces
         dq = dq if dq.data_ptr() % 16 == 0 else dq.clone()
         da = da if da.data_ptr() % 16 == 0 else da.clone()
-        if n.bit_length() - 1 > FUSED_MAX_LOGN:
+        if n.bit_length() - 1 > lib.behz32_max_logn():
             _finish_split(lib, dq, da, out, bz, polys)
             launches['behz_finish32'] += 1
             return out
         y = torch.empty(dq.shape, dtype=torch.int32, device=dq.device)
         xa = torch.empty(da.shape, dtype=torch.int32, device=dq.device)
-        tq, ta = ntt_cuda._tables(rq), ntt_cuda._tables(ra)
+        tq, ta = ntt_cuda.row_tables(rq), ntt_cuda.row_tables(ra)
         with torch.cuda.device(dq.device):
             err = lib.behz32_finish_launch(
                 dq.data_ptr(), da.data_ptr(), out.data_ptr(), y.data_ptr(), xa.data_ptr(),
@@ -256,7 +258,7 @@ def behz_finish32(dq, da, bz):
 
 
 # ---------------------------------------------------------------------------
-# the route at n = 2^16, around B1's split
+# the route at n = 2^16, around B1's cluster kernel
 # ---------------------------------------------------------------------------
 
 def _prep_split(lib, x, fq, fa, bz, polys: int):

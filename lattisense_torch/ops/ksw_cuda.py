@@ -15,20 +15,25 @@ each digit's row t from x, its forward NTT, the product with the key read
 in place and both components' inverse NTTs stay in the block's registers
 and shared memory, and only the coefficient-domain product leaves, as 32-bit
 residues; one per-coefficient kernel then runs the mod-down, the only step
-across rows. n = 2^15 (``switch_route``) takes the split route: mod-up,
-inner-product and mod-down kernels around kernel B1's NTTs, meeting in
-device memory as int64 stacks. With ``output_ntt`` either route ends in a
-B1 forward over the result.
+across rows. n = 2^15 and 2^16 (``switch_route``), whose three 32-bit rows
+do not fit a block, take the cluster route: the same row spread over a
+thread-block cluster of 2^k blocks, each owning a sub-row of
+2^``ntt_cuda.SUB_LOGN`` of the digit row and of both accumulators, the k NTT
+stages that span sub-rows traded through distributed shared memory (the
+cross stages of kernel B1's cluster kernel, ``csrc/ntt_cluster.cuh``, with
+its virtual-limb tables ``ntt_cuda.cluster_tables`` at
+``ntt_cuda.cluster_depth``), into the same mod-down. Bound, as
+the fused route, by its 32-bit operations; neither route moves a digit
+stack through device memory. With ``output_ntt`` either route ends in a B1
+forward over the result.
 
 ``ksw_switch32`` counts one launch per call, for the whole sequence (the
-split route's B1 launches show under ``ntt_cuda.launches``
-``ksw32_split_fwd``/``ksw32_split_inv``, the output NTT's under
-``ntt32_fwd``). The split route takes n up to 2^16: its transforms go
-through ``ntt_cuda.launch``, which runs B1's split above 2^15, and its three
-per-coefficient kernels index polynomials in 64 bits (at n = 2^16 with 52
-limbs and 12 digits a ciphertext's digit stack alone holds 4·10^7
-residues). A CUDA tensor launches the kernels or raises; a CPU tensor runs
-the plain twin.
+output NTT's under ``ntt_cuda.launches``: ``ntt32_fwd``, and above 2^14
+also ``ntt32_fwd_cluster``). Both routes index polynomials in 64 bits (at
+n = 2^16 with 52 rows and 12 digits a ciphertext's key rows alone hold
+4·10^7 residues). A CUDA tensor launches the kernels or raises; a CPU
+tensor runs the plain twin. ``tests/test_torch_fused_rows.py`` walks both
+routes on the CPU.
 """
 
 import ctypes
@@ -47,30 +52,32 @@ launches = {'ksw_switch32': 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'ksw32_modup_launch': [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    'ksw32_inner_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    'ksw32_moddown_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     'ksw32_moddown32_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     'ksw32_rows_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P],
+    'ksw32_cluster_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P],
     'ksw32_rows_blocks_per_sm': [_I],
+    'ksw32_cluster_fit': [_I, _I],
     'ksw32_max_alpha': [],
 }
 _MAX_GRID_YZ = 65535
 FUSED_MAX_LOGN = 14    # three 32-bit rows of 2^15 (384 KB) do not fit a block
-MAX_LOGN = ntt_cuda.MAX_LOGN       # the split route's NTTs take B1's split above 2^15
+MAX_LOGN = ntt_cuda.MAX_LOGN   # the cluster route: B1's cluster depths, B1's sub-rows
 
 
 def switch_route(n: int) -> str:
     """The route B3 takes at n, chosen by shape: 'fused' (one block per
     ciphertext and row, three 32-bit rows of shared memory) up to
-    n = 2^14, 'split' above."""
-    return 'fused' if n.bit_length() - 1 <= FUSED_MAX_LOGN else 'split'
+    n = 2^14, 'cluster' (one thread-block cluster per ciphertext and row)
+    above."""
+    return 'fused' if n.bit_length() - 1 <= FUSED_MAX_LOGN else 'cluster'
 
 
 def _consts(sw, level: int):
-    """The three kernels' uint32 constant blocks for one level (layouts in
-    ksw32.cu), cached on the KeySwitcher."""
+    """The kernels' uint32 constant blocks for one level (layouts in
+    ksw32.cu: the rows kernels' ``modup`` and ``inner``, the mod-down's),
+    cached on the KeySwitcher."""
     cache = sw.__dict__.setdefault('_b3_consts', {})
     if level in cache:
         return cache[level]
@@ -150,10 +157,12 @@ def ksw_switch32(x, ksk, sw, level: int, output_ntt: bool = False):
 
 
 def _switch(x, ksk, sw, level: int, output_ntt: bool, route: str):
-    """B3 on a CUDA stack through ``route`` ('fused' or 'split'); the card
-    tests call it to hold both routes against the twin."""
+    """B3 on a CUDA stack through ``route`` ('fused' up to n = 2^14,
+    'cluster' above); the card tests and ``tools/fused_bench.py`` call it to
+    hold and time a route."""
     lib = cuda_build.load('ksw32', _SIGNATURES)
     L, n = level + 1, sw.n
+    logn = n.bit_length() - 1
     alpha, beta, Lq = sw.alpha, sw.beta(level), len(sw.q_moduli)
     T = L + alpha
     if alpha > lib.ksw32_max_alpha():
@@ -162,13 +171,13 @@ def _switch(x, ksk, sw, level: int, output_ntt: bool, route: str):
     if not (ksk.key_q.is_contiguous() and ksk.key_p.is_contiguous()):
         raise ValueError('ksw_switch32 reads the key in place: key_q and key_p must be '
                          'contiguous')
-    if n.bit_length() - 1 > MAX_LOGN:
+    if logn > MAX_LOGN:
         raise ValueError(f'ksw_switch32 supports n <= 2^{MAX_LOGN}, got n={n}')
-    if route == 'fused' and switch_route(n) != 'fused':
-        raise ValueError(f'the fused B3 does not take n={n}')
-    if route == 'fused' and (ksk.key_q.data_ptr() % 16 or ksk.key_p.data_ptr() % 16):
-        raise ValueError('the fused B3 reads the key in 16-byte pieces: key_q and key_p must '
-                         'start on 16 bytes')
+    if route not in ('fused', 'cluster') or (route == 'fused') != (logn <= FUSED_MAX_LOGN):
+        raise ValueError(f'the {route} B3 does not take n={n}')
+    if ksk.key_q.data_ptr() % 16 or ksk.key_p.data_ptr() % 16:
+        raise ValueError('B3 reads the key in 16-byte pieces: key_q and key_p must start on '
+                         '16 bytes')
     lead = x.shape[:-2]
     G = x.numel() // (L * n)
     if 2 * G > _MAX_GRID_YZ:
@@ -182,36 +191,28 @@ def _switch(x, ksk, sw, level: int, output_ntt: bool, route: str):
         dev = x.device
         out = e if not output_ntt else torch.empty_like(e)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        prod = torch.empty((G, 2, T, n), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             if route == 'fused':
-                ntab = ntt_cuda._tables(ring_qp)
-                prod = torch.empty((G, 2, T, n), dtype=torch.int32, device=dev)
+                ntab = ntt_cuda.row_tables(ring_qp)
                 err = lib.ksw32_rows_launch(
                     x.data_ptr(), ksk.key_q.data_ptr(), ksk.key_p.data_ptr(), prod.data_ptr(),
-                    G, L, Lq, alpha, beta, T, n.bit_length() - 1, ntab['fwd'].data_ptr(),
+                    G, L, Lq, alpha, beta, T, logn, ntab['fwd'].data_ptr(),
                     ntab['inv'].data_ptr(), ntab['n_inv'].data_ptr(),
                     ntab['n_inv_shoup'].data_ptr(), tabs['modup'].data_ptr(),
                     tabs['inner'].data_ptr(), stream)
-                _raise(err, 'fused rows')
-                err = lib.ksw32_moddown32_launch(prod.data_ptr(), out.data_ptr(), 2 * G, L,
-                                                 alpha, T, n, tabs['moddown'].data_ptr(), stream)
             else:
-                digits = torch.empty((G, beta, T, n), dtype=torch.int64, device=dev)
-                digits_ntt = torch.empty_like(digits)
-                acc = torch.empty((G, 2, T, n), dtype=torch.int64, device=dev)
-                acc_coef = torch.empty_like(acc)
-                err = lib.ksw32_modup_launch(x.data_ptr(), digits.data_ptr(), G, L, alpha, beta,
-                                             T, n, tabs['modup'].data_ptr(), stream)
-                _raise(err, 'mod-up')
-                ntt_cuda.launch(digits, digits_ntt, ring_qp, inverse=False,
-                                name='ksw32_split_fwd')
-                err = lib.ksw32_inner_launch(digits_ntt.data_ptr(), ksk.key_q.data_ptr(),
-                                             ksk.key_p.data_ptr(), acc.data_ptr(), G, L, Lq,
-                                             alpha, beta, T, n, tabs['inner'].data_ptr(), stream)
-                _raise(err, 'inner product')
-                ntt_cuda.launch(acc, acc_coef, ring_qp, inverse=True, name='ksw32_split_inv')
-                err = lib.ksw32_moddown_launch(acc_coef.data_ptr(), out.data_ptr(), 2 * G, L,
-                                               alpha, T, n, tabs['moddown'].data_ptr(), stream)
+                ntab = ntt_cuda.cluster_tables(ring_qp, ntt_cuda.cluster_depth(logn))
+                err = lib.ksw32_cluster_launch(
+                    x.data_ptr(), ksk.key_q.data_ptr(), ksk.key_p.data_ptr(), prod.data_ptr(),
+                    G, L, Lq, alpha, beta, T, logn, ntt_cuda.SUB_LOGN, ntab['fwd'].data_ptr(),
+                    ntab['inv'].data_ptr(), ntab['cols_fwd'].data_ptr(),
+                    ntab['cols_inv'].data_ptr(), ntab['n_inv'].data_ptr(),
+                    ntab['n_inv_shoup'].data_ptr(), tabs['modup'].data_ptr(),
+                    tabs['inner'].data_ptr(), stream)
+            _raise(err, f'{route} rows')
+            err = lib.ksw32_moddown32_launch(prod.data_ptr(), out.data_ptr(), 2 * G, L,
+                                             alpha, T, n, tabs['moddown'].data_ptr(), stream)
             _raise(err, 'mod-down')
             if output_ntt:
                 ntt_cuda.launch(out, e, get_rns_ring(sw.q_moduli[:L], n, sw.device),
@@ -226,6 +227,16 @@ def rows_blocks_per_sm(n: int) -> int:
     got = cuda_build.load('ksw32', _SIGNATURES).ksw32_rows_blocks_per_sm(n.bit_length() - 1)
     if got < 0:
         raise RuntimeError(f'ksw32 occupancy query failed: cudaError_t {-got}')
+    return got
+
+
+def cluster_fit(n: int) -> int:
+    """Clusters of the cluster route at n that the current card runs at once
+    (``cudaOccupancyMaxActiveClusters``); raises where none fits."""
+    got = cuda_build.load('ksw32', _SIGNATURES).ksw32_cluster_fit(n.bit_length() - 1,
+                                                                  ntt_cuda.SUB_LOGN)
+    if got <= 0:
+        raise RuntimeError(f'ksw32 cluster occupancy query failed: cudaError_t {-got}')
     return got
 
 

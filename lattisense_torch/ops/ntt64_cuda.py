@@ -39,8 +39,8 @@ import torch
 
 from ..core import u64 as _u
 from . import cuda_build
-from .ntt_cuda import (check_stack, column_tables, intt_plain, ntt_plain, run_aligned,
-                       split_pass_tables)
+from .ntt_cuda import (SUB_LOGN, check_stack, column_tables, intt_plain, ntt_plain,
+                       run_aligned, split_pass_tables)
 
 #: launches of each kernel and direction since the last reset, counted in
 #: ``launch``: the row kernel (n <= 2^14) and the cluster kernel (2^15, 2^16)
@@ -56,7 +56,7 @@ _SIGNATURES = {
     'ntt64_cluster_fit': [_I, _I, _I],
 }
 ROW_MAX_LOGN = 14      # the row kernel's exchange buffer 2^14 · 8 B = 128 KB
-SUB_LOGN = 13          # the cluster kernel's sub-rows: 2^13 · 8 B = 64 KB a block
+# SUB_LOGN, B1's: every cluster kernel's sub-rows, here 2^13 · 8 B = 64 KB a block
 MAX_LOGN = 16          # the cluster kernel: clusters of up to 2^(16 - SUB_LOGN) blocks
 
 

@@ -34,21 +34,26 @@ the TPU compiler with no meaning here, so they launch B1 itself.
 ``intt_fused32_perm``: B1 with its output stored (forward) or its input
 loaded (inverse) in the transposed tile layout of ``perm_layout``, where
 position b·(n/128)+a holds standard-order element a·128+b. Each counts its
-launches under its own name. At n = 2^16 each runs B1's split; the perm
-entries add one transpose pass (``ntt32_perm_launch``) after the forward or
-before the inverse, since the split's row kernel holds sub-rows and not the
-row whose layout it would store.
+launches under its own name. Above 2^14 each runs B1's cluster kernel; the
+perm entries add one transpose pass (``ntt32_perm_launch``) after the
+forward or before the inverse, since the cluster's blocks hold sub-rows and
+not the row whose layout they would store.
 
-The split. A row of 2^16 32-bit words does not fit a block's shared memory.
-Such a transform runs in two launches (``csrc/ntt_columns.cuh``): the
-columns kernel runs the k stages whose butterflies span sub-rows of n/2^k,
-and the row kernel the rest, with each (limb, sub-row) a virtual limb of its
-own over tables re-indexed from the ring's (``split_indices``,
-``split_pass_tables``); forward columns first, inverse rows first. The
-columns launches count under ``ntt32_fwd_cols`` / ``ntt32_inv_cols``.
-``tests/test_torch_ntt_split.py`` walks the split on the CPU. B5 uses the
-same tables for its rows of 2^15 and 2^16 64-bit words, in one launch of
-its cluster kernel (``ops/ntt64_cuda.py``).
+Above 2^14. A row of 2^16 32-bit words does not fit a block, and a row
+kernel at 2^15 (1024 threads of 32 residues, its row read straight from
+device memory) spills. Such a transform is one launch of the cluster kernel
+(``csrc/ntt_cluster.cuh``, as B5 at 2^15 and 2^16): a thread-block cluster
+of 2^k blocks holds a row in sub-rows of 2^``SUB_LOGN``, trades the
+k = log2 n - ``SUB_LOGN`` stages that span sub-rows through distributed
+shared memory and runs the row body on each sub-row, each (limb, sub-row) a
+virtual limb over tables re-indexed from the ring's (``split_indices``,
+``split_pass_tables``, ``column_tables``). Its launches count under
+``ntt32_fwd_cluster`` / ``ntt32_inv_cluster`` beside the entry's own count.
+At 2^15 it measured 2.3x faster than the row kernel, and sub-rows of 2^14
+no faster than these (``PERF.md`` §6), so the kernel is built for sub-rows
+of 2^13 alone (``ntt::kSubLogn`` in the source).
+``tests/test_torch_ntt_cluster.py`` walks the cluster kernel on the CPU,
+``tests/test_torch_ntt_split.py`` its tables.
 """
 
 import ctypes
@@ -60,12 +65,11 @@ from ..core import u64 as _u
 from . import cuda_build
 
 #: launches of each entry since the last reset, counted in ``launch``: the
-#: split's columns kernel under ``*_cols``, B3's split route under ``ksw32_split_*``,
-#: B2's and B4's at 2^16 under ``behz32_split_*``
-launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_cols': 0, 'ntt32_inv_cols': 0,
+#: cluster kernel also under ``*_cluster``, B2's and B4's at 2^16 under
+#: ``behz32_split_*``
+launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_cluster': 0, 'ntt32_inv_cluster': 0,
             'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0, 'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0,
-            'ksw32_split_fwd': 0, 'ksw32_split_inv': 0, 'behz32_split_fwd': 0,
-            'behz32_split_inv': 0}
+            'behz32_split_fwd': 0, 'behz32_split_inv': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,11 +79,13 @@ _SIGNATURES = {
     'ntt32_blocks_per_sm': [_I, _I],
     'ntt32_fwd_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     'ntt32_inv_perm_launch': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    'ntt32_cols_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    'ntt32_cluster_launch': [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'ntt32_cluster_fit': [_I, _I, _I],
     'ntt32_perm_launch': [_P, _P, _I, _I, _I, _P],
 }
-ROW_MAX_LOGN = 15      # the row kernel: 1024 threads of 32 residues; exchange 2^15 · 4 B = 128 KB
-MAX_LOGN = 16          # the split: one columns stage, then rows of 2^15
+ROW_MAX_LOGN = 14      # the row kernel B1 takes: 1024 threads of 16 residues, a row staged
+SUB_LOGN = 13          # the cluster kernel's sub-rows (ntt_cluster.cuh kSubLogn): 512 threads
+MAX_LOGN = 16          # the cluster kernel: clusters of 2^(16 - SUB_LOGN) blocks
 SMEM_LIMIT = 232448    # bytes of shared memory a block may use (sm_90)
 LANES = 128            # the tile width of the perm layout
 
@@ -249,13 +255,20 @@ def stages_rows(logn: int, word_bits: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the split above the row kernel's cap (csrc/ntt_columns.cuh)
+# the cluster kernel above the row kernel's cap (csrc/ntt_cluster.cuh)
 # ---------------------------------------------------------------------------
 
 def split_depth(logn: int, row_max_logn: int) -> int:
-    """k: the stages the columns kernel runs at n = 2^logn, so that the
-    row kernel takes sub-rows of 2^(logn - k) <= 2^row_max_logn."""
+    """k: the stages that span sub-rows at n = 2^logn, so that the row body
+    takes sub-rows of 2^(logn - k) <= 2^row_max_logn."""
     return max(0, logn - row_max_logn)
+
+
+def cluster_depth(logn: int) -> int:
+    """k: the stages B1's cluster kernel trades between the blocks of a
+    cluster at n = 2^logn (clusters of 2^k blocks over sub-rows of
+    2^SUB_LOGN); 0 where the row kernel takes the row (n <= 2^14)."""
+    return 0 if logn <= ROW_MAX_LOGN else split_depth(logn, SUB_LOGN)
 
 
 def split_indices(logn: int, k: int) -> np.ndarray:
@@ -290,7 +303,7 @@ def split_pass_tables(tw, tws, logn: int, k: int, inverse: bool, per_vector: int
 
 
 def column_tables(tw, tws, k: int) -> np.ndarray:
-    """The columns kernel's (L, 2^k, 2) table: entries 0 .. 2^k - 1 of the
+    """The cross stages' (L, 2^k, 2) table: entries 0 .. 2^k - 1 of the
     (L, n) tables ``tw``/``tws`` as (value, companion) pairs; stage m reads
     entries m .. 2m - 1 (entry 0 is unused)."""
     return np.ascontiguousarray(np.stack([np.asarray(tw)[:, :1 << k],
@@ -308,17 +321,30 @@ def u32_tensor(values, device):
     return torch.from_numpy(arr.view(np.int32)).to(device)
 
 
-def _tables(ring):
-    """The ring's pass tables and per-limb constants in the kernel's uint32
-    layout, cached on the ring. Above the row kernel's cap the pass tables
-    and the constants (``q``, the epilogues') are per virtual limb of the
-    split, each limb's repeated 2^k times, and the columns kernel's tables
-    and primes (``cols_*``) are added."""
-    tabs = getattr(ring, '_b1_tables', None)
+def row_tables(ring):
+    """The ring's pass tables and per-limb constants in the row kernel's
+    uint32 layout (one limb a row), for B1's row kernel and the row loops
+    built on it (B2, B3's fused route, B4), cached on the ring."""
+    return _tables(ring, 0)
+
+
+def cluster_tables(ring, k: int):
+    """The ring's tables for a cluster of 2^k blocks a row (k >= 1; B1's
+    cluster kernel at ``cluster_depth``, B3's cluster route): the pass
+    tables and the constants (``q``, the epilogues') per virtual limb, each
+    limb's repeated 2^k times, and the cross stages' tables and the limbs'
+    primes (``cols_*``), cached on the ring."""
+    if k < 1:
+        raise ValueError(f'a cluster spans at least two sub-rows, got depth {k}')
+    return _tables(ring, k)
+
+
+def _tables(ring, k: int):
+    logn = ring.n.bit_length() - 1
+    cache = ring.__dict__.setdefault('_b1_tables', {})
+    tabs = cache.get(k)
     if tabs is None:
         rs, dev = ring.rings, ring.device
-        logn = ring.n.bit_length() - 1
-        k = split_depth(logn, ROW_MAX_LOGN)
         r1 = [r.r1 for r in rs]
         nir = [r.n_inv * pow(1 << 32, -1, r.q) % r.q for r in rs]
 
@@ -350,7 +376,7 @@ def _tables(ring):
                                                      k), dev),
                 'cols_inv': u32_tensor(column_tables(stacked('psi_inv_rev'),
                                                      stacked('psi_inv_rev_shoup'), k), dev)})
-        ring._b1_tables = tabs
+        cache[k] = tabs
     return tabs
 
 
@@ -369,14 +395,14 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
     """Launch B1 on contiguous CUDA int64 stacks x → y (same shape) on the
     current stream, and count the launch under ``name`` (by default its
     direction's). Every launch of the kernel goes through here, so kernels
-    built on B1 (B2, B3, B4) show in the count too.
+    built on B1 (B2 and B4 at 2^16) show in the count too.
 
     ``to_mont`` (forward) multiplies the output by 2^32 mod q; ``from_mont``
     (inverse) folds a from-Montgomery of the input into the n^-1 scale: the
     transform is linear, so INTT(x·2^-32) = 2^-32·INTT(x), and the kernel's
     per-limb epilogue multiplies by n^-1·2^-32 instead of n^-1. ``perm``
     stores the forward output, or loads the inverse input, in the perm
-    layout (at 2^16 through a transpose pass beside the split)."""
+    layout (above 2^14 through a transpose pass beside the cluster kernel)."""
     _u.require_word(ring, 32, 'B1 (ntt32)')
     if not (x.is_cuda and y.is_cuda and x.is_contiguous() and y.is_contiguous()):
         raise ValueError('B1 takes contiguous CUDA tensors')
@@ -389,22 +415,19 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
         raise ValueError(f'B1 supports 2 <= n <= 2^{MAX_LOGN}, got n={ring.n}')
     if perm and ring.n < LANES:
         raise ValueError(f'the perm layout needs n >= {LANES}, got n={ring.n}')
+    k = cluster_depth(logn)
     rows = x.numel() // ring.n
     if rows == 0:
         return
     lib = cuda_build.load('ntt32', _SIGNATURES)
-    tabs = _tables(ring)
+    tabs = cluster_tables(ring, k) if k else row_tables(ring)
     if inverse:
-        fn = lib.ntt32_inv_perm_launch if perm else lib.ntt32_inv_launch
         post, posts = ((tabs['n_inv_rinv'], tabs['n_inv_rinv_shoup']) if from_mont
                        else (tabs['n_inv'], tabs['n_inv_shoup']))
     else:
-        fn = lib.ntt32_fwd_perm_launch if perm else lib.ntt32_fwd_launch
         post, posts = (tabs['r1'], tabs['r1_shoup']) if to_mont else (None, None)
     what = f'ntt32 {"inverse" if inverse else "forward"}'
-    k = split_depth(logn, ROW_MAX_LOGN)
     if k:
-        row_fn = lib.ntt32_inv_launch if inverse else lib.ntt32_fwd_launch
         src, dst = x, y
         if perm:
             mid = torch.empty_like(x)
@@ -413,12 +436,24 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
                 src = mid
             else:
                 dst = mid
-        run_split(row_fn, lib.ntt32_cols_launch, src, dst, ring, k, inverse, tabs, post, posts,
-                  what)
+        with torch.cuda.device(x.device):
+            err = lib.ntt32_cluster_launch(
+                src.data_ptr(), dst.data_ptr(), rows, len(ring.moduli), logn, SUB_LOGN,
+                int(inverse), tabs['inv' if inverse else 'fwd'].data_ptr(),
+                tabs['cols_inv' if inverse else 'cols_fwd'].data_ptr(), tabs['cols_q'].data_ptr(),
+                None if post is None else post.data_ptr(),
+                None if posts is None else posts.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'{what} cluster launch failed: cudaError_t {err}')
         if perm and not inverse:
             _perm_pass(lib, mid, y, rows, logn, False)
-        launches['ntt32_inv_cols' if inverse else 'ntt32_fwd_cols'] += 1
+        launches['ntt32_inv_cluster' if inverse else 'ntt32_fwd_cluster'] += 1
     else:
+        if inverse:
+            fn = lib.ntt32_inv_perm_launch if perm else lib.ntt32_inv_launch
+        else:
+            fn = lib.ntt32_fwd_perm_launch if perm else lib.ntt32_fwd_launch
         run_aligned(fn, x, y, rows, len(ring.moduli), logn, tabs['inv' if inverse else 'fwd'],
                     tabs['q'], post, posts, what)
     launches[name or ('ntt32_inv' if inverse else 'ntt32_fwd')] += 1
@@ -451,43 +486,22 @@ def run_aligned(fn, x, y, rows, limbs, logn, tab, q, post, posts, what: str):
         y.copy_(out)
 
 
-def run_split(row_fn, cols_fn, x, y, ring, k: int, inverse: bool, tabs, post, posts, what: str):
-    """The split of B1 at depth k on contiguous CUDA stacks x -> y:
-    the columns kernel ``cols_fn`` and the row kernel ``row_fn`` over the
-    virtual limbs (rows of 2^(log2 n - k)), meeting in device memory;
-    forward columns first, inverse rows first. ``tabs`` holds the virtual
-    pass tables and constants and the column tables (``_tables``)."""
-    logn = ring.n.bit_length() - 1
-    rows, limbs = x.numel() // ring.n, len(ring.moduli)
-    mid = torch.empty(x.shape, dtype=torch.int64, device=x.device)
-
-    def columns(src, dst):
-        with torch.cuda.device(x.device):
-            err = cols_fn(src.data_ptr(), dst.data_ptr(), rows, limbs, logn, k, int(inverse),
-                          tabs['cols_inv' if inverse else 'cols_fwd'].data_ptr(),
-                          tabs['cols_q'].data_ptr(),
-                          torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f'{what} columns launch failed: cudaError_t {err}')
-
-    def row_pass(src, dst):
-        run_aligned(row_fn, src, dst, rows << k, limbs << k, logn - k,
-                    tabs['inv' if inverse else 'fwd'], tabs['q'], post, posts, what)
-
-    if inverse:
-        row_pass(x, mid)
-        columns(mid, y)
-    else:
-        columns(x, mid)
-        row_pass(mid, y)
-
-
 def blocks_per_sm(logn: int, inverse: bool) -> int:
     """Blocks of B1's kernel at n = 2^logn that one SM of the current card
     holds, from the occupancy calculator (registers, shared memory, threads)."""
     got = cuda_build.load('ntt32', _SIGNATURES).ntt32_blocks_per_sm(logn, int(inverse))
     if got < 0:
         raise RuntimeError(f'ntt32 occupancy query failed: cudaError_t {-got}')
+    return got
+
+
+def cluster_fit(logn: int, inverse: bool) -> int:
+    """Clusters of B1's cluster kernel at n = 2^logn (2^15 or 2^16) that the
+    current card runs at once, from ``cudaOccupancyMaxActiveClusters``;
+    raises where none fits."""
+    got = cuda_build.load('ntt32', _SIGNATURES).ntt32_cluster_fit(logn, SUB_LOGN, int(inverse))
+    if got <= 0:
+        raise RuntimeError(f'ntt32 cluster occupancy query failed: cudaError_t {-got}')
     return got
 
 

@@ -16,8 +16,12 @@ times:
   ``torch.profiler`` over ``--iters`` calls (``*_kernels_ms``: kernel
   name → ms per call), which splits each wrapper into its stages whatever
   its design;
-- B3's split route whole, where the checkout has more than one route
-  (``_switch`` with route 'split');
+- B3 above the fused route's cap, whole and by kernel: at the w32 n=32768
+  path's shapes (``create_tpu_param(32768)``, level 21, batch B:
+  ``ksw_switch32_32k_*``) and at the w32 bootstrap's key-switch shapes
+  (``create_tpu_btp_param()``, levels 47 and 9 at batch 2, both outputs at
+  47: ``ksw_switch32_n65536_*``), through the wrapper (whatever route the
+  checkout takes there);
 - at the u64 path's shapes (``create(16384)``, level 3, batch B), B6's four
   conversions of a mult_relin (``bconv64_convert``: the BEHZ extension,
   scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q) each
@@ -136,17 +140,47 @@ def main(argv=None) -> int:
     e = ksw_cuda.ksw_switch32(x, key, sw, LEVEL)
     want = sw.switch_plain(x, key, LEVEL)
     out['ksw_switch32_equal'] = torch.equal(e[0], want[0]) and torch.equal(e[1], want[1])
-    out['ksw_switch32_route'] = getattr(ksw_cuda, 'switch_route', lambda n: 'split')(N)
+    out['ksw_switch32_route'] = ksw_cuda.switch_route(N)
     out['ksw_switch32_ms'] = timed(lambda: ksw_cuda.ksw_switch32(x, key, sw, LEVEL))
     out['ksw_switch32_kernels_ms'] = kernel_ms(lambda: ksw_cuda.ksw_switch32(x, key, sw, LEVEL))
-    if hasattr(ksw_cuda, '_switch'):
-        e = ksw_cuda._switch(x, key, sw, LEVEL, False, 'split')
-        out['ksw_switch32_split_equal'] = torch.equal(e[0], want[0]) and torch.equal(e[1], want[1])
-        out['ksw_switch32_split_ms'] = timed(
-            lambda: ksw_cuda._switch(x, key, sw, LEVEL, False, 'split'))
-        out['ksw_switch32_split_kernels_ms'] = kernel_ms(
-            lambda: ksw_cuda._switch(x, key, sw, LEVEL, False, 'split'))
     del x, e, want, key, kq, kp
+
+    # B3 above the fused route's cap: the w32 n=32768 path and the w32
+    # bootstrap's key-switch shapes
+    from lattisense_torch.params import CkksParams
+    from lattisense_torch.schemes.keyswitch import KeySwitcher
+
+    def n_residues(moduli, lead, n):
+        x = torch.randint(0, 1 << 62, (*lead, len(moduli), n), generator=gen, device=dev)
+        return x % torch.tensor(moduli, device=dev).reshape(-1, 1)
+
+    p32k = BfvParams.create_tpu_param(2 * N)
+    p64k = CkksParams.create_tpu_btp_param(4 * N)
+    for tag, prm, calls in (('32k', p32k, [(len(p32k.q) - 1, (B,), False)]),
+                            ('n65536', p64k, [(len(p64k.q) - 1, (2,), False),
+                                              (len(p64k.q) - 1, (2,), True), (9, (2,), False),
+                                              (9, (2,), True)])):
+        n = prm.n
+        swn = KeySwitcher(tuple(prm.q), tuple(prm.p), n, dev, 32)
+        betan = swn.beta(len(prm.q) - 1)
+        keyn = KeySwitchKey(key_q=n_residues(prm.q, (betan, 2), n),
+                            key_p=n_residues(prm.p, (betan, 2), n))
+        ins = [(n_residues(prm.q[:lv + 1], lead, n), lv, ont) for lv, lead, ont in calls]
+        out[f'ksw_switch32_{tag}_calls'] = [[list(x.shape), lv, ont] for x, lv, ont in ins]
+        out[f'ksw_switch32_{tag}_route'] = ksw_cuda.switch_route(n)
+        wants = [swn.switch_plain(x, keyn, lv, ont) for x, lv, ont in ins]
+
+        def run_all(fn):
+            return [fn(x, keyn, swn, lv, ont) for x, lv, ont in ins]
+
+        def equal(got):
+            return all(torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                       for g, w in zip(got, wants))
+        out[f'ksw_switch32_{tag}_equal'] = equal(run_all(ksw_cuda.ksw_switch32))
+        out[f'ksw_switch32_{tag}_ms'] = timed(lambda: run_all(ksw_cuda.ksw_switch32))
+        out[f'ksw_switch32_{tag}_kernels_ms'] = kernel_ms(lambda: run_all(ksw_cuda.ksw_switch32))
+        del ins, wants, keyn
+        torch.cuda.empty_cache()
 
     # B4: the (B, 3, L, n) and (B, 3, T, n) tensor products
     dq, da = stack(rq, (B, 3)), stack(ra, (B, 3))

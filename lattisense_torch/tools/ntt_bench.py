@@ -18,9 +18,15 @@ and direction is timed together, as ``chip_smoke.py``'s ``kernels`` line
 does, and each output is held against the plain twin on the card. Then B5's
 row kernel at n = 2^13 and 2^14 on stacks of the same residues (the n=32768
 forward's 5 248 rows as 20 992 or 10 496 rows), with the time a butterfly
-(``b5_rows``): the rate of the row body at either sub-row size. Prints one
-JSON line ``{"ntt_bench": {...}}`` with the times in ms, the equality flags,
-the root and the card's name and power limit.
+(``b5_rows``): the rate of the row body at either sub-row size. Then B1
+above 2^14 (``ntt32_wide``): the w32 n=32768 path's (B, 22, n) stack
+(``create_tpu_param(32768)``, level 21), a (37, 12, n) stack at n = 2^16 and
+the w32 bootstrap's key-switch stacks at n = 2^16 (``create_tpu_btp_param()``
+top level: the forward on (2, 12, 52, n), the inverse on (2, 2, 52, n)),
+each through the wrapper (whatever route the checkout takes there), with
+each CUDA kernel's device time. Prints one JSON line
+``{"ntt_bench": {...}}`` with the times in ms, the equality flags, the root
+and the card's name and power limit.
 """
 
 import argparse
@@ -154,6 +160,29 @@ def main(argv=None) -> int:
             entry[f'{d}_ms'] = timed(fn, [(x, ring)])
             entry[f'{d}_ps_per_butterfly'] = entry[f'{d}_ms'] * 1e9 / butterflies
         out['b5_rows'][f'n{n}'] = entry
+        del x
+    # B1 above 2^14
+    from lattisense_torch.params import CkksParams
+    p32 = BfvParams.create_tpu_param(N32K)
+    btp = CkksParams.create_tpu_btp_param(1 << 16)
+    rqp = get_rns_ring(tuple(btp.q) + tuple(btp.p), 1 << 16, dev)
+    beta = -(-len(btp.q) // len(btp.p))
+    out['ntt32_wide'] = {}
+    both = ('fwd', 'inv')
+    for tag, ring, lead, dirs in (
+            ('n32768_q22', get_rns_ring(tuple(p32.q), N32K, dev), (B,), both),
+            ('n65536_37x12', get_rns_ring(gen_ntt_primes(1 << 16, 31, 12), 1 << 16, dev), (37,),
+             both),
+            ('n65536_btp_fwd', rqp, (2, beta), ('fwd',)), ('n65536_btp_inv', rqp, (2, 2), ('inv',))):
+        x = stack(ring, lead)
+        entry = {'shape': list(x.shape)}
+        for d in dirs:
+            fn, plain = ((ntt_cuda.ntt32_fwd, ntt_cuda.ntt_plain) if d == 'fwd'
+                         else (ntt_cuda.ntt32_inv, ntt_cuda.intt_plain))
+            entry[f'{d}_equal'] = torch.equal(fn(x, ring), plain(x, ring))
+            entry[f'{d}_ms'] = timed(fn, [(x, ring)])
+            entry[f'{d}_kernels_ms'] = kernel_ms(fn, [(x, ring)])
+        out['ntt32_wide'][tag] = entry
         del x
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60,

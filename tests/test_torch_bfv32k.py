@@ -1,7 +1,7 @@
 """The port's BFV at n=32768 against lattisense_tpu: the u64 chain
 ``BfvParams.create(32768)`` (12 q primes of 59-60 bits, 3 special primes of
 60 bits) at level 11, its full width, where the card's NTT (kernel B5) runs
-split (``csrc/ntt_columns.cuh``). Here on the CPU the port's plain path runs:
+its cluster kernel (``csrc/ntt_cluster.cuh``). Here on the CPU the port's plain path runs:
 the batched mult_relin and rotate_col by one slot, batch 1, with the
 reference's keys handed over through ``BfvContext.from_arrays``, bit for bit
 against the reference's NumPy path.

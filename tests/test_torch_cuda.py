@@ -4,7 +4,8 @@ These need the card (a CUDA kernel has no CPU mode) and skip without one.
 Each kernel is checked at a small shape and at the main path's shape, with
 its launch count and its refusal of bad input; the NTTs B1 and B5 and the
 kernels built on B1's row loop (B2, B3, B4) at every n they take (B1 and B5
-split above their row kernel's cap: B1 at 2^16, B5 at 2^15 and 2^16), B6
+run their cluster kernel above their row kernel's cap, at 2^15 and 2^16;
+B3 its cluster route there), B6
 through each of its instances and its fold, bit for bit; and the
 compiled-task runtime on each committed task directory (card against CPU,
 graph replay against eager, a second key set through the same task); and
@@ -84,7 +85,7 @@ def misaligned(x):
 @pytest.mark.parametrize('logn', range(1, 17))
 def test_b1_kernel_matches_plain(cuda, logn):
     """Every n B1 takes, L = 1 and L = 12, both epilogues of each direction;
-    at 2^16 through the split, whose columns launches count apart."""
+    above 2^14 one launch of the cluster kernel a call, counted apart too."""
     n = 1 << logn
     chain = tuple(gen_ntt_primes(n, 31, 12))
     before, calls = dict(ntt_cuda.launches), 0
@@ -105,13 +106,51 @@ def test_b1_kernel_matches_plain(cuda, logn):
         assert torch.equal(fm, ntt_cuda.ntt_plain(x, ring, to_mont=True)), (L, lead)
         assert torch.equal(i, ntt_cuda.intt_plain(x, ring)), (L, lead)
         assert torch.equal(im, x) and torch.equal(ia, x) and torch.equal(fa, f), (L, lead)
-    split = calls if logn > ntt_cuda.ROW_MAX_LOGN else 0
+    cluster = calls if logn > ntt_cuda.ROW_MAX_LOGN else 0
     assert ntt_cuda.launches['ntt32_fwd'] == before['ntt32_fwd'] + calls
     assert ntt_cuda.launches['ntt32_inv'] == before['ntt32_inv'] + calls
-    assert ntt_cuda.launches['ntt32_fwd_cols'] == before['ntt32_fwd_cols'] + split
-    assert ntt_cuda.launches['ntt32_inv_cols'] == before['ntt32_inv_cols'] + split
+    assert ntt_cuda.launches['ntt32_fwd_cluster'] == before['ntt32_fwd_cluster'] + cluster
+    assert ntt_cuda.launches['ntt32_inv_cluster'] == before['ntt32_inv_cluster'] + cluster
+    assert not [k for k in ntt_cuda.launches if k.endswith('_cols')]     # no columns kernel
     with pytest.raises(ValueError):
         ntt_cuda.ntt32_fwd(x.transpose(0, 1), ring)
+
+
+@pytest.mark.parametrize('logn', [15, 16])
+def test_b1_cluster_sub_rows_match_plain(cuda, logn):
+    """B1's cluster kernel over its sub-rows of 2^SUB_LOGN: (37, 12, n) and
+    an odd row count, both epilogues of each direction, one cluster launch a
+    call, and the clusters that fit the card; the C entries refuse any other
+    sub-row size."""
+    n = 1 << logn
+    chain = tuple(gen_ntt_primes(n, 31, 12))
+    assert ntt_cuda.cluster_fit(logn, False) > 0 and ntt_cuda.cluster_fit(logn, True) > 0
+    for L, lead in ((12, (37,)), (3, (5,))):
+        ring = get_rns_ring(chain[:L], n, cuda)
+        x = card_residues(ring, lead, 11 + L)
+        before = dict(ntt_cuda.launches)
+        got = []
+        for inverse, to_mont, from_mont in ((False, False, False), (False, True, False),
+                                            (True, False, False), (True, False, True)):
+            y = torch.empty_like(x)
+            ntt_cuda.launch(x, y, ring, inverse, to_mont, from_mont)
+            got.append(y)
+        torch.cuda.synchronize()
+        want = [ntt_cuda.ntt_plain(x, ring), ntt_cuda.ntt_plain(x, ring, to_mont=True),
+                ntt_cuda.intt_plain(x, ring),
+                ntt_cuda.intt_plain(tu.from_mont(x, ring.q, ring.pinv), ring)]
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (L, lead)
+        assert ntt_cuda.launches['ntt32_fwd_cluster'] == before['ntt32_fwd_cluster'] + 2
+        assert ntt_cuda.launches['ntt32_inv_cluster'] == before['ntt32_inv_cluster'] + 2
+    from lattisense_torch.ops import cuda_build
+    lib = cuda_build.load('ntt32', ntt_cuda._SIGNATURES)
+    tabs = ntt_cuda.cluster_tables(ring, ntt_cuda.cluster_depth(logn))
+    for logs in (ntt_cuda.SUB_LOGN - 1, ntt_cuda.SUB_LOGN + 1):
+        assert lib.ntt32_cluster_launch(
+            x.data_ptr(), x.data_ptr(), x.numel() // n, L, logn, logs, 0, tabs['fwd'].data_ptr(),
+            tabs['cols_fwd'].data_ptr(), tabs['cols_q'].data_ptr(), None, None,
+            torch.cuda.current_stream().cuda_stream) != 0
+        assert ntt_cuda.launches['ntt32_fwd_cluster'] == before['ntt32_fwd_cluster'] + 2
 
 
 def test_b2_kernel_matches_plain(cuda):
@@ -196,7 +235,7 @@ def test_b2_limb_maxima_and_refusals(cuda):
 
 def b2_b4_split_match_plain(cuda, params, levels, leads):
     """B2 and B4 at n = 2^16 against their twins on the card, a misaligned
-    view too: one count a call each, and B1's split launched under
+    view too: one count a call each, and B1's cluster kernel launched under
     ``behz32_split_fwd`` / ``behz32_split_inv`` (twice a call: q and aux)."""
     eng = BfvEngine(params, cuda)
     for level in levels:
@@ -214,7 +253,8 @@ def b2_b4_split_match_plain(cuda, params, levels, leads):
             assert torch.equal(out, want_f), (level, lead)
             for k in ('behz_prep32', 'behz_finish32'):
                 assert behz_cuda.launches[k] == before[k] + 1
-            for k in ('behz32_split_fwd', 'behz32_split_inv'):
+            for k in ('behz32_split_fwd', 'behz32_split_inv', 'ntt32_fwd_cluster',
+                      'ntt32_inv_cluster'):
                 assert ntt_cuda.launches[k] == before[k] + 2
             fq, fa = behz_cuda.behz_prep32(misaligned(x), bz)
             assert torch.equal(fq, want_p[0]) and torch.equal(fa, want_p[1]), level
@@ -338,37 +378,39 @@ def card_key(ksk, dev):
 
 
 def b3_both_routes(cuda, q, p, n, levels, leads):
-    """B3 through every route that takes n, at each level, lead and
-    output_ntt, against ``switch_plain`` on the card; the wrapper's route is
-    ``switch_route``'s."""
+    """B3 through the route that takes n (the fused route up to 2^14, the
+    cluster route above) called by name, and through the wrapper, at each
+    level, lead and output_ntt, against ``switch_plain`` on the card."""
     sw = KeySwitcher(q, p, n, cuda)
     key = card_key(random_key(70 + n.bit_length(), q, p, n), cuda)
-    routes = ['split'] + (['fused'] if ksw_cuda.switch_route(n) == 'fused' else [])
+    route = ksw_cuda.switch_route(n)
     for level in levels:
         for lead in leads:
             x = card_residues(get_rns_ring(q[:level + 1], n, cuda), lead, level + 3 * len(lead))
             for output_ntt in (False, True):
                 want = sw.switch_plain(x, key, level, output_ntt)
-                for route in routes:
-                    got = ksw_cuda._switch(x, key, sw, level, output_ntt, route)
-                    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
-                        (route, level, lead, output_ntt)
+                got = ksw_cuda._switch(x, key, sw, level, output_ntt, route)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                    (route, level, lead, output_ntt)
                 got = ksw_cuda.ksw_switch32(x, key, sw, level, output_ntt)
                 assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     return sw, key
 
 
-@pytest.mark.parametrize('logn', range(1, 16))
+@pytest.mark.parametrize('logn', range(1, 17))
 def test_b3_routes_match_plain(cuda, logn):
     """Every n B1 takes, alpha = 2 with a ragged last digit (level 4) and
-    without (level 3), batch 1 and an odd batch, both outputs."""
+    without (level 3), batch 1 and an odd batch, both outputs; each route
+    refuses the n of the other."""
     n = 1 << logn
     chain = tuple(gen_ntt_primes(n, 31, 7))
     sw, key = b3_both_routes(cuda, chain[:5], chain[5:], n, (4, 3), ((1,), (3,)))
-    if ksw_cuda.switch_route(n) == 'split':
-        x = card_residues(get_rns_ring(chain[:4], n, cuda), (1,), 1)
-        with pytest.raises(ValueError):
-            ksw_cuda._switch(x, key, sw, 3, False, 'fused')
+    x = card_residues(get_rns_ring(chain[:4], n, cuda), (1,), 1)
+    other = 'fused' if ksw_cuda.switch_route(n) == 'cluster' else 'cluster'
+    before = dict(ksw_cuda.launches)
+    with pytest.raises(ValueError):
+        ksw_cuda._switch(x, key, sw, 3, False, other)
+    assert ksw_cuda.launches == before
 
 
 def test_b3_every_level_of_the_headline_chain(cuda):
@@ -389,7 +431,7 @@ def test_b3_alpha_maximum_and_refusals(cuda):
     key = card_key(random_key(3, q, p, n), cuda)
     x = card_residues(get_rns_ring(q[:4], n, cuda), (2,), 1)
     before = dict(ksw_cuda.launches)
-    for route in ('fused', 'split'):
+    for route in ('fused', 'cluster'):
         with pytest.raises(ValueError):
             ksw_cuda._switch(x, key, sw, 3, False, route)
     with pytest.raises(ValueError):
@@ -699,9 +741,9 @@ def test_batched_u64_card_matches_cpu(cuda):
 
 def test_split_refusals(cuda):
     """B1 and B5 refuse 2^17, before any launch. At 2^16 B1's r4 / perm
-    entries (B1's split, the perm entries with their transpose pass), B4 and
-    B3's split route run and equal their twins; B3's fused route refuses
-    2^16."""
+    entries (B1's cluster kernel, the perm entries with their transpose
+    pass), B4 and B3's cluster route run and equal their twins; B3's fused
+    route refuses 2^16."""
     from lattisense_torch.ops import ntt64_cuda
     counts = (ntt_cuda.launches, ntt64_cuda.launches, behz_cuda.launches, ksw_cuda.launches)
     before = [dict(c) for c in counts]
@@ -732,7 +774,7 @@ def test_split_refusals(cuda):
         assert ntt_cuda.launches[fn.__name__] == before[0][fn.__name__] + 1
     params = BfvParams.create_custom(n, 65537, chain[:3], chain[3:], word_bits=32)
     b2_b4_split_match_plain(cuda, params, (2,), ((1,),))
-    assert ksw_cuda.switch_route(n) == 'split'
+    assert ksw_cuda.switch_route(n) == 'cluster'
     for output_ntt in (False, True):
         got = ksw_cuda.ksw_switch32(xq, key, sw, 2, output_ntt)
         want = sw.switch_plain(xq, key, 2, output_ntt)
@@ -740,9 +782,10 @@ def test_split_refusals(cuda):
 
 
 def b3_at_n65536(cuda, params, levels, batch):
-    """B3's split route at n = 2^16 on ``params``' chain against
+    """B3's cluster route at n = 2^16 on ``params``' chain against
     ``switch_plain`` on the card, at each level, both outputs, with a random
-    key of the chain's shape."""
+    key of the chain's shape: one count a call, and B1 only for the output
+    NTT (one cluster launch)."""
     q, p, n = tuple(params.q), tuple(params.p), params.n
     sw = KeySwitcher(q, p, n, cuda, 32)
     gen = torch.Generator(device=cuda).manual_seed(11)
@@ -755,13 +798,15 @@ def b3_at_n65536(cuda, params, levels, batch):
     for level in levels:
         x = rnd(q[:level + 1], (batch,))
         for output_ntt in (False, True):
-            before = dict(ntt_cuda.launches)
+            before = {**ntt_cuda.launches, **ksw_cuda.launches}
             got = ksw_cuda.ksw_switch32(x, key, sw, level, output_ntt)
+            after = {**ntt_cuda.launches, **ksw_cuda.launches}
             want = sw.switch_plain(x, key, level, output_ntt)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
                 (level, output_ntt)
-            assert ntt_cuda.launches['ksw32_split_fwd'] == before['ksw32_split_fwd'] + 1
-            assert ntt_cuda.launches['ntt32_fwd_cols'] > before['ntt32_fwd_cols']
+            assert after == {**before, 'ksw_switch32': before['ksw_switch32'] + 1,
+                             'ntt32_fwd': before['ntt32_fwd'] + output_ntt,
+                             'ntt32_fwd_cluster': before['ntt32_fwd_cluster'] + output_ntt}
 
 
 @pytest.mark.parametrize('profile', ['tpu_btp', 'tpu_65536'])

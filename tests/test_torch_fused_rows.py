@@ -17,11 +17,23 @@ constant block. Both are held bit for bit against the plain twins
 ``behz_finish_plain`` and ``KeySwitcher.switch_plain`` at n = 256 and 1024,
 at levels with and without a ragged last digit, with ``output_ntt``; B3's
 shape → route choice is checked too.
+
+``walk_switch_cluster`` moves B3's cluster route (n = 2^15, 2^16 on the
+card) the same way at a forced small sub-row: which block of the cluster
+builds which cells of each digit row (the mod-up at its columns' cells),
+the cross stages, the slot of its owner's buffer where each cell lands, the
+row passes over the virtual limbs, the key product parked in each block's
+accumulators, the inverse's park, gather and n^-1, and that every
+(component, row, coefficient) of the 32-bit product is written once. It is
+held against the JAX package's ``KeySwitcher.switch`` (NumPy).
 """
 
 import numpy as np
 import pytest
 import torch
+
+from lattisense_tpu.schemes.keyswitch import KeySwitcher as RefKeySwitcher
+from lattisense_tpu.schemes.types import KeySwitchKey as RefKeySwitchKey
 
 from lattisense_torch.core import u64 as tu
 from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
@@ -30,7 +42,8 @@ from lattisense_torch.params import BfvParams
 from lattisense_torch.schemes.bfv import BfvEngine
 from lattisense_torch.schemes.keyswitch import KeySwitcher
 from lattisense_torch.schemes.types import KeySwitchKey
-from tests.test_torch_ntt_schedule import walk
+from tests.test_torch_ntt_cluster import cluster_columns, cross_stages
+from tests.test_torch_ntt_schedule import Lazy32, walk, walk_rows
 
 CPU = torch.device('cpu')
 M32 = tu.MASK32
@@ -96,7 +109,7 @@ def walk_finish(dq, da, bz):
     c = u32(behz_cuda._finish_consts(bz))
 
     def inverse(x, ring):                      # B1's passes, n^-1·2^-32 folded in
-        tabs = ntt_cuda._tables(ring)
+        tabs = ntt_cuda.row_tables(ring)
         post = (u32(tabs['n_inv_rinv']).reshape(-1, 1),
                 u32(tabs['n_inv_rinv_shoup']).reshape(-1, 1))
         return walk(x, ring, inverse=True, post=post)
@@ -164,7 +177,7 @@ def walk_switch(x, ksk, sw, level, output_ntt):
     q, pinv = tabs['inner'][:T].reshape(-1, 1), tabs['inner'][T:].reshape(-1, 1)
     assert torch.equal(q.reshape(-1), qp)
     ring_qp = get_rns_ring(tuple(sw.q_moduli[:L]) + sw.p_moduli, n, CPU)
-    ntab = ntt_cuda._tables(ring_qp)
+    ntab = ntt_cuda.row_tables(ring_qp)
     slot = ntt_cuda.exchange_slot(chunk.reshape(-1), 32)          # the accumulators' slots
     lead = x.shape[:-2]
     acc = torch.zeros((*lead, 2, T, n), dtype=torch.int64)
@@ -216,4 +229,106 @@ def test_walk_switch_matches_plain(n, alpha, level, output_ntt):
 
 def test_switch_route():
     assert [ksw_cuda.switch_route(1 << k) for k in (1, 10, 14, 15)] == \
-        ['fused', 'fused', 'fused', 'split']
+        ['fused', 'fused', 'fused', 'cluster']
+
+
+def walk_switch_cluster(x, ksk, sw, level, output_ntt, logs):
+    """B3's cluster route on CPU stacks at sub-rows of 2^logs: the clusters
+    of every (ciphertext, row t) at once, C = 2^k blocks each, then the
+    mod-down kernel."""
+    L, n = level + 1, sw.n
+    alpha, beta = sw.alpha, sw.beta(level)
+    T, BA = L + alpha, beta * alpha
+    k = n.bit_length() - 1 - logs
+    C, sub = 1 << k, 1 << logs
+    cols = cluster_columns(logs, k)                                 # (C_s, threads, cols)
+    # block s builds cells r·2^logs + c of its columns c, register j·C + r
+    cell = cols.unsqueeze(-1) + sub * torch.arange(C)               # (C_s, threads, cols, C_r)
+    assert torch.equal(cell.reshape(-1).sort().values, torch.arange(n))
+    w = min(32, cols.shape[1])
+    assert torch.equal(cell[0, :w, 0, 0], torch.arange(w))         # a warp's reads coalesce
+    slots = ntt_cuda.exchange_slot(cols, 32)                        # cell r -> block r, this slot
+    assert torch.equal(slots.reshape(-1).sort().values, torch.arange(sub))
+    by_slot = ntt_cuda.exchange_slot(torch.arange(sub), 32)         # element e's slot
+    tabs = {key: u32(v) for key, v in ksw_cuda._consts(sw, level).items()}
+    srcq, qhi, qhis = tabs['modup'][:BA], tabs['modup'][BA:2 * BA], tabs['modup'][2 * BA:3 * BA]
+    qp = tabs['modup'][3 * BA:3 * BA + T]
+    mv = tabs['modup'][3 * BA + T:3 * BA + T + BA * T]
+    ms = tabs['modup'][3 * BA + T + BA * T:]
+    q, pinv = tabs['inner'][:T].reshape(-1, 1), tabs['inner'][T:].reshape(-1, 1)
+    ring_qp = get_rns_ring(tuple(sw.q_moduli[:L]) + sw.p_moduli, n, CPU)
+    ntab = {key: u32(v) for key, v in ntt_cuda.cluster_tables(ring_qp, k).items()}
+    vq, q4 = ntab['q'].reshape(-1, 1), q.reshape(T, 1, 1, 1)
+    assert torch.equal(vq, q.repeat_interleave(C, 0))
+    lead = x.shape[:-2]
+    acc = torch.zeros((*lead, 2, T, C, sub), dtype=torch.int64)    # parked: [.., s, slot]
+    for d in range(beta):
+        digit = torch.zeros((*lead, T, *cell.shape), dtype=torch.int64)
+        for j in range(alpha):                                      # limbs d·α + j, in order
+            r = d * alpha + j
+            if r >= L:
+                break
+            y = sh(x[..., r, :][..., cell], qhi[r], qhis[r], srcq[r])
+            terms = torch.stack([sh(y, mv[r * T + t], ms[r * T + t], qp[t]) for t in range(T)],
+                                dim=-5)
+            digit = (digit + terms) % qp.reshape(-1, 1, 1, 1, 1)
+        regs = cross_stages(list(digit.unbind(-1)), ntab['cols_fwd'], k, False, q4, Lazy32)
+        buf = torch.full((*lead, T, C, sub), -1, dtype=torch.int64)
+        for r in range(C):                                          # to block r's buffer
+            buf[..., r, slots.reshape(-1)] = regs[r].reshape(*lead, T, -1)
+        assert bool((buf >= 0).all())                               # every slot written
+        mine = buf[..., by_slot].reshape(*lead, T * C, sub)         # virtual limb t·C + s
+        f = walk_rows(mine, 32, vq, ntab['fwd'], False, staged=False).reshape(*lead, T, C, sub)
+        for comp in range(2):                                       # element s·2^logs + e
+            key = torch.cat([ksk.key_q[d, comp, :L], ksk.key_p[d, comp]], dim=0)
+            prod = tu.mont_mul(f, key.reshape(T, C, sub), q.reshape(T, 1, 1),
+                               pinv.reshape(T, 1, 1))
+            acc[..., comp, :, :, by_slot] = (acc[..., comp, :, :, by_slot] + prod) % q.reshape(T, 1, 1)
+    coef = torch.empty((*lead, 2, T, n), dtype=torch.int64)
+    hits = torch.zeros((2, T, n), dtype=torch.int64)
+    post = (ntab['n_inv'].reshape(T, C, 1, 1), ntab['n_inv_shoup'].reshape(T, C, 1, 1))
+    for comp in range(2):
+        mine = acc[..., comp, :, :, :][..., by_slot].reshape(*lead, T * C, sub)
+        z = walk_rows(mine, 32, vq, ntab['inv'], True, lazy_end=True, staged=False)
+        parked = torch.empty_like(z)
+        parked[..., by_slot] = z
+        parked = parked.reshape(*lead, T, C, sub)
+        # block s reads cell r of its columns from block r's accumulator
+        regs = cross_stages([parked[..., r, :][..., slots] for r in range(C)], ntab['cols_inv'], k,
+                            True, q4, Lazy32)
+        for r in range(C):
+            a = Lazy32.canon(Lazy32.shoup(regs[r], *post, q4) & M32, q4)
+            coef[..., comp, :, (r * sub + cols).reshape(-1)] = a.reshape(*lead, T, -1)
+            hits[comp, :, (r * sub + cols).reshape(-1)] += 1
+    assert bool((hits == 1).all())                                  # each output written once
+    assert int(coef.max()) < 1 << 32
+    e = moddown(coef, tabs['moddown'], L, alpha)
+    if output_ntt:
+        e = ntt_cuda.ntt_plain(e, get_rns_ring(sw.q_moduli[:L], n, CPU))
+    return e[..., 0, :, :], e[..., 1, :, :]
+
+
+@pytest.mark.parametrize('n,k', [(256, 2), (1024, 3)])
+@pytest.mark.parametrize('alpha,level,output_ntt', [
+    (4, 5, False),      # L = 6, alpha = 4: the second digit is ragged
+    (4, 5, True),
+    (4, 3, False),      # one digit
+    (2, 4, True),       # alpha = 2, ragged third digit
+])
+def test_walk_switch_cluster_matches_reference(n, k, alpha, level, output_ntt):
+    """B3's cluster route at sub-rows of n / 2^k against the JAX package's
+    ``KeySwitcher.switch`` on NumPy, same key and input."""
+    chain = gen_ntt_primes(n, 31, 6 + alpha)
+    q, p = tuple(chain[:6]), tuple(chain[6:])
+    sw = KeySwitcher(q, p, n, CPU)
+    beta = (len(q) + alpha - 1) // alpha
+    ksk = KeySwitchKey(key_q=residues(7, q, n, (beta, 2)), key_p=residues(8, p, n, (beta, 2)))
+    x = residues(n + level, q[:level + 1], n, (3,))
+    got = walk_switch_cluster(x, ksk, sw, level, output_ntt, n.bit_length() - 1 - k)
+    ref = RefKeySwitcher(q, p, n, 32)
+    want = ref.switch(np, x.numpy().astype(np.uint32),
+                      RefKeySwitchKey(key_q=ksk.key_q.numpy().astype(np.uint32),
+                                      key_p=ksk.key_p.numpy().astype(np.uint32)),
+                      level, output_ntt=output_ntt)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.uint32), w)

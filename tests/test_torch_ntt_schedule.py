@@ -93,7 +93,7 @@ def below(x, bound):
 
 def kernel_tables(ring):
     """The (L, entries, 2) pass tables the kernel gets, as int64 values."""
-    tabs = ntt_cuda._tables(ring) if ring.word_bits == 32 else ntt64_cuda._tables(ring)
+    tabs = ntt_cuda.row_tables(ring) if ring.word_bits == 32 else ntt64_cuda._tables(ring)
     assert all(tabs[k].is_contiguous() for k in ('fwd', 'inv'))     # the kernel reads them flat
     if ring.word_bits == 32:
         return {k: tabs[k].long() & tu.MASK32 for k in ('fwd', 'inv')}
@@ -108,14 +108,16 @@ def walk(x, ring, inverse, post=None):
     return walk_rows(x, ring.word_bits, ring.q.reshape(-1, 1), tab, inverse, post)
 
 
-def walk_rows(x, bits, q, tab, inverse, post=None, lazy_end=False):
+def walk_rows(x, bits, q, tab, inverse, post=None, lazy_end=False, staged=None):
     """The row kernel on an int64 (..., L, n) stack of ``bits``-bit words,
     row l on prime q[l] ((L, 1)) and pass table tab[l] ((L, entries, 2)
     int64), step for step: the first window (from the staging buffer, or
     from device memory through an exchange), passes, exchanges, epilogue,
     the output exchange and the store of the top window. ``lazy_end`` (the
     inverse) skips the epilogue: the last window's lazy values, in element
-    order, as the cluster kernel parks them."""
+    order, as the cluster kernels park them. ``staged`` overrides whether
+    the first window comes from the staging buffer (the row kernel's
+    ``stages_rows``; the cluster kernels never stage)."""
     lazy = Lazy32 if bits == 32 else Lazy64
     per_vector = 16 // (8 if bits == 32 else 16)
     n, L = x.shape[-1], x.shape[-2]
@@ -133,7 +135,9 @@ def walk_rows(x, bits, q, tab, inverse, post=None, lazy_end=False):
         buf[..., ntt_cuda.exchange_slot(src, bits).reshape(-1)] = a.reshape(*a.shape[:-2], n)
         return buf[..., ntt_cuda.exchange_slot(ntt_cuda.element_index(logn, lo_to), bits)]
 
-    if ntt_cuda.stages_rows(logn, bits):            # cp.async: 16-byte chunk c -> its slot
+    if staged is None:
+        staged = ntt_cuda.stages_rows(logn, bits)
+    if staged:                                      # cp.async: 16-byte chunk c -> its slot
         stage = torch.empty_like(x)
         stage[..., ntt_cuda.staging_slot(torch.arange(n))] = x
         a = stage[..., ntt_cuda.staging_slot(ntt_cuda.element_index(logn, order[0][0]))]
@@ -221,7 +225,7 @@ def test_walk_matches_reference(bits, logn):
     assert np.array_equal(as_array(back, bits), ref_ntt.intt(np, want, ref))
     assert np.array_equal(as_array(back, bits), x)
     # the epilogues of B2 (to-Montgomery) and B4 / the u64 mult (from-Montgomery folded in)
-    tabs = ntt_cuda._tables(ring) if bits == 32 else ntt64_cuda._tables(ring)
+    tabs = ntt_cuda.row_tables(ring) if bits == 32 else ntt64_cuda._tables(ring)
     col = ((lambda k: tabs[k].long().reshape(-1, 1) & tu.MASK32) if bits == 32
            else (lambda k: tabs[k].reshape(-1, 1)))
     xt = as_tensor(x)
@@ -312,7 +316,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     assert [p.rsplit('/', 1)[1] for p in cuda_build.sources_of('ntt64')] == \
         ['ntt64.cu', 'ntt_passes.cuh', 'ntt_cluster.cuh']
     assert [p.rsplit('/', 1)[1] for p in cuda_build.sources_of('ntt32')] == \
-        ['ntt32.cu', 'ntt_passes.cuh', 'ntt_columns.cuh']
+        ['ntt32.cu', 'ntt_passes.cuh', 'ntt_cluster.cuh']
     (tmp_path / 'k.cu').write_text('#include "a.cuh"\nint k;\n')
     (tmp_path / 'a.cuh').write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / 'b.cuh').write_text('int b = 1;\n')

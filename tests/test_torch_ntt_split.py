@@ -1,14 +1,16 @@
-"""The split of kernels B1 and B5 above their row kernel's cap
-(``csrc/ntt_columns.cuh``), walked on the CPU.
+"""The split of the transform that kernels B1 and B5 run above their row
+kernel's cap (one launch of the cluster kernel, ``csrc/ntt_cluster.cuh``),
+walked on the CPU as columns, then rows.
 
-At n = 2^logn with k = logn - (row cap) the forward runs the columns kernel
-(the k stages whose butterflies span sub-rows of n/2^k) and then the row
-kernel over the virtual limbs (limb, sub-row) with the re-indexed tables of
-``ntt_cuda.split_pass_tables``; the inverse runs the row kernel first, with
-the full n^-1 in its epilogue, then the columns. ``walk_columns`` below
-moves the columns as the kernel does (2^k registers a thread at stride
-n/2^k, the word's lazy butterflies, a canonical store); the rows go through
-``walk_rows`` of ``tests/test_torch_ntt_schedule.py``. The result is held
+At n = 2^logn with k = logn - (sub-row) the forward runs the k stages whose
+butterflies span sub-rows of n/2^k on columns of 2^k cells, then the row
+body over the virtual limbs (limb, sub-row) with the re-indexed tables of
+``ntt_cuda.split_pass_tables``; the inverse runs the rows first, with the
+full n^-1 in its epilogue, then the columns. ``walk_columns`` below moves
+the columns with 2^k registers a thread at stride n/2^k, the word's lazy
+butterflies and a canonical store; the rows go through ``walk_rows`` of
+``tests/test_torch_ntt_schedule.py``; ``tests/test_torch_ntt_cluster.py``
+walks the cluster kernel's own data movement. The result is held
 bit for bit against ``lattisense_tpu/core/ntt.py`` ``ntt``/``intt``
 (``xp=numpy``) at log2 n = 15 and 16 for both words, with the tables and
 constants the wrappers hand the kernels, both directions, with and without
@@ -30,7 +32,7 @@ from tests.test_torch_ntt_schedule import (Lazy32, Lazy64, as_array, as_tensor, 
 
 
 def walk_columns(x, bits, q, tab, k, inverse):
-    """The columns kernel on an int64 (..., L, n) stack: limb l on prime
+    """The column stages on an int64 (..., L, n) stack: limb l on prime
     q[l] ((L, 1)) and column table tab[l] ((L, 2^k, 2) int64, entry h the
     (value, companion) of psi_rev[h] or psi_inv_rev[h]). Each column's 2^k
     elements c + s·n/2^k are registers s; forward stage m = 2^j pairs
@@ -73,7 +75,7 @@ def walk_split(x, bits, q, tabs, k, inverse, post=None):
 
 
 def split_tables(ring, k):
-    """The split's tables at any depth k, built from the ring's with
+    """The cluster kernels' tables at any depth k, built from the ring's with
     ``split_pass_tables`` and ``column_tables`` (64-bit: one entry a
     16-byte vector; 32-bit: two)."""
     per_vector = 2 if ring.word_bits == 32 else 1
@@ -94,24 +96,24 @@ def wrapper_tables(ring):
     if ring.word_bits == 64:
         tabs = ntt64_cuda._tables(ring)
         return {key: (t.reshape(-1, 1) if t.dim() == 1 else t) for key, t in tabs.items()}
-    tabs = ntt_cuda._tables(ring)
+    k = ntt_cuda.cluster_depth(ring.n.bit_length() - 1)
+    tabs = ntt_cuda.cluster_tables(ring, k) if k else ntt_cuda.row_tables(ring)
     return {key: (t.long() & tu.MASK32).reshape(-1, 1) if t.dim() == 1 else t.long() & tu.MASK32
             for key, t in tabs.items()}
 
 
 def depth(bits, logn):
-    """The split depth of the wrapper's tables: B1's columns stages, or the
-    cross stages of B5's cluster kernel (whose tables are the same split
-    tables at its own depth)."""
+    """The split depth of the wrapper's tables: the cross stages of B1's or
+    B5's cluster kernel."""
     if bits == 32:
-        return ntt_cuda.split_depth(logn, ntt_cuda.ROW_MAX_LOGN)
+        return ntt_cuda.cluster_depth(logn)
     return ntt64_cuda.cluster_depth(logn)
 
 
 @pytest.mark.parametrize('bits,logn', [(32, 16), (64, 15), (64, 16)])
 def test_split_walk_matches_reference(bits, logn):
-    """The split at the wrappers' depths (B1 at 2^16: k = 1; B5's cluster
-    kernel at 2^15 and 2^16: k = log2 n - SUB_LOGN) with the wrapper's own
+    """The split at the wrappers' depths (the cluster kernels at 2^15 and
+    2^16, k = log2 n - SUB_LOGN) with the wrapper's own
     tables, both directions, with and without the epilogues, bit for bit
     against the reference."""
     x, ref, ring = case(bits, logn, (), count=2)
@@ -142,7 +144,7 @@ def test_split_walk_matches_reference(bits, logn):
 @pytest.mark.parametrize('k', [1, 2, 3])
 def test_split_depths_match_unsplit_walk(bits, logn, k):
     """Any depth of the split gives the unsplit walk's output: the index
-    math of ``split_indices`` and the columns' stages at k = 1, 2, 3."""
+    math of ``split_indices`` and the column stages at k = 1, 2, 3."""
     x, ref, ring = case(bits, logn, (3,), count=2, seed=k)
     xt = as_tensor(x)
     tabs = split_tables(ring, k)
@@ -159,7 +161,7 @@ def test_split_depths_match_unsplit_walk(bits, logn, k):
 
 @pytest.mark.parametrize('logn', [6, 10, 16])
 def test_split_indices_hold_each_twiddle_once(logn):
-    """The columns' entries 1 .. 2^k - 1 and the sub-rows' slots 1 .. n/2^k - 1
+    """The column entries 1 .. 2^k - 1 and the sub-rows' slots 1 .. n/2^k - 1
     name every twiddle of the full table once; at k = 0 the map is the
     identity, so an unsplit row's tables are unchanged."""
     assert np.array_equal(ntt_cuda.split_indices(logn, 0)[0], np.arange(1 << logn))
@@ -171,9 +173,10 @@ def test_split_indices_hold_each_twiddle_once(logn):
 
 
 def test_split_depths_of_the_wrappers():
-    """B1 splits at 2^16 only, B5 at 2^15 and 2^16 (its cluster kernel, over
+    """B1 and B5 split at 2^15 and 2^16 (their cluster kernels, over
     sub-rows of 2^SUB_LOGN); neither above."""
-    assert [depth(32, b) for b in (14, 15, 16)] == [0, 0, 1]
+    sub32 = ntt_cuda.SUB_LOGN
+    assert [depth(32, b) for b in (14, 15, 16)] == [0, 15 - sub32, 16 - sub32]
     sub = ntt64_cuda.SUB_LOGN
     assert [depth(64, b) for b in (14, 15, 16)] == [0, 15 - sub, 16 - sub]
     assert ntt_cuda.MAX_LOGN == ntt64_cuda.MAX_LOGN == 16

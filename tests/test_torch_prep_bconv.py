@@ -156,7 +156,7 @@ def walk_prep(x, bz):
     ext = extend32(x, bz)
     joint = behz_cuda.prep_ring(bz)
     assert joint.moduli == bz.ring_q.moduli + bz.ring_aux.moduli
-    tabs = ntt_cuda._tables(joint)
+    tabs = ntt_cuda.row_tables(joint)
     post = ((tabs['r1'].long() & M32).reshape(-1, 1), (tabs['r1_shoup'].long() & M32).reshape(-1, 1))
     rows = torch.cat([x, ext.long() & M32], dim=-2)
     out = walk(rows, joint, inverse=False, post=post)
