@@ -7,13 +7,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    per source, all started together) and prints the toolchain, the card and
    a summary of each library's ptxas report (the whole report goes to
    ``build/kernels/ptxas/``), the clusters of B5's and B1's cluster kernels
-   and of B3's cluster route that fit the card, and the IMAD-family instructions a butterfly (B5) or a
+   and of B2's, B3's and B4's cluster routes that fit the card, and the
+   IMAD-family instructions a butterfly (B5) or a
    Montgomery product (B6, B7) in the SASS of the built libraries
    (``cuobjdump -sass``), from which each 64-bit kernel's
    ``imad_bound_ms`` is computed.
 2. Kernels: calls each kernel wrapper on the card at the shapes its path
    gives it, holds the result bit for bit against the plain PyTorch twin run
-   on a CPU copy, and times kernel and twin on the card with CUDA events:
+   on the same inputs on the card, and times kernel and twin with CUDA events:
    the 32-bit word's ``ntt32_fwd``, ``ntt32_inv``, ``behz_prep32``,
    ``ksw_switch32``, ``behz_finish32`` and the B1-r4 / perm entries
    (``ntt32_fwd_r4``, ``ntt32_inv_r4``, ``ntt32_fwd_perm``,
@@ -47,14 +48,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    1), checked as in 5 and 6, with the cluster kernel's launches required
    and B5's row kernel's refused.
 8. BFV at n=32768 on the 31-bit profile (``create_tpu_param(32768)``, level
-   21, batch 32): B2, B3 (its cluster route: clusters of 4 blocks over
-   sub-rows of 2^13) and B4 held against their twins on the card, then
-   ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1 entry.
+   21, batch 32): B2, B3 and B4 (each through its cluster route: clusters of
+   4 blocks over sub-rows of 2^13) held against their twins on the card,
+   then ``w32_32k_path`` (mult_relin), checked as in 3, launching no B1
+   entry and B2's and B4's cluster kernels (``behz32_prep_cluster``,
+   ``behz32_finish_cluster``) once each.
 9. B5 and B1 at n=2^16 (clusters of 8, a card-test shape, on no path)
    against their twins; then the n=2^16 repairs, each against its twin:
    B1-r4 and the perm entries on the same stack (B1's cluster kernel, the
    perm entries with their transpose pass), B2 and B4 on a custom 31-bit
-   BFV chain (22 q limbs, around B1's cluster kernel), and B3's cluster
+   BFV chain (22 q limbs, their cluster route), and B3's cluster
    route at the shapes of ``CkksParams.create_tpu_btp_param()`` (levels 47
    and 9, both outputs) and ``create_tpu_param(65536)`` (level 43), batch 2.
 10. Task paths: the compiled-task runtime (``runtime/task.py``) on the task
@@ -438,14 +441,14 @@ def ptxas_summary(log: str, keep) -> dict:
 
 def main_path_instance(lib: str, name: str) -> bool:
     """The template instances the paths run: the NTT-sized kernels at 2^14
-    and 2^15, B1's and B5's cluster kernels and B3's cluster route, B2's
-    extension and B4's scale-back at L = 8, B6's compile-time (L, T)
+    and 2^15, B1's and B5's cluster kernels and B2's, B3's and B4's cluster
+    routes, B2's extension and B4's scale-back at L = 8, B6's compile-time (L, T)
     instances (its run-time-T ones are <L, 0>), B7's compile-time beta
     instances."""
     if lib in ('ntt32', 'ntt64', 'ksw32'):
         return 'Li14E' in name or 'Li15E' in name or 'cluster_kernel' in name
     if lib == 'behz32':
-        return 'Li14E' in name or 'Li8E' in name
+        return 'Li14E' in name or 'Li8E' in name or 'cluster_kernel' in name
     return 'Li0EE' not in name
 
 
@@ -791,7 +794,7 @@ def main() -> int:
                                  'blocks_per_sm': mod.blocks_per_sm(logn, d == 'inv')}
                  for word, mod in (('ntt32', ntt_cuda), ('ntt64', ntt64_cuda))
                  for d in ('fwd', 'inv')}
-    # B5's and B1's cluster kernels and B3's cluster route: clusters of 2^k
+    # B5's and B1's cluster kernels and B2's, B3's and B4's cluster routes: clusters of 2^k
     # blocks over sub-rows of 2^SUB_LOGN that the card runs at once
     # (cudaOccupancyMaxActiveClusters)
     def cluster_entry(sub, lg, smem, fit):
@@ -805,6 +808,9 @@ def main() -> int:
         ntt_cuda.SUB_LOGN, 16, 4, ntt_cuda.cluster_fit(16, d == 'inv')) for d in ('fwd', 'inv')})
     clusters.update({f'ksw32_cluster_n{1 << lg}': cluster_entry(
         ntt_cuda.SUB_LOGN, lg, 12, ksw_cuda.cluster_fit(1 << lg)) for lg in (15, 16)})
+    clusters.update({f'behz32_{d}_cluster_n{1 << lg}': cluster_entry(
+        ntt_cuda.SUB_LOGN, lg, 4, behz_cuda.cluster_fit(1 << lg, d == 'finish'))
+        for lg in (15, 16) for d in ('prep', 'finish')})
     # the integer multiply-add pipe's rate, and the IMAD-family instructions
     # of the 64-bit kernels' instances in the SASS
     clock_mhz = float(subprocess.run(
@@ -879,14 +885,10 @@ def main() -> int:
     keygen_s = time.perf_counter() - t1
     eng_g = ctx.engine
     bz_g = eng_g.behz(LEVEL)
-    sw_g, sw_c = eng_g.switcher, eng_c.switcher
+    sw_g = eng_g.switcher
     alpha, beta = sw_g.alpha, sw_g.beta(LEVEL)
     qp = tuple(params.q[:L]) + tuple(params.p)
-    rings = {  # name -> (gpu ring, cpu ring)
-        'q': (bz_g.ring_q, bz_c.ring_q),
-        'aux': (bz_g.ring_aux, bz_c.ring_aux),
-        'qp': (get_rns_ring(qp, N, dev), get_rns_ring(qp, N, 'cpu')),
-    }
+    rings = {'q': bz_g.ring_q, 'aux': bz_g.ring_aux, 'qp': get_rns_ring(qp, N, dev)}  # on the card
     rng = np.random.default_rng(SEED)
 
     def residues(moduli, lead):
@@ -897,7 +899,7 @@ def main() -> int:
         return KeySwitchKey(key_q=k.key_q.cpu(), key_p=k.key_p.cpu())
 
     def max_err(pairs):
-        return max(int((g.cpu() - w).abs().max()) for g, w in pairs)
+        return max(int((g - w).abs().max()) for g, w in pairs)
 
     phase_done('setup')
 
@@ -911,20 +913,19 @@ def main() -> int:
     inv_calls = [('q', (BATCH, 3)), ('aux', (BATCH, 3)), ('qp', (BATCH, 2))]
 
     def check_ntt(name, calls, kernel, plain, work):
-        """Each (ring, lead) call on the card against the twin on a CPU copy."""
+        """Each (ring, lead) call on the card against the twin on the same
+        inputs on the card."""
         inputs, pairs = [], []
         for ring_name, lead in calls:
-            rg, rc = rings[ring_name]
-            x = residues(rc.moduli, lead)
-            got = kernel(x.to(dev), rg)
-            torch.cuda.synchronize()
-            want = plain(x, rc)
-            if not torch.equal(got.cpu(), want):
+            rg = rings[ring_name]
+            x = residues(rg.moduli, lead).to(dev)
+            got, want = kernel(x, rg), plain(x, rg)
+            if not torch.equal(got, want):
                 raise AssertionError(f'{name} differs from its plain twin on {ring_name} {lead}')
             pairs.append((got, want))
-            inputs.append((x.to(dev), rg))
+            inputs.append((x, rg))
         ms = time_ms(torch, lambda: [kernel(x, r) for x, r in inputs], ITERS)
-        plain_ms = time_ms(torch, lambda: [plain(x, r) for x, r in inputs], ITERS)
+        plain_ms = time_ms(torch, lambda: [plain(x, r) for x, r in inputs], ITERS_32K, warmup=1)
         wk = [work(x.numel() // N, len(r.moduli), N) for x, r in inputs]
         bound_ms, bound_by = bound(sum(w[0] for w in wk), sum(w[1] for w in wk))
         return {'shapes': [[list(x.shape), len(r.moduli)] for x, r in inputs],
@@ -945,14 +946,13 @@ def main() -> int:
     }
 
     # B2 on the 4 input polynomials of each operation; it launches none of
-    # B1's entries
-    x = residues(rings['q'][1].moduli, (BATCH, 4))
-    xg = x.to(dev)
+    # B1's entries. Each kernel of this phase is held against its twin on
+    # the same inputs on the card.
+    xg = residues(rings['q'].moduli, (BATCH, 4)).to(dev)
     before = dict(ntt_cuda.launches)
     fq, fa = behz_cuda.behz_prep32(xg, bz_g)
-    torch.cuda.synchronize()
-    want_fq, want_fa = behz_cuda.behz_prep_plain(x, bz_c)
-    if not (torch.equal(fq.cpu(), want_fq) and torch.equal(fa.cpu(), want_fa)):
+    want_fq, want_fa = behz_cuda.behz_prep_plain(xg, bz_g)
+    if not (torch.equal(fq, want_fq) and torch.equal(fa, want_fa)):
         raise AssertionError('behz_prep32 differs from its plain twin')
     if ntt_cuda.launches != before:
         raise AssertionError('behz_prep32 launched a B1 entry')
@@ -963,30 +963,27 @@ def main() -> int:
                "B1's row loop over the L+T rows of the joint ring q ∪ aux",
         replaces='lattisense_tpu/ops/behz_pallas32.py:55',
         replaces_function='behz_prep32 (_k1_kernel)', path='main_path',
-        shapes=[[list(x.shape), L, T]], equal=True,
+        shapes=[[list(xg.shape), L, T]], equal=True,
         max_abs_err=max_err([(fq, want_fq), (fa, want_fa)]),
         ms=time_ms(torch, lambda: behz_cuda.behz_prep32(xg, bz_g), ITERS),
-        plain_ms=time_ms(torch, lambda: behz_cuda.behz_prep_plain(xg, bz_g), ITERS),
+        plain_ms=time_ms(torch, lambda: behz_cuda.behz_prep_plain(xg, bz_g), ITERS_32K, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by)
-    del x, xg, fq, fa, want_fq, want_fa
+    del xg, fq, fa, want_fq, want_fa
 
     # B3 with the relinearization key on the (B, L, n) third component; the
     # output-NTT variant and a level with a ragged last digit are checked
     rlk_c = cpu_key(ctx.rlk)
-    x = residues(params.q[:L], (BATCH,))
-    xg = x.to(dev)
+    xg = residues(params.q[:L], (BATCH,)).to(dev)
     e = ksw_cuda.ksw_switch32(xg, ctx.rlk, sw_g, LEVEL)
     e_ntt = ksw_cuda.ksw_switch32(xg, ctx.rlk, sw_g, LEVEL, output_ntt=True)
-    torch.cuda.synchronize()
-    want = sw_c.switch_plain(x, rlk_c, LEVEL)
-    want_ntt = tuple(ntt_cuda.ntt_plain(w, rings['q'][1]) for w in want)
+    want = sw_g.switch_plain(xg, ctx.rlk, LEVEL)
+    want_ntt = tuple(ntt_cuda.ntt_plain(w, rings['q']) for w in want)
     pairs = list(zip(e, want)) + list(zip(e_ntt, want_ntt))
     low = 5                                        # L = 6: the second digit is ragged
-    x_low = residues(params.q[:low + 1], (4,))
-    e_low = ksw_cuda.ksw_switch32(x_low.to(dev), ctx.rlk, sw_g, low)
-    torch.cuda.synchronize()
-    pairs += list(zip(e_low, sw_c.switch_plain(x_low, rlk_c, low)))
-    if not all(torch.equal(g.cpu(), w) for g, w in pairs):
+    x_low = residues(params.q[:low + 1], (4,)).to(dev)
+    e_low = ksw_cuda.ksw_switch32(x_low, ctx.rlk, sw_g, low)
+    pairs += list(zip(e_low, sw_g.switch_plain(x_low, ctx.rlk, low)))
+    if not all(torch.equal(g, w) for g, w in pairs):
         raise AssertionError('ksw_switch32 differs from its plain twin')
     bound_ms, bound_by = bound(*ksw_work(BATCH, L, alpha, beta, N))
     kernels['ksw_switch32'] = dict(
@@ -994,23 +991,22 @@ def main() -> int:
         design=fused['ksw_switch32']['route'], cluster=None,
         replaces='lattisense_tpu/ops/ksw_pallas32.py:207',
         replaces_function='ksw_switch32 (_ksw_kernel)', path='main_path',
-        shapes=[{'x': list(x.shape), 'level': LEVEL, 'alpha': alpha, 'beta': beta,
+        shapes=[{'x': list(xg.shape), 'level': LEVEL, 'alpha': alpha, 'beta': beta,
                  'T': L + alpha, 'output_ntt': [False, True]},
                 {'x': list(x_low.shape), 'level': low, 'beta': sw_g.beta(low)}],
         equal=True, max_abs_err=max_err(pairs),
         ms=time_ms(torch, lambda: ksw_cuda.ksw_switch32(xg, ctx.rlk, sw_g, LEVEL), ITERS),
-        plain_ms=time_ms(torch, lambda: sw_g.switch_plain(xg, ctx.rlk, LEVEL), ITERS),
+        plain_ms=time_ms(torch, lambda: sw_g.switch_plain(xg, ctx.rlk, LEVEL), ITERS_32K,
+                         warmup=1),
         bound_ms=bound_ms, bound_by=bound_by)
-    del x, xg, e, e_ntt, want, want_ntt, pairs, x_low, e_low
+    del xg, e, e_ntt, want, want_ntt, pairs, x_low, e_low
 
     # B4 on the (B, 3, L, n) and (B, 3, T, n) tensor products
-    dq, da = residues(rings['q'][1].moduli, (BATCH, 3)), residues(rings['aux'][1].moduli,
-                                                                  (BATCH, 3))
-    dqg, dag = dq.to(dev), da.to(dev)
+    dqg = residues(rings['q'].moduli, (BATCH, 3)).to(dev)
+    dag = residues(rings['aux'].moduli, (BATCH, 3)).to(dev)
     got = behz_cuda.behz_finish32(dqg, dag, bz_g)
-    torch.cuda.synchronize()
-    want = behz_cuda.behz_finish_plain(dq, da, bz_c)
-    if not torch.equal(got.cpu(), want):
+    want = behz_cuda.behz_finish_plain(dqg, dag, bz_g)
+    if not torch.equal(got, want):
         raise AssertionError('behz_finish32 differs from its plain twin')
     bound_ms, bound_by = bound(*finish_work(BATCH * 3, L, T, N))
     kernels['behz_finish32'] = dict(
@@ -1018,12 +1014,13 @@ def main() -> int:
         design='chain', cluster=None,
         replaces='lattisense_tpu/ops/behz_pallas32.py:368',
         replaces_function='behz_finish32 (_k3_kernel)', path='main_path',
-        shapes=[[list(dq.shape), list(da.shape)]], equal=True,
+        shapes=[[list(dqg.shape), list(dag.shape)]], equal=True,
         max_abs_err=max_err([(got, want)]),
         ms=time_ms(torch, lambda: behz_cuda.behz_finish32(dqg, dag, bz_g), ITERS),
-        plain_ms=time_ms(torch, lambda: behz_cuda.behz_finish_plain(dqg, dag, bz_g), ITERS),
+        plain_ms=time_ms(torch, lambda: behz_cuda.behz_finish_plain(dqg, dag, bz_g), ITERS_32K,
+                         warmup=1),
         bound_ms=bound_ms, bound_by=bound_by)
-    del dq, da, dqg, dag, got, want
+    del dqg, dag, got, want
 
     # B1-r4 and the perm entries at B1's forward / inverse shapes over q; on
     # no path of this script (launches 0), each held against its twin
@@ -1054,15 +1051,12 @@ def main() -> int:
     ctx64 = BfvContext.create_random_context(params64, seed=SEED, device=dev)
     keygen64_s = time.perf_counter() - t1
     eng64_g, eng64_c = ctx64.engine, BfvEngine(params64, 'cpu')
-    bz64_g, bz64_c = eng64_g.behz(LEVEL64), eng64_c.behz(LEVEL64)
-    sw64_g, sw64_c = eng64_g.switcher, eng64_c.switcher
+    bz64_g = eng64_g.behz(LEVEL64)
+    sw64_g = eng64_g.switcher
     L64, T64 = LEVEL64 + 1, len(bz64_g.ring_aux.moduli)
     alpha64, beta64 = sw64_g.alpha, sw64_g.beta(LEVEL64)
-    rings.update({
-        'q64': (bz64_g.ring_q, bz64_c.ring_q),
-        'aux64': (bz64_g.ring_aux, bz64_c.ring_aux),
-        'qp64': (sw64_g.ring_qp(LEVEL64), sw64_c.ring_qp(LEVEL64)),
-    })
+    rings.update({'q64': bz64_g.ring_q, 'aux64': bz64_g.ring_aux,
+                  'qp64': sw64_g.ring_qp(LEVEL64)})
     # B5 forward: the 4 polynomials over q and over aux (mult), the β digits
     # over q∪p (key switch); inverse: the 3 products over q and aux, the 2
     # key components over q∪p
@@ -1092,35 +1086,32 @@ def main() -> int:
     # B6 convert on the four conversions of the path: the BEHZ extension,
     # scale_and_back's Q → aux, Shenoy's B → Q ∪ m_sk, RoundDivP's P → Q;
     # each shape timed alone and the four together
-    rdp_g, rdp_c = sw64_g._level_pre(LEVEL64)[5], sw64_c._level_pre(LEVEL64)[5]
-    convs = [('extend', bz64_g.extend.conv, bz64_c.extend.conv, (BATCH, 4)),
-             ('scale_and_back', bz64_g.conv_q_to_aux, bz64_c.conv_q_to_aux, (BATCH, 3)),
-             ('shenoy', bz64_g.shenoy.conv, bz64_c.shenoy.conv, (BATCH, 3)),
-             ('round_div_p', rdp_g.conv, rdp_c.conv, (BATCH, 2))]
+    convs = [('extend', bz64_g.extend.conv, (BATCH, 4)),
+             ('scale_and_back', bz64_g.conv_q_to_aux, (BATCH, 3)),
+             ('shenoy', bz64_g.shenoy.conv, (BATCH, 3)),
+             ('round_div_p', sw64_g._level_pre(LEVEL64)[5].conv, (BATCH, 2))]
     ins, pairs, per_shape, wk, imad_terms = [], [], [], [], []
-    for cname, cg, cc, lead in convs:
-        y = cc.decompose(residues(cc.src, lead))
-        got = bconv_cuda.bconv64_convert(y.to(dev), cg)
-        torch.cuda.synchronize()
-        want = bconv_cuda.bconv64_plain(y, cc.qhat_dst_mont, cc.dst_q, cc.dst_pinv)
-        if not torch.equal(got.cpu(), want):
+    for cname, cg, lead in convs:
+        yg = cg.decompose(residues(cg.src, lead).to(dev))
+        got = bconv_cuda.bconv64_convert(yg, cg)
+        want = bconv_cuda.bconv64_plain(yg, cg.qhat_dst_mont, cg.dst_q, cg.dst_pinv)
+        if not torch.equal(got, want):
             raise AssertionError(f'bconv64_convert differs from its plain twin ({cname})')
-        yg = y.to(dev)
         pairs.append((got, want))
         ins.append((yg, cg))
-        Ls, Ts = len(cc.src), len(cc.dst)
-        w = bconv64_work(y.numel() // (Ls * N), Ls, Ts, N)
+        Ls, Ts = len(cg.src), len(cg.dst)
+        w = bconv64_work(yg.numel() // (Ls * N), Ls, Ts, N)
         wk.append(w)
         b_ms, b_by = bound(*w)
-        inst = bconv_cuda.instance(Ls, Ts, max(cc.src) - 1)
-        imad_terms.append((b6_imad(Ls, Ts, inst == 'specific'), y.numel() // Ls * Ts * Ls))
+        inst = bconv_cuda.instance(Ls, Ts, max(cg.src) - 1)
+        imad_terms.append((b6_imad(Ls, Ts, inst == 'specific'), yg.numel() // Ls * Ts * Ls))
         per_shape.append({
-            'conversion': cname, 'in': list(y.shape), 'out': list(got.shape),
+            'conversion': cname, 'in': list(yg.shape), 'out': list(got.shape),
             'instance': inst, 'imad_bound_ms': imad_bound_ms(imad_terms[-1:]),
-            'fold': bconv_cuda.lazy_fold(Ls, max(cc.src) - 1),
+            'fold': bconv_cuda.lazy_fold(Ls, max(cg.src) - 1),
             'ms': time_ms(torch, lambda yg=yg, cg=cg: bconv_cuda.bconv64_convert(yg, cg), ITERS),
             'plain_ms': time_ms(torch, lambda yg=yg, cg=cg: bconv_cuda.bconv64_plain(
-                yg, cg.qhat_dst_mont, cg.dst_q, cg.dst_pinv), ITERS),
+                yg, cg.qhat_dst_mont, cg.dst_q, cg.dst_pinv), ITERS_32K, warmup=1),
             'bound_ms': b_ms, 'bound_by': b_by})
     bound_ms, bound_by = bound(sum(w[0] for w in wk), sum(w[1] for w in wk))
     kernels['bconv64_convert'] = dict(
@@ -1132,19 +1123,17 @@ def main() -> int:
         per_shape=per_shape, equal=True, max_abs_err=max_err(pairs),
         ms=time_ms(torch, lambda: [bconv_cuda.bconv64_convert(y, c) for y, c in ins], ITERS),
         plain_ms=time_ms(torch, lambda: [bconv_cuda.bconv64_plain(
-            y, c.qhat_dst_mont, c.dst_q, c.dst_pinv) for y, c in ins], ITERS),
+            y, c.qhat_dst_mont, c.dst_q, c.dst_pinv) for y, c in ins], ITERS_32K, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, imad_bound_ms=imad_bound_ms(imad_terms))
     del ins, pairs
 
     # B6 raw: the key switch's mod-up of all β digits in one launch
-    pre_g, pre_c = sw64_g._level_pre(LEVEL64), sw64_c._level_pre(LEVEL64)
-    rq_g, rq_c = rings['qp64']
-    y = residues(params64.q[:L64], (BATCH,)).reshape(BATCH, beta64, alpha64, N)
-    yg = y.to(dev)
+    pre_g = sw64_g._level_pre(LEVEL64)
+    rq_g = rings['qp64']
+    yg = residues(params64.q[:L64], (BATCH,)).reshape(BATCH, beta64, alpha64, N).to(dev)
     got = bconv_cuda.bconv64_raw(yg, pre_g[4], rq_g.q, rq_g.pinv)
-    torch.cuda.synchronize()
-    want = bconv_cuda.bconv64_plain(y, pre_c[4], rq_c.q, rq_c.pinv)
-    if not torch.equal(got.cpu(), want):
+    want = bconv_cuda.bconv64_plain(yg, pre_g[4], rq_g.q, rq_g.pinv)
+    if not torch.equal(got, want):
         raise AssertionError('bconv64_raw differs from its plain twin')
     bound_ms, bound_by = bound(*bconv64_work(BATCH * beta64, alpha64, L64 + alpha64, N))
     kernels['bconv64_raw'] = dict(
@@ -1154,42 +1143,40 @@ def main() -> int:
         fold=bconv_cuda.lazy_fold(alpha64, bconv_cuda.WORD_GUARD),
         replaces='lattisense_tpu/ops/bconv_pallas.py:57',
         replaces_function='bconv_raw_fused (_bconv_kernel), all beta digits per launch',
-        path='u64_path', shapes=[[list(y.shape), list(got.shape)]], equal=True,
+        path='u64_path', shapes=[[list(yg.shape), list(got.shape)]], equal=True,
         max_abs_err=max_err([(got, want)]),
         ms=time_ms(torch, lambda: bconv_cuda.bconv64_raw(yg, pre_g[4], rq_g.q, rq_g.pinv),
                    ITERS),
         plain_ms=time_ms(torch, lambda: bconv_cuda.bconv64_plain(yg, pre_g[4], rq_g.q,
-                                                                 rq_g.pinv), ITERS),
+                                                                 rq_g.pinv), ITERS_32K, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by,
         imad_bound_ms=imad_bound_ms([(b6_imad(
             alpha64, L64 + alpha64,
             bconv_cuda.instance(alpha64, L64 + alpha64, bconv_cuda.WORD_GUARD) == 'specific'),
-            y.numel() * (L64 + alpha64))]))
-    del y, yg, got, want
+            yg.numel() * (L64 + alpha64))]))
+    del yg, got, want
 
     # B7: the relinearization key's inner product with (B, β, T, n) digits
     rlk64_c = cpu_key(ctx64.rlk)
-    d = residues(rq_c.moduli, (BATCH, beta64))
-    dg = d.to(dev)
+    dg = residues(rq_g.moduli, (BATCH, beta64)).to(dev)
     got = ksw64_cuda.ksw_inner64(dg, ctx64.rlk, LEVEL64, rq_g)
-    torch.cuda.synchronize()
-    want = ksw64_cuda.ksw_inner64_plain(d, rlk64_c, LEVEL64, rq_c)
-    if not torch.equal(got.cpu(), want):
+    want = ksw64_cuda.ksw_inner64_plain(dg, ctx64.rlk, LEVEL64, rq_g)
+    if not torch.equal(got, want):
         raise AssertionError('ksw_inner64 differs from its plain twin')
     bound_ms, bound_by = bound(*ksw64_work(BATCH, beta64, L64 + alpha64, N))
     kernels['ksw_inner64'] = dict(
         route='cuda', source='lattisense_torch/csrc/ksw64.cu',
         replaces='lattisense_tpu/ops/ksw_pallas.py:29',
         replaces_function='ksw_inner_fused (_ksw_kernel)', path='u64_path',
-        shapes=[{'digits': list(d.shape), 'key_q': list(ctx64.rlk.key_q.shape),
+        shapes=[{'digits': list(dg.shape), 'key_q': list(ctx64.rlk.key_q.shape),
                  'key_p': list(ctx64.rlk.key_p.shape), 'out': list(got.shape)}],
         equal=True, max_abs_err=max_err([(got, want)]),
         ms=time_ms(torch, lambda: ksw64_cuda.ksw_inner64(dg, ctx64.rlk, LEVEL64, rq_g), ITERS),
         plain_ms=time_ms(torch, lambda: ksw64_cuda.ksw_inner64_plain(dg, ctx64.rlk, LEVEL64,
-                                                                     rq_g), ITERS),
+                                                                     rq_g), ITERS_32K, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by,
         imad_bound_ms=imad_bound_ms([(b7_imad(beta64), got.numel() * beta64)]))
-    del d, dg, got, want
+    del dg, got, want
     torch.cuda.empty_cache()
 
     phase_done('kernels_u64')
@@ -1334,10 +1321,12 @@ def main() -> int:
             raise AssertionError(f'{label}: wrong outputs {wrong}, bit_exact_vs_cpu={bit_exact}')
 
     path_launches = {}
-    # no path at n=16384 runs B1's or B5's cluster kernel; the w32 paths run
-    # no B1 entry and B3's fused route
-    wide_ntts = ['ntt32_fwd_cluster', 'ntt32_inv_cluster', 'ntt64_fwd_cluster', 'ntt64_inv_cluster']
-    if [k for k in read_counts() if k.endswith('_cols') or k.startswith('ksw32_split')]:
+    # no path at n=16384 runs a cluster kernel (B1's, B5's, B2's or B4's);
+    # the w32 paths run no B1 entry and B3's fused route
+    wide_ntts = ['ntt32_fwd_cluster', 'ntt32_inv_cluster', 'ntt64_fwd_cluster', 'ntt64_inv_cluster',
+                 'behz32_prep_cluster', 'behz32_finish_cluster']
+    if [k for k in read_counts()
+            if k.endswith('_cols') or k.startswith('ksw32_split') or k.startswith('behz32_split')]:
         raise AssertionError('a kernel still counts a columns or split route')
     no_b1 = ['ntt32_fwd', 'ntt32_inv'] + wide_ntts
     msgs = rng.integers(0, params.t, (2 * BATCH, N))
@@ -1426,7 +1415,7 @@ def main() -> int:
             ('inv', [('q64', (BATCH, 3)), ('aux64', (BATCH, 3)), ('qp64', (BATCH, 2))],
              ntt_mxu.intt, ntt64_cuda.ntt64_inv)):
         for rname, lead in calls:
-            rg = rings[rname][0]
+            rg = rings[rname]
             x = residues(rg.moduli, lead).to(dev)
             want = b5(x, rg)
             macs = ntt_mxu.macs(x.numel() // N, N, ntt_mxu.planes_of(rg.moduli))
@@ -1740,10 +1729,15 @@ def main() -> int:
     alpha_w, beta_w = sw_w.alpha, sw_w.beta(LEVEL_W32K)
     x = card_residues(bz_w.ring_q.moduli, (BATCH, 4), N32K)
     kernels['behz_prep32_32k'] = dict(
-        route='cuda', source='lattisense_torch/csrc/behz32.cu',
+        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt_cluster.cuh',
+        design=behz_cuda.route(N32K) + ": the L-templated extension into a uint32 scratch, then "
+               "one cluster launch over the L+T joint rows (clusters of 4 blocks over sub-rows "
+               "of 2^13; a q row's cells from x, an aux row's from the scratch; to-Montgomery, "
+               "paired stores)",
+        cluster=clusters['behz32_prep_cluster_n32768'],
         replaces='lattisense_tpu/ops/behz_pallas32.py:55',
         replaces_function='behz_prep32 (_k1_kernel)', path='w32_32k_path',
-        counted_as='behz_prep32', shapes=[[list(x.shape), L_w, T_w]],
+        counted_as='behz32_prep_cluster', shapes=[[list(x.shape), L_w, T_w]],
         **hold(lambda: list(behz_cuda.behz_prep32(x, bz_w)),
                lambda: list(behz_cuda.behz_prep_plain(x, bz_w)),
                [behz_work(BATCH * 4, L_w, T_w, N32K)]))
@@ -1762,10 +1756,15 @@ def main() -> int:
     dq = card_residues(bz_w.ring_q.moduli, (BATCH, 3), N32K)
     da = card_residues(bz_w.ring_aux.moduli, (BATCH, 3), N32K)
     kernels['behz_finish32_32k'] = dict(
-        route='cuda', source='lattisense_torch/csrc/behz32.cu',
+        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt_cluster.cuh',
+        design=behz_cuda.route(N32K) + ": one cluster launch over the dq and da rows "
+               "(clusters of 4 blocks over sub-rows of 2^13; inverse, park, cross, the epilogue "
+               "once; DecomposeQ / Store32 to 32-bit cells), then the per-coefficient "
+               "scale-back",
+        cluster=clusters['behz32_finish_cluster_n32768'],
         replaces='lattisense_tpu/ops/behz_pallas32.py:368',
         replaces_function='behz_finish32 (_k3_kernel)', path='w32_32k_path',
-        counted_as='behz_finish32', shapes=[[list(dq.shape), list(da.shape)]],
+        counted_as='behz32_finish_cluster', shapes=[[list(dq.shape), list(da.shape)]],
         **hold(lambda: [behz_cuda.behz_finish32(dq, da, bz_w)],
                lambda: [behz_cuda.behz_finish_plain(dq, da, bz_w)],
                [finish_work(BATCH * 3, L_w, T_w, N32K)]))
@@ -1773,7 +1772,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     msgs_w = rng.integers(0, params_w.t, (2 * BATCH, N32K))
-    w32k_kernels = [v['counted_as'] for v in kernels.values() if v['path'] == 'w32_32k_path']
+    # B2 and B4 through their cluster route (counted under the wrappers too)
+    w32k_kernels = ([v['counted_as'] for v in kernels.values() if v['path'] == 'w32_32k_path']
+                    + ['behz_prep32', 'behz_finish32'])
     path_launches['w32_32k_path'] = run_path(
         'w32_32k_path', ctx_w, eng_w_c, LEVEL_W32K, bfv_mult_relin, 2, key_tree(ctx_w),
         {'rlk': cpu_key(ctx_w.rlk)}, msgs_w, lambda i: (msgs_w[i] * msgs_w[BATCH + i]) % params_w.t,
@@ -1812,8 +1813,8 @@ def main() -> int:
 
     # 9b. the n = 2^16 repairs, each against its plain twin: B1-r4/perm on
     # the same (37, 12, n) stack (B1's cluster kernel; the perm entries add
-    # their transpose pass), B2 and B4 on a custom 31-bit BFV chain (the
-    # route around B1's cluster kernel), B3's cluster route at the shapes of
+    # their transpose pass), B2 and B4 on a custom 31-bit BFV chain (their
+    # cluster route, clusters of 8 blocks), B3's cluster route at the shapes of
     # create_tpu_btp_param() (the top level and level 9, both outputs) and
     # create_tpu_param(65536) (the top level), batch 2 each
     wide_parts = {'cluster': 'cluster_kernel', 'perm': 'perm_kernel'}
@@ -1831,11 +1832,13 @@ def main() -> int:
     L16, T16 = len(bz16.ring_q.moduli), len(bz16.ring_aux.moduli)
     x = card_residues(bz16.ring_q.moduli, (4, 4), N64K)
     kernels['behz_prep32_n65536'] = dict(
-        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt32.cu',
-        design="the extension into int64 aux rows, then B1's cluster kernel forward with the "
-               'to-Montgomery epilogue over q and over aux',
+        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt_cluster.cuh',
+        design=behz_cuda.route(N64K) + ': the extension into a uint32 scratch, then one cluster '
+               'launch over the joint rows (clusters of 8 blocks over sub-rows of 2^13)',
+        cluster=clusters['behz32_prep_cluster_n65536'],
         replaces='lattisense_tpu/ops/behz_pallas32.py:55',
-        replaces_function='behz_prep32 (_k1_kernel)', path=None, counted_as='behz_prep32',
+        replaces_function='behz_prep32 (_k1_kernel)', path=None,
+        counted_as='behz32_prep_cluster',
         shapes=[[list(x.shape), L16, T16]],
         **hold(lambda: list(behz_cuda.behz_prep32(x, bz16)),
                lambda: list(behz_cuda.behz_prep_plain(x, bz16)),
@@ -1843,11 +1846,13 @@ def main() -> int:
     dq = card_residues(bz16.ring_q.moduli, (4, 3), N64K)
     da = card_residues(bz16.ring_aux.moduli, (4, 3), N64K)
     kernels['behz_finish32_n65536'] = dict(
-        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt32.cu',
-        design="B1's cluster kernel inverse (from-Montgomery folded into n^-1) over q and "
-               'over aux, then the scale-back from the int64 rows',
+        route='cuda', source='lattisense_torch/csrc/behz32.cu + csrc/ntt_cluster.cuh',
+        design=behz_cuda.route(N64K) + ': one cluster launch over the dq and da rows (clusters '
+               'of 8 blocks over sub-rows of 2^13) to 32-bit cells, then the scale-back',
+        cluster=clusters['behz32_finish_cluster_n65536'],
         replaces='lattisense_tpu/ops/behz_pallas32.py:368',
-        replaces_function='behz_finish32 (_k3_kernel)', path=None, counted_as='behz_finish32',
+        replaces_function='behz_finish32 (_k3_kernel)', path=None,
+        counted_as='behz32_finish_cluster',
         shapes=[[list(dq.shape), list(da.shape)]],
         **hold(lambda: [behz_cuda.behz_finish32(dq, da, bz16)],
                lambda: [behz_cuda.behz_finish_plain(dq, da, bz16)],
@@ -2373,9 +2378,7 @@ def main() -> int:
     # none of the fused B2/B3/B4, which hold a full-length NTT (32-bit
     # views); B5, B6 and B7 (64-bit views)
     w32_view = (['ntt32_fwd', 'ntt32_inv'],
-                ['behz_prep32', 'ksw_switch32', 'behz_finish32', 'behz32_split_fwd',
-                 'behz32_split_inv']
-                + wide_ntts + u64_kernel_counts)
+                ['behz_prep32', 'ksw_switch32', 'behz_finish32'] + wide_ntts + u64_kernel_counts)
     u64_view = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
                 w32_kernels + wide_ntts)
     view_runs = [
@@ -2484,7 +2487,7 @@ def main() -> int:
         inverse over Q_ℓ."""
         qp, ql = tuple(params.q) + tuple(params.p), tuple(params.q[:level + 1])
         for name, moduli in ((f'qp_{label}', qp), (f'ql_{label}', ql)):
-            rings[name] = (get_rns_ring(moduli, N, dev, word), get_rns_ring(moduli, N, 'cpu', word))
+            rings[name] = get_rns_ring(moduli, N, dev, word)
         out = {}
         for kname, kern, plain, calls, line in (
                 (kernel_names[0], fwd, plain_fwd, [(f'qp_{label}', ()), (f'ql_{label}', ())],

@@ -83,21 +83,36 @@
 //   conv2 2Tb(L+1): [B/b_k]_{q_i} at [k*(L+1) + i], i = L for m_sk, then Shoups
 //   3       : B^-1 mod m_sk, its Shoup, m_sk >> 1
 //
-// At n = 2^16 a row does not fit B1's row loop. There each half is a short
-// sequence of launches around kernel B1's cluster kernel (csrc/ntt_cluster.cuh,
-// one launch a transform, called from ops/ntt_cuda.py), meeting in device
-// memory as int64 stacks:
-//   B2: the extension kernel above, storing int64 aux rows
-//       (`behz32_extend64_launch`), then B1's forward with the to-Montgomery
-//       epilogue over the q rows (x -> fq) and over the aux rows (-> fa);
-//   B4: B1's inverse with the from-Montgomery folded into n^-1 over dq and
-//       over da, then the scale-back kernel above on the int64 rows, making
-//       y_i = [t X_i (Q/q_i)^-1]_{q_i} itself (`behz32_scale_back64_launch`).
-// What bounds them there: the bytes of those int64 stacks, each crossing
-// device memory once each way a launch (B1's cluster kernel keeps its row
-// on chip between its stages).
-// The constant blocks are the ones the fused launches read.
+// Above the row loops' cap (kMaxLogn = 2^14, B1's row kernel's), at n = 2^15
+// and 2^16, a row does not fit a block's registers and both halves take
+// the cluster route: the row loop's step replaced by one launch of the
+// cluster body of csrc/ntt_cluster.cuh (`cluster_kernel`, one thread-block
+// cluster of 2^k blocks a row, sub-rows of 2^13, 4 blocks at 2^15 and 8 at
+// 2^16), with rows of its own (`PrepCluster`, `FinishCluster`):
+//   B2: the extension kernel above into the uint32 scratch, then one
+//       cluster launch over the polys (L + T) rows of the joint ring: block
+//       s reads the cells of its columns of a q row from x (int64) or of an
+//       aux row from the scratch (uint32), runs the cross stages and the row
+//       passes on its sub-row, and ends it with the to-Montgomery epilogue
+//       and 16-byte paired stores to fq or fa;
+//   B4: one cluster launch over the dq rows and the da rows (each block
+//       reads its sub-row as int64, runs the row passes, parks its top
+//       window, crosses the cluster and applies the epilogue once): a dq row
+//       ends in y_i = [t X_i (Q/q_i)^-1]_{q_i}, a da row in X_aux,k, both
+//       32-bit cells; then the scale-back kernel above.
+// Device memory sees the row loops' bytes, so what bounds them is the same.
+// The scale-back stays a launch of its own: a cluster that parked a
+// polynomial's rows for it measured slower (above). Measured on the H100 at
+// the n = 2^15 path's shapes (B = 32, L = 22, T = 25): B2 2.60 ms (the
+// extension 1.02, the cluster launch 1.58) and B4 3.05 ms (the cluster
+// launch 1.42, the scale-back 1.62), against 2.92 and 5.11 for the row
+// loops restated at 2^15 (32 residues a thread, 272 and 736 bytes of
+// stack). Both cluster instances are held to two blocks an SM
+// (`kTwoBlocks`, 64 registers): B4's took 74, one block an SM and 1.91 ms
+// for its cluster launch without.
+// The constant blocks are the row routes'.
 
+#include "ntt_cluster.cuh"
 #include "row_fusion.cuh"
 
 namespace {
@@ -108,7 +123,7 @@ using fused::sub_mod;
 
 constexpr int kMaxL = 32;
 constexpr int kMaxT = 40;
-constexpr int kMaxLogn = 15;         // the row loops' cap; above, the route at 2^16
+constexpr int kMaxLogn = 14;         // the row loops' cap (B1's); above, the cluster route
 constexpr int kThreads = 256;
 constexpr uint32_t kMtilde = 1u << 16;
 
@@ -116,12 +131,11 @@ constexpr uint32_t kMtilde = 1u << 16;
 // B2, step 1: the extension, two coefficients a thread
 // ---------------------------------------------------------------------------
 
-// From x (polys, L, n) int64 to the aux residues ext (polys, T, n), uint32
-// (the fused B2) or int64 (the route at 2^16), coefficients j, j + 1 of
-// polynomial blockIdx.x.
-template <int L, class Out>
+// From x (polys, L, n) int64 to the aux residues ext (polys, T, n), uint32,
+// coefficients j, j + 1 of polynomial blockIdx.x.
+template <int L>
 __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
-    const int64_t* __restrict__ x, Out* __restrict__ ext, int T, int n,
+    const int64_t* __restrict__ x, uint32_t* __restrict__ ext, int T, int n,
     const uint32_t* __restrict__ consts) {
   extern __shared__ uint32_t c[];
   const int total = 6 * L + 5 * T + 2 * L * T + 1;
@@ -162,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
   const uint32_t r0 = ((e0 & (kMtilde - 1)) * neg_qinv) & (kMtilde - 1);
   const uint32_t r1 = ((e1 & (kMtilde - 1)) * neg_qinv) & (kMtilde - 1);
 
-  Out* ep = ext + poly * T * n + j;
+  uint32_t* ep = ext + poly * T * n + j;
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
     const uint32_t dt = d[t];
@@ -178,10 +192,7 @@ __global__ void __launch_bounds__(kThreads) behz32_extend_kernel(
     const uint32_t s0 = add_mod(a0, shoup_mul(rm0, qm[t], qms[t], dt), dt);
     const uint32_t s1 = add_mod(a1, shoup_mul(rm1, qm[t], qms[t], dt), dt);
     const uint32_t o0 = shoup_mul(s0, mti[t], mtis[t], dt), o1 = shoup_mul(s1, mti[t], mtis[t], dt);
-    if constexpr (sizeof(Out) == 4)
-      *reinterpret_cast<uint2*>(ep + static_cast<size_t>(t) * n) = make_uint2(o0, o1);
-    else
-      *reinterpret_cast<longlong2*>(ep + static_cast<size_t>(t) * n) = make_longlong2(o0, o1);
+    *reinterpret_cast<uint2*>(ep + static_cast<size_t>(t) * n) = make_uint2(o0, o1);
   }
 }
 
@@ -455,16 +466,14 @@ __device__ __forceinline__ uint32_t aux_w(const FinishConsts& c, int T, int k, u
 }
 
 // From y (L rows) and X_aux (T rows), 32-bit, to out (L rows) over Q, for
-// coefficient j of polynomial blockIdx.y. With DECOMPOSE the L rows are
-// X_i themselves, int64 (the route at 2^16), and y_i is made here as
-// DecomposeQ makes it. Each B row's w_k is folded into
+// coefficient j of polynomial blockIdx.y. Each B row's w_k is folded into
 // the outputs' and the m_sk channel's sums as soon as it is made, so only y
 // and those sums are arrays, of the compile-time size L, in registers; the
 // m_sk channel gives the overflow alpha of Shenoy-Kumaresan B -> Q, centred
 // to allow slight negatives. Aux row k + 1 is read while row k is worked on.
-template <int L, class In, bool DECOMPOSE>
+template <int L>
 __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
-    const In* __restrict__ y, const In* __restrict__ xa, int64_t* __restrict__ out,
+    const uint32_t* __restrict__ y, const uint32_t* __restrict__ xa, int64_t* __restrict__ out,
     int T, int n, const uint32_t* __restrict__ consts) {
   extern __shared__ uint32_t smem_consts[];
   const int total = scale_back_consts(L, T);
@@ -473,8 +482,8 @@ __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   const size_t poly = blockIdx.y;
-  const In* yp = y + poly * L * n + j;
-  const In* ap = xa + poly * T * n + j;
+  const uint32_t* yp = y + poly * L * n + j;
+  const uint32_t* ap = xa + poly * T * n + j;
   int64_t* op = out + poly * L * n + j;
   const FinishConsts c(smem_consts, L, T);
   const int Tb = T - 1;
@@ -482,16 +491,14 @@ __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
   uint32_t yv[L], acc[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
-    yv[i] = static_cast<uint32_t>(yp[static_cast<size_t>(i) * n]);
-    if constexpr (DECOMPOSE)
-      yv[i] = shoup_mul(shoup_mul(yv[i], c.tq[i], c.tqs[i], c.q[i]), c.qhi[i], c.qhis[i], c.q[i]);
+    yv[i] = yp[static_cast<size_t>(i) * n];
     acc[i] = 0;
   }
-  uint32_t conv_sk = 0, next = static_cast<uint32_t>(ap[0]);
+  uint32_t conv_sk = 0, next = ap[0];
 #pragma unroll 1
   for (int k = 0; k < Tb; ++k) {
     const uint32_t xk = next;
-    next = static_cast<uint32_t>(ap[static_cast<size_t>(k + 1) * n]);
+    next = ap[static_cast<size_t>(k + 1) * n];
     const uint32_t wd = aux_w<L>(c, T, k, xk, yv);
     const uint32_t* cv = c.c2v + k * (L + 1);
     const uint32_t* cs = c.c2s + k * (L + 1);
@@ -509,31 +516,29 @@ __global__ void __launch_bounds__(kThreads) behz32_scale_back_kernel(
   }
 }
 
-// The extension kernel on its L instance: x -> ext of the word Out.
-template <class Out>
-int extend(const int64_t* x, Out* ext, int polys, int L, int T, int n, const uint32_t* consts,
+// The extension kernel on its L instance.
+int extend(const int64_t* x, uint32_t* ext, int polys, int L, int T, int n, const uint32_t* consts,
            cudaStream_t st) {
   const int smem = static_cast<int>(sizeof(uint32_t)) * (6 * L + 5 * T + 2 * L * T + 1);
   return fused::by_value<kMaxL>(L, [&](auto size) -> int {
     constexpr int LL = decltype(size)::value;
     static int allowed[fused::kMaxDevices] = {};
-    int e = fused::allow_smem(behz32_extend_kernel<LL, Out>, smem, allowed);
+    int e = fused::allow_smem(behz32_extend_kernel<LL>, smem, allowed);
     if (e != 0) return e;
     const int threads = n / 2 < kThreads ? n / 2 : kThreads;
     dim3 grid(polys, n / 2 / threads);
-    behz32_extend_kernel<LL, Out><<<grid, threads, smem, st>>>(x, ext, T, n, consts);
+    behz32_extend_kernel<LL><<<grid, threads, smem, st>>>(x, ext, T, n, consts);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 // The scale-back kernel on its L instance.
-template <class In, bool DECOMPOSE>
-int scale_back(const In* y, const In* xa, int64_t* out, int polys, int L, int T, int n,
+int scale_back(const uint32_t* y, const uint32_t* xa, int64_t* out, int polys, int L, int T, int n,
                const uint32_t* consts, cudaStream_t st) {
   const int smem = static_cast<int>(sizeof(uint32_t)) * scale_back_consts(L, T);
   return fused::by_value<kMaxL>(L, [&](auto size) -> int {
     constexpr int LL = decltype(size)::value;
-    auto kernel = behz32_scale_back_kernel<LL, In, DECOMPOSE>;
+    auto kernel = behz32_scale_back_kernel<LL>;
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem);
@@ -545,14 +550,139 @@ int scale_back(const In* y, const In* xa, int64_t* out, int polys, int L, int T,
   });
 }
 
+// ---------------------------------------------------------------------------
+// the cluster route (n = 2^15, 2^16): B2's and B4's rows of the cluster body
+// ---------------------------------------------------------------------------
+
+// B2's joint rows for `ntt::cluster_kernel`: row poly (L + T) + k on limb k
+// of the joint ring, a q row (k < L) from x (int64) into fq, an aux row from
+// the uint32 scratch into fa; each block reads the cells of its columns from
+// its row's source and ends its sub-row with the to-Montgomery epilogue
+// (`post`, `posts` per virtual limb) and 16-byte paired stores.
+template <int LOGS, int K>
+struct PrepCluster {
+  static constexpr int LOGN = LOGS + K;
+  static constexpr bool kTwoBlocks = true;
+  const int64_t* x;
+  const uint32_t* ext;
+  int64_t* fq;
+  int64_t* fa;
+  int L, T;
+  const uint32_t* post;
+  const uint32_t* posts;
+
+  __device__ __forceinline__ void load(uint32_t (&a)[1 << ntt::reg_bits(LOGS)], uint32_t*,
+                                       size_t row, int k, int s) const {
+    const size_t poly = row / static_cast<size_t>(L + T);
+    if (k < L)
+      ntt::read_cells<ntt::W32, LOGS, K>(a, x + ((poly * L + k) << LOGN), s);
+    else
+      ntt::read_cells<ntt::W32, LOGS, K>(a, ext + ((poly * T + (k - L)) << LOGN), s);
+  }
+
+  __device__ __forceinline__ void end(uint32_t (&a)[1 << ntt::reg_bits(LOGS)], uint32_t* xb,
+                                      size_t row, int k, int s, uint32_t q) const {
+    const int vlimb = (k << K) + s;
+    ntt::epilogue<ntt::W32>(a, q, true, post[vlimb], posts[vlimb]);
+    const size_t poly = row / static_cast<size_t>(L + T);
+    int64_t* yr = k < L ? fq + ((poly * L + k) << LOGN) : fa + ((poly * T + (k - L)) << LOGN);
+    store_row_pairs<LOGS>(a, yr + (static_cast<size_t>(s) << LOGS), xb);
+  }
+};
+
+// B4's rows for the inverse `ntt::cluster_kernel`: row poly (L + T) + k on
+// limb k of the joint ring, a dq row (k < L) or a da row, read as int64;
+// after the cross stages each cell gets the epilogue (`post`, `posts`: n^-1
+// with the from-Montgomery folded in, per virtual limb) and leaves as a
+// 32-bit residue: a dq row's as y_i = [t X_i (Q/q_i)^-1]_{q_i} (DecomposeQ's
+// end, from the scale-back's constant block) into y, a da row's as X_aux,k
+// into xa.
+template <int LOGS, int K>
+struct FinishCluster {
+  static constexpr int LOGN = LOGS + K;
+  static constexpr bool kTwoBlocks = true;
+  const int64_t* dq;
+  const int64_t* da;
+  uint32_t* y;
+  uint32_t* xa;
+  int L, T;
+  const uint32_t* post;
+  const uint32_t* posts;
+  const uint32_t* consts;
+
+  __device__ __forceinline__ void load(uint32_t (&a)[1 << ntt::reg_bits(LOGS)], uint32_t* xb,
+                                       size_t row, int k, int s) const {
+    const size_t poly = row / static_cast<size_t>(L + T);
+    const int64_t* xr = k < L ? dq + ((poly * L + k) << LOGN) : da + ((poly * T + (k - L)) << LOGN);
+    ntt::load_row<ntt::W32, LOGS, true>(a, xr + (static_cast<size_t>(s) << LOGS), xb);
+  }
+
+  __device__ __forceinline__ void end(uint32_t (&a)[1 << ntt::reg_bits(LOGS)], uint32_t*,
+                                      size_t row, int k, int s, uint32_t q) const {
+    constexpr int E = 1 << ntt::reg_bits(LOGS);
+    const int vlimb = (k << K) + s;
+    ntt::epilogue<ntt::W32>(a, q, true, post[vlimb], posts[vlimb]);
+    const size_t poly = row / static_cast<size_t>(L + T);
+    if (k < L) {
+      const FinishConsts c(consts, L, T);
+      const uint32_t tq = c.tq[k], tqs = c.tqs[k], qhi = c.qhi[k], qhis = c.qhis[k];
+#pragma unroll
+      for (int e = 0; e < E; ++e) a[e] = shoup_mul(shoup_mul(a[e], tq, tqs, q), qhi, qhis, q);
+      ntt::write_cells<ntt::W32, LOGS, K>(a, y + ((poly * L + k) << LOGN), s);
+    } else {
+      ntt::write_cells<ntt::W32, LOGS, K>(a, xa + ((poly * T + (k - L)) << LOGN), s);
+    }
+  }
+};
+
+// One launch of the cluster kernel with B2's (INV false) or B4's rows over
+// the polys (L + T) rows of the joint ring at n = 2^logn (15 or 16), over
+// sub-rows of 2^logs (logs must be ntt::kSubLogn); `tw`, `ctw`, `q` are
+// kernel B1's cluster tables of the joint ring (the direction's pass table
+// over the virtual limbs, the column tables, the limbs' primes). rows == 0
+// only asks how many clusters fit (into `fit`).
+template <bool INV, class Make>
+int cluster_rows(int logn, int logs, int rows, int limbs, const void* tw, const void* ctw,
+                 const void* q, cudaStream_t st, int* fit, const Make& make) {
+  return ntt::by_depth(logn, logs, [&](auto depth) -> int {
+    constexpr int LOGS = ntt::kSubLogn, K = decltype(depth)::value;
+    static int ready[ntt::kMaxClusterDevices] = {};
+    return ntt::launch_rows_cluster<ntt::W32, LOGS, K, INV>(make(depth), rows, limbs, tw, ctw, q,
+                                                            ready, st, fit);
+  });
+}
+
+int prep_cluster(const int64_t* x, const uint32_t* ext, int64_t* fq, int64_t* fa, int polys,
+                 int L, int T, int logn, int logs, const void* tw, const void* ctw, const void* q,
+                 const void* post, const void* posts, cudaStream_t st, int* fit) {
+  return cluster_rows<false>(logn, logs, polys * (L + T), L + T, tw, ctw, q, st, fit,
+                             [&](auto depth) {
+    return PrepCluster<ntt::kSubLogn, decltype(depth)::value>{
+        x, ext, fq, fa, L, T, static_cast<const uint32_t*>(post),
+        static_cast<const uint32_t*>(posts)};
+  });
+}
+
+int finish_cluster(const int64_t* dq, const int64_t* da, uint32_t* y, uint32_t* xa, int polys,
+                   int L, int T, int logn, int logs, const void* tw, const void* ctw,
+                   const void* q, const void* post, const void* posts, const uint32_t* consts,
+                   cudaStream_t st, int* fit) {
+  return cluster_rows<true>(logn, logs, polys * (L + T), L + T, tw, ctw, q, st, fit,
+                            [&](auto depth) {
+    return FinishCluster<ntt::kSubLogn, decltype(depth)::value>{
+        dq, da, y, xa, L, T, static_cast<const uint32_t*>(post),
+        static_cast<const uint32_t*>(posts), consts};
+  });
+}
+
 }  // namespace
 
 extern "C" int behz32_max_limbs() { return kMaxL; }
 
 extern "C" int behz32_max_aux() { return kMaxT; }
 
-// The largest log2 n the fused row loops take (the host routes n above it
-// around B1's cluster kernel).
+// The largest log2 n the row loops take (the host sends n above it, 2^15
+// and 2^16, to the cluster route).
 extern "C" int behz32_max_logn() { return kMaxLogn; }
 
 // B4 on dq: (polys, L, n) and da: (polys, T, n), NTT + Montgomery int64
@@ -560,7 +690,7 @@ extern "C" int behz32_max_logn() { return kMaxLogn; }
 // the 32-bit scratch y: (polys, L, n) and xa: (polys, T, n). `tw_*`, `q_*`,
 // `post_*`, `posts_*` are kernel B1's inverse pass table and per-limb
 // constants of ring_q and ring_aux (post = n^-1 * 2^-32), `consts` the
-// scale-back's block. Three launches on `stream`.
+// scale-back's block. Three launches on `stream`; n <= 2^kMaxLogn.
 extern "C" int behz32_finish_launch(const int64_t* dq, const int64_t* da, int64_t* out,
                                     uint32_t* y, uint32_t* xa, int polys, int L, int T, int logn,
                                     const void* tw_q, const void* q_q, const void* post_q,
@@ -580,26 +710,28 @@ extern "C" int behz32_finish_launch(const int64_t* dq, const int64_t* da, int64_
         da, polys * T, T, tw_a, q_a, Store32<LOGN>{xa, u32(post_a), u32(posts_a)}, st);
   });
   if (err != 0) return err;
-  return scale_back<uint32_t, false>(y, xa, out, polys, L, T, 1 << logn, consts, st);
+  return scale_back(y, xa, out, polys, L, T, 1 << logn, consts, st);
 }
 
-// B4's last step at n = 2^16: xq (polys, L, n) and xa (polys, T, n), the
-// int64 inverse transforms of dq and da (from-Montgomery folded in), into
-// out (polys, L, n) over Q. One launch on `stream`.
-extern "C" int behz32_scale_back64_launch(const int64_t* xq, const int64_t* xa, int64_t* out,
-                                          int polys, int L, int T, int n, const uint32_t* consts,
-                                          void* stream) {
+// B4 at n = 2^logn, 15 or 16, over sub-rows of 2^logs (logs must be
+// ntt::kSubLogn, the host's SUB_LOGN): as behz32_finish_launch, with kernel
+// B1's cluster tables of the joint ring (ring_q's L limbs, then ring_aux's
+// T): `tw` the inverse pass table over the virtual limbs, `ctw` the column
+// tables, `q` the limbs' primes, `post` / `posts` n^-1 * 2^-32 per virtual
+// limb. Two launches on `stream`: the cluster kernel over the dq and da
+// rows, the scale-back.
+extern "C" int behz32_finish_cluster_launch(const int64_t* dq, const int64_t* da, int64_t* out,
+                                            uint32_t* y, uint32_t* xa, int polys, int L, int T,
+                                            int logn, int logs, const void* tw, const void* ctw,
+                                            const void* q, const void* post, const void* posts,
+                                            const uint32_t* consts, void* stream) {
   if (L < 1 || L > kMaxL || T < 2 || T > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
-  return scale_back<int64_t, true>(xq, xa, out, polys, L, T, n, consts,
-                                   static_cast<cudaStream_t>(stream));
-}
-
-// B2's extension at n = 2^16: x (polys, L, n) int64 residues mod q starting
-// on 16 bytes, into the int64 aux rows ext (polys, T, n). One launch.
-extern "C" int behz32_extend64_launch(const int64_t* x, int64_t* ext, int polys, int L, int T,
-                                      int n, const uint32_t* consts, void* stream) {
-  if (L < 1 || L > kMaxL || T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return extend(x, ext, polys, L, T, n, consts, static_cast<cudaStream_t>(stream));
+  if (polys <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = finish_cluster(dq, da, y, xa, polys, L, T, logn, logs, tw, ctw, q, post, posts,
+                                 consts, st, nullptr);
+  if (err != 0) return err;
+  return scale_back(y, xa, out, polys, L, T, 1 << logn, consts, st);
 }
 
 // B2 on x: (polys, L, n) int64 residues mod q starting on 16 bytes, into
@@ -607,12 +739,13 @@ extern "C" int behz32_extend64_launch(const int64_t* x, int64_t* ext, int polys,
 // (polys, T, n). `consts` is the extension's block; `tw`, `q`, `post`,
 // `posts` are kernel B1's forward pass table and per-limb q and
 // to-Montgomery constants (2^32 mod q) of the joint ring, ring_q's L limbs
-// followed by ring_aux's T. Two launches on `stream`.
+// followed by ring_aux's T. Two launches on `stream`; n <= 2^kMaxLogn.
 extern "C" int behz32_prep_launch(const int64_t* x, uint32_t* ext, int64_t* fq, int64_t* fa,
                                   int polys, int L, int T, int logn, const uint32_t* consts,
                                   const void* tw, const void* q, const void* post,
                                   const void* posts, void* stream) {
-  if (L < 1 || L > kMaxL || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 1 || L > kMaxL || T < 1 || logn > kMaxLogn)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = extend(x, ext, polys, L, T, 1 << logn, consts, st);
   if (err != 0) return err;
@@ -620,4 +753,39 @@ extern "C" int behz32_prep_launch(const int64_t* x, uint32_t* ext, int64_t* fq, 
   return ntt::by_logn<kMaxLogn>(logn, [&](auto size) -> int {
     return prep_rows_launch<decltype(size)::value>(p, polys * (L + T), tw, q, post, posts, st);
   });
+}
+
+// B2 at n = 2^logn, 15 or 16, over sub-rows of 2^logs (logs must be
+// ntt::kSubLogn): as behz32_prep_launch, with kernel B1's cluster tables of
+// the joint ring (`tw` the forward pass table over the virtual limbs, `ctw`
+// the column tables, `q` the limbs' primes, `post` / `posts` 2^32 mod q per
+// virtual limb). Two launches on `stream`: the extension, the cluster
+// kernel over the joint rows.
+extern "C" int behz32_prep_cluster_launch(const int64_t* x, uint32_t* ext, int64_t* fq,
+                                          int64_t* fa, int polys, int L, int T, int logn,
+                                          int logs, const uint32_t* consts, const void* tw,
+                                          const void* ctw, const void* q, const void* post,
+                                          const void* posts, void* stream) {
+  if (L < 1 || L > kMaxL || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (logs != ntt::kSubLogn || logn <= kMaxLogn || logn > ntt::kMaxLognCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (polys <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = extend(x, ext, polys, L, T, 1 << logn, consts, st);
+  if (err != 0) return err;
+  return prep_cluster(x, ext, fq, fa, polys, L, T, logn, logs, tw, ctw, q, post, posts, st,
+                      nullptr);
+}
+
+// Clusters of B2's (inverse == 0) or B4's (inverse != 0) cluster kernel at
+// n = 2^logn over sub-rows of 2^logs that the current card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+extern "C" int behz32_cluster_fit(int logn, int logs, int inverse) {
+  int fit = 0;
+  const int err =
+      inverse ? finish_cluster(nullptr, nullptr, nullptr, nullptr, 0, 1, 2, logn, logs, nullptr,
+                               nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, &fit)
+              : prep_cluster(nullptr, nullptr, nullptr, nullptr, 0, 1, 1, logn, logs, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr, &fit);
+  return err != 0 ? -err : fit;
 }

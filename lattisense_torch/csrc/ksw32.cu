@@ -42,18 +42,19 @@
 // sub-row s (2^logs elements, logs = ntt::kSubLogn = 13, k = log2 n - logs:
 // 4 blocks at 2^15, 8 at 2^16, 96 KB of shared memory each) of the digit
 // row and of both accumulators, the cross stages of csrc/ntt_cluster.cuh
-// between them. For each digit each block builds the cells of its columns
-// (the C cells c + r 2^logs of each, straight from x's limbs, the mod-up in
-// registers), runs the k cross stages on them and scatters them to their
-// owners through distributed shared memory; after a cluster barrier each
-// block runs the row passes on its sub-row with the virtual-limb tables
-// (ops/ntt_cuda.py `split_pass_tables`) and takes the gadget product with
-// the key read in place, accumulating both components at their parking
-// slots. A barrier before each scatter keeps a block's exchange buffer
-// until its owner has read it. After the last digit each component's
-// inverse runs the row passes, parks, crosses the cluster and applies
-// n^-1, and the product leaves as 32-bit residues into the same mod-down
-// kernel. So the digit and product stacks never reach device memory (at
+// between them (the cluster body's trips, `forward_trip`, `inverse_rows`,
+// `inverse_cells`, which B1, B2 and B4 run too). For each digit each block
+// builds the cells of its columns (the C cells c + r 2^logs of each,
+// straight from x's limbs, the mod-up in registers), runs the k cross
+// stages on them and scatters them to their owners through distributed
+// shared memory; after a cluster barrier each block runs the row passes on
+// its sub-row with the virtual-limb tables (ops/ntt_cuda.py
+// `split_pass_tables`) and takes the gadget product with the key read in
+// place, accumulating both components at their parking slots. A barrier
+// before each scatter keeps a block's exchange buffer until its owner has
+// read it. After the last digit each component's inverse runs the row
+// passes, parks, crosses the cluster and applies n^-1, and the product
+// leaves as 32-bit residues into the same mod-down kernel. So the digit and product stacks never reach device memory (at
 // n = 2^16, T = 52, beta = 12 a digit stack is about 0.33 GB a ciphertext
 // as int64). What bounds it is the fused route's: the operations; the
 // cluster adds one crossing of distributed shared memory each way a digit
@@ -193,7 +194,6 @@ __global__ void __launch_bounds__(ntt::row_threads(LOGS)) ksw32_cluster_kernel(
     const uint32_t* __restrict__ modup, const uint32_t* __restrict__ inner) {
   using ntt::W32;
   constexpr int C = 1 << K, SUB = 1 << LOGS, KR = ntt::reg_bits(LOGS), E = 1 << KR;
-  constexpr int COLS = E / C;
   constexpr size_t N = static_cast<size_t>(SUB) << K;
   constexpr size_t kTable = static_cast<size_t>(ntt::table_entries(LOGS)) * W32::kEntryBytes;
   static_assert(K >= 1 && C <= E, "a thread takes whole columns");
@@ -226,27 +226,14 @@ __global__ void __launch_bounds__(ntt::row_threads(LOGS)) ksw32_cluster_kernel(
 #pragma unroll
     for (int i = 0; i < E; ++i) a[i] = 0;
     for (int r = d * alpha; r < L && r < (d + 1) * alpha; ++r) {
-      const int64_t* xr = xg + static_cast<size_t>(r) * N;
       uint32_t xv[E];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          xv[j * C + c] = static_cast<uint32_t>(
-              xr[static_cast<size_t>(c) * SUB + ntt::cluster_column<LOGS, K>(s, j)]);
+      ntt::read_cells<W32, LOGS, K>(xv, xg + static_cast<size_t>(r) * N, s);
       const uint32_t h = qhi[r], hs = qhis[r], qr = srcq[r], m = mv[r * T + t], mss = ms[r * T + t];
 #pragma unroll
       for (int i = 0; i < E; ++i) a[i] = add_mod(a[i], shoup_mul(shoup_mul(xv[i], h, hs, qr), m, mss, q), q);
     }
-    ntt::column_stages<W32, K, COLS, false>(a, cfwd + static_cast<size_t>(t) * 2 * C, q);
-    if (d == 0)
-      ntt::cluster_wait();       // every block of the cluster has started
-    else
-      cluster.sync();            // every block has read its buffer for the last digit
-    ntt::scatter_cells<W32, LOGS, K>(cluster, a, xb, s);
-    cluster.sync();              // every cell has landed in its owner's buffer
-    ntt::take_top<W32, LOGS>(a, xb);
-    ntt::passes<W32, LOGS, false>(a, xb, tf, q);
+    ntt::forward_trip<W32, LOGS, K>(cluster, a, xb, s, cfwd + static_cast<size_t>(t) * 2 * C, tf,
+                                    q, d == 0);
     // the gadget product at the chunk window's elements, E consecutive ones
     // of the sub-row: key read in place, 16 bytes a load
     const int base = ntt::element<0, KR>(ntt::lane_id(), 0);
@@ -280,20 +267,14 @@ __global__ void __launch_bounds__(ntt::row_threads(LOGS)) ksw32_cluster_kernel(
   for (int comp = 0; comp < 2; ++comp) {
     uint32_t* ac = acc + comp * SUB;
     fused::unpark<LOGS, 0>(a, ac);
-    ntt::passes<W32, LOGS, true>(a, ac, ti, q);
-    ntt::park_top<W32, LOGS>(a, ac);
+    ntt::inverse_rows<W32, LOGS>(a, ac, ti, q);
   }
   cluster.sync();   // both components' last windows are parked in every block
   for (int comp = 0; comp < 2; ++comp) {
-    ntt::gather_cells<W32, LOGS, K>(cluster, a, acc + comp * SUB, s);
-    ntt::column_stages<W32, K, COLS, true>(a, cinv + static_cast<size_t>(t) * 2 * C, q);
+    ntt::inverse_cells<W32, LOGS, K>(cluster, a, acc + comp * SUB, s,
+                                     cinv + static_cast<size_t>(t) * 2 * C, q);
     ntt::epilogue<W32>(a, q, true, ninv[vlimb], ninvs[vlimb]);
-    uint32_t* orow = cout + ((g * 2 + comp) * T + t) * N;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        orow[static_cast<size_t>(c) * SUB + ntt::cluster_column<LOGS, K>(s, j)] = a[j * C + c];
+    ntt::write_cells<W32, LOGS, K>(a, cout + ((g * 2 + comp) * T + t) * N, s);
   }
   cluster.sync();   // no block leaves while another still reads its accumulators
 }

@@ -34,23 +34,27 @@ store 32-bit rows, and one thread per coefficient finishes the scale-back
 from them: three launches, no int64 intermediate, bound by device-memory
 bytes.
 
-The row loops hold a row up to 2^15 (``kMaxLogn`` of ``csrc/behz32.cu``,
-which the wrappers read through ``behz32_max_logn``). At n = 2^16 a row does
-not fit them, and each half becomes a short
-sequence of launches around B1's cluster kernel (one launch a transform,
-``ntt_cuda.launch``): B2 the extension into int64 aux rows (one thread per
-two coefficients, as above), then B1's forward with the to-Montgomery
-epilogue over the q rows and over the aux rows; B4 B1's inverse with the
-from-Montgomery folded into n^-1 over dq and over da, then the scale-back,
-one thread per coefficient, from the int64 rows. The constant blocks are the
-fused launches'. The extra device traffic is the int64 rows between the
-launches.
+The row loops hold a row up to 2^14 (``kMaxLogn`` of ``csrc/behz32.cu``,
+B1's row kernel's cap, ``ROWS_MAX_LOGN`` here). At n = 2^15 and 2^16 a row
+does not fit a block's registers, and each half takes the cluster route
+(``route``): its row-loop step becomes one launch of the cluster body of
+``csrc/ntt_cluster.cuh``, one thread-block cluster of 2^k blocks a row over
+sub-rows of 2^``ntt_cuda.SUB_LOGN``, with the tables of
+``ntt_cuda.cluster_tables(prep_ring(bz), k)`` at ``ntt_cuda.cluster_depth``.
+B2 extends into the uint32 scratch as above, then one cluster launch
+transforms the joint rows, each block reading the cells of its columns from
+x (a q row) or the scratch (an aux row) and ending its sub-row in the
+to-Montgomery epilogue and paired stores. B4's cluster launch runs the
+inverse over the dq and da rows, each block parking its last window and
+crossing the cluster, and ends each row's cells in the q half of the
+scale-back or in X_aux,k, as 32-bit rows; the per-coefficient scale-back
+follows. So both routes move the same bytes.
 
-Each wrapper counts one launch per call. Up to 2^15 neither launches any of
-B1's entries; at 2^16 their B1 launches count under ``ntt_cuda.launches``
-``behz32_split_fwd`` / ``behz32_split_inv`` (and the cluster kernel's under
-``ntt32_*_cluster``). A CPU tensor runs the plain
-PyTorch composition below; a CUDA tensor launches the kernels or raises.
+Each wrapper counts one launch per call, the cluster route also under
+``behz32_prep_cluster`` / ``behz32_finish_cluster``; neither launches any of
+B1's entries. A CPU tensor runs the plain PyTorch composition below; a CUDA
+tensor launches the kernels or raises. ``tests/test_torch_prep_bconv.py``
+and ``tests/test_torch_fused_rows.py`` walk both routes on the CPU.
 """
 
 import ctypes
@@ -64,21 +68,43 @@ from ..core.rns import _shoup
 from ..params import MTILDE
 from . import cuda_build, ntt_cuda
 
-#: launches of each wrapper's kernels since the last reset
-launches = {'behz_prep32': 0, 'behz_finish32': 0}
+#: launches of each wrapper's kernels since the last reset (a call's cluster
+#: launch also under ``*_cluster``)
+launches = {'behz_prep32': 0, 'behz_finish32': 0, 'behz32_prep_cluster': 0,
+            'behz32_finish_cluster': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'behz32_prep_launch': [_P] * 4 + [_I] * 4 + [_P] * 6,
     'behz32_finish_launch': [_P] * 5 + [_I] * 4 + [_P] * 10,
-    'behz32_extend64_launch': [_P] * 2 + [_I] * 4 + [_P] * 2,
-    'behz32_scale_back64_launch': [_P] * 3 + [_I] * 4 + [_P] * 2,
+    'behz32_prep_cluster_launch': [_P] * 4 + [_I] * 5 + [_P] * 7,
+    'behz32_finish_cluster_launch': [_P] * 5 + [_I] * 5 + [_P] * 7,
+    'behz32_cluster_fit': [_I] * 3,
     'behz32_max_limbs': [],
     'behz32_max_aux': [],
     'behz32_max_logn': [],
 }
 MAX_LOGN = ntt_cuda.MAX_LOGN
+ROWS_MAX_LOGN = ntt_cuda.ROW_MAX_LOGN   # the row loops (behz32.cu kMaxLogn)
+
+
+def route(n: int) -> str:
+    """The route B2 and B4 take at n, chosen by shape: 'rows' (B1's row loop
+    restated, one block a row) up to n = 2^14, 'cluster' (one thread-block
+    cluster a row) above."""
+    return 'rows' if n.bit_length() - 1 <= ROWS_MAX_LOGN else 'cluster'
+
+
+def cluster_fit(n: int, inverse: bool) -> int:
+    """Clusters of B2's (or, ``inverse``, B4's) cluster kernel at n = 2^15 or
+    2^16 that the current card runs at once, from
+    ``cudaOccupancyMaxActiveClusters``; raises where none fits."""
+    got = cuda_build.load('behz32', _SIGNATURES).behz32_cluster_fit(
+        n.bit_length() - 1, ntt_cuda.SUB_LOGN, int(inverse))
+    if got <= 0:
+        raise RuntimeError(f'behz32 cluster occupancy query failed: cudaError_t {-got}')
+    return got
 
 
 def behz_prep_plain(x, bz):
@@ -148,21 +174,28 @@ def behz_prep32(x, bz):
     fa = torch.empty((*lead, T, n), dtype=torch.int64, device=x.device)
     if polys:
         x = x if x.data_ptr() % 16 == 0 else x.clone()    # rows move in 16-byte pieces
-        if n.bit_length() - 1 > lib.behz32_max_logn():
-            _prep_split(lib, x, fq, fa, bz, polys)
-            launches['behz_prep32'] += 1
-            return fq, fa
         ext = torch.empty((*lead, T, n), dtype=torch.int32, device=x.device)
-        tabs = ntt_cuda.row_tables(prep_ring(bz))
+        logn = n.bit_length() - 1
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         with torch.cuda.device(x.device):
-            err = lib.behz32_prep_launch(
-                x.data_ptr(), ext.data_ptr(), fq.data_ptr(), fa.data_ptr(), polys, L, T,
-                n.bit_length() - 1, _consts(bz).data_ptr(),
-                *(tabs[k].data_ptr() for k in ('fwd', 'q', 'r1', 'r1_shoup')),
-                torch.cuda.current_stream(x.device).cuda_stream)
+            if route(n) == 'rows':
+                tabs = ntt_cuda.row_tables(prep_ring(bz))
+                err = lib.behz32_prep_launch(
+                    x.data_ptr(), ext.data_ptr(), fq.data_ptr(), fa.data_ptr(), polys, L, T, logn,
+                    _consts(bz).data_ptr(),
+                    *(tabs[k].data_ptr() for k in ('fwd', 'q', 'r1', 'r1_shoup')), stream)
+            else:
+                tabs = ntt_cuda.cluster_tables(prep_ring(bz), ntt_cuda.cluster_depth(logn))
+                err = lib.behz32_prep_cluster_launch(
+                    x.data_ptr(), ext.data_ptr(), fq.data_ptr(), fa.data_ptr(), polys, L, T, logn,
+                    ntt_cuda.SUB_LOGN, _consts(bz).data_ptr(),
+                    *(tabs[k].data_ptr() for k in ('fwd', 'cols_fwd', 'cols_q', 'r1', 'r1_shoup')),
+                    stream)
         if err != 0:
             raise RuntimeError(f'behz32 prep launch failed: cudaError_t {err}')
         launches['behz_prep32'] += 1
+        if route(n) == 'cluster':
+            launches['behz32_prep_cluster'] += 1
     return fq, fa
 
 
@@ -237,58 +270,30 @@ def behz_finish32(dq, da, bz):
         # the row kernels stage rows in 16-byte pieces
         dq = dq if dq.data_ptr() % 16 == 0 else dq.clone()
         da = da if da.data_ptr() % 16 == 0 else da.clone()
-        if n.bit_length() - 1 > lib.behz32_max_logn():
-            _finish_split(lib, dq, da, out, bz, polys)
-            launches['behz_finish32'] += 1
-            return out
         y = torch.empty(dq.shape, dtype=torch.int32, device=dq.device)
         xa = torch.empty(da.shape, dtype=torch.int32, device=dq.device)
-        tq, ta = ntt_cuda.row_tables(rq), ntt_cuda.row_tables(ra)
+        logn = n.bit_length() - 1
+        stream = torch.cuda.current_stream(dq.device).cuda_stream
         with torch.cuda.device(dq.device):
-            err = lib.behz32_finish_launch(
-                dq.data_ptr(), da.data_ptr(), out.data_ptr(), y.data_ptr(), xa.data_ptr(),
-                polys, L, T, n.bit_length() - 1,
-                *(t[k].data_ptr() for t in (tq, ta)
-                  for k in ('inv', 'q', 'n_inv_rinv', 'n_inv_rinv_shoup')),
-                _finish_consts(bz).data_ptr(), torch.cuda.current_stream(dq.device).cuda_stream)
+            if route(n) == 'rows':
+                tq, ta = ntt_cuda.row_tables(rq), ntt_cuda.row_tables(ra)
+                err = lib.behz32_finish_launch(
+                    dq.data_ptr(), da.data_ptr(), out.data_ptr(), y.data_ptr(), xa.data_ptr(),
+                    polys, L, T, logn,
+                    *(t[k].data_ptr() for t in (tq, ta)
+                      for k in ('inv', 'q', 'n_inv_rinv', 'n_inv_rinv_shoup')),
+                    _finish_consts(bz).data_ptr(), stream)
+            else:
+                tabs = ntt_cuda.cluster_tables(prep_ring(bz), ntt_cuda.cluster_depth(logn))
+                err = lib.behz32_finish_cluster_launch(
+                    dq.data_ptr(), da.data_ptr(), out.data_ptr(), y.data_ptr(), xa.data_ptr(),
+                    polys, L, T, logn, ntt_cuda.SUB_LOGN,
+                    *(tabs[k].data_ptr() for k in ('inv', 'cols_inv', 'cols_q', 'n_inv_rinv',
+                                                   'n_inv_rinv_shoup')),
+                    _finish_consts(bz).data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f'behz32 finish launch failed: cudaError_t {err}')
         launches['behz_finish32'] += 1
+        if route(n) == 'cluster':
+            launches['behz32_finish_cluster'] += 1
     return out
-
-
-# ---------------------------------------------------------------------------
-# the route at n = 2^16, around B1's cluster kernel
-# ---------------------------------------------------------------------------
-
-def _prep_split(lib, x, fq, fa, bz, polys: int):
-    """B2 above the row loop's cap: the extension into int64 aux rows, then
-    B1's forward with the to-Montgomery epilogue over q (x → fq) and over aux
-    (→ fa)."""
-    rq, ra = bz.ring_q, bz.ring_aux
-    ext = torch.empty(fa.shape, dtype=torch.int64, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.behz32_extend64_launch(x.data_ptr(), ext.data_ptr(), polys, len(rq.moduli),
-                                         len(ra.moduli), rq.n, _consts(bz).data_ptr(),
-                                         torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'behz32 extension launch failed: cudaError_t {err}')
-    ntt_cuda.launch(x, fq, rq, inverse=False, to_mont=True, name='behz32_split_fwd')
-    ntt_cuda.launch(ext, fa, ra, inverse=False, to_mont=True, name='behz32_split_fwd')
-
-
-def _finish_split(lib, dq, da, out, bz, polys: int):
-    """B4 above the row loop's cap: B1's inverse with the from-Montgomery
-    folded into n^-1 over dq and over da, then the scale-back from the int64
-    rows."""
-    rq, ra = bz.ring_q, bz.ring_aux
-    xq, xa = torch.empty_like(dq), torch.empty_like(da)
-    ntt_cuda.launch(dq, xq, rq, inverse=True, from_mont=True, name='behz32_split_inv')
-    ntt_cuda.launch(da, xa, ra, inverse=True, from_mont=True, name='behz32_split_inv')
-    with torch.cuda.device(dq.device):
-        err = lib.behz32_scale_back64_launch(xq.data_ptr(), xa.data_ptr(), out.data_ptr(), polys,
-                                             len(rq.moduli), len(ra.moduli), rq.n,
-                                             _finish_consts(bz).data_ptr(),
-                                             torch.cuda.current_stream(dq.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'behz32 scale-back launch failed: cudaError_t {err}')

@@ -65,11 +65,9 @@ from ..core import u64 as _u
 from . import cuda_build
 
 #: launches of each entry since the last reset, counted in ``launch``: the
-#: cluster kernel also under ``*_cluster``, B2's and B4's at 2^16 under
-#: ``behz32_split_*``
+#: cluster kernel also under ``*_cluster``
 launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_cluster': 0, 'ntt32_inv_cluster': 0,
-            'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0, 'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0,
-            'behz32_split_fwd': 0, 'behz32_split_inv': 0}
+            'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0, 'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -330,7 +328,8 @@ def row_tables(ring):
 
 def cluster_tables(ring, k: int):
     """The ring's tables for a cluster of 2^k blocks a row (k >= 1; B1's
-    cluster kernel at ``cluster_depth``, B3's cluster route): the pass
+    cluster kernel at ``cluster_depth``, B2's and B4's and B3's cluster
+    routes): the pass
     tables and the constants (``q``, the epilogues') per virtual limb, each
     limb's repeated 2^k times, and the cross stages' tables and the limbs'
     primes (``cols_*``), cached on the ring."""
@@ -394,8 +393,7 @@ def launch(x, y, ring, inverse: bool, to_mont: bool = False, from_mont: bool = F
            perm: bool = False, name: str | None = None):
     """Launch B1 on contiguous CUDA int64 stacks x → y (same shape) on the
     current stream, and count the launch under ``name`` (by default its
-    direction's). Every launch of the kernel goes through here, so kernels
-    built on B1 (B2 and B4 at 2^16) show in the count too.
+    direction's). Every launch of the kernel goes through here.
 
     ``to_mont`` (forward) multiplies the output by 2^32 mod q; ``from_mont``
     (inverse) folds a from-Montgomery of the input into the n^-1 scale: the

@@ -15,9 +15,10 @@ multiply follows the reference's composition: every FastBConv (extension,
 B5 (``ops/ntt64_cuda.py``) and key switching B6, B5 and B7
 (``schemes/keyswitch.py``). The rest is plain PyTorch on the engine's device.
 
-Host work (sampling, big-integer CRT in ``decrypt``) runs in NumPy; the
-evaluation ops take and return ``Ciphertext`` objects whose data may carry
-leading batch dimensions.
+Sampling runs on the host in NumPy; ``decrypt``'s CRT and rounding run in
+machine words on the engine's device (``round_t_over_q``). The evaluation
+ops take and return ``Ciphertext`` objects whose data may carry leading
+batch dimensions.
 """
 
 import math
@@ -35,9 +36,41 @@ from ..params import BfvParams, bfv_aux_basis
 from .encoding import bfv_decode_slots, bfv_encode_slots
 from .galois import (apply_automorphism_coeff, apply_automorphism_ntt, galois_elt_col,
                      galois_elt_row)
-from .keys import as_tensor, lift_signed, sample_gaussian, sample_ternary, sample_uniform_rns
+from .keys import as_tensor, lift_to, sample_gaussian, sample_ternary, sample_uniform_rns
 from .keyswitch import KeySwitcher
 from .types import Ciphertext, DecomposedCiphertext, Plaintext, PlaintextMul, PlaintextRingt
+
+
+def round_t_over_q(acc, ring, t: int):
+    """round(t·X / Q) mod t, X in [0, Q) the CRT of the (L, n) residues
+    ``acc`` over ``ring`` (Q the product of its moduli): the reference's
+    ((2tX + Q) // 2Q) mod t, exactly, in 64-bit words on ``acc``'s device,
+    for moduli below 2^62 and t below 2^31. Garner's mixed-radix digits v_j
+    give X = Σ v_j q_0⋯q_{j-1}, each digit folded out of every later limb at
+    once with the word's modular product; then S = floor(2t·X_j / P_j), X_j
+    and P_j the first j digits and moduli, follows digit by digit,
+    S ← floor((2t·v_j + S) / q_j) (a fraction below one added to an integer
+    numerator never crosses a multiple of q_j), each quotient estimated in
+    float64 (within one) and corrected by its remainder, exact mod 2^64; the
+    rounding is floor((S + 1) / 2)."""
+    moduli = [int(m) for m in ring.moduli]
+    if max(moduli) >= 1 << 62 or not 1 < t < 1 << 31:
+        raise ValueError('round_t_over_q takes moduli below 2^62 and t below 2^31')
+    dev = acc.device
+    u = acc.clone()
+    for i in range(len(moduli) - 1):               # v_i = u[i]: fold it out of the rest
+        rest = ring.q[i + 1:]
+        inv = torch.tensor([pow(moduli[i], -1, m) for m in moduli[i + 1:]], dtype=torch.int64,
+                           device=dev).reshape(-1, 1).expand_as(u[i + 1:])
+        diff = _u.submod(u[i + 1:], u[i] % rest, rest)
+        u[i + 1:] = ring.word.mulmod(diff, inv, rest, ring.pinv[i + 1:], ring.r2[i + 1:])
+    s = torch.zeros_like(u[0])
+    for j, qj in enumerate(moduli):
+        num = 2 * t * u[j] + s                      # exact mod 2^64
+        d = torch.floor(u[j].double() * (2 * t / qj) + s.double() / qj).long()
+        r = num - d * qj                            # in [-q_j, 2 q_j)
+        s = d - (r < 0).long() + (r >= qj).long()
+    return (s + 1) // 2 % t
 
 
 def tensor_product(f, ring):
@@ -196,12 +229,12 @@ class BfvEngine:
         level = pt.level
         ring = self.ring(level)
         q_mods = self.q[:level + 1]
-        u_ntt = ntt_mod.ntt(self._tensor(lift_signed(sample_ternary(rng, self.n), q_mods)), ring)
+        u_ntt = ntt_mod.ntt(lift_to(sample_ternary(rng, self.n), q_mods, self.device), ring)
         c = []
         for j in range(2):
             prod = ring.word.mulmod(pk.data[j][:level + 1], u_ntt, ring.q, ring.pinv, ring.r2)
             poly = ntt_mod.intt(prod, ring)
-            e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
+            e = lift_to(sample_gaussian(rng, self.n), q_mods, self.device)
             c.append(_u.addmod(poly, e, ring.q))
         c0 = _u.addmod(c[0], pt.data, ring.q)
         return Ciphertext(data=torch.stack([c0, c[1]]), level=level)
@@ -213,7 +246,7 @@ class BfvEngine:
         a_ntt = self._tensor(sample_uniform_rns(rng, q_mods, self.n))
         s_ntt = sk.ntt_form(q_mods, self.n, self.device, self.word_bits)
         as_ = ntt_mod.intt(ring.word.mulmod(a_ntt, s_ntt, ring.q, ring.pinv, ring.r2), ring)
-        e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
+        e = lift_to(sample_gaussian(rng, self.n), q_mods, self.device)
         c0 = _u.addmod(_u.negmod(_u.addmod(as_, e, ring.q), ring.q), pt.data, ring.q)
         return Ciphertext(data=torch.stack([c0, ntt_mod.intt(a_ntt, ring)]), level=level)
 
@@ -230,7 +263,7 @@ class BfvEngine:
         a_ntt = self._tensor(expand_uniform(seed, q_mods, self.n))
         s_ntt = sk.ntt_form(q_mods, self.n, self.device, self.word_bits)
         as_ = ntt_mod.intt(ring.word.mulmod(a_ntt, s_ntt, ring.q, ring.pinv, ring.r2), ring)
-        e = self._tensor(lift_signed(sample_gaussian(rng, self.n), q_mods))
+        e = lift_to(sample_gaussian(rng, self.n), q_mods, self.device)
         c0 = _u.addmod(_u.negmod(_u.addmod(as_, e, ring.q), ring.q), pt.data, ring.q)
         return CompressedCiphertext(c0=c0, seed=seed, level=level, is_ntt=False)
 
@@ -242,8 +275,8 @@ class BfvEngine:
         c0 = torch.as_tensor(cct.c0, dtype=torch.int64, device=self.device)
         return Ciphertext(data=torch.stack([c0, ntt_mod.intt(a_ntt, ring)]), level=cct.level)
 
-    def _decrypt_phase(self, sk, ct: Ciphertext):
-        """Σ_k c_k·s^k CRT-reconstructed to big ints: (X mod Q, Q)."""
+    def _phase_residues(self, sk, ct: Ciphertext):
+        """Σ_k c_k·s^k over Q_ℓ: the (L, n) residues on the engine's device."""
         level = ct.level
         ring = self.ring(level)
         q_mods = self.q[:level + 1]
@@ -257,8 +290,13 @@ class BfvEngine:
             acc = _u.addmod(acc, term, ring.q)
             if k + 1 < ct.data.shape[0]:
                 s_pow = mulmod(s_pow, s_ntt, ring.q, ring.pinv, ring.r2)
-        acc = acc.cpu().numpy()
-        Q = self.params.q_prod(level)
+        return acc
+
+    def _decrypt_phase(self, sk, ct: Ciphertext):
+        """Σ_k c_k·s^k CRT-reconstructed to big ints: (X mod Q, Q)."""
+        acc = self._phase_residues(sk, ct).cpu().numpy()
+        q_mods = self.q[:ct.level + 1]
+        Q = self.params.q_prod(ct.level)
         X = np.zeros(self.n, dtype=object)
         for i, qi in enumerate(q_mods):
             Qi = Q // qi
@@ -266,7 +304,12 @@ class BfvEngine:
         return X % Q, Q
 
     def decrypt(self, sk, ct: Ciphertext) -> np.ndarray:
-        """→ plaintext polynomial mod t, (n,) int64 (exact CRT + rounding)."""
+        """→ plaintext polynomial mod t, (n,) int64: the exact CRT and
+        rounding of ``round_t_over_q`` (big integers where it does not
+        apply)."""
+        if max(self.q[:ct.level + 1]) < 1 << 62 and 1 < self.t < 1 << 31:
+            return round_t_over_q(self._phase_residues(sk, ct), self.ring(ct.level),
+                                  self.t).cpu().numpy()
         X, Q = self._decrypt_phase(sk, ct)
         return np.array([((2 * self.t * int(x) + Q) // (2 * Q)) % self.t for x in X],
                         dtype=np.int64)

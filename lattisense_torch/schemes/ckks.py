@@ -30,7 +30,7 @@ from ..params import CkksParams
 from .bfv import tensor_product
 from .encoding import ckks_decode_values, ckks_encode_values
 from .galois import apply_automorphism_ntt, galois_elt_col, galois_elt_row
-from .keys import as_tensor, lift_signed, sample_gaussian, sample_ternary, sample_uniform_rns
+from .keys import as_tensor, lift_to, sample_gaussian, sample_ternary, sample_uniform_rns
 from .keyswitch import KeySwitcher
 from .types import Ciphertext, DecomposedCiphertext, Plaintext, PlaintextMul, PlaintextRingt
 
@@ -123,7 +123,7 @@ class CkksEngine:
 
     # ---- encrypt / decrypt (host sampling, device arithmetic) ----
     def _ntt_of_small(self, coeffs, q_mods, ring):
-        return ntt_mod.ntt(self._tensor(lift_signed(coeffs, q_mods)), ring)
+        return ntt_mod.ntt(lift_to(coeffs, q_mods, self.device), ring)
 
     def encrypt_asymmetric(self, rng, pk, pt: Plaintext) -> Ciphertext:
         level = pt.level

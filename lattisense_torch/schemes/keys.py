@@ -37,6 +37,14 @@ def lift_signed(coeffs, moduli) -> np.ndarray:
     return out
 
 
+def lift_to(coeffs, moduli, device) -> torch.Tensor:
+    """``lift_signed`` made on ``device``: the (n,) coefficients cross to it
+    once and are reduced there, an (L, n) int64 tensor."""
+    c = torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int64)).to(device)
+    q = torch.tensor([int(m) for m in moduli], dtype=torch.int64, device=c.device)
+    return torch.remainder(c.unsqueeze(0), q.reshape(-1, 1))
+
+
 def sample_ternary(rng, n: int, h: int | None = None) -> np.ndarray:
     """Uniform ternary secret; with ``h`` the sparse secret of Hamming weight
     h (the bootstrapping contexts' second secret), drawn as the reference
@@ -56,8 +64,10 @@ def sample_gaussian(rng, n: int, sigma: float = SIGMA) -> np.ndarray:
 def sample_uniform_rns(rng, moduli, n: int) -> np.ndarray:
     """Uniform per-limb residues, drawn as the reference draws them (a u64
     stream per limb), as (L, n) int64."""
-    return np.stack([rng.integers(0, int(q), size=n, dtype=np.uint64)
-                     for q in moduli]).astype(np.int64)
+    out = np.empty((len(moduli), n), dtype=np.int64)
+    for i, q in enumerate(moduli):
+        out[i] = rng.integers(0, int(q), size=n, dtype=np.uint64)
+    return out
 
 
 def as_tensor(arr, device):
@@ -75,7 +85,7 @@ class SecretKey:
         key = (tuple(moduli), n, torch.device(device), word_bits)
         if key not in self._ntt_cache:
             ring = get_rns_ring(moduli, n, device, word_bits)
-            self._ntt_cache[key] = ntt_mod.ntt(as_tensor(lift_signed(self.coeffs, moduli), device),
+            self._ntt_cache[key] = ntt_mod.ntt(lift_to(self.coeffs, moduli, device),
                                                ring)
         return self._ntt_cache[key]
 
@@ -86,7 +96,7 @@ def gen_public_key(rng, sk: SecretKey, q_moduli: tuple[int, ...], n: int, device
     ring = get_rns_ring(q_moduli, n, device, word_bits)
     s_ntt = sk.ntt_form(q_moduli, n, device, word_bits)
     a = as_tensor(sample_uniform_rns(rng, q_moduli, n), device)
-    e_ntt = ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), q_moduli), device), ring)
+    e_ntt = ntt_mod.ntt(lift_to(sample_gaussian(rng, n), q_moduli, device), ring)
     as_ = ring.word.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
     b = _u.negmod(_u.addmod(as_, e_ntt, ring.q), ring.q)
     return PublicKey(data=torch.stack([b, a]))
@@ -124,7 +134,7 @@ def gen_keyswitch_key(rng, sk: SecretKey, target_ntt_fn, q_moduli: tuple[int, ..
     key_q, key_p = [], []
     for d in range(beta):
         a = as_tensor(sample_uniform_rns(rng, qp, n), device)
-        e_ntt = ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), qp), device), ring)
+        e_ntt = ntt_mod.ntt(lift_to(sample_gaussian(rng, n), qp, device), ring)
         as_ = w.mulmod(a, s_ntt, ring.q, ring.pinv, ring.r2)
         b = _u.negmod(_u.addmod(as_, e_ntt, ring.q), ring.q)
         # + P·γ_d·s' (zero on the p limbs)
@@ -155,6 +165,6 @@ def gen_galois_key(rng, sk: SecretKey, galois_elt: int, q_moduli, p_moduli, n: i
     """Galois key for element g: s' = σ_g(s)."""
     def sg_ntt(moduli):
         ring = get_rns_ring(moduli, n, device, word_bits)
-        s_rns = as_tensor(lift_signed(sk.coeffs, moduli), device)
+        s_rns = lift_to(sk.coeffs, moduli, device)
         return ntt_mod.ntt(apply_automorphism_coeff(s_rns, ring.q, n, galois_elt), ring)
     return gen_keyswitch_key(rng, sk, sg_ntt, q_moduli, p_moduli, n, device, word_bits)

@@ -32,14 +32,14 @@ from ..utils.csprng import CryptoRng
 from ..utils.serialize import _emit, _host, _pack_rns, _parse, _unpack_rns, expand_uniform
 from .encoding import bfv_encode_slots
 from .galois import apply_automorphism_coeff
-from .keys import (SecretKey, _gamma_times_p, as_tensor, lift_signed, sample_gaussian,
+from .keys import (SecretKey, _gamma_times_p, as_tensor, lift_to, sample_gaussian,
                    sample_ternary)
 from .types import Ciphertext, KeySwitchKey, PublicKey
 
 
 def _e_ntt(rng, moduli, n, ring, device):
     """NTT of a fresh σ = 3.2 error over ``moduli``."""
-    return ntt_mod.ntt(as_tensor(lift_signed(sample_gaussian(rng, n), moduli), device), ring)
+    return ntt_mod.ntt(lift_to(sample_gaussian(rng, n), moduli, device), ring)
 
 
 def _crps(crp_seed: int, moduli, n: int, count: int, device):
@@ -269,7 +269,7 @@ class RtgProtocol(_KeyProtocol):
         ring = self.ring
         s_ntt = self._s_ntt(party)
         s_rot = apply_automorphism_coeff(
-            as_tensor(lift_signed(party.sk.coeffs, self.qp), self.device), ring.q, self.n,
+            lift_to(party.sk.coeffs, self.qp, self.device), ring.q, self.n,
             self.galois_elt)
         pgs = self._mulmod(self.pg, ntt_mod.ntt(s_rot, ring)[None])        # P·γ_d·σ_g(s)
         h = []
@@ -297,9 +297,9 @@ def _delta_m(eng, level: int, ring, values):
 
 def _smudge(party: DBfvParty, moduli, device):
     """The smudging noise of a published share, σ = ``sigma_smudging``
-    (above a 31-bit prime: ``lift_signed`` reduces it exactly)."""
-    return as_tensor(lift_signed(sample_gaussian(party.rng, party.n,
-                                                 sigma=party.sigma_smudging), moduli), device)
+    (above a 31-bit prime: ``lift_to`` reduces it exactly)."""
+    return lift_to(sample_gaussian(party.rng, party.n, sigma=party.sigma_smudging), moduli,
+                   device)
 
 
 class E2sProtocol:

@@ -16,6 +16,13 @@ times:
   ``torch.profiler`` over ``--iters`` calls (``*_kernels_ms``: kernel
   name → ms per call), which splits each wrapper into its stages whatever
   its design;
+- B2 and B4 above the row loops' cap, whole and by kernel, with the route
+  the checkout takes (``behz_cuda.route``; a checkout without it is
+  labelled by its row loops' cap): at the w32 n=32768 path's shapes
+  (``create_tpu_param(32768)``, level 21, batch B: ``behz_prep32_32k_*``
+  on (B, 4, 22, n), ``behz_finish32_32k_*`` on (B, 3, 22, n) and
+  (B, 3, 25, n)) and at n=2^16 on a custom 31-bit chain of 22 q limbs
+  (``*_n65536_*``: (4, 4, 22, n), (4, 3, 22, n) and its aux rows);
 - B3 above the fused route's cap, whole and by kernel: at the w32 n=32768
   path's shapes (``create_tpu_param(32768)``, level 21, batch B:
   ``ksw_switch32_32k_*``) and at the w32 bootstrap's key-switch shapes
@@ -180,6 +187,44 @@ def main(argv=None) -> int:
         out[f'ksw_switch32_{tag}_ms'] = timed(lambda: run_all(ksw_cuda.ksw_switch32))
         out[f'ksw_switch32_{tag}_kernels_ms'] = kernel_ms(lambda: run_all(ksw_cuda.ksw_switch32))
         del ins, wants, keyn
+        torch.cuda.empty_cache()
+
+    # B2 and B4 above the row loops' cap: the w32 n=32768 path's shapes and
+    # a 22-limb chain at n=2^16
+    from lattisense_torch.core.modring import gen_ntt_primes
+
+    def behz_route(n):
+        if hasattr(behz_cuda, 'route'):
+            return behz_cuda.route(n)
+        return 'rows' if n.bit_length() - 1 <= 15 else 'split'      # before the cluster route
+
+    chain16 = gen_ntt_primes(4 * N, 31, 24)
+    for tag, prm, level, lead in (
+            ('32k', p32k, len(p32k.q) - 1, B),
+            ('n65536', BfvParams.create_custom(4 * N, 65537, chain16[:22], chain16[22:],
+                                               word_bits=32), 21, 4)):
+        bzn = BfvEngine(prm, dev).behz(level)
+        n = prm.n
+        x = n_residues(bzn.ring_q.moduli, (lead, 4), n)
+        fq, fa = behz_cuda.behz_prep32(x, bzn)
+        want = behz_cuda.behz_prep_plain(x, bzn)
+        out[f'behz_prep32_{tag}_equal'] = torch.equal(fq, want[0]) and torch.equal(fa, want[1])
+        out[f'behz_prep32_{tag}_shapes'] = [list(x.shape), list(fa.shape)]
+        out[f'behz_prep32_{tag}_route'] = behz_route(n)
+        out[f'behz_prep32_{tag}_ms'] = timed(lambda: behz_cuda.behz_prep32(x, bzn))
+        out[f'behz_prep32_{tag}_kernels_ms'] = kernel_ms(lambda: behz_cuda.behz_prep32(x, bzn))
+        del x, fq, fa, want
+        dq = n_residues(bzn.ring_q.moduli, (lead, 3), n)
+        da = n_residues(bzn.ring_aux.moduli, (lead, 3), n)
+        got = behz_cuda.behz_finish32(dq, da, bzn)
+        out[f'behz_finish32_{tag}_equal'] = torch.equal(got, behz_cuda.behz_finish_plain(dq, da,
+                                                                                         bzn))
+        out[f'behz_finish32_{tag}_shapes'] = [list(dq.shape), list(da.shape)]
+        out[f'behz_finish32_{tag}_route'] = behz_route(n)
+        out[f'behz_finish32_{tag}_ms'] = timed(lambda: behz_cuda.behz_finish32(dq, da, bzn))
+        out[f'behz_finish32_{tag}_kernels_ms'] = kernel_ms(
+            lambda: behz_cuda.behz_finish32(dq, da, bzn))
+        del dq, da, got
         torch.cuda.empty_cache()
 
     # B4: the (B, 3, L, n) and (B, 3, T, n) tensor products

@@ -52,7 +52,9 @@ class CryptoRng:
         return h.digest(int(nbytes))
 
     def _u64(self, count: int) -> np.ndarray:
-        return np.frombuffer(self.bytes(8 * int(count)), dtype=_U64).copy()
+        """The next request's ``count`` words, a read-only view of its bytes
+        (every caller makes a new array of them)."""
+        return np.frombuffer(self.bytes(8 * int(count)), dtype=_U64)
 
     # -- numpy.random.Generator subset ------------------------------------
     def integers(self, low, high=None, size=None, dtype=np.int64,
@@ -77,8 +79,11 @@ class CryptoRng:
             cand = cand[cand < span][:need]
             out[filled:filled + len(cand)] = cand
             filled += len(cand)
-        res = out.astype(np.int64) + low if low < 0 else out + _U64(low)
-        res = res.astype(dtype)
+        if low < 0:
+            res = out.astype(np.int64) + low
+        else:
+            res = out + _U64(low) if low else out
+        res = res.astype(dtype, copy=False)
         if size is None:
             return res.reshape(()).item() if np.issubdtype(dtype, np.integer) else res[0]
         return res.reshape(size)

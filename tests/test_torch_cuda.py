@@ -34,7 +34,7 @@ import torch
 
 from lattisense_torch.core import u64 as tu
 from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
-from lattisense_torch.ops import behz_cuda, ksw_cuda, ntt64_cuda, ntt_cuda
+from lattisense_torch.ops import behz_cuda, cuda_build, ksw_cuda, ntt64_cuda, ntt_cuda
 from lattisense_torch.params import BfvParams
 from lattisense_torch.parallel.batch import (bfv_mult_relin, key_tree, make_batched_step,
                                              make_rotate_step)
@@ -169,9 +169,11 @@ def test_b2_kernel_matches_plain(cuda):
 
 def b2_matches_plain(cuda, params, levels, leads):
     """B2 at each level and lead against ``behz_prep_plain`` on the card, one
-    count a call and no launch of B1's entries; a misaligned view of the
-    input too."""
+    count a call (above 2^14 also under ``behz32_prep_cluster``, its cluster
+    route) and no launch of B1's entries; a misaligned view of the input
+    too."""
     eng = BfvEngine(params, cuda)
+    cluster = int(behz_cuda.route(params.n) == 'cluster')
     for level in levels:
         bz = eng.behz(level)
         for lead in leads:
@@ -181,14 +183,17 @@ def b2_matches_plain(cuda, params, levels, leads):
             fq, fa = behz_cuda.behz_prep32(x, bz)
             assert torch.equal(fq, want[0]) and torch.equal(fa, want[1]), (level, lead)
             assert behz_cuda.launches['behz_prep32'] == before['behz_prep32'] + 1
+            assert behz_cuda.launches['behz32_prep_cluster'] == before['behz32_prep_cluster'] + cluster
+            assert behz_cuda.launches['behz32_finish_cluster'] == before['behz32_finish_cluster']
             assert all(ntt_cuda.launches[k] == before[k] for k in ntt_cuda.launches)
         fq, fa = behz_cuda.behz_prep32(misaligned(x), bz)
         assert torch.equal(fq, want[0]) and torch.equal(fa, want[1]), level
 
 
-@pytest.mark.parametrize('logn', range(1, 16))
+@pytest.mark.parametrize('logn', range(1, 17))
 def test_b2_every_n_matches_plain(cuda, logn):
-    """Every n B2 takes, L = 5 and L = 2, batch 1 and an odd batch."""
+    """Every n B2 takes, L = 5 and L = 2, batch 1 and an odd batch: the row
+    loop up to 2^14, the cluster route at 2^15 and 2^16."""
     n = 1 << logn
     chain = gen_ntt_primes(n, 31, 6)
     params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]], word_bits=32)
@@ -204,9 +209,8 @@ def test_b2_every_level_of_the_headline_chain(cuda):
 def test_b2_limb_maxima_and_refusals(cuda):
     """L = 32, the extension's largest instance, with the aux basis of that
     chain; the refusal of L = 33, of a non-contiguous stack and of an int32
-    one, each before any launch; n = 2^16 (the route around B1's split, whose
-    B1 launches count under ``behz32_split_fwd``) against the twin, and the
-    refusal of n = 2^17."""
+    one, each before any launch; n = 2^16 (the cluster route) against the
+    twin, and the refusal of n = 2^17."""
     n = 1024
     chain = gen_ntt_primes(n, 31, 34)
     params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]], word_bits=32)
@@ -229,15 +233,18 @@ def test_b2_limb_maxima_and_refusals(cuda):
         behz_cuda.behz_prep32(card_residues(bz17.ring_q, (1,), 1), bz17)
     assert {**ntt_cuda.launches, **behz_cuda.launches} == before
     chain16 = gen_ntt_primes(1 << 16, 31, 3)
-    b2_b4_split_match_plain(cuda, BfvParams.create_custom(1 << 16, 65537, chain16[:2], chain16[2:],
-                                                          word_bits=32), (1,), ((1,),))
+    b2_b4_cluster_match_plain(cuda, BfvParams.create_custom(1 << 16, 65537, chain16[:2],
+                                                            chain16[2:], word_bits=32),
+                              (1,), ((1,),))
 
 
-def b2_b4_split_match_plain(cuda, params, levels, leads):
-    """B2 and B4 at n = 2^16 against their twins on the card, a misaligned
-    view too: one count a call each, and B1's cluster kernel launched under
-    ``behz32_split_fwd`` / ``behz32_split_inv`` (twice a call: q and aux)."""
+def b2_b4_cluster_match_plain(cuda, params, levels, leads):
+    """B2 and B4 on their cluster route (n = 2^15, 2^16) against their twins
+    on the card, a misaligned view too: one count a call each, under the
+    wrapper's name and under ``behz32_prep_cluster`` /
+    ``behz32_finish_cluster``, and no launch of B1's entries."""
     eng = BfvEngine(params, cuda)
+    assert behz_cuda.route(params.n) == 'cluster'
     for level in levels:
         bz = eng.behz(level)
         for lead in leads:
@@ -251,11 +258,10 @@ def b2_b4_split_match_plain(cuda, params, levels, leads):
             out = behz_cuda.behz_finish32(dq, da, bz)
             assert torch.equal(fq, want_p[0]) and torch.equal(fa, want_p[1]), (level, lead)
             assert torch.equal(out, want_f), (level, lead)
-            for k in ('behz_prep32', 'behz_finish32'):
-                assert behz_cuda.launches[k] == before[k] + 1
-            for k in ('behz32_split_fwd', 'behz32_split_inv', 'ntt32_fwd_cluster',
-                      'ntt32_inv_cluster'):
-                assert ntt_cuda.launches[k] == before[k] + 2
+            for k in ('behz_prep32', 'behz_finish32', 'behz32_prep_cluster',
+                      'behz32_finish_cluster'):
+                assert behz_cuda.launches[k] == before[k] + 1, k
+            assert all(ntt_cuda.launches[k] == before[k] for k in ntt_cuda.launches)
             fq, fa = behz_cuda.behz_prep32(misaligned(x), bz)
             assert torch.equal(fq, want_p[0]) and torch.equal(fa, want_p[1]), level
             assert torch.equal(behz_cuda.behz_finish32(misaligned(dq), misaligned(da), bz),
@@ -268,7 +274,65 @@ def test_b2_b4_n65536_match_plain(cuda):
     n = 1 << 16
     chain = gen_ntt_primes(n, 31, 8)
     params = BfvParams.create_custom(n, 65537, list(chain[:6]), list(chain[6:]), word_bits=32)
-    b2_b4_split_match_plain(cuda, params, (5, 0), ((1,), (3,)))
+    b2_b4_cluster_match_plain(cuda, params, (5, 0), ((1,), (3,)))
+
+
+def test_b2_b4_every_level_of_the_32k_chain(cuda):
+    """create_tpu_param(32768), ``w32_32k_path``'s chain: every level 0..21
+    (L + T = 4..47 rows) at batch 1, and the path's level at an odd batch
+    of 3 polynomials, through the cluster route; the C entries' row-loop
+    cap is B1's row kernel's, and both cluster kernels fit the card at
+    2^15 and 2^16."""
+    lib = cuda_build.load('behz32', behz_cuda._SIGNATURES)
+    assert lib.behz32_max_logn() == behz_cuda.ROWS_MAX_LOGN == ntt_cuda.ROW_MAX_LOGN
+    for n in (1 << 15, 1 << 16):
+        assert behz_cuda.cluster_fit(n, False) > 0 and behz_cuda.cluster_fit(n, True) > 0
+    params = BfvParams.create_tpu_param(1 << 15)
+    b2_b4_cluster_match_plain(cuda, params, range(len(params.q)), ((1,),))
+    b2_b4_cluster_match_plain(cuda, params, (len(params.q) - 1,), ((3,),))
+
+
+def test_b2_b4_limb_maxima_n65536(cuda):
+    """L = 32 (``behz32_max_limbs``) at n = 2^16 with its chain's aux basis
+    (T <= ``behz32_max_aux``), batch 1 and 2, through the cluster route; at
+    L = 33 both refuse before any launch."""
+    lib = cuda_build.load('behz32', behz_cuda._SIGNATURES)
+    n = 1 << 16
+    chain = gen_ntt_primes(n, 31, 34)
+    params = BfvParams.create_custom(n, 65537, list(chain[:33]), [chain[33]], word_bits=32)
+    eng = BfvEngine(params, cuda)
+    bz = eng.behz(lib.behz32_max_limbs() - 1)
+    assert len(bz.ring_q.moduli) == lib.behz32_max_limbs()
+    assert len(bz.ring_aux.moduli) <= lib.behz32_max_aux()
+    b2_b4_cluster_match_plain(cuda, params, (lib.behz32_max_limbs() - 1,), ((1,), (2,)))
+    big = eng.behz(lib.behz32_max_limbs())
+    x = card_residues(big.ring_q, (1,), 2)
+    da = card_residues(big.ring_aux, (1,), 3)
+    before = dict(behz_cuda.launches)
+    with pytest.raises(ValueError):
+        behz_cuda.behz_prep32(x, big)
+    with pytest.raises(ValueError):
+        behz_cuda.behz_finish32(x, da, big)
+    assert behz_cuda.launches == before
+
+
+@pytest.mark.parametrize('word_bits', [32, 64])
+def test_decrypt_rounding_on_the_card(cuda, word_bits):
+    """BFV decryption's rounding in machine words (``round_t_over_q``) on
+    the card equals the CPU's, which the CPU tests hold against big
+    integers: the n=32768 chains' top levels, t = 65537 and 2^31 - 1, with
+    residues 0, 1 and q - 1 in every limb."""
+    from lattisense_torch.schemes.bfv import round_t_over_q
+    params = (BfvParams.create_tpu_param(1 << 15) if word_bits == 32
+              else BfvParams.create(1 << 15))
+    moduli, n = tuple(params.q), params.n
+    ring_c, ring_g = (get_rns_ring(moduli, n, d, word_bits) for d in (CPU, cuda))
+    acc = residues(9, moduli, n)
+    acc[:, 0], acc[:, 1] = 0, 1
+    acc[:, 2] = torch.tensor([q - 1 for q in moduli])
+    for t in (65537, (1 << 31) - 1):
+        assert torch.equal(round_t_over_q(acc.to(cuda), ring_g, t).cpu(),
+                           round_t_over_q(acc, ring_c, t)), t
 
 
 def test_batched_mult_relin_card_matches_cpu(cuda):
@@ -441,9 +505,11 @@ def test_b3_alpha_maximum_and_refusals(cuda):
 
 def b4_matches_plain(cuda, params, levels, leads):
     """B4 at each level and lead against ``behz_finish_plain`` on the card,
-    one count a call and no launch of B1's entries; a misaligned view of
-    the inputs too."""
+    one count a call (above 2^14 also under ``behz32_finish_cluster``, its
+    cluster route) and no launch of B1's entries; a misaligned view of the
+    inputs too."""
     eng = BfvEngine(params, cuda)
+    cluster = int(behz_cuda.route(params.n) == 'cluster')
     for level in levels:
         bz = eng.behz(level)
         for lead in leads:
@@ -453,14 +519,18 @@ def b4_matches_plain(cuda, params, levels, leads):
             before = {**ntt_cuda.launches, **behz_cuda.launches}
             assert torch.equal(behz_cuda.behz_finish32(dq, da, bz), want), (level, lead)
             assert behz_cuda.launches['behz_finish32'] == before['behz_finish32'] + 1
+            assert (behz_cuda.launches['behz32_finish_cluster']
+                    == before['behz32_finish_cluster'] + cluster)
+            assert behz_cuda.launches['behz32_prep_cluster'] == before['behz32_prep_cluster']
             assert all(ntt_cuda.launches[k] == before[k] for k in ntt_cuda.launches)
         got = behz_cuda.behz_finish32(misaligned(dq), misaligned(da), bz)
         assert torch.equal(got, want), level
 
 
-@pytest.mark.parametrize('logn', range(1, 16))
+@pytest.mark.parametrize('logn', range(1, 17))
 def test_b4_every_n_matches_plain(cuda, logn):
-    """Every n B1 takes, L = 5 and L = 2, batch 1 and an odd batch."""
+    """Every n B4 takes, L = 5 and L = 2, batch 1 and an odd batch: the row
+    loops up to 2^14, the cluster route at 2^15 and 2^16."""
     n = 1 << logn
     chain = gen_ntt_primes(n, 31, 6)
     params = BfvParams.create_custom(n, 65537, list(chain[:5]), [chain[5]], word_bits=32)
@@ -773,7 +843,7 @@ def test_split_refusals(cuda):
         assert torch.equal(fn(arg, r16), want), fn.__name__
         assert ntt_cuda.launches[fn.__name__] == before[0][fn.__name__] + 1
     params = BfvParams.create_custom(n, 65537, chain[:3], chain[3:], word_bits=32)
-    b2_b4_split_match_plain(cuda, params, (2,), ((1,),))
+    b2_b4_cluster_match_plain(cuda, params, (2,), ((1,),))
     assert ksw_cuda.switch_route(n) == 'cluster'
     for output_ntt in (False, True):
         got = ksw_cuda.ksw_switch32(xq, key, sw, 2, output_ntt)
