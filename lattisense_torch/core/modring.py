@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import observability
 from . import u64 as _u
 
 _MR_BASES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
@@ -205,3 +206,6 @@ def get_rns_ring(moduli, n: int, device, word_bits: int = 32) -> RnsRing:
 def _rns_ring(moduli: tuple[int, ...], n: int, device: torch.device,
               word_bits: int) -> RnsRing:
     return RnsRing(moduli, n, device, word_bits)
+
+
+observability.probe_table('get_rns_ring', lambda: _rns_ring.cache_info().misses)

@@ -36,10 +36,12 @@ import ctypes
 import torch
 
 from ..core import u64 as _u
+from ..utils import observability
 from . import cuda_build
 
 #: launches of each entry since the last reset
 launches = {'bconv64_convert': 0, 'bconv64_raw': 0}
+observability.register('bconv_cuda', launches, launches=launches)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

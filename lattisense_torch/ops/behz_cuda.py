@@ -66,12 +66,15 @@ from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import _shoup
 from ..params import MTILDE
+from ..utils import observability
 from . import cuda_build, ntt_cuda
 
 #: launches of each wrapper's kernels since the last reset (a call's cluster
 #: launch also under ``*_cluster``)
 launches = {'behz_prep32': 0, 'behz_finish32': 0, 'behz32_prep_cluster': 0,
             'behz32_finish_cluster': 0}
+observability.register('behz_cuda', launches,
+                       launches=[k for k in launches if not k.endswith('_cluster')])
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,6 +127,7 @@ def _consts(bz):
     cached on the BehzMult object."""
     tab = getattr(bz, '_b2_consts', None)
     if tab is None:
+        observability.table_built('behz_cuda._consts')
         src = list(bz.ring_q.moduli)
         dst = list(bz.ring_aux.moduli)
         Q = math.prod(src)
@@ -217,6 +221,7 @@ def _finish_consts(bz):
     cached on the BehzMult object."""
     tab = getattr(bz, '_b4_consts', None)
     if tab is None:
+        observability.table_built('behz_cuda._finish_consts')
         q = list(bz.ring_q.moduli)
         aux = list(bz.ring_aux.moduli)
         b, m_sk, t = aux[:-1], aux[-1], bz.t

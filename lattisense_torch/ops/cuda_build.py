@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 
+from ..utils import observability
+
 SOURCES = ('ntt32', 'behz32', 'ksw32', 'ntt64', 'bconv64', 'ksw64')
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), 'build', 'kernels')
@@ -27,6 +29,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: libraries loaded through ctypes, and of them those built with nvcc first,
+#: since the process started
+kernels = {'kernels_loaded': 0, 'kernels_built': 0}
+observability.register('cuda_build', kernels)
 
 
 def nvcc_path() -> str:
@@ -106,9 +112,11 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         path = library_path(name)
         if not os.path.exists(path):
             build_all((name,))
+            kernels['kernels_built'] += 1
         lib = ctypes.CDLL(path)
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
+        kernels['kernels_loaded'] += 1
     return lib

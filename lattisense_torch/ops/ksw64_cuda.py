@@ -26,10 +26,12 @@ import ctypes
 import torch
 
 from ..core import u64 as _u
+from ..utils import observability
 from . import cuda_build
 
 #: launches since the last reset
 launches = {'ksw_inner64': 0}
+observability.register('ksw64_cuda', launches, launches=launches)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

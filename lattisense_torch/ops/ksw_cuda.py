@@ -44,10 +44,12 @@ import torch
 from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import _shoup
+from ..utils import observability
 from . import cuda_build, ntt_cuda
 
 #: launches of the wrapper's kernel sequence since the last reset
 launches = {'ksw_switch32': 0}
+observability.register('ksw_cuda', launches, launches=launches)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,6 +83,7 @@ def _consts(sw, level: int):
     cache = sw.__dict__.setdefault('_b3_consts', {})
     if level in cache:
         return cache[level]
+    observability.table_built('ksw_cuda._consts')
     L = level + 1
     alpha, beta = sw.alpha, sw.beta(level)
     q = list(sw.q_moduli[:L])

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core import u64 as _u
+from ..utils import observability
 from . import cuda_build
 from .ntt_cuda import (SUB_LOGN, check_stack, column_tables, intt_plain, ntt_plain,
                        run_aligned, split_pass_tables)
@@ -45,6 +46,7 @@ from .ntt_cuda import (SUB_LOGN, check_stack, column_tables, intt_plain, ntt_pla
 #: launches of each kernel and direction since the last reset, counted in
 #: ``launch``: the row kernel (n <= 2^14) and the cluster kernel (2^15, 2^16)
 launches = {'ntt64_fwd': 0, 'ntt64_inv': 0, 'ntt64_fwd_cluster': 0, 'ntt64_inv_cluster': 0}
+observability.register('ntt64_cuda', launches, launches=launches)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,6 +103,7 @@ def _tables(ring):
     cross stages' column tables and the limbs' primes (``cols_*``)."""
     tabs = getattr(ring, '_b5_tables', None)
     if tabs is None:
+        observability.table_built('ntt64_cuda._tables')
         rs, dev = ring.rings, ring.device
         logn = ring.n.bit_length() - 1
         k = cluster_depth(logn)

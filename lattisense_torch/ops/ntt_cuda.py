@@ -62,12 +62,15 @@ import numpy as np
 import torch
 
 from ..core import u64 as _u
+from ..utils import observability
 from . import cuda_build
 
 #: launches of each entry since the last reset, counted in ``launch``: the
 #: cluster kernel also under ``*_cluster``
 launches = {'ntt32_fwd': 0, 'ntt32_inv': 0, 'ntt32_fwd_cluster': 0, 'ntt32_inv_cluster': 0,
             'ntt32_fwd_r4': 0, 'ntt32_inv_r4': 0, 'ntt32_fwd_perm': 0, 'ntt32_inv_perm': 0}
+observability.register('ntt_cuda', launches,
+                       launches=[k for k in launches if not k.endswith('_cluster')])
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -343,6 +346,7 @@ def _tables(ring, k: int):
     cache = ring.__dict__.setdefault('_b1_tables', {})
     tabs = cache.get(k)
     if tabs is None:
+        observability.table_built('ntt_cuda.cluster_tables' if k else 'ntt_cuda.row_tables')
         rs, dev = ring.rings, ring.device
         r1 = [r.r1 for r in rs]
         nir = [r.n_inv * pow(1 << 32, -1, r.q) % r.q for r in rs]

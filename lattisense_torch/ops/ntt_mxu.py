@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..core import u64 as _u
+from ..utils import observability
 
 _DIGIT_BITS = 7
 _BASE = 1 << _DIGIT_BITS
@@ -63,6 +64,7 @@ MIN_N = 4096
 
 #: matrix products issued on the card since the last reset
 launches = {'mxu_bmm': 0, 'mxu_int_mm': 0}
+observability.register('ntt_mxu', launches, launches=launches)
 
 
 def enabled(n: int, word_bits: int) -> bool:

@@ -28,6 +28,7 @@ from ..core import u64 as _u
 from ..params import CkksParams
 from ..schemes.galois import apply_automorphism_coeff, apply_automorphism_ntt
 from ..schemes.types import Ciphertext, KeySwitchKey
+from ..utils.observability import span
 from .keyswitch_sharded import ShardedKeySwitcher
 
 
@@ -41,7 +42,8 @@ def make_batched_step(engine, step_fn, level: int, n_inputs: int = 2, is_ntt: bo
 
     With ``mesh`` the tensors are this rank's pieces under
     ``ct_batch_spec(limb_sharded)`` and so is the output; the keys are
-    whole."""
+    whole. Each call is the root span ``step`` of the program's tracer,
+    carrying B (this rank's batch) and the level."""
     scale = getattr(engine.params, 'scale', 1.0)
     if mesh is None and limb_sharded:
         raise ValueError('limb_sharded needs a mesh')
@@ -50,18 +52,21 @@ def make_batched_step(engine, step_fn, level: int, n_inputs: int = 2, is_ntt: bo
         if len(args) != n_inputs + 1:
             raise TypeError(f'expected {n_inputs} ciphertext tensors and the keys, '
                             f'got {len(args)} arguments')
-        datas = list(args[:n_inputs])
-        if limb_sharded:
-            datas = [mesh.all_gather(a, 'limb', 2) for a in datas]
-        cts = [Ciphertext(data=a, level=level, is_ntt=is_ntt, scale=scale) for a in datas]
-        out = step_fn(engine, *cts, args[n_inputs]).data
-        if limb_sharded:
-            D = mesh.shape['limb']
-            if out.shape[2] % D:
-                raise ValueError(f'{out.shape[2]} output limbs do not split over {D} ranks')
-            k = out.shape[2] // D
-            out = out.narrow(2, mesh.index('limb') * k, k).contiguous()
-        return out
+        with span('step') as sp:
+            if sp:
+                sp.attrs.update(B=len(args[0]), level=level)
+            datas = list(args[:n_inputs])
+            if limb_sharded:
+                datas = [mesh.all_gather(a, 'limb', 2) for a in datas]
+            cts = [Ciphertext(data=a, level=level, is_ntt=is_ntt, scale=scale) for a in datas]
+            out = step_fn(engine, *cts, args[n_inputs]).data
+            if limb_sharded:
+                D = mesh.shape['limb']
+                if out.shape[2] % D:
+                    raise ValueError(f'{out.shape[2]} output limbs do not split over {D} ranks')
+                k = out.shape[2] // D
+                out = out.narrow(2, mesh.index('limb') * k, k).contiguous()
+            return out
 
     return batched
 

@@ -33,10 +33,13 @@ is copied to the host and back explicitly around each of its collectives;
 hands in) and every byte staged through the host, so that no copy is silent.
 """
 
+import weakref
+
 import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils import observability
 
 AXES = ('op', 'limb', 'coeff')
 
@@ -72,6 +75,9 @@ class Mesh:
         self._groups = {a: device_mesh.get_group(a) for a in AXES}
         self._recorder = None
         self.reset_stats()
+        # the newest mesh's counters, read through a weak reference
+        ref = weakref.ref(self)
+        observability.register('collectives', lambda: ref().stats if ref() is not None else {})
 
     def _trivial(self, axis: str) -> bool:
         """An axis of one rank, whose collectives are identities; NCCL's are

@@ -33,6 +33,8 @@ from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, DivRoundLast, ExactExtend, ShenoyConvert, _col, _mont
 from ..ops.behz_cuda import behz_finish32, behz_prep32
 from ..params import BfvParams, bfv_aux_basis
+from ..utils import observability
+from ..utils.observability import span
 from .encoding import bfv_decode_slots, bfv_encode_slots
 from .galois import (apply_automorphism_coeff, apply_automorphism_ntt, galois_elt_col,
                      galois_elt_row)
@@ -149,12 +151,14 @@ class BfvEngine:
 
     def behz(self, level: int) -> BehzMult:
         if level not in self._behz:
+            observability.table_built('BfvEngine.behz')
             self._behz[level] = BehzMult(self.q[:level + 1], self.aux, self.m_sk, self.t,
                                          self.n, self.device, self.word_bits)
         return self._behz[level]
 
     def rescaler(self, level: int) -> DivRoundLast:
         if level not in self._rescaler:
+            observability.table_built('BfvEngine.rescaler')
             self._rescaler[level] = DivRoundLast(self.q[:level + 1], self.device, self.word_bits)
         return self._rescaler[level]
 
@@ -378,64 +382,72 @@ class BfvEngine:
 
     def mult(self, a: Ciphertext, b) -> Ciphertext:
         """ct⊗ct → ct3 (BEHZ); ct×pt per plaintext format."""
-        self._check_levels(a, b, 'mult')
-        level = a.level
-        ring = self.ring(level)
-        w = ring.word
-        if isinstance(b, Ciphertext):
-            bz = self.behz(level)
-            ra = bz.ring_aux
-            polys = torch.cat([a.data[..., :2, :, :], b.data[..., :2, :, :]], dim=-3)
-            if self.word_bits == 64 or getattr(ring, 'dist', None) is not None:
-                # the reference's composition; B5's to-Montgomery epilogue and
-                # from-Montgomery fold stand for its separate passes. A
-                # sharded ring view (parallel/sharded_engine.py) takes it on
-                # either word: a coefficient shard is not a ring row, and B2
-                # and B4 hold full-length NTTs; at the 32-bit word its
-                # from-Montgomery product strips the R that B4 strips
-                ext = bz.extend(polys)                                    # B6 inside
-                fq = ntt_mod.ntt(polys, ring, to_mont=True)
-                fa = ntt_mod.ntt(ext, ra, to_mont=True)
-                dq = ntt_mod.intt(tensor_product(fq, ring), ring, from_mont=True)
-                da = ntt_mod.intt(tensor_product(fa, ra), ra, from_mont=True)
-                return Ciphertext(data=bz.scale_and_back(dq, da), level=level)   # B6 inside
-            # all four polynomials through one extend + NTT pass (kernel B2)
-            fq, fa = behz_prep32(polys, bz)
-            # two to_mont added two R, the product's mont_mul removed one:
-            # kernel B4 strips the remaining R, inverts both NTTs and scales
-            return Ciphertext(data=behz_finish32(tensor_product(fq, ring),
-                                                 tensor_product(fa, ra), bz), level=level)
-        if isinstance(b, Plaintext):
-            bz = self.behz(level)
-            ra = bz.ring_aux
-            pq = w.to_mont(ntt_mod.ntt(b.data, ring), ring.q, ring.pinv, ring.r2)
-            pa = w.to_mont(ntt_mod.ntt(bz.extend(b.data), ra), ra.q, ra.pinv, ra.r2)
-            # a plaintext with batch dimensions meets both ciphertext components
-            pq, pa = pq.unsqueeze(-3), pa.unsqueeze(-3)
-            dq = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), pq, ring.q, ring.pinv)
-            da = w.mont_mul(ntt_mod.ntt(bz.extend(a.data), ra), pa, ra.q, ra.pinv)
-            return Ciphertext(data=bz.scale_and_back(ntt_mod.intt(dq, ring),
-                                                     ntt_mod.intt(da, ra)), level=level)
-        if isinstance(b, PlaintextRingt):
-            lifted = b.data.unsqueeze(-2).expand(*b.data.shape[:-1], level + 1,
-                                                 self.n).contiguous()
-            f = w.to_mont(ntt_mod.ntt(lifted, ring), ring.q, ring.pinv, ring.r2)
-            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f.unsqueeze(-3), ring.q,
-                              ring.pinv)
-            return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
-        if isinstance(b, PlaintextMul):
-            prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring),
-                              b.data[..., :level + 1, :].unsqueeze(-3), ring.q, ring.pinv)
-            return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
-        raise TypeError(type(b))
+        with span('bfv.mult'):
+            self._check_levels(a, b, 'mult')
+            level = a.level
+            ring = self.ring(level)
+            w = ring.word
+            if isinstance(b, Ciphertext):
+                bz = self.behz(level)
+                ra = bz.ring_aux
+                polys = torch.cat([a.data[..., :2, :, :], b.data[..., :2, :, :]], dim=-3)
+                if self.word_bits == 64 or getattr(ring, 'dist', None) is not None:
+                    # the reference's composition; B5's to-Montgomery epilogue and
+                    # from-Montgomery fold stand for its separate passes. A
+                    # sharded ring view (parallel/sharded_engine.py) takes it on
+                    # either word: a coefficient shard is not a ring row, and B2
+                    # and B4 hold full-length NTTs; at the 32-bit word its
+                    # from-Montgomery product strips the R that B4 strips
+                    ext = bz.extend(polys)                                    # B6 inside
+                    fq = ntt_mod.ntt(polys, ring, to_mont=True)
+                    fa = ntt_mod.ntt(ext, ra, to_mont=True)
+                    with span('bfv.tensor_product'):
+                        dq, da = tensor_product(fq, ring), tensor_product(fa, ra)
+                    dq = ntt_mod.intt(dq, ring, from_mont=True)
+                    da = ntt_mod.intt(da, ra, from_mont=True)
+                    with span('bfv.scale_and_back'):
+                        return Ciphertext(data=bz.scale_and_back(dq, da), level=level)   # B6 inside
+                # all four polynomials through one extend + NTT pass (kernel B2)
+                with span('bfv.behz_prep'):
+                    fq, fa = behz_prep32(polys, bz)
+                with span('bfv.tensor_product'):
+                    dq, da = tensor_product(fq, ring), tensor_product(fa, ra)
+                # two to_mont added two R, the product's mont_mul removed one:
+                # kernel B4 strips the remaining R, inverts both NTTs and scales
+                with span('bfv.behz_finish'):
+                    return Ciphertext(data=behz_finish32(dq, da, bz), level=level)
+            if isinstance(b, Plaintext):
+                bz = self.behz(level)
+                ra = bz.ring_aux
+                pq = w.to_mont(ntt_mod.ntt(b.data, ring), ring.q, ring.pinv, ring.r2)
+                pa = w.to_mont(ntt_mod.ntt(bz.extend(b.data), ra), ra.q, ra.pinv, ra.r2)
+                # a plaintext with batch dimensions meets both ciphertext components
+                pq, pa = pq.unsqueeze(-3), pa.unsqueeze(-3)
+                dq = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), pq, ring.q, ring.pinv)
+                da = w.mont_mul(ntt_mod.ntt(bz.extend(a.data), ra), pa, ra.q, ra.pinv)
+                return Ciphertext(data=bz.scale_and_back(ntt_mod.intt(dq, ring),
+                                                         ntt_mod.intt(da, ra)), level=level)
+            if isinstance(b, PlaintextRingt):
+                lifted = b.data.unsqueeze(-2).expand(*b.data.shape[:-1], level + 1,
+                                                     self.n).contiguous()
+                f = w.to_mont(ntt_mod.ntt(lifted, ring), ring.q, ring.pinv, ring.r2)
+                prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring), f.unsqueeze(-3), ring.q,
+                                  ring.pinv)
+                return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
+            if isinstance(b, PlaintextMul):
+                prod = w.mont_mul(ntt_mod.ntt(a.data.contiguous(), ring),
+                                  b.data[..., :level + 1, :].unsqueeze(-3), ring.q, ring.pinv)
+                return Ciphertext(data=ntt_mod.intt(prod, ring), level=level)
+            raise TypeError(type(b))
 
     def relinearize(self, ct3: Ciphertext, rlk) -> Ciphertext:
-        level = ct3.level
-        ring = self.ring(level)
-        e0, e1 = self.switcher.switch(ct3.data[..., 2, :, :], rlk, level)
-        c0 = _u.addmod(ct3.data[..., 0, :, :], e0, ring.q)
-        c1 = _u.addmod(ct3.data[..., 1, :, :], e1, ring.q)
-        return Ciphertext(data=torch.stack([c0, c1], dim=-3), level=level)
+        with span('bfv.relinearize'):
+            level = ct3.level
+            ring = self.ring(level)
+            e0, e1 = self.switcher.switch(ct3.data[..., 2, :, :], rlk, level)
+            c0 = _u.addmod(ct3.data[..., 0, :, :], e0, ring.q)
+            c1 = _u.addmod(ct3.data[..., 1, :, :], e1, ring.q)
+            return Ciphertext(data=torch.stack([c0, c1], dim=-3), level=level)
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
         """BFV modulus switching: drop the last prime, round exactly."""
@@ -472,24 +484,26 @@ class BfvEngine:
         """σ_g then key switch back to s, on any ciphertext form: NTT or
         Montgomery inputs are brought to the coefficient domain first; the
         output form defaults to the input's and can be forced."""
-        level = ct.level
-        ring = self.ring(level)
-        out_ntt = ct.is_ntt if out_ntt is None else out_ntt
-        out_mform = ct.is_mform if out_mform is None else out_mform
-        data = ct.data
-        if ct.is_mform:
-            data = ring.word.from_mont(data, ring.q, ring.pinv)
-        if ct.is_ntt:
-            data = ntt_mod.intt(data.contiguous(), ring)
-        c0 = self._auto_coeff(data[..., 0, :, :], galois_elt, ring.q)
-        c1 = self._auto_coeff(data[..., 1, :, :], galois_elt, ring.q)
-        e0, e1 = self.switcher.switch(c1, glk, level)
-        out = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
-        if out_ntt:
-            out = ntt_mod.ntt(out, ring)
-        if out_mform:
-            out = ring.word.to_mont(out, ring.q, ring.pinv, ring.r2)
-        return Ciphertext(data=out, level=level, is_ntt=out_ntt, is_mform=out_mform)
+        with span('bfv.apply_galois'):
+            level = ct.level
+            ring = self.ring(level)
+            out_ntt = ct.is_ntt if out_ntt is None else out_ntt
+            out_mform = ct.is_mform if out_mform is None else out_mform
+            data = ct.data
+            if ct.is_mform:
+                data = ring.word.from_mont(data, ring.q, ring.pinv)
+            if ct.is_ntt:
+                data = ntt_mod.intt(data.contiguous(), ring)
+            with span('galois.automorphism'):
+                c0 = self._auto_coeff(data[..., 0, :, :], galois_elt, ring.q)
+                c1 = self._auto_coeff(data[..., 1, :, :], galois_elt, ring.q)
+            e0, e1 = self.switcher.switch(c1, glk, level)
+            out = torch.stack([_u.addmod(c0, e0, ring.q), e1], dim=-3)
+            if out_ntt:
+                out = ntt_mod.ntt(out, ring)
+            if out_mform:
+                out = ring.word.to_mont(out, ring.q, ring.pinv, ring.r2)
+            return Ciphertext(data=out, level=level, is_ntt=out_ntt, is_mform=out_mform)
 
     def rns_sp_decomp(self, ct: Ciphertext) -> DecomposedCiphertext:
         """Pay the digit decomposition + mod-up + NTT of c1 once; every later

@@ -27,6 +27,8 @@ from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import DivRoundLast, _col, _mont
 from ..params import CkksParams
+from ..utils import observability
+from ..utils.observability import span
 from .bfv import tensor_product
 from .encoding import ckks_decode_values, ckks_encode_values
 from .galois import apply_automorphism_ntt, galois_elt_col, galois_elt_row
@@ -55,6 +57,7 @@ class CkksEngine:
 
     def rescaler(self, level: int) -> DivRoundLast:
         if level not in self._rescaler:
+            observability.table_built('CkksEngine.rescaler')
             self._rescaler[level] = DivRoundLast(self.q[:level + 1], self.device, self.word_bits)
         return self._rescaler[level]
 
@@ -260,42 +263,47 @@ class CkksEngine:
 
     def mult(self, a: Ciphertext, b) -> Ciphertext:
         """ct⊗ct → ct3, ct×pt per plaintext format; the scales multiply."""
-        self._check_levels(a, b, 'mult')
-        level = a.level
-        ring = self.ring(level)
-        w = ring.word
-        if isinstance(b, Ciphertext):
-            am = w.to_mont(a.data[..., :2, :, :], ring.q, ring.pinv, ring.r2)
-            f = torch.cat([am, b.data[..., :2, :, :]], dim=-3)
-            return self._ct(tensor_product(f, ring), a, scale=a.scale * b.scale)
-        if isinstance(b, Plaintext):
-            pm = w.to_mont(b.data, ring.q, ring.pinv, ring.r2)
-        elif isinstance(b, PlaintextRingt):
-            pm = w.to_mont(self._lift_ringt_ntt(b, level), ring.q, ring.pinv, ring.r2)
-        elif isinstance(b, PlaintextMul):
-            pm = b.data[..., :level + 1, :]
-        else:
-            raise TypeError(type(b))
-        # a plaintext with batch dimensions meets both ciphertext components
-        data = w.mont_mul(a.data, pm.unsqueeze(-3), ring.q, ring.pinv)
-        return self._ct(data, a, scale=a.scale * b.scale)
+        with span('ckks.mult'):
+            self._check_levels(a, b, 'mult')
+            level = a.level
+            ring = self.ring(level)
+            w = ring.word
+            if isinstance(b, Ciphertext):
+                am = w.to_mont(a.data[..., :2, :, :], ring.q, ring.pinv, ring.r2)
+                f = torch.cat([am, b.data[..., :2, :, :]], dim=-3)
+                return self._ct(tensor_product(f, ring), a, scale=a.scale * b.scale)
+            if isinstance(b, Plaintext):
+                pm = w.to_mont(b.data, ring.q, ring.pinv, ring.r2)
+            elif isinstance(b, PlaintextRingt):
+                pm = w.to_mont(self._lift_ringt_ntt(b, level), ring.q, ring.pinv, ring.r2)
+            elif isinstance(b, PlaintextMul):
+                pm = b.data[..., :level + 1, :]
+            else:
+                raise TypeError(type(b))
+            # a plaintext with batch dimensions meets both ciphertext components
+            data = w.mont_mul(a.data, pm.unsqueeze(-3), ring.q, ring.pinv)
+            return self._ct(data, a, scale=a.scale * b.scale)
 
     def relinearize(self, ct3: Ciphertext, rlk) -> Ciphertext:
-        level = ct3.level
-        ring = self.ring(level)
-        c2 = ntt_mod.intt(ct3.data[..., 2, :, :].contiguous(), ring)
-        e0, e1 = self.switcher.switch(c2, rlk, level, output_ntt=True)
-        c0 = _u.addmod(ct3.data[..., 0, :, :], e0, ring.q)
-        c1 = _u.addmod(ct3.data[..., 1, :, :], e1, ring.q)
-        return self._ct(torch.stack([c0, c1], dim=-3), ct3)
+        with span('ckks.relinearize'):
+            level = ct3.level
+            ring = self.ring(level)
+            c2 = ntt_mod.intt(ct3.data[..., 2, :, :].contiguous(), ring)
+            e0, e1 = self.switcher.switch(c2, rlk, level, output_ntt=True)
+            c0 = _u.addmod(ct3.data[..., 0, :, :], e0, ring.q)
+            c1 = _u.addmod(ct3.data[..., 1, :, :], e1, ring.q)
+            return self._ct(torch.stack([c0, c1], dim=-3), ct3)
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
         """Divide by the last prime with exact rounding (INTT, divide-and-
         round, NTT over the shorter chain); the scale shrinks by q_ℓ."""
-        level = ct.level
-        coeff = ntt_mod.intt(ct.data.contiguous(), self.ring(level))
-        data = ntt_mod.ntt(self.rescaler(level)(coeff), self.ring(level - 1))
-        return self._ct(data, ct, level=level - 1, scale=ct.scale / self.q[level])
+        with span('ckks.rescale'):
+            level = ct.level
+            coeff = ntt_mod.intt(ct.data.contiguous(), self.ring(level))
+            with span('ckks.divround'):
+                coeff = self.rescaler(level)(coeff)
+            data = ntt_mod.ntt(coeff, self.ring(level - 1))
+            return self._ct(data, ct, level=level - 1, scale=ct.scale / self.q[level])
 
     def drop_level(self, ct: Ciphertext, levels: int = 1) -> Ciphertext:
         return self._ct(ct.data[..., :ct.level + 1 - levels, :], ct, level=ct.level - levels)

@@ -31,7 +31,16 @@ from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, _col, _mont, _pinv, _shoup
 from ..ops.bconv_cuda import bconv64_plain, bconv64_raw
 from ..ops.ksw64_cuda import ksw_inner64, ksw_inner64_plain
-from ..ops.ksw_cuda import ksw_switch32
+from ..ops.ksw_cuda import ksw_switch32, switch_route
+from ..utils import observability
+from ..utils.observability import OFF, span
+
+
+def _stage(name: str, plain: bool):
+    """The span of one stage of the 64-bit word's key switch. The plain
+    composition records none: at the 32-bit word it is B3's twin, and B3
+    is one call without stages."""
+    return OFF if plain else span(name)
 
 
 class RoundDivP:
@@ -127,6 +136,7 @@ class KeySwitcher:
         pre = self._pre.get(level)
         if pre is not None:
             return pre
+        observability.table_built('KeySwitcher._level_pre')
         L = level + 1
         alpha, beta, wb = self.alpha, self.beta(level), self.word_bits
         q = self.q_moduli[:L]
@@ -166,20 +176,23 @@ class KeySwitcher:
         if pad:
             x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         xg = x.reshape(*x.shape[:-2], beta, alpha, self.n)
-        y = self.word.shoup_mul(xg, qhat_inv, qhat_inv_shoup, src_q)
-        qp, qp_pinv = ring_qp.q, ring_qp.pinv
-        if self.word_bits == 64:
-            # grouped FastBConv: digit d's (T, α) constants on its α limbs
-            modup = bconv64_plain if plain else bconv64_raw
-            xd = modup(y, qhat_conv, qp, qp_pinv)
-        else:
-            # grouped FastBConv, one digit limb at a time: Σ_j y_j·[Q_d/q_j]_{t}
-            acc = None
-            for j in range(alpha):
-                term = _u.mont_mul(y[..., :, j:j + 1, :], qhat_conv[:, :, j:j + 1], qp, qp_pinv)
-                acc = term if acc is None else acc + term
-            xd = torch.remainder(acc, qp)
-        return (ntt_mod.ntt_plain if plain else ntt_mod.ntt)(xd, ring_qp)
+        with _stage('ksw.modup', plain):
+            y = self.word.shoup_mul(xg, qhat_inv, qhat_inv_shoup, src_q)
+            qp, qp_pinv = ring_qp.q, ring_qp.pinv
+            if self.word_bits == 64:
+                # grouped FastBConv: digit d's (T, α) constants on its α limbs
+                modup = bconv64_plain if plain else bconv64_raw
+                xd = modup(y, qhat_conv, qp, qp_pinv)
+            else:
+                # grouped FastBConv, one digit limb at a time: Σ_j y_j·[Q_d/q_j]_{t}
+                acc = None
+                for j in range(alpha):
+                    term = _u.mont_mul(y[..., :, j:j + 1, :], qhat_conv[:, :, j:j + 1], qp,
+                                       qp_pinv)
+                    acc = term if acc is None else acc + term
+                xd = torch.remainder(acc, qp)
+        with _stage('ksw.ntt', plain):
+            return (ntt_mod.ntt_plain if plain else ntt_mod.ntt)(xd, ring_qp)
 
     def inner_product(self, digits_ntt, ksk, level: int, plain: bool = False):
         """Σ_d digit_d ⊙ key_d over Q_ℓ∪P (NTT domain) → (..., 2, T, n).
@@ -207,20 +220,35 @@ class KeySwitcher:
         L = level + 1
         ntt, intt = ((ntt_mod.ntt_plain, ntt_mod.intt_plain) if plain
                      else (ntt_mod.ntt, ntt_mod.intt))
-        c = intt(self.inner_product(digits, ksk, level, plain), ring_qp)
-        e = round_div(c[..., :L, :], c[..., L:, :], plain)                  # (..., 2, L, n)
+        with _stage('ksw.inner', plain):
+            c = self.inner_product(digits, ksk, level, plain)
+        with _stage('ksw.intt', plain):
+            c = intt(c, ring_qp)
+        with _stage('ksw.moddown', plain):
+            e = round_div(c[..., :L, :], c[..., L:, :], plain)              # (..., 2, L, n)
         if output_ntt:
-            e = ntt(e, get_rns_ring(self.q_moduli[:L], self.n, self.device, self.word_bits))
+            with _stage('ksw.output_ntt', plain):
+                e = ntt(e, get_rns_ring(self.q_moduli[:L], self.n, self.device, self.word_bits))
         return e[..., 0, :, :], e[..., 1, :, :]
 
     def switch(self, x, ksk, level: int, output_ntt: bool = False):
         """Full key switch of coefficient-domain x (..., L, n) → (e0, e1) over
         Q_ℓ: kernel B3 at the 32-bit word; at the 64-bit word kernels B6, B5,
-        B7, B5 and B6 in turn. A CPU tensor takes each kernel's plain twin."""
-        if self.word_bits == 32:
-            return ksw_switch32(x, ksk, self, level, output_ntt)
-        digits = self.decompose_modup_ntt(x, level)
-        return self.switch_from_digits(digits, ksk, level, output_ntt)
+        B7, B5 and B6 in turn. A CPU tensor takes each kernel's plain twin.
+        Its span carries the word, the route ('fused' or 'cluster' for B3,
+        'plain' for B3's twin on a CPU tensor, 'staged' at the 64-bit word),
+        L, α, β and G, the polynomials switched at once."""
+        with span('ksw.switch') as sp:
+            if sp:
+                sp.attrs.update(
+                    word=self.word_bits, L=level + 1, alpha=self.alpha, beta=self.beta(level),
+                    G=x.numel() // ((level + 1) * self.n),
+                    route=('staged' if self.word_bits == 64 else
+                           switch_route(self.n) if x.is_cuda else 'plain'))
+            if self.word_bits == 32:
+                return ksw_switch32(x, ksk, self, level, output_ntt)
+            digits = self.decompose_modup_ntt(x, level)
+            return self.switch_from_digits(digits, ksk, level, output_ntt)
 
     def switch_plain(self, x, ksk, level: int, output_ntt: bool = False):
         """The plain composition of ``switch`` (the kernels' twin), plain

@@ -29,3 +29,7 @@ _CACHE = os.path.join(os.path.dirname(os.path.dirname(
 os.makedirs(_CACHE, exist_ok=True)
 jax.config.update('jax_compilation_cache_dir', _CACHE)
 jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line('markers', 'card: needs a CUDA card; skips without one')
