@@ -20,7 +20,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (``ntt32_fwd_r4``, ``ntt32_inv_r4``, ``ntt32_fwd_perm``,
    ``ntt32_inv_perm``), and the 64-bit word's ``ntt64_fwd``, ``ntt64_inv``
    (B5), ``bconv64_convert`` (each of its four conversions alone and the
-   four together), ``bconv64_raw`` (B6) and ``ksw_inner64`` (B7).
+   four together), ``bconv64_raw`` (B6) and ``ksw_inner64`` (B7); the
+   tensor product B8 (``tensor32`` on the halves of the main path's stacks,
+   ``tensor64`` with ``a_to_mont`` at ``ckks_path``'s shapes). Every path
+   that multiplies two ciphertexts must launch B8 on its word, and every
+   rotation path must not.
 3. Main path: the batched BFV mult_relin at the headline configuration
    (``BfvParams.create_tpu_param(16384)``, level 7, batch 32): every output
    must decrypt to a·b mod t slot-wise, element 0 must equal the port's plain
@@ -412,6 +416,16 @@ def ksw64_work(G: int, beta: int, T: int, n: int) -> tuple[float, float]:
     return nbytes, float(G * 2 * T * n * (beta * OPS64_MONT + (beta - 1) * OPS64_ADDSUB))
 
 
+def tensor_work(G: int, L: int, n: int, word_bits: int,
+                a_to_mont: bool) -> tuple[float, float]:
+    """Bytes and operations of one B8 call over G polynomial pairs: the four
+    input polynomials read once and the three outputs written once (int64);
+    per coefficient four Montgomery products and a modular add, and two
+    more products where a enters the Montgomery domain."""
+    mont, add = (OPS_MONT, OPS_ADDSUB) if word_bits == 32 else (OPS64_MONT, OPS64_ADDSUB)
+    return 8.0 * G * L * n * 7, float(G * L * n * ((4 + 2 * a_to_mont) * mont + add))
+
+
 def ptxas_summary(log: str, keep) -> dict:
     """ptxas's report of one library in brief: how many kernels and device
     functions it compiled, the largest stack frame and spill among them,
@@ -725,7 +739,7 @@ def main() -> int:
     from lattisense_torch import abi
     from lattisense_torch.core.modring import gen_ntt_primes, get_rns_ring
     from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
-                                      ntt64_cuda, ntt_cuda, ntt_mxu, plugin_build)
+                                      ntt64_cuda, ntt_cuda, ntt_mxu, plugin_build, tensor_cuda)
     from lattisense_torch.parallel.launch import World
     from lattisense_torch.tools import mesh_paths
     from lattisense_torch.params import BfvParams, CkksParams
@@ -748,9 +762,10 @@ def main() -> int:
     from lattisense_torch.utils.precision import get_precision_stats
 
     counts = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
-              bconv_cuda.launches, ksw64_cuda.launches, ntt_mxu.launches)
-    w32_kernels = [k for c in counts[:3] for k in c]
-    u64_kernel_counts = [k for c in counts[3:] for k in c]
+              bconv_cuda.launches, ksw64_cuda.launches, ntt_mxu.launches, tensor_cuda.launches)
+    # each word's kernels, B8 under its word's count
+    w32_kernels = [k for c in counts[:3] for k in c] + ['tensor32']
+    u64_kernel_counts = [k for c in counts[3:7] for k in c] + ['tensor64']
 
     def reset_counts():
         for c in counts:
@@ -1021,6 +1036,30 @@ def main() -> int:
                          warmup=1),
         bound_ms=bound_ms, bound_by=bound_by)
     del dqg, dag, got, want
+
+    # B8 on the halves of B2's (B, 4, L, n) and (B, 4, T, n) outputs, read in place
+    fqg = residues(rings['q'].moduli, (BATCH, 4)).to(dev)
+    fag = residues(rings['aux'].moduli, (BATCH, 4)).to(dev)
+    b8_in = [(f[..., :2, :, :], f[..., 2:, :, :], rings[r]) for f, r in ((fqg, 'q'), (fag, 'aux'))]
+    got = [tensor_cuda.tensor_product_cuda(a, b, r) for a, b, r in b8_in]
+    want = [tensor_cuda.tensor_product_plain(a, b, r) for a, b, r in b8_in]
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError('tensor_product_cuda (32-bit) differs from its plain twin')
+    bound_ms, bound_by = bound(*map(sum, zip(*[tensor_work(BATCH, len(r.moduli), N, 32, False)
+                                              for _, _, r in b8_in])))
+    kernels['tensor32'] = dict(
+        route='cuda', source='lattisense_torch/csrc/tensor.cu',
+        design='one pass: a thread a limb and a coefficient pair, inputs read in place',
+        replaces='lattisense_tpu/schemes/bfv.py:352',
+        replaces_function='BfvEngine.mult tensor (XLA-fused, no Pallas kernel)', path='main_path',
+        shapes=[list(fqg.shape), list(fag.shape)], equal=True,
+        max_abs_err=max_err(list(zip(got, want))),
+        ms=time_ms(torch, lambda: [tensor_cuda.tensor_product_cuda(a, b, r)
+                                   for a, b, r in b8_in], ITERS),
+        plain_ms=time_ms(torch, lambda: [tensor_cuda.tensor_product_plain(a, b, r)
+                                         for a, b, r in b8_in], ITERS_32K, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by)
+    del fqg, fag, b8_in, got, want
 
     # B1-r4 and the perm entries at B1's forward / inverse shapes over q; on
     # no path of this script (launches 0), each held against its twin
@@ -1350,7 +1389,7 @@ def main() -> int:
 
     rot = run_path('rotate_path', ctx, eng_c, LEVEL, make_rotate_step(elt), 1, rkeys,
                    {'glk': {elt: cpu_key(rkeys['glk'][elt])}}, msgs[:BATCH],
-                   lambda i: rolled(msgs[i]), ['ksw_switch32'], no_b1,
+                   lambda i: rolled(msgs[i]), ['ksw_switch32'], no_b1 + ['tensor32'],
                    {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
                     'galois_keygen_s': galois_keygen_s})
     # what the mesh paths' ranks load (18.): the context's keys and each
@@ -1369,7 +1408,8 @@ def main() -> int:
         [Ciphertext(data=a_data[i], level=LEVEL) for i in range(BATCH)],
         [Ciphertext(data=b_data[i], level=LEVEL) for i in range(BATCH)])
     out_t, entry, _, _ = run_task('task_path', ctx, tasks.MULT_RELIN, online, {},
-                                  ['behz_prep32', 'ksw_switch32', 'behz_finish32'], no_b1)
+                                  ['behz_prep32', 'ksw_switch32', 'behz_finish32', 'tensor32'],
+                                  no_b1)
     if entry['plan_steps']['jit'] != 2:
         raise AssertionError(f"task_path: the fused plan has {entry['plan_steps']['jit']} steps")
     zs = [out_t[f'z{k}'] for k in range(BATCH)]
@@ -1386,7 +1426,8 @@ def main() -> int:
         raise AssertionError(f'task_path correct={correct} bit_exact_vs_main_path={equal_main}')
     del main, online, out_t, zs
     run_mix('task_mix_path', ctx, LEVEL, ['ntt32_fwd', 'ntt32_inv', 'behz_prep32', 'ksw_switch32',
-                                          'behz_finish32'], u64_kernel_counts, tasks.MIX_W32)
+                                          'behz_finish32', 'tensor32'], u64_kernel_counts,
+            tasks.MIX_W32)
     del ctx, rkeys
     torch.cuda.empty_cache()
 
@@ -1395,7 +1436,7 @@ def main() -> int:
     u64 = run_path(
         'u64_path', ctx64, eng64_c, LEVEL64, bfv_mult_relin, 2, key_tree(ctx64),
         {'rlk': rlk64_c}, msgs64, lambda i: (msgs64[i] * msgs64[BATCH + i]) % params64.t,
-        u64_kernels, w32_kernels + wide_ntts,
+        u64_kernels + ['tensor64'], w32_kernels + wide_ntts,
         {'op': 'mult_relin', 'params': 'BfvParams.create(16384)', 'word_bits': 64,
          'aux_limbs': T64, 'alpha': alpha64, 'beta': beta64, 'keygen_s': keygen64_s})
     path_launches['u64_path'] = u64['launches']
@@ -1474,7 +1515,7 @@ def main() -> int:
                                  (msgs64[i] * msgs64[BATCH + i]) % params64.t)
                   for i in range(BATCH))
     b5_launches = {k: launches.get(k, 0) for k in ntt64_cuda.launches}
-    missing = [k for k in ('bconv64_convert', 'bconv64_raw', 'ksw_inner64', 'mxu_bmm')
+    missing = [k for k in ('bconv64_convert', 'bconv64_raw', 'ksw_inner64', 'mxu_bmm', 'tensor64')
                if not launches.get(k)]
     print(json.dumps({'mxu_path': {
         'transforms': mxu_rows, 'op': 'mult_relin', 'params': 'BfvParams.create(16384)',
@@ -1496,12 +1537,12 @@ def main() -> int:
     rkeys64 = key_tree(ctx64, galois_elts=[elt])
     run_path('u64_rotate_path', ctx64, eng64_c, LEVEL64, make_rotate_step(elt), 1, rkeys64,
              {'glk': {elt: cpu_key(rkeys64['glk'][elt])}}, msgs64[:BATCH],
-             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels + wide_ntts,
+             lambda i: rolled(msgs64[i]), u64_kernels, w32_kernels + wide_ntts + ['tensor64'],
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt,
               'params': 'BfvParams.create(16384)', 'word_bits': 64,
               'galois_keygen_s': galois_keygen64_s})
-    run_mix('task_mix64_path', ctx64, LEVEL64, u64_kernels, w32_kernels + wide_ntts,
-            tasks.MIX_U64)
+    run_mix('task_mix64_path', ctx64, LEVEL64, u64_kernels + ['tensor64'],
+            w32_kernels + wide_ntts, tasks.MIX_U64)
 
     del ctx64, rkeys64
     torch.cuda.empty_cache()
@@ -1698,7 +1739,7 @@ def main() -> int:
     path_launches['u64_32k_path'] = run_path(
         'u64_32k_path', ctx_u, eng_u_c, LEVEL_U32K, bfv_mult_relin, 2, key_tree(ctx_u),
         {'rlk': cpu_key(ctx_u.rlk)}, msgs_u, lambda i: (msgs_u[i] * msgs_u[BATCH + i]) % params_u.t,
-        u32k_kernels, no_u32k,
+        u32k_kernels + ['tensor64'], no_u32k,
         {'op': 'mult_relin', 'params': 'BfvParams.create(32768)', 'word_bits': 64,
          'aux_limbs': T_u, 'alpha': alpha_u, 'beta': beta_u, 'keygen_s': keygen_u_s},
         iters=ITERS_32K)['launches']
@@ -1709,7 +1750,7 @@ def main() -> int:
     rkeys_u = key_tree(ctx_u, galois_elts=[elt_u])
     run_path('u64_32k_rotate_path', ctx_u, eng_u_c, LEVEL_U32K, make_rotate_step(elt_u), 1,
              rkeys_u, {'glk': {elt_u: cpu_key(rkeys_u['glk'][elt_u])}}, msgs_u[:BATCH],
-             lambda i: rolled(msgs_u[i]), u32k_kernels, no_u32k,
+             lambda i: rolled(msgs_u[i]), u32k_kernels, no_u32k + ['tensor64'],
              {'op': 'rotate_col', 'step': 1, 'galois_elt': elt_u,
               'params': 'BfvParams.create(32768)', 'word_bits': 64, 'aux_limbs': T_u,
               'alpha': alpha_u, 'beta': beta_u, 'galois_keygen_s': galois_keygen_u_s},
@@ -1774,7 +1815,7 @@ def main() -> int:
     msgs_w = rng.integers(0, params_w.t, (2 * BATCH, N32K))
     # B2 and B4 through their cluster route (counted under the wrappers too)
     w32k_kernels = ([v['counted_as'] for v in kernels.values() if v['path'] == 'w32_32k_path']
-                    + ['behz_prep32', 'behz_finish32'])
+                    + ['behz_prep32', 'behz_finish32', 'tensor32'])
     path_launches['w32_32k_path'] = run_path(
         'w32_32k_path', ctx_w, eng_w_c, LEVEL_W32K, bfv_mult_relin, 2, key_tree(ctx_w),
         {'rlk': cpu_key(ctx_w.rlk)}, msgs_w, lambda i: (msgs_w[i] * msgs_w[BATCH + i]) % params_w.t,
@@ -1992,7 +2033,19 @@ def main() -> int:
         **hold(lambda: [ksw64_cuda.ksw_inner64(d, ctx_c64.rlk, LEVEL_C64, qp_c64)],
                lambda: [ksw64_cuda.ksw_inner64_plain(d, ctx_c64.rlk, LEVEL_C64, qp_c64)],
                [ksw64_work(BATCH, beta_c64, T_c64, N)]))
-    del y, d
+    # B8: the product of two (B, 2, L, n) ciphertexts over q_4, a brought
+    # into the Montgomery domain inside the kernel
+    ca, cb = (card_residues(q4.moduli, (BATCH, 2), N) for _ in range(2))
+    kernels['tensor64'] = dict(
+        route='cuda', source='lattisense_torch/csrc/tensor.cu',
+        design='one pass: a thread a limb and a coefficient pair, a_to_mont in registers',
+        replaces='lattisense_tpu/schemes/ckks.py:255',
+        replaces_function='CkksEngine.mult d0, d1, d2 (XLA-fused, no Pallas kernel)',
+        path='ckks_path', shapes=[list(ca.shape), list(cb.shape)], a_to_mont=True,
+        **hold(lambda: [tensor_cuda.tensor_product_cuda(ca, cb, q4, True)],
+               lambda: [tensor_cuda.tensor_product_plain(ca, cb, q4, True)],
+               [tensor_work(BATCH, LEVEL_C64 + 1, N, 64, True)]))
+    del y, d, ca, cb
     torch.cuda.empty_cache()
 
     def ckks_judge(c, want):
@@ -2018,9 +2071,12 @@ def main() -> int:
 
     ckks_paths = ['ckks_path', 'ckks_w32_path', 'ckks_rotate_path', 'ckks_task_mix_path',
                   'ckks_task_mix64_path']
-    c64_kernels = ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64']
-    c32_kernels = ['ntt32_fwd', 'ntt32_inv', 'ksw_switch32']
+    c64_kernels = ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64',
+                   'tensor64']
+    c32_kernels = ['ntt32_fwd', 'ntt32_inv', 'ksw_switch32', 'tensor32']
     no_c32 = ([k for k in w32_kernels if k not in c32_kernels] + u64_kernel_counts + wide_ntts)
+    # the rotation runs no product
+    rot_c32 = (c32_kernels[:-1], no_c32 + ['tensor32'])
     msgs_c = complex_slots(2 * BATCH, params_c64.slots)
     ckks_res = run_path(
         'ckks_path', ctx_c64, CkksEngine(params_c64, 'cpu'), LEVEL_C64, ckks_mult_relin_rescale,
@@ -2055,7 +2111,7 @@ def main() -> int:
     path_launches['ckks_rotate_path'] = run_path(
         'ckks_rotate_path', ctx_c32, CkksEngine(params_c32, 'cpu'), LEVEL_C32,
         make_rotate_step(elt), 1, rkeys_c, {'glk': {elt: cpu_key(rkeys_c['glk'][elt])}},
-        msgs_c[:BATCH], None, c32_kernels, no_c32,
+        msgs_c[:BATCH], None, *rot_c32,
         {'op': 'rotate', 'step': 1, 'galois_elt': elt, 'word_bits': 32,
          'galois_keygen_s': galois_keygen_c32_s},
         judge=ckks_judge(ctx_c32, lambda i, m=msgs_c: np.roll(m[i], -1)))['launches']
@@ -2357,7 +2413,7 @@ def main() -> int:
                 ('ntt32_inv', ntt_cuda.ntt32_inv, ntt_cuda.intt_plain, (2,), 173,
                  'intt_fused32 (_inv_kernel)'))}
 
-    u64_btp = ['bconv64_convert', 'bconv64_raw', 'ksw_inner64']
+    u64_btp = ['bconv64_convert', 'bconv64_raw', 'ksw_inner64', 'tensor64']
     run_bootstrap('btp_toy_path', 'toy', ['ntt64_fwd', 'ntt64_inv'] + u64_btp,
                   w32_kernels + wide_ntts, btp64_holds('btp_toy', 'btp_toy_path', False),
                   cpu_segments=('raise', 'cts0', 'evalmod_da', 'stc2'),
@@ -2368,7 +2424,7 @@ def main() -> int:
                   btp64_holds('btp_full', 'btp_full_path', True))
     run_bootstrap('btp_w32_path', 'w32',
                   ['ntt32_fwd', 'ntt32_inv', 'ntt32_fwd_cluster', 'ntt32_inv_cluster',
-                   'ksw_switch32'],
+                   'ksw_switch32', 'tensor32'],
                   u64_kernel_counts + ['behz_prep32', 'behz_finish32'], btp32_holds)
 
     # ---- 19. the sharded views: worlds of ranks sharing the card over gloo,
@@ -2377,10 +2433,10 @@ def main() -> int:
     # what each rank must and must not launch: B1 on its degree-C ring and
     # none of the fused B2/B3/B4, which hold a full-length NTT (32-bit
     # views); B5, B6 and B7 (64-bit views)
-    w32_view = (['ntt32_fwd', 'ntt32_inv'],
+    w32_view = (['ntt32_fwd', 'ntt32_inv', 'tensor32'],
                 ['behz_prep32', 'ksw_switch32', 'behz_finish32'] + wide_ntts + u64_kernel_counts)
-    u64_view = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
-                w32_kernels + wide_ntts)
+    u64_view = (['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64',
+                 'tensor64'], w32_kernels + wide_ntts)
     view_runs = [
         ('coeff_engine_path', 'coeff_engine', 'ctx32', 'main', (1, 1, 2), LEVEL, 'main_path',
          {'scheme': 'BFV', 'op': 'mult_relin', 'word_bits': 32}, w32_view),
@@ -2673,8 +2729,8 @@ def main() -> int:
         [('lattisense_tpu/ops/ntt_pallas32.py:101', 'ntt_fused32 (_fwd_kernel)'),
          ('lattisense_tpu/ops/ntt_pallas32.py:173', 'intt_fused32 (_inv_kernel)')]))
     mpc = run_mpc('mpc_path', params, LEVEL, ['ntt32_fwd', 'ntt32_inv'],
-                  ['behz_prep32', 'ksw_switch32', 'behz_finish32'], u64_kernel_counts + wide_ntts,
-                  MAIN_ITERS)
+                  ['behz_prep32', 'ksw_switch32', 'behz_finish32', 'tensor32'],
+                  u64_kernel_counts + wide_ntts, MAIN_ITERS)
     path_launches['mpc_path'] = mpc['launches']
     torch.cuda.empty_cache()
     holds64 = mpc_holds(
@@ -2689,7 +2745,7 @@ def main() -> int:
     kernels.update(holds64)
     path_launches['mpc64_path'] = run_mpc(
         'mpc64_path', params64, LEVEL64, ['ntt64_fwd', 'ntt64_inv'],
-        ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64'],
+        ['ntt64_fwd', 'ntt64_inv', 'bconv64_convert', 'bconv64_raw', 'ksw_inner64', 'tensor64'],
         w32_kernels + wide_ntts, MPC64_ITERS)['launches']
     torch.cuda.empty_cache()
     phase_done('mpc')

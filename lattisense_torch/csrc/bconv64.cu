@@ -50,27 +50,16 @@
 
 #include <cuda_runtime.h>
 
+#include "word64.cuh"
+
 namespace {
+
+using word64::mac128;
+using word64::redc128;
 
 constexpr int kThreads = 256;
 constexpr int kMaxSrc = 32;           // L: source limbs held per thread
 constexpr int kMaxConstWords = 6144;  // groups * T * L + 2 * T, as the first design's 48 KB
-
-// (hi, lo) += a * b
-__device__ __forceinline__ void mac128(uint64_t& hi, uint64_t& lo, uint64_t a, uint64_t b) {
-  const uint64_t pl = a * b;
-  lo += pl;
-  hi += __umul64hi(a, b) + (lo < pl ? 1 : 0);
-}
-
-// (hi, lo) * 2^-64 mod q for (hi, lo) < q * 2^64: t = hi + (m q + lo) / 2^64
-// with m = lo * pinv; the low word m q + lo is 0 mod 2^64, so it carries
-// exactly when lo != 0.
-__device__ __forceinline__ uint64_t redc128(uint64_t hi, uint64_t lo, uint64_t q, uint64_t pinv) {
-  const uint64_t m = lo * pinv;
-  const uint64_t t = hi + __umul64hi(m, q) + (lo != 0 ? 1 : 0);
-  return t >= q ? t - q : t;
-}
 
 // Output t of the two coefficients whose L digits are v0, v1, into o[t n],
 // o[t n + 1]: the lazy sum, folded after term `fold` on (FOLD), and one REDC.

@@ -38,30 +38,19 @@
 
 #include <cuda_runtime.h>
 
+#include "word64.cuh"
+
 namespace {
+
+using word64::add_mod;
+using word64::load2;
+using word64::mont_mul;
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 4;              // polynomials a thread walks
 constexpr int kMaxBeta = 8;            // digits held in registers
 constexpr int kMaxGridYZ = 65535;
 constexpr int kMaxPolys = 1 << 30;
-
-__device__ __forceinline__ uint64_t mont_mul(uint64_t a, uint64_t b, uint64_t q, uint64_t pinv) {
-  const uint64_t lo = a * b;
-  const uint64_t hi = __umul64hi(a, b);
-  const uint64_t m = lo * pinv;
-  const uint64_t t = hi + __umul64hi(m, q) + (lo != 0 ? 1 : 0);
-  return t >= q ? t - q : t;
-}
-
-__device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b, uint64_t q) {
-  const uint64_t s = a + b;
-  return s >= q ? s - q : s;
-}
-
-__device__ __forceinline__ ulonglong2 load2(const uint64_t* p) {
-  return *reinterpret_cast<const ulonglong2*>(p);
-}
 
 // acc (+)= d * k for both coefficients of a pair
 __device__ __forceinline__ void mac2(ulonglong2& acc, ulonglong2 d, ulonglong2 k, uint64_t q,

@@ -22,7 +22,7 @@ import tempfile
 
 from ..utils import observability
 
-SOURCES = ('ntt32', 'behz32', 'ksw32', 'ntt64', 'bconv64', 'ksw64')
+SOURCES = ('ntt32', 'behz32', 'ksw32', 'ntt64', 'bconv64', 'ksw64', 'tensor')
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), 'build', 'kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',

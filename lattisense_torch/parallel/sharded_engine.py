@@ -25,7 +25,8 @@ together. The seams:
   whole ct × ct multiply runs sharded. A ring that carries ``dist`` turns
   the fused 32-bit kernels B2 and B4 off (``schemes/bfv.py``), and the view's
   switcher never calls B3: each holds a full-length NTT in its body, and a
-  coefficient shard is not a ring row.
+  coefficient shard is not a ring row. The tensor product (B8) is pointwise
+  per coefficient and runs on the shard.
 - ``switcher`` is ``ShardedKeySwitcher`` per level over the mesh's ``limb``
   axis and, with a coefficient axis, its ``coeff`` axis
   (``CoeffShardedKeySwitcher``, ``LimbCoeffKeySwitcher``): digit

@@ -13,7 +13,9 @@ every NTT is kernel B1 (``ops/ntt_cuda.py``). At the 64-bit word the
 multiply follows the reference's composition: every FastBConv (extension,
 ``scale_and_back``) is kernel B6 (``ops/bconv_cuda.py``), every NTT kernel
 B5 (``ops/ntt64_cuda.py``) and key switching B6, B5 and B7
-(``schemes/keyswitch.py``). The rest is plain PyTorch on the engine's device.
+(``schemes/keyswitch.py``). At both words the NTT-domain tensor product is
+kernel B8 (``ops/tensor_cuda.py``). The rest is plain PyTorch on the
+engine's device.
 
 Sampling runs on the host in NumPy; ``decrypt``'s CRT and rounding run in
 machine words on the engine's device (``round_t_over_q``). The evaluation
@@ -32,6 +34,7 @@ from ..core import u64 as _u
 from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, DivRoundLast, ExactExtend, ShenoyConvert, _col, _mont
 from ..ops.behz_cuda import behz_finish32, behz_prep32
+from ..ops.tensor_cuda import tensor_product_cuda as tensor_product
 from ..params import BfvParams, bfv_aux_basis
 from ..utils import observability
 from ..utils.observability import span
@@ -73,15 +76,6 @@ def round_t_over_q(acc, ring, t: int):
         r = num - d * qj                            # in [-q_j, 2 q_j)
         s = d - (r < 0).long() + (r >= qj).long()
     return (s + 1) // 2 % t
-
-
-def tensor_product(f, ring):
-    """(d0, d1, d2) = (a0·b0, a0·b1 + a1·b0, a1·b1) stacked on dim -3, for
-    f = (a0, a1, b0, b1) on dim -3 in NTT + Montgomery form over ``ring``."""
-    q, pinv, mont_mul = ring.q, ring.pinv, ring.word.mont_mul
-    f0, f1, f2, f3 = (f[..., i, :, :] for i in range(4))
-    d1 = _u.addmod(mont_mul(f0, f3, q, pinv), mont_mul(f1, f2, q, pinv), q)
-    return torch.stack([mont_mul(f0, f2, q, pinv), d1, mont_mul(f1, f3, q, pinv)], dim=-3)
 
 
 class BehzMult:
@@ -402,7 +396,8 @@ class BfvEngine:
                     fq = ntt_mod.ntt(polys, ring, to_mont=True)
                     fa = ntt_mod.ntt(ext, ra, to_mont=True)
                     with span('bfv.tensor_product'):
-                        dq, da = tensor_product(fq, ring), tensor_product(fa, ra)
+                        dq = tensor_product(fq[..., :2, :, :], fq[..., 2:, :, :], ring)
+                        da = tensor_product(fa[..., :2, :, :], fa[..., 2:, :, :], ra)
                     dq = ntt_mod.intt(dq, ring, from_mont=True)
                     da = ntt_mod.intt(da, ra, from_mont=True)
                     with span('bfv.scale_and_back'):
@@ -411,7 +406,8 @@ class BfvEngine:
                 with span('bfv.behz_prep'):
                     fq, fa = behz_prep32(polys, bz)
                 with span('bfv.tensor_product'):
-                    dq, da = tensor_product(fq, ring), tensor_product(fa, ra)
+                    dq = tensor_product(fq[..., :2, :, :], fq[..., 2:, :, :], ring)
+                    da = tensor_product(fa[..., :2, :, :], fa[..., 2:, :, :], ra)
                 # two to_mont added two R, the product's mont_mul removed one:
                 # kernel B4 strips the remaining R, inverts both NTTs and scales
                 with span('bfv.behz_finish'):

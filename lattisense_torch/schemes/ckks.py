@@ -12,7 +12,8 @@ the message (Lattigo's convention).
 Every NTT is kernel B1 (32-bit word) or B5 (64-bit word) on a CUDA tensor;
 key switching (relinearization, rotations) is B3 with an NTT-domain output
 at the 32-bit word, and B6, B5 and B7 at the 64-bit word
-(``schemes/keyswitch.py``). The rest is plain PyTorch on the engine's device.
+(``schemes/keyswitch.py``); the ct × ct tensor product is B8 at both words
+(``ops/tensor_cuda.py``). The rest is plain PyTorch on the engine's device.
 Host work (encoding, sampling, the big-integer CRT in ``decrypt``) runs in
 NumPy. The evaluation ops take and return carriers whose data may carry
 leading batch dimensions.
@@ -269,9 +270,9 @@ class CkksEngine:
             ring = self.ring(level)
             w = ring.word
             if isinstance(b, Ciphertext):
-                am = w.to_mont(a.data[..., :2, :, :], ring.q, ring.pinv, ring.r2)
-                f = torch.cat([am, b.data[..., :2, :, :]], dim=-3)
-                return self._ct(tensor_product(f, ring), a, scale=a.scale * b.scale)
+                d = tensor_product(a.data[..., :2, :, :], b.data[..., :2, :, :], ring,
+                                   a_to_mont=True)
+                return self._ct(d, a, scale=a.scale * b.scale)
             if isinstance(b, Plaintext):
                 pm = w.to_mont(b.data, ring.q, ring.pinv, ring.r2)
             elif isinstance(b, PlaintextRingt):

@@ -43,7 +43,7 @@ import time
 import torch
 
 from ..ops import (bconv_cuda, behz_cuda, ksw64_cuda, ksw_cuda, ntt64_cuda, ntt_cuda,
-                   ntt_mxu)
+                   ntt_mxu, tensor_cuda)
 from ..parallel import batch as pb
 from ..parallel.coeff_sharded import CoeffShardedRelin
 from ..parallel.limb_engine import LimbShardedBootstrap
@@ -56,7 +56,7 @@ from ..schemes.types import Ciphertext
 from .profile_step import bootstrap_context
 
 COUNTS = (ntt_cuda.launches, behz_cuda.launches, ksw_cuda.launches, ntt64_cuda.launches,
-          bconv_cuda.launches, ksw64_cuda.launches, ntt_mxu.launches)
+          bconv_cuda.launches, ksw64_cuda.launches, ntt_mxu.launches, tensor_cuda.launches)
 
 _loaded: dict = {}
 

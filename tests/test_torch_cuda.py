@@ -14,7 +14,8 @@ the CKKS task directories (a second set of input scales capturing its own
 graph), card against CPU bit for bit; the n=2^16 repairs (B1-r4/perm, B2,
 B3, B4 against their twins, a CKKS relinearization and rotation on
 ``create_tpu_param(65536)``) and the n=256 bootstrap at both words in every
-task mode; threshold BFV at n=16384 on both words (every share, collective
+task mode; B8, the tensor product, at both cells' shapes against its twin and
+on a warm BFV and CKKS step; threshold BFV at n=16384 on both words (every share, collective
 key and E2S / S2E / refresh output, card against CPU), ``ForeignTask`` on the
 card against the CPU, and the memory monitor's device column; the MXU NTT on
 both routes against B5 and with its gate on in a batched step, and worlds of
@@ -1090,6 +1091,96 @@ def test_b7_path_shapes_match_plain(cuda, n, nq, npp, level, G):
     lib = cuda_build.load('ksw64', ksw64_cuda._SIGNATURES)
     assert (lib.ksw64_chunk(), lib.ksw64_threads()) == (ksw64_cuda.CHUNK, ksw64_cuda.THREADS)
     assert (beta > lib.ksw64_max_beta()) == (nq == 9)
+
+
+# ---------------------------------------------------------------------------
+# B8: the NTT-domain tensor product
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('bits,n,L,lead,a_to_mont', [
+    (64, 65536, 10, (32,), False), (64, 65536, 10, (32,), True),     # the CKKS cell's
+    (32, 16384, 8, (32,), False), (32, 16384, 11, (32,), False),     # the BFV cell's q, aux
+    (64, 8, 5, (3, 3), True), (32, 2, 3, (7,), False)])
+def test_b8_kernel_matches_plain(cuda, bits, n, L, lead, a_to_mont):
+    """B8 against its plain twin on the card, bit for bit: at the 64-bit word
+    on two separate ciphertext stacks, at the 32-bit word on the halves of one
+    (..., 4, L, n) stack read in place; a misaligned copy of a gives the same;
+    one launch a call."""
+    from lattisense_torch.ops import tensor_cuda
+    ring = get_rns_ring(gen_ntt_primes(n, 60 if bits == 64 else 31, L), n, cuda, bits)
+    if bits == 64:
+        a, b = card_residues(ring, (*lead, 2), 1), card_residues(ring, (*lead, 2), 2)
+    else:
+        f = card_residues(ring, (*lead, 4), 3)
+        a, b = f[..., :2, :, :], f[..., 2:, :, :]
+    key = f'tensor{bits}'
+    before = tensor_cuda.launches[key]
+    got = tensor_cuda.tensor_product_cuda(a, b, ring, a_to_mont)
+    assert tensor_cuda.launches[key] == before + 1
+    want = tensor_cuda.tensor_product_plain(a, b, ring, a_to_mont)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, 3, L, n) and torch.equal(got, want)
+    assert torch.equal(tensor_cuda.tensor_product_cuda(misaligned(a), b, ring, a_to_mont), want)
+    assert tensor_cuda.launches[key] == before + 2
+
+
+@pytest.mark.parametrize('bits', [32, 64])
+def test_b8_on_sharded_ring_views(cuda, bits):
+    """B8 on the sharded engine's ring views: a coefficient-sharded view
+    (``ShardedRing``, whose ``n`` is the full degree) on a shard of n / 2
+    coefficients, one launch, bit for bit against the plain twin; a view
+    that holds no limb at the level (``_NoRows``), an empty product and no
+    launch."""
+    from lattisense_torch.ops import tensor_cuda
+    from lattisense_torch.parallel.sharded_engine import ShardedRing, _NoRows
+    n, L = 16384, 4
+    host = get_rns_ring(gen_ntt_primes(n, 60 if bits == 64 else 31, L), n, cuda, bits)
+    f = card_residues(host, (8, 4), 4)[..., n // 2:].contiguous()
+    a, b = f[..., :2, :, :], f[..., 2:, :, :]
+    key = f'tensor{bits}'
+    before = tensor_cuda.launches[key]
+    got = tensor_cuda.tensor_product_cuda(a, b, ShardedRing(host, object()), True)
+    assert tensor_cuda.launches[key] == before + 1
+    want = tensor_cuda.tensor_product_plain(a, b, host, True)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 3, L, n // 2) and torch.equal(got, want)
+    empty = a[..., :0, :]
+    got = tensor_cuda.tensor_product_cuda(empty, empty, _NoRows(n, cuda, bits))
+    assert got.shape == (8, 3, 0, n // 2) and tensor_cuda.launches[key] == before + 1
+
+
+def test_b8_on_the_products_steps(cuda):
+    """After warm-up, a BFV mult_relin step (w32) and a CKKS
+    mult_relin_rescale step (u64) launch B8 (two and one a step) and build
+    no table."""
+    from lattisense_torch.ops import tensor_cuda
+    from lattisense_torch.parallel.batch import ckks_mult_relin_rescale
+    from lattisense_torch.runtime import CkksContext
+    from lattisense_torch.utils import observability as obs
+    n = 4096
+    chain = gen_ntt_primes(n, 31, 6)
+    params = BfvParams.create_custom(n, 65537, chain[:4], chain[4:], word_bits=32)
+    ctx = BfvContext.create_random_context(params, seed=5, device=cuda)
+    m = np.random.default_rng(5).integers(0, params.t, (4, n))
+    a, b = (torch.stack([ctx.encrypt(ctx.encode(v, 3)).data for v in pair])
+            for pair in (m[:2], m[2:]))
+    bfv_step = make_batched_step(ctx.engine, bfv_mult_relin, 3)
+    cparams, level = ckks_chain('u64')
+    cctx = CkksContext.create_random_context(cparams, seed=9, device=cuda)
+    msgs = ckks_msgs(9, 4, cparams.slots)
+    ca, cb = (torch.stack([cctx.encrypt(cctx.encode(v, level)).data for v in pair])
+              for pair in (msgs[:2], msgs[2:]))
+    ckks_step = make_batched_step(cctx.engine, ckks_mult_relin_rescale, level, is_ntt=True)
+    steps = ((bfv_step, (a, b, key_tree(ctx))), (ckks_step, (ca, cb, key_tree(cctx))))
+    for step, args in steps:
+        step(*args)
+    before, tables = dict(tensor_cuda.launches), obs.counters()['tables_built']
+    for step, args in steps:
+        step(*args)
+    torch.cuda.synchronize()
+    assert tensor_cuda.launches == {**before, 'tensor32': before['tensor32'] + 2,
+                                    'tensor64': before['tensor64'] + 1}
+    assert obs.counters()['tables_built'] == tables
 
 
 # ---------------------------------------------------------------------------

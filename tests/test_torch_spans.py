@@ -23,7 +23,7 @@ import torch
 
 from lattisense_torch.core.modring import gen_ntt_primes
 from lattisense_torch.ops import (bconv_cuda, behz_cuda, cuda_build, ksw64_cuda, ksw_cuda,
-                                  ntt64_cuda, ntt_cuda, ntt_mxu)
+                                  ntt64_cuda, ntt_cuda, ntt_mxu, tensor_cuda)
 from lattisense_torch.params import BfvParams, CkksParams
 from lattisense_torch.parallel.batch import (bfv_mult_relin, ckks_mult_relin_rescale, key_tree,
                                              make_batched_step, make_rotate_step)
@@ -217,7 +217,7 @@ def test_the_registry_holds_the_programs_counters():
     counts."""
     wrappers = {'ntt_cuda': ntt_cuda, 'behz_cuda': behz_cuda, 'ksw_cuda': ksw_cuda,
                 'ntt64_cuda': ntt64_cuda, 'bconv_cuda': bconv_cuda, 'ksw64_cuda': ksw64_cuda,
-                'ntt_mxu': ntt_mxu}
+                'ntt_mxu': ntt_mxu, 'tensor_cuda': tensor_cuda}
     counts = obs.counters()
     for name, mod in wrappers.items():
         assert obs._counters[name] is mod.launches and counts[name] == mod.launches
