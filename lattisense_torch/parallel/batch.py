@@ -186,6 +186,14 @@ def ckks_composite_params(n: int = 16384) -> CkksParams:
                                     word_bits=32)
 
 
+def ckks_bootstrap(engine, a, keys):
+    """CKKS bootstrap (the reference's CkksBtpContext::bootstrap,
+    fhe_lib_v2.h:1173-1217): the engine's bootstrapper with ``keys``
+    {'rlk', 'glk', 'swk'}; the output at the bootstrapper's output level and
+    the input's scale."""
+    return engine.bootstrap(a, keys)
+
+
 def make_rotate_step(galois_elt: int):
     """A one-input step applying the Galois automorphism ``galois_elt``
     (e.g. ``galois_elt_col(1, n)``: rotate_col by 1) with its key."""

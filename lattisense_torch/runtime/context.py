@@ -359,11 +359,12 @@ class CkksContext(FheContext):
         from ..schemes.poly_eval import poly_eval_step
         return poly_eval_step(self.engine, ct, self.rlk, degree, bound)
 
-    def create_bootstrapper(self, config=None):
+    def create_bootstrapper(self, config=None, output_level: int | None = None):
         """Build the bootstrap precompute and its Galois keys (reference
-        CkksBtpContext::create_bootstrapper, fhe_lib_v2.h:1216)."""
+        CkksBtpContext::create_bootstrapper, fhe_lib_v2.h:1216); a chain
+        that cannot bring the output to ``output_level`` raises first."""
         from ..schemes.bootstrap import CkksBootstrapper
-        btp = CkksBootstrapper(self.engine, config)
+        btp = CkksBootstrapper(self.engine, config, output_level=output_level)
         self.gen_galois_keys_for_elements(btp.galois_elements())
         self.engine.bootstrapper = btp
         return btp
@@ -382,18 +383,24 @@ class CkksBtpContext(CkksContext):
     evaluation secret and a sparse bootstrapping secret of weight h (the
     reference's parameter sets use H192), bridged by the switching keys
     ``swk['swk_dts']`` (dense to sparse) and ``swk['swk_std']`` (sparse to
-    dense). One seed gives the JAX package's keys, both secrets included."""
+    dense). One seed gives the JAX package's keys, both secrets included.
+
+    ``secret`` / ``sparse_secret`` (ternary coefficients, (n,)) stand in for
+    the two draws of the secrets where a caller brings its own; every key
+    is still drawn from the seed. ``output_level``: as ``create_bootstrapper``."""
 
     @classmethod
     def create_random_context(cls, params, seed=None, h: int = 192, btp_config=None,
-                              device=None) -> 'CkksBtpContext':
+                              device=None, *, secret=None, sparse_secret=None,
+                              output_level: int | None = None) -> 'CkksBtpContext':
         ctx = cls(params, seed, device)
         q, p, n, wb = tuple(params.q), tuple(params.p), params.n, params.word_bits
         dev = ctx.device
-        ctx.sk = K.SecretKey(K.sample_ternary(ctx.rng, n))
+        ctx.sk = K.SecretKey(K.sample_ternary(ctx.rng, n) if secret is None else secret)
         ctx.pk = K.gen_public_key(ctx.rng, ctx.sk, q, n, dev, wb)
         ctx.rlk = K.gen_relin_key(ctx.rng, ctx.sk, q, p, n, dev, wb)
-        ctx.sk_sparse = K.SecretKey(K.sample_ternary(ctx.rng, n, h=min(h, n // 4)))
+        ctx.sk_sparse = K.SecretKey(K.sample_ternary(ctx.rng, n, h=min(h, n // 4))
+                                    if sparse_secret is None else sparse_secret)
         # swk_dts re-keys dense to sparse (it encrypts s_dense under s_sparse),
         # swk_std sparse to dense
         ctx.swk['swk_dts'] = K.gen_keyswitch_key(
@@ -402,7 +409,7 @@ class CkksBtpContext(CkksContext):
         ctx.swk['swk_std'] = K.gen_keyswitch_key(
             ctx.rng, ctx.sk, lambda mods: ctx.sk_sparse.ntt_form(tuple(mods), n, dev, wb),
             q, p, n, dev, wb)
-        ctx.create_bootstrapper(btp_config)
+        ctx.create_bootstrapper(btp_config, output_level)
         return ctx
 
 

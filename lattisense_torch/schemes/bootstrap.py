@@ -21,12 +21,22 @@ Value algebra (dense packing, slots s = n/2, folded u_c = m_c + i·m_{c+s}):
 4. SlotsToCoeffs: forward stages post-scaled by Q0/(2π·Δ) return the values
    to the coefficients; the result decodes to the original message.
 
+Two level plans (``BootstrapConfig.level_plan``). ``'reference'``, the
+default, is the JAX package's plan bit for bit: at Lattigo's N16QP1546H192H32
+settings it spends 18 of the 24 levels (Chebyshev 6, the merge's ×i as a
+constant product 1, a last steer onto the caller's scale 1). ``'published'``
+spends Lattigo's 15: the Chebyshev series at ⌈log2(deg+1)⌉
+(``poly_eval.py``), ×i as the monomial X^{n/2} (exact, no level), and the
+caller's scale folded into the SlotsToCoeffs groups' output scales, so that
+no steer follows them.
+
 Every NTT, key switch and base conversion on the way is one of the port's
 kernels on a CUDA tensor (B1 and B3 at the 32-bit word; B5, B6 and B7 at
 the 64-bit word); the rest is plain PyTorch on the engine's device. The
 scales are host floats, set exactly as the reference sets them.
 """
 
+import itertools
 import logging
 from dataclasses import dataclass
 
@@ -35,10 +45,11 @@ import torch
 
 from ..core import ntt as ntt_mod
 from ..core import u64 as _u
+from ..utils.observability import span
 from .bootstrap_params import find_best_bsgs_split
 from .galois import galois_elt_col, galois_elt_row
 from .linear_transform import EncodedLinearTransform
-from .poly_eval import ChebyshevEvaluator, chebyshev_interpolate
+from .poly_eval import PLANS, ChebyshevEvaluator, chebyshev_interpolate
 from .special_fft import cts_matrices, stc_matrices
 from .types import Ciphertext
 
@@ -64,16 +75,39 @@ class BootstrapConfig:
     # of 31-bit primes, every rescale drops two limbs, and ModRaise lifts
     # from the composite base q0·q1)
     arcsine: bool = False          # a deg-3 arcsine correction after EvalMod (2 more levels)
+    level_plan: str = 'reference'  # or 'published': Lattigo's level budget (module docstring)
+
+    def __post_init__(self):
+        # the default plan is the class's own: an instance holds the field only
+        # where it departs from the JAX package's configuration, whose fields
+        # ``vars`` compares one for one
+        if self.level_plan == 'reference':
+            del self.level_plan
+
+
+def _stage(segment: str) -> str:
+    """The stage span a segment runs under."""
+    if segment == 'raise':
+        return 'raise'
+    if segment.startswith(('cts', 'split')):
+        return 'cts'
+    return 'evalmod' if segment.startswith('evalmod') else 'stc'
 
 
 class CkksBootstrapper:
     """The per-context precompute and the bootstrap itself."""
 
-    def __init__(self, engine, config: BootstrapConfig | None = None):
+    def __init__(self, engine, config: BootstrapConfig | None = None,
+                 output_level: int | None = None):
+        """``output_level``: the level the caller needs the output at; a
+        chain too short for it under the configured plan raises here."""
         self.engine = engine
         self.cfg = config or BootstrapConfig()
         p = engine.params
         cfg = self.cfg
+        if cfg.level_plan not in PLANS:
+            raise ValueError(f'unknown level plan {cfg.level_plan!r}: one of {PLANS}')
+        self.published = cfg.level_plan == 'published'
         s = p.slots
         # sparse packing replicates the message R times over the ring slots;
         # the transforms shrink to size s at the cost of a SubSum projection
@@ -141,7 +175,7 @@ class CkksBootstrapper:
                          '(the truncation error is systematic and SlotsToCoeffs amplifies it '
                          'up to n/2)', resid, cfg.sine_deg, cfg.k)
         self.evalmod = ChebyshevEvaluator(engine, coeffs, -1.0, 1.0, pre_normalized=True,
-                                          limb_step=st)
+                                          limb_step=st, plan=cfg.level_plan)
         # steer CoeffsToSlots' output onto the evaluator's planned entry scale
         entry_level = L - cfg.cts_depth * st
         self.em_entry_scale = self.evalmod.planned_scale(entry_level, self.em_scale)
@@ -153,6 +187,11 @@ class CkksBootstrapper:
         self._q0_mod: dict = {}
         self._scale_up: dict = {}
         self._complex_pt: dict = {}
+        if output_level is not None and L - self.min_levels() < output_level:
+            raise ValueError(
+                f'a bootstrap under the {cfg.level_plan} plan spends {self.min_levels()} limbs, '
+                f'so a chain of top level {L} ends at level {L - self.min_levels()}, below the '
+                f'{output_level} asked for')
 
     # ------------------------------------------------------------------
     def galois_elements(self) -> list[int]:
@@ -167,11 +206,15 @@ class CkksBootstrapper:
         return sorted(elts)
 
     def min_levels(self) -> int:
-        """The limbs a bootstrap consumes, roughly (each level ``step`` limbs)."""
+        """The limbs a bootstrap spends from ModRaise's top to its output
+        (each level ``step`` limbs): CoeffsToSlots, the Chebyshev series as
+        its plan evaluates it, the double angles, the arcsine, SlotsToCoeffs,
+        and under the reference plan the merge's constant product and the
+        last steer."""
         cfg = self.cfg
-        em = (len(self.evalmod.coeffs) - 1).bit_length() + 2
-        arc = 2 if cfg.arcsine else 0
-        return self.step * (cfg.cts_depth + 1 + em + cfg.double_angle + arc + 1 + cfg.stc_depth)
+        levels = (cfg.cts_depth + self.evalmod.levels_spent(step_units=True) + cfg.double_angle
+                  + (2 if cfg.arcsine else 0) + cfg.stc_depth + (0 if self.published else 2))
+        return self.step * levels
 
     # ------------------------------------------------------------------
     def _qstep(self, level: int) -> float:
@@ -382,6 +425,9 @@ class CkksBootstrapper:
 
         def s_merge(cts, rlk, glk_map):
             g0, g1 = cts
+            if self.published:
+                # ×i is ×X^{n/2}: every slot's root raised to n/2 is i
+                return (eng.add(g0, eng.mul_monomial(g1, eng.params.n // 2)),)
             g1i = self._mul_const_complex(g1, 1j)
             if g0.level > g1i.level:
                 g0 = eng.drop_level(g0, g0.level - g1i.level)
@@ -390,10 +436,22 @@ class CkksBootstrapper:
         segs.append(('merge', s_merge))
 
         for i, lt in enumerate(self.stc):
-            def s_stc(cts, rlk, glk_map, lt=lt):
+            def s_stc(cts, rlk, glk_map, lt=lt, left=len(self.stc) - i):
                 t, = cts
-                return (self._rescale_n(lt(t, glk_map)),)
+                if not self.published:
+                    return (self._rescale_n(lt(t, glk_map)),)
+                # the caller's scale folded in, an equal share of the way a
+                # group: each group's diagonals are encoded near
+                # q·(caller/entry)^(1/depth) (2^32 at Lattigo's settings), not
+                # at the 2^19 the last group alone would take, and the last
+                # lands on the caller's scale exactly
+                target = t.scale * (caller_scale / t.scale) ** (1.0 / left)
+                out = self._rescale_n(lt(t, glk_map, out_scale_target=target))
+                out.scale = caller_scale if left == 1 else target
+                return (out,)
             segs.append((f'stc{i}', s_stc))
+        if self.published:
+            return segs
 
         def s_steer(cts, rlk, glk_map):
             t, = cts
@@ -418,10 +476,28 @@ class CkksBootstrapper:
     def __call__(self, ct: Ciphertext, rlk, glk_map, swk_dts=None, swk_std=None) -> Ciphertext:
         """With ``swk_dts`` / ``swk_std`` (the two-secret design): switch onto
         the sparse bootstrapping secret for the ModRaise (small |I|), then
-        back to the dense secret before the linear transforms."""
-        ct = self.prepare(ct)
-        cts = (ct,)
-        for _name, fn in self.segments(ct.scale, swk_dts, swk_std):
-            cts = fn(cts, rlk, glk_map)
-        out, = cts
+        back to the dense secret before the linear transforms.
+
+        Spans: ``btp.bootstrap`` (batch, plan, level in and out) over the
+        stages ``btp.raise``, ``btp.cts`` (with the split), ``btp.evalmod``
+        and ``btp.stc`` (the merge, SlotsToCoeffs and any steer), each with
+        ``levels``, the levels it spends: from the top of the chain for
+        ``btp.raise`` (ModRaise spends none), from its input for the rest."""
+        with span('btp.bootstrap') as sp:
+            level_in = ct.level
+            ct = self.prepare(ct)
+            cts = (ct,)
+            segs = self.segments(ct.scale, swk_dts, swk_std)
+            for stage, group in itertools.groupby(segs, key=lambda s: _stage(s[0])):
+                with span('btp.' + stage) as st:
+                    start = self.engine.params.max_level if stage == 'raise' else cts[0].level
+                    for _name, fn in group:
+                        cts = fn(cts, rlk, glk_map)
+                    if st:
+                        st.attrs['levels'] = start - min(c.level for c in cts)
+            out, = cts
+            if sp:
+                sp.attrs.update(batch=int(np.prod(out.data.shape[:-3])),
+                                plan=self.cfg.level_plan, level_in=level_in,
+                                level_out=out.level)
         return out

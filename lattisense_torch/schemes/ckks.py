@@ -51,6 +51,7 @@ class CkksEngine:
         self.switcher = KeySwitcher(self.q, self.p, self.n, self.device, self.word_bits)
         self._rescaler: dict[int, DivRoundLast] = {}
         self._const_cols: dict = {}
+        self._monomials: dict = {}
         self.bootstrapper = None
 
     def ring(self, level: int):
@@ -306,6 +307,26 @@ class CkksEngine:
             data = ntt_mod.ntt(coeff, self.ring(level - 1))
             return self._ct(data, ct, level=level - 1, scale=ct.scale / self.q[level])
 
+    def mul_monomial(self, ct: Ciphertext, k: int) -> Ciphertext:
+        """ct·X^k: exact, with no level spent and no scale change. In the NTT
+        domain X^k is the column of its evaluations at the ring's roots, made
+        once a (k, level) by the ring's own NTT of the monomial, kept on the
+        device in Montgomery form, and taken as a pointwise product;
+        ``mul_monomial_plain`` is its twin on the coefficients. X^{n/2}
+        multiplies every slot by i."""
+        level = ct.level
+        ring = self.ring(level)
+        col = self._monomials.get((k, level))
+        if col is None:
+            one = torch.zeros((level + 1, self.n), dtype=torch.int64, device=self.device)
+            one[:, k % self.n] = 1
+            mono = ntt_mod.ntt(one, ring)
+            if (k // self.n) % 2:
+                mono = _u.negmod(mono, ring.q)
+            col = self._monomials[(k, level)] = ring.word.to_mont(mono, ring.q, ring.pinv,
+                                                                  ring.r2)
+        return self._ct(ring.word.mont_mul(ct.data, col, ring.q, ring.pinv), ct)
+
     def drop_level(self, ct: Ciphertext, levels: int = 1) -> Ciphertext:
         return self._ct(ct.data[..., :ct.level + 1 - levels, :], ct, level=ct.level - levels)
 
@@ -321,9 +342,10 @@ class CkksEngine:
         return apply_automorphism_ntt(x, self.n, galois_elt)
 
     def apply_galois(self, ct: Ciphertext, galois_elt: int, glk) -> Ciphertext:
-        c0 = self._auto_ntt(ct.data[..., 0, :, :], galois_elt)
-        c1 = self._auto_ntt(ct.data[..., 1, :, :], galois_elt)
-        return self._switch_back(c0, c1, glk, ct.level, ct)
+        with span('ckks.apply_galois'):
+            c0 = self._auto_ntt(ct.data[..., 0, :, :], galois_elt)
+            c1 = self._auto_ntt(ct.data[..., 1, :, :], galois_elt)
+            return self._switch_back(c0, c1, glk, ct.level, ct)
 
     def key_switch(self, ct: Ciphertext, ksk) -> Ciphertext:
         """Re-key a ciphertext: decrypts under s_new given ``ksk`` encrypting
@@ -372,3 +394,21 @@ class CkksEngine:
         sm = self.mont_col(enc, ct.level)
         return self._ct(ring.word.mont_mul(ct.data, sm, ring.q, ring.pinv), ct,
                         scale=ct.scale * self.params.scale)
+
+
+def mul_monomial_plain(data, k: int, ring):
+    """``CkksEngine.mul_monomial``'s twin on NTT-domain data (..., L, n):
+    back to the coefficients, the negacyclic shift by k (a coefficient that
+    wraps past X^n changes sign), and forward again."""
+    n = data.shape[-1]
+    coeff = ntt_mod.intt(data.contiguous(), ring)
+    k %= 2 * n
+    neg = k >= n
+    k %= n
+    shifted = torch.roll(coeff, k, dims=-1)
+    wrapped = torch.zeros(n, dtype=torch.bool, device=data.device)
+    wrapped[:k] = True
+    if neg:
+        wrapped = ~wrapped
+    shifted = torch.where(wrapped, _u.negmod(shifted, ring.q), shifted)
+    return ntt_mod.ntt(shifted.contiguous(), ring)

@@ -7,6 +7,9 @@ Port of ``lattisense_tpu/schemes/linear_transform.py`` to the port's engine
 |D| plaintext products and, split d = g·n1 + b, |babies| + |giants|
 rotations; the baby rotations share one ``rns_sp_decomp`` (hoisting). This
 is the engine of CKKS bootstrapping's CoeffsToSlots and SlotsToCoeffs.
+A giant step's plaintext products run as one product of its babies'
+rotations stacked on a leading axis with its diagonals stacked alike, so the
+host enqueues one product a giant step, not one a diagonal.
 
 Giant-step correction: out = Σ_g rot_g(Σ_b pre_g(diag_{g+b}) ⊙ rot_b(ct))
 needs each diagonal pre-rotated by -g when it is encoded. The diagonals are
@@ -15,9 +18,11 @@ scale) of the ciphertexts the transform meets.
 """
 
 import numpy as np
+import torch
 
+from ..utils.observability import span
 from .galois import galois_elt_col
-from .types import Ciphertext
+from .types import Ciphertext, PlaintextMul
 
 
 class EncodedLinearTransform:
@@ -57,35 +62,54 @@ class EncodedLinearTransform:
             # pre-rotate by -g so the giant rotation can be applied last
             self.raw[(g, b)] = np.roll(np.asarray(vec, dtype=np.complex128), g)
         if scale is not None:
-            self._plain_cache[level] = {
-                k: engine.encode_mul(v, level, scale) for k, v in self.raw.items()}
+            self._plain_cache[level] = self._encode(scale)
 
-    def _plain(self, ct_level: int, ct_scale: float):
+    def _encode(self, scale: float) -> dict:
+        """Each giant step's diagonals encoded at ``scale`` and stacked in
+        the order of ``raw``: {g: (its babies, a PlaintextMul (k, L, n))}."""
+        out = {}
+        for g in sorted({g for g, _ in self.raw}):
+            babies = [b for gg, b in self.raw if gg == g]
+            pts = [self.engine.encode_mul(self.raw[(g, b)], self.level, scale) for b in babies]
+            out[g] = (babies, PlaintextMul(data=torch.stack([pt.data for pt in pts]),
+                                           level=self.level, scale=pts[0].scale))
+        return out
+
+    def _plain(self, ct_level: int, ct_scale: float, out_scale_target: float | None = None):
         if self.scale is not None:
             return self._plain_cache[self.level]
         q_lv = 1.0
         for j in range(ct_level - self.step + 1, ct_level + 1):
             q_lv *= float(self.engine.q[j])
-        if self.out_scale_target is not None:
-            scale = self.out_scale_target * q_lv / ct_scale
+        out_scale_target = out_scale_target or self.out_scale_target
+        if out_scale_target is not None:
+            scale = out_scale_target * q_lv / ct_scale
         else:
             scale = q_lv
         key = (ct_level, scale)
         if key not in self._plain_cache:
-            self._plain_cache[key] = {
-                k: self.engine.encode_mul(v, self.level, scale)
-                for k, v in self.raw.items()}
+            self._plain_cache[key] = self._encode(scale)
         return self._plain_cache[key]
 
     def galois_elements(self):
         n = self.engine.params.n
         return [galois_elt_col(r, n) for r in sorted((self.babies | self.giants) - {0})]
 
-    def __call__(self, ct: Ciphertext, glk_map: dict) -> Ciphertext:
-        """Apply to a CKKS ciphertext (NTT domain) at ``self.level`` or below."""
+    def __call__(self, ct: Ciphertext, glk_map: dict,
+                 out_scale_target: float | None = None) -> Ciphertext:
+        """Apply to a CKKS ciphertext (NTT domain) at ``self.level`` or below;
+        ``out_scale_target`` overrides the transform's own for this call.
+        Span ``lt.apply``: the diagonals, n1 and the hoisted rotations."""
+        with span('lt.apply') as sp:
+            if sp:
+                sp.attrs.update(diagonals=len(self.raw), n1=self.n1,
+                                hoisted=len(self.babies - {0}))
+            return self._apply(ct, glk_map, out_scale_target)
+
+    def _apply(self, ct: Ciphertext, glk_map: dict, out_scale_target) -> Ciphertext:
         eng = self.engine
         n = eng.params.n
-        plain = self._plain(ct.level, ct.scale)
+        plain = self._plain(ct.level, ct.scale, out_scale_target)
 
         # hoist: one decomposition serves every baby rotation
         rotated: dict[int, Ciphertext] = {}
@@ -98,14 +122,19 @@ class EncodedLinearTransform:
                 elt = galois_elt_col(b, n)
                 rotated[b] = eng.apply_galois_decomposed(dct, elt, glk_map[elt])
 
-        # baby products grouped per giant step, then the giant rotations
+        # each giant step's baby products as one product of the stacked
+        # rotations, summed in baby order, then the giant rotations
         out = None
-        for g in sorted({g for g, _ in plain}):
+        for g, (babies, pt) in plain.items():
+            x = torch.stack([rotated[b].data for b in babies])
+            pt = PlaintextMul(data=pt.data.view(len(babies), *[1] * (x.dim() - 4),
+                                                *pt.data.shape[-2:]),
+                              level=pt.level, scale=pt.scale)
+            terms = eng.mult(Ciphertext(data=x, level=ct.level, is_ntt=True, scale=ct.scale), pt)
             acc = None
-            for (gg, b), pt in plain.items():
-                if gg != g:
-                    continue
-                term = eng.mult(rotated[b], pt)
+            for k in range(len(babies)):
+                term = Ciphertext(data=terms.data[k], level=terms.level, is_ntt=True,
+                                  scale=terms.scale)
                 acc = term if acc is None else eng.add(acc, term)
             if g:
                 elt = galois_elt_col(g, n)

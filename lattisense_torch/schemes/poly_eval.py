@@ -12,11 +12,26 @@ branches meeting at a level carry the same scale; products rescale onto the
 plan, constant products steer onto it, and additions align their operands
 by dropping levels and one steering product. The scales are host floats,
 set exactly as the reference sets them.
+
+Two level plans (``plan``). ``'reference'`` is the JAX package's, bit for
+bit: each divmod leaf lands a level below its deepest basis entry and the
+giant-step products then spend their own, 6 levels at degree 30.
+``'published'`` spends ⌈log2(deg+1)⌉ (Bossuat, Mouchet, Troncoso-Pastoriza,
+Hubaux, EUROCRYPT 2021; Lattigo's polynomial evaluator): every branch is
+handed the level and the scale it must land on. A leaf's constant products
+are encoded at the scale that its one rescale takes onto that target; a
+quotient lands one level up, at the scale that the rescale of its product
+with the giant takes onto the target; a leaf whose basis entries sit too
+deep for its target splits again. No branch steers.
 """
+
+import copy
 
 import numpy as np
 
-from .types import Ciphertext
+from .types import Ciphertext, Plaintext
+
+PLANS = ('reference', 'published')
 
 
 
@@ -64,7 +79,7 @@ class ChebyshevEvaluator:
 
     def __init__(self, engine, coeffs, a: float, b: float,
                  baby_log: int | None = None, pre_normalized: bool = False,
-                 limb_step: int = 1):
+                 limb_step: int = 1, plan: str = 'reference'):
         """``pre_normalized``: the operand already lives on [-1, 1] (the
         caller folded the affine map into an upstream constant, e.g. the
         bootstrap CoeffsToSlots post-scale) — saves one level.
@@ -73,7 +88,13 @@ class ChebyshevEvaluator:
         chains whose primes match the working scale (the u64 layout);
         2 for the 32-bit-word engine, where the working scale ≈ 2^62
         spans a PAIR of 31-bit primes and every rescale drops two limbs
-        (composite scaling — the TPU-native bootstrap's level unit)."""
+        (composite scaling — the TPU-native bootstrap's level unit).
+
+        ``plan``: the level plan, ``'reference'`` or ``'published'`` (the
+        module's docstring)."""
+        if plan not in PLANS:
+            raise ValueError(f'unknown level plan {plan!r}: one of {PLANS}')
+        self.plan = plan
         self.engine = engine
         self.coeffs = np.asarray(coeffs, dtype=np.float64)
         self.a, self.b = float(a), float(b)
@@ -266,11 +287,83 @@ class ChebyshevEvaluator:
             ct.scale = self._sigma[ct.level]
         return ct
 
+    # ---- the published plan ----------------------------------------------
+    def _eval_top(self, T, rlk):
+        """The series at ⌈log2(deg+1)⌉ levels below T_1, on the plan's scale."""
+        level = T[1].level - self.step * (len(self.coeffs) - 1).bit_length()
+        return self._eval_to(self.coeffs, T, rlk, level, self._sigma[level])
+
+    def _eval_to(self, coeffs, T, rlk, level: int, scale: float):
+        """c_0 + Σ c_i·T_i landing at exactly ``level`` and ``scale``: one
+        leaf where every term's basis entry sits a level above ``level``,
+        else p = q·T_g + r at the largest power of two g ≤ deg, q landing a
+        level up at scale·q_up/σ_g (the product's rescale then lands on
+        ``scale``) and r landing on ``level`` and ``scale`` itself."""
+        c = np.asarray(coeffs, dtype=np.float64)
+        idx = [i for i in range(1, len(c)) if abs(c[i]) >= 1e-14]
+        up = level + self.step
+        if all(i in T and T[i].level >= up for i in idx):
+            return self._leaf_to([(i, c[i]) for i in idx], c[0], T, level, scale)
+        g = 1 << (idx[-1].bit_length() - 1)
+        q, r = cheb_divmod(c[:idx[-1] + 1], g)
+        tg = T[g]
+        if tg.level < up:
+            raise ValueError(f'T_{g} at level {tg.level} cannot reach level {level}')
+        if any(abs(x) >= 1e-14 for x in q[1:]):
+            eng = self.engine
+            qc = self._eval_to(q, T, rlk, up, scale * self._qstep(up) / tg.scale)
+            if tg.level > up:
+                tg = eng.drop_level(tg, tg.level - up)
+            out = self._rescale(eng.relinearize(eng.mult(qc, tg), rlk))
+            out.scale = scale
+        else:
+            out = self._leaf_to([(g, q[0])], 0.0, T, level, scale)
+        if any(abs(x) >= 1e-14 for x in r[1:]):
+            return self.engine.add(out, self._eval_to(r, T, rlk, level, scale))
+        return self._add_const(out, float(r[0])) if r[0] != 0.0 else out
+
+    def _leaf_to(self, terms, const: float, T, level: int, scale: float):
+        """Σ c_i·T_i + const with every T_i dropped to the level above
+        ``level``, each constant encoded at the scale that makes its product
+        scale·q_up, and one rescale onto ``scale``."""
+        eng = self.engine
+        up = level + self.step
+        full = scale * self._qstep(up)
+        acc = None
+        for i, ci in terms:
+            t = T[i]
+            if t.level > up:
+                t = eng.drop_level(t, t.level - up)
+            term = eng.mult(t, eng.encode_const(float(ci), up, full / t.scale))
+            acc = term if acc is None else eng.add(acc, term)
+        if const != 0.0:
+            acc = eng.add(acc, eng.encode_const(float(const), up, acc.scale))
+        out = self._rescale(acc)
+        out.scale = scale
+        return out
+
+    def _evaluate(self, T, rlk):
+        if self.plan == 'published':
+            return self._eval_top(T, rlk)
+        return self._eval_rec(self.coeffs, T, rlk)
+
+    def levels_spent(self, step_units: bool = False) -> int:
+        """The limbs (or, with ``step_units``, the levels) an on-plan
+        evaluation of a pre-normalized operand spends: the evaluator run on
+        ``_LevelsOnly``, which carries levels and scales and nothing else."""
+        ev = copy.copy(self)
+        ev.engine = _LevelsOnly()
+        top = len(ev.engine.q) - 1
+        ct = Ciphertext(data=None, level=top, is_ntt=True,
+                        scale=ev.planned_scale(top, ev.engine.q[0]))
+        spent = top - ev(ct, None, anchor=ev.engine.q[0]).level
+        return spent // self.step if step_units else spent
+
     def __call__(self, ct: Ciphertext, rlk, anchor: float | None = None) -> Ciphertext:
         self._plan_scales(anchor or ct.scale)
         ct = self._enter(ct)
         T = self._basis(ct, rlk)
-        return self._eval_rec(self.coeffs, T, rlk)
+        return self._evaluate(T, rlk)
 
     def stages(self, anchor: float):
         """The evaluation as [(suffix, fn)] with
@@ -354,16 +447,45 @@ class ChebyshevEvaluator:
         def s_eval(cts, rlk):
             self._plan_scales(anchor)
             T = dict(zip(self._all_keys(), cts))
-            return [self._eval_rec(self.coeffs, T, rlk)]
+            return [self._evaluate(T, rlk)]
 
         out = [('b', s_babies)]
         if self.giant_logs:
             out.append(('g', s_giants))
-        if tree[0] == 'node':
+        if tree[0] == 'node' and self.plan == 'reference':
             out += [('l', s_leaves), ('e', s_combine)]
         else:
             out.append(('e', s_eval))
         return out
+
+
+class _LevelsOnly:
+    """An engine stand-in that carries levels and scales and no data, over a
+    chain of 64 primes of 2^60: an evaluator run on it counts the levels
+    its plan spends, in no time."""
+
+    q = (float(1 << 60),) * 64
+
+    def encode_const(self, value, level, scale=None):
+        return Plaintext(data=None, level=level, is_ntt=True, scale=scale)
+
+    def mult(self, a, b):
+        return Ciphertext(data=None, level=a.level, is_ntt=True, scale=a.scale * b.scale)
+
+    def relinearize(self, ct, rlk):
+        return ct
+
+    def rescale(self, ct):
+        return Ciphertext(data=None, level=ct.level - 1, is_ntt=True,
+                          scale=ct.scale / self.q[ct.level])
+
+    def add(self, a, b):
+        if isinstance(b, Ciphertext) and a.level != b.level:
+            raise ValueError(f'level mismatch in add: {a.level} vs {b.level}')
+        return a
+
+    def drop_level(self, ct, levels=1):
+        return Ciphertext(data=None, level=ct.level - levels, is_ntt=True, scale=ct.scale)
 
 
 def poly_eval_relu(engine, ct, rlk, degree: int = 15,
